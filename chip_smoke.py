@@ -1,5 +1,6 @@
 """Chip smoke test of the PyTorch port: build, check and time its kernels
-on one CUDA card, then drive the UC1 lost-dog query through them.
+on one CUDA card, then drive the UC1 lost-dog query and the review-triage
+text query through them.
 
     python3 chip_smoke.py
 
@@ -7,7 +8,8 @@ Needs a CUDA card and nvcc; exits non-zero without them, and on any
 failed phase. Phases, in order:
 
 1. setup   — card name and power limit, torch/CUDA/nvcc versions;
-2. build   — compile every kernel from the sources in the checkout;
+2. build   — compile every kernel from the sources in the checkout, one
+             nvcc per source, all at once;
 3. kernels — each kernel against its plain PyTorch version on the card,
              then timed with CUDA events beside its bound;
 4. query   — the lost-dog query (5 minutes of 30-fps video) on the card
@@ -15,7 +17,14 @@ failed phase. Phases, in order:
              on the CPU, launches on the kernel counter and the board;
 5. detector — planted detectors with adaptive coalescing (fused launches
              of varying batch size) against the planted expectation;
-6. the ``{"kernels": [...]}`` line, then the device line last.
+6. triage  — the review-triage query (MoERouter = expert 0 AND SSDScorer >
+             0 AND rating <= 2) over 50,000 reviews under every eddy policy;
+             row ids against the whole-table oracle through the kernels and
+             through the plain versions, launches on the counters and the
+             board;
+7. registry — each text kernel's predicate from ``build_predicate`` in an
+             executor over the same rows, against its whole-table oracle;
+8. the ``{"kernels": [...]}`` line, then the device line last.
 """
 from __future__ import annotations
 
@@ -25,6 +34,7 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -33,9 +43,16 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 TOL = 1e-6            # kernel vs plain version, max abs histogram error
+TOL_TIGHT = dict(rtol=1e-4, atol=1e-5)  # text kernels vs plain versions
+SCORE_ATOL = 1e-8     # SSD scores at the library shapes, kernel vs plain
 TIME_ITERS = 100
 QUERY_FRAMES = 9000   # 5 minutes of 30-fps video
 QUERY_SEED = 7
+TRIAGE_REVIEWS = 50_000
+SEQ = 64              # the text predicates' token window
+BUCKETS = (1, 2, 4, 8, 16, 32)  # the executor's bucketed batch sizes
+BIG = 4096            # rows for the throughput case
+KERNELS = ("hsv_color", "moe_router", "ssd", "rglru")
 
 
 def phase(name: str) -> None:
@@ -146,6 +163,489 @@ def time_hsv(built, hsv_color, ref, hw, rooflines, ranges, b: int) -> dict:
             "bound_ms": bound, "bound_by": bound_by, "library_ms": None}
 
 
+# --------------------------------------------------------------------------- #
+# phase 3: the text kernels against their plain versions                      #
+# --------------------------------------------------------------------------- #
+def within(got: torch.Tensor, want: torch.Tensor, rtol: float, atol: float):
+    """(max abs error, whether every element is within atol + rtol*|want|)."""
+    if got.shape != want.shape:
+        raise AssertionError(f"shape {tuple(got.shape)} != {tuple(want.shape)}")
+    if not got.numel():
+        return 0.0, True
+    err = (got.float() - want.float()).abs()
+    ok = bool((err <= atol + rtol * want.float().abs()).all())
+    return float(err.max()), ok
+
+
+def check_router(logits: torch.Tensor, k: int, label: str,
+                 expect_idx=None) -> float:
+    from repro_torch.kernels import moe_router, ref
+    w, idx = moe_router.moe_router_tk(logits, k)
+    w_p, idx_p = ref.moe_topk_router(logits, k)
+    torch.cuda.synchronize()
+    err, ok = within(w, w_p, **TOL_TIGHT)
+    same = idx.dtype == torch.int32 and torch.equal(idx, idx_p)
+    if expect_idx is not None:
+        same = same and torch.equal(idx.cpu(), torch.as_tensor(expect_idx,
+                                                               dtype=torch.int32))
+    print(f"  moe_router {label}: logits {tuple(logits.shape)} k={k} "
+          f"weights max_abs_err {err!r}, idx equal {same}", flush=True)
+    if not (ok and same):
+        raise AssertionError(f"moe_router kernel disagrees on {label}")
+    return err
+
+
+def check_ssd(x, dt, A, Bm, Cm, h0, chunk: int, label: str,
+              score_atol: float | None = None) -> float:
+    """x (B,S,H,P), dt (B,S,H), Bm/Cm (B,S,G,N): the model layout of
+    ``ops.ssd``; the kernel gets them transposed, as ops does."""
+    from repro_torch.kernels import ref, ssd
+    from repro_torch.udfs.library import row_mean
+    y, h_last = ssd.ssd_bhcp(x.transpose(1, 2), dt.transpose(1, 2), A,
+                             Bm.transpose(1, 2), Cm.transpose(1, 2), h0,
+                             chunk=chunk)
+    y = y.transpose(1, 2)
+    y_p, h_p = ref.ssd(x, dt, A, Bm, Cm, h0, chunk=chunk)
+    torch.cuda.synchronize()
+    err_y, ok_y = within(y, y_p, **TOL_TIGHT)
+    err_h, ok_h = within(h_last, h_p, **TOL_TIGHT)
+    ok, extra = ok_y and ok_h, ""
+    if score_atol is not None:
+        err_s, ok_s = within(row_mean(y), row_mean(y_p), 0.0, score_atol)
+        ok, extra = ok and ok_s, f", score max_abs_err {err_s!r}"
+    b, s, h, p = x.shape
+    print(f"  ssd {label}: B={b} S={s} H={h} P={p} G={Bm.shape[2]} "
+          f"N={Bm.shape[3]} chunk={chunk} y max_abs_err {err_y!r}, h_last "
+          f"{err_h!r}{extra}", flush=True)
+    if not ok:
+        raise AssertionError(f"ssd kernel disagrees on {label}")
+    return max(err_y, err_h)
+
+
+def check_rglru(x, r, i, a_param, h0, label: str) -> float:
+    from repro_torch.kernels import ref, rglru
+    out, h_last = rglru.rglru_bsw(x, r, i, a_param, h0)
+    out_p, h_p = ref.rglru(x, r, i, a_param, h0)
+    torch.cuda.synchronize()
+    err_o, ok_o = within(out, out_p, **TOL_TIGHT)
+    err_h, ok_h = within(h_last, h_p, **TOL_TIGHT)
+    print(f"  rglru {label}: (B,S,W) {tuple(x.shape)} out max_abs_err "
+          f"{err_o!r}, h_last {err_h!r}", flush=True)
+    if not (ok_o and ok_h):
+        raise AssertionError(f"rglru kernel disagrees on {label}")
+    return max(err_o, err_h)
+
+
+class TextInputs:
+    """The text predicates' own kernel inputs for the first rows of the
+    kept review table, made on the card by the library's featurizer."""
+
+    def __init__(self, toks_kept: np.ndarray):
+        from repro_torch.udfs import library as lib
+        dev = torch.device("cuda")
+        self.toks = lib.device_tokens(toks_kept[:BIG], SEQ, dev)
+        self.router = lib.router_tables(device=dev)
+        self.ssd = lib.ssd_tables(device=dev)
+        self.rglru = lib.rglru_tables(device=dev)
+
+    def logits(self, b: int) -> torch.Tensor:
+        from repro_torch.udfs.library import router_logits
+        return router_logits(*self.router, self.toks[:b])
+
+    def ssd_args(self, b: int):
+        """(x, dt, A, Bm, Cm, h0) in the model layout, h0 zero."""
+        from repro_torch.udfs.library import ssd_inputs
+        x, dt, A, Bm, Cm = ssd_inputs(self.ssd, self.toks[:b])
+        h0 = torch.zeros((b, x.shape[2], x.shape[3], Bm.shape[3]),
+                         device=x.device)
+        return x, dt, A, Bm, Cm, h0
+
+    def rglru_args(self, b: int):
+        """(x, r, i, a_param, h0), h0 zero."""
+        emb_x, emb_r, emb_i, a_param = self.rglru
+        t = self.toks[:b]
+        return (emb_x[t], emb_r[t], emb_i[t], a_param,
+                torch.zeros((b, a_param.shape[0]), device=t.device))
+
+
+def check_text_kernels(inputs: TextInputs) -> dict:
+    """Phase 3 for moe_router, ssd and rglru: the JAX package's test
+    shapes, the library shapes at every bucketed batch and at BIG rows,
+    and the edge cases. Returns each kernel's largest error."""
+    rng = np.random.default_rng(12)
+
+    def T(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).cuda()
+
+    err = {"moe_router": 0.0, "ssd": 0.0, "rglru": 0.0}
+    # ---- moe_router
+    for t, e, k in ((64, 8, 2), (128, 16, 2), (32, 4, 1)):
+        err["moe_router"] = max(err["moe_router"], check_router(
+            T(rng.standard_normal((t, e))), k, f"test shape T={t} E={e}"))
+    for b in (*BUCKETS, BIG):
+        err["moe_router"] = max(err["moe_router"], check_router(
+            inputs.logits(b), 2, f"library B={b}"))
+    ties = np.zeros((5, 8), np.float32)
+    ties[1, [2, 5]] = 1.0
+    ties[2, 3], ties[2, [1, 6]] = 2.0, 1.0
+    ties[3, [0, 7]] = 3.0
+    ties[4] = -5.0
+    err["moe_router"] = max(err["moe_router"], check_router(
+        T(ties), 2, "tied logits", expect_idx=[[0, 1], [2, 5], [3, 1], [0, 7],
+                                               [0, 1]]))
+    for e in (4, 8, 16):
+        for t in (129, 1000):
+            err["moe_router"] = max(err["moe_router"], check_router(
+                T(rng.standard_normal((t, e))), 1, f"k=1 T={t} E={e}"))
+
+    # ---- ssd
+    def ssd_case(b, s, h, p, g, n, chunk, label, h0_scale=0.0, dt_zero=()):
+        x = T(rng.standard_normal((b, s, h, p)) * 0.5)
+        dt = rng.uniform(0.01, 0.2, (b, s, h))
+        for lo, hi in dt_zero:
+            dt[:, lo:hi] = 0.0
+        A = T(-rng.uniform(0.5, 2.0, (h,)))
+        Bm = T(rng.standard_normal((b, s, g, n)) * 0.3)
+        Cm = T(rng.standard_normal((b, s, g, n)) * 0.3)
+        h0 = T(rng.standard_normal((b, h, p, n)) * h0_scale)
+        return check_ssd(x, T(dt), A, Bm, Cm, h0, chunk, label)
+
+    for args in ((1, 64, 2, 16, 1, 16, 16), (2, 128, 4, 32, 2, 16, 32),
+                 (1, 128, 4, 64, 1, 32, 64)):
+        err["ssd"] = max(err["ssd"], ssd_case(*args, "test shape"))
+    err["ssd"] = max(err["ssd"], ssd_case(
+        2, 128, 4, 32, 2, 16, 32, "G<H, nonzero h0", h0_scale=1.0))
+    err["ssd"] = max(err["ssd"], ssd_case(
+        3, 64, 2, 4, 1, 4, 16, "4 chunks, runs of dt=0, nonzero h0",
+        h0_scale=1.0, dt_zero=((5, 30), (48, 64))))
+    err["ssd"] = max(err["ssd"], ssd_case(
+        2, 128, 4, 8, 2, 8, 32, "dt=0 across chunk edges, nonzero h0",
+        h0_scale=1.0, dt_zero=((20, 70), (100, 128))))
+    for b in (*BUCKETS, BIG):
+        err["ssd"] = max(err["ssd"], check_ssd(
+            *inputs.ssd_args(b), SEQ, f"library B={b}", score_atol=SCORE_ATOL))
+
+    # ---- rglru
+    for b, s, w in ((1, 64, 64), (2, 128, 128), (2, 96, 256), (4, 1, 16),
+                    (4, 64, 16), (4, 96, 16)):
+        x, r, i = (T(rng.standard_normal((b, s, w))) for _ in range(3))
+        err["rglru"] = max(err["rglru"], check_rglru(
+            x, r, i, T(rng.standard_normal(w)), T(rng.standard_normal((b, w))),
+            "nonzero h0"))
+    for b in (*BUCKETS, BIG):
+        err["rglru"] = max(err["rglru"], check_rglru(
+            *inputs.rglru_args(b), f"library B={b}"))
+    return err
+
+
+def bound_ms(nbytes: int, flops: float):
+    """(bound_ms, bound_by): bytes over the memory rate against flops over
+    the float32 rate, whichever is larger."""
+    from repro_torch.roofline import hw
+    t_bytes, t_ops = nbytes / hw.HBM_BW * 1e3, flops / hw.PEAK_FLOPS_F32 * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def time_text(inputs: TextInputs, b: int) -> dict:
+    """Times of the three text kernels through their wrappers and of their
+    plain versions, on the library's inputs for b rows, beside the bounds
+    (each input read once, each output written once; flops of the cost
+    model in ``udfs/rooflines.py``)."""
+    from repro_torch.kernels import _build, moe_router, ref, rglru, ssd
+    from repro_torch.udfs import rooflines
+    iters = TIME_ITERS if b <= 32 else 10
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def entry_ms(name: str, fn: str, *args) -> float:
+        """The C entry point alone in a tight loop: the device time while
+        the host keeps ahead of it."""
+        call = getattr(_build.load(name).lib, fn)
+        if call(*args, stream) != 0:
+            raise AssertionError(f"{name} entry point failed")
+        return time_ms(lambda: call(*args, stream), TIME_ITERS)
+
+    def ptrs(*ts):
+        return [t.data_ptr() for t in ts]
+
+    out = {}
+    logits = inputs.logits(b)
+    e, k = logits.shape[1], 2
+    w_out = torch.empty((b, k), device=logits.device)
+    i_out = torch.empty((b, k), dtype=torch.int32, device=logits.device)
+    out["moe_router"] = {
+        "ms": time_ms(lambda: moe_router.moe_router_tk(logits, k), TIME_ITERS),
+        "entry_ms": entry_ms("moe_router", "moe_router_tk",
+                             *ptrs(logits, w_out, i_out), b, e, k),
+        "plain_ms": time_ms(lambda: ref.moe_topk_router(logits, k), iters),
+        **dict(zip(("bound_ms", "bound_by"), bound_ms(
+            b * e * 4 + b * k * 8,
+            b * rooflines.moe_router(e, k).flops_per_row))),
+    }
+    x, dt, A, Bm, Cm, h0 = inputs.ssd_args(b)
+    kx, kdt, kB, kC = (t.transpose(1, 2).contiguous() for t in (x, dt, Bm, Cm))
+    _, s, h, p = x.shape
+    g, n = Bm.shape[2], Bm.shape[3]
+    y_out = torch.empty_like(kx)
+    h_out = torch.empty_like(h0)
+    out["ssd"] = {
+        "ms": time_ms(lambda: ssd.ssd_bhcp(kx, kdt, A, kB, kC, h0, chunk=SEQ),
+                      TIME_ITERS),
+        "entry_ms": entry_ms("ssd", "ssd_bhcp",
+                             *ptrs(kx, kdt, A, kB, kC, h0, y_out, h_out),
+                             b, h, s, p, g, n, SEQ),
+        "plain_ms": time_ms(lambda: ref.ssd(x, dt, A, Bm, Cm, h0, chunk=SEQ),
+                            iters),
+        **dict(zip(("bound_ms", "bound_by"), bound_ms(
+            4 * (2 * b * h * s * p + b * h * s + h + 2 * b * g * s * n
+                 + 2 * b * h * p * n),
+            b * rooflines.ssd(s, h, p, n).flops_per_row))),
+    }
+    rx, rr, ri, a_param, rh0 = inputs.rglru_args(b)
+    w = rx.shape[2]
+    o_out = torch.empty_like(rx)
+    hl_out = torch.empty_like(rh0)
+    out["rglru"] = {
+        "ms": time_ms(lambda: rglru.rglru_bsw(rx, rr, ri, a_param, rh0),
+                      TIME_ITERS),
+        "entry_ms": entry_ms("rglru", "rglru_bsw",
+                             *ptrs(rx, rr, ri, a_param, rh0, o_out, hl_out),
+                             b, SEQ, w, 8.0),
+        "plain_ms": time_ms(lambda: ref.rglru(rx, rr, ri, a_param, rh0),
+                            iters),
+        **dict(zip(("bound_ms", "bound_by"), bound_ms(
+            4 * (4 * b * SEQ * w + w + 2 * b * w),
+            b * rooflines.rglru(SEQ, w).flops_per_row))),
+    }
+    for name, t in out.items():
+        t["library_ms"] = None  # no single PyTorch call computes it
+        print(f"  {name} B={b}: kernel {t['ms']!r} ms (entry point "
+              f"{t['entry_ms']!r} ms), plain "
+              f"{t['plain_ms']!r} ms, bound {t['bound_ms']!r} ms "
+              f"({t['bound_by']})", flush=True)
+    return out
+
+
+# --------------------------------------------------------------------------- #
+# phases 6 and 7: the review-triage query and the text registry               #
+# --------------------------------------------------------------------------- #
+def triage_oracles(table, toks_kept: np.ndarray, ids_kept: np.ndarray) -> dict:
+    """The triage conjunction over the whole kept table, once through the
+    predicates (the kernels, one launch each), once through the kernel
+    wrappers directly and once through the plain versions on the card, on
+    the same featurized inputs. All three must agree."""
+    from repro_torch.examples.review_triage import oracle_ids, triage_predicates
+    from repro_torch.kernels import moe_router, ref, ssd
+    from repro_torch.udfs import library as lib
+    dev = torch.device("cuda")
+    preds = triage_predicates(expert=0, device=dev)
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 is on for the text predicates")
+    t0 = time.perf_counter()
+    through_predicates = oracle_ids(table, preds, max_rating=2)
+    t_pred = time.perf_counter() - t0
+
+    toks = lib.device_tokens(toks_kept, SEQ, dev)
+    logits = lib.router_logits(*lib.router_tables(device=dev), toks)
+    w_k, idx_k = moe_router.moe_router_tk(logits, 2)
+    w_p, idx_p = ref.moe_topk_router(logits, 2)
+    x, dt, A, Bm, Cm = lib.ssd_inputs(lib.ssd_tables(device=dev), toks)
+    h0 = torch.zeros((len(toks), x.shape[2], x.shape[3], Bm.shape[3]),
+                     device=dev)
+    y_k, _ = ssd.ssd_bhcp(x.transpose(1, 2), dt.transpose(1, 2), A,
+                          Bm.transpose(1, 2), Cm.transpose(1, 2), h0, chunk=SEQ)
+    score_k = lib.row_mean(y_k.transpose(1, 2))
+    score_p = lib.row_mean(ref.ssd(x, dt, A, Bm, Cm, h0, chunk=SEQ)[0])
+    probs = ref.softmax(logits).sort(dim=-1, descending=True).values
+    torch.cuda.synchronize()
+    mask_k = ((idx_k[:, 0] == 0) & (score_k > 0)).cpu().numpy()
+    mask_p = ((idx_p[:, 0] == 0) & (score_p > 0)).cpu().numpy()
+    through_kernels = set(ids_kept[mask_k].tolist())
+    through_plain = set(ids_kept[mask_p].tolist())
+    stats = {
+        "rows": len(toks_kept), "expected_rows": len(through_predicates),
+        "oracle_s_through_predicates": t_pred,
+        "min_abs_score": float(score_p.abs().min()),
+        "min_top1_top2_gap": float((probs[:, 0] - probs[:, 1]).min()),
+        "score_max_abs_err": float((score_k - score_p).abs().max()),
+        "router_weight_max_abs_err": float((w_k - w_p).abs().max()),
+        "router_idx_rows_differing": int((idx_k != idx_p).any(-1).sum()),
+        "ssd_decisions_differing": int(((score_k > 0) != (score_p > 0)).sum()),
+    }
+    print(f"  oracle over {len(toks_kept)} kept rows: {len(through_predicates)} "
+          f"rows through the predicates ({t_pred:.2f}s), "
+          f"{len(through_kernels)} through the kernel wrappers, "
+          f"{len(through_plain)} through the plain versions")
+    print(f"  smallest |score| {stats['min_abs_score']!r}, smallest top-1/top-2 "
+          f"gap {stats['min_top1_top2_gap']!r}; kernel vs plain: score "
+          f"{stats['score_max_abs_err']!r}, router weights "
+          f"{stats['router_weight_max_abs_err']!r}, idx rows differing "
+          f"{stats['router_idx_rows_differing']}, ssd decisions differing "
+          f"{stats['ssd_decisions_differing']}", flush=True)
+    if not (through_predicates == through_kernels == through_plain):
+        raise AssertionError("the triage oracles disagree: kernels vs plain "
+                             f"{sorted(through_kernels ^ through_plain)[:10]}")
+    if not through_predicates:
+        raise AssertionError("the triage query should match some reviews")
+    return {"expect": through_predicates, "stats": stats}
+
+
+def batch_invariance(toks_kept: np.ndarray) -> dict:
+    """A row's router logits, top-1 expert and SSD score, computed alone and
+    in batches of 3, 16 and BIG rows, against the same rows in the whole
+    table: the port's path must give the same bits. Also counts how many
+    rows a plain ``torch.matmul`` gate and ``sum`` would have changed, to
+    show which library call the fixed-order featurizer avoids."""
+    from repro_torch.kernels import moe_router, ssd
+    from repro_torch.udfs import library as lib
+    dev = torch.device("cuda")
+    router, ssd_t = lib.router_tables(device=dev), lib.ssd_tables(device=dev)
+    toks = lib.device_tokens(toks_kept, SEQ, dev)
+
+    def path(t):
+        logits = lib.router_logits(*router, t)
+        _, idx = moe_router.moe_router_tk(logits, 2)
+        x, dt, A, Bm, Cm = lib.ssd_inputs(ssd_t, t)
+        h0 = torch.zeros((len(t), x.shape[2], x.shape[3], Bm.shape[3]),
+                         device=dev)
+        y, _ = ssd.ssd_bhcp(x.transpose(1, 2), dt.transpose(1, 2), A,
+                            Bm.transpose(1, 2), Cm.transpose(1, 2), h0,
+                            chunk=SEQ)
+        return logits, idx[:, 0], lib.row_mean(y.transpose(1, 2))
+
+    def library_gate(t):
+        emb, w_gate = router
+        live = (t > 0).sum(1, keepdim=True).clamp_min(1).float()
+        return (emb[t].sum(1) / live) @ w_gate
+
+    whole = path(toks)
+    whole_lib = library_gate(toks)
+    out = {}
+    for b in (1, 3, 16, BIG):
+        part = path(toks[:b])
+        same = all(torch.equal(p, w[:b]) for p, w in zip(part, whole))
+        changed = int((library_gate(toks[:b]) != whole_lib[:b]).any(-1).sum())
+        out[str(b)] = {"port_bit_equal": same, "library_gate_rows_changed": changed}
+        print(f"  batch of {b}: port path bit-equal to the whole table {same}; "
+              f"sum + matmul gate would change {changed} of {b} rows",
+              flush=True)
+        if not same:
+            raise AssertionError(f"the text path is not batch-invariant at B={b}")
+    return out
+
+
+def run_triage(table, expect: set) -> dict:
+    """The triage query on the card under every eddy policy; the kernel
+    counters are set to 0 just before the policies run and read just
+    after."""
+    from repro_torch.core.policies import EDDY_POLICIES
+    from repro_torch.examples.review_triage import build_plan
+    from repro_torch.kernels import launch, moe_router, ssd
+    per_policy = {}
+    board = collections.Counter()
+    sizes = {"moe_router": collections.Counter(), "ssd": collections.Counter()}
+    moe_router.launches = ssd.launches = 0
+    for policy in sorted(EDDY_POLICIES):
+        _, plan = build_plan(table, policy=policy, device="cuda", expert=0,
+                             max_rating=2, max_workers=4)
+        events = []
+        hook = launch.add_launch_hook(events.append)
+        t0 = time.perf_counter()
+        try:
+            rows = plan.collect_rows()
+        finally:
+            wall = time.perf_counter() - t0
+            launch.remove_launch_hook(hook)
+        got = set(rows["_row_id"].tolist())
+        snap = plan.executor.stats_snapshot()
+        if got != expect:
+            raise AssertionError(
+                f"triage {policy}: {len(got)} rows, expected {len(expect)}; "
+                f"missing {sorted(expect - got)[:10]} extra "
+                f"{sorted(got - expect)[:10]}")
+        entry = {"wall_s": wall, "rows": len(got)}
+        for name in ("moe_router", "ssd"):
+            e = snap.get(name)
+            if e is None or e["batches"] <= 0:
+                raise AssertionError(f"triage {policy}: no {name} board entry")
+            board[name] += int(e["batches"])
+            entry[name] = {"board_launches": int(e["batches"]),
+                           "cost_per_row_ms": e["cost_per_row"] * 1e3}
+        for ev in events:
+            if ev.name in sizes:
+                sizes[ev.name][ev.rows // SEQ if ev.name == "ssd" else ev.rows] += 1
+                entry[ev.name]["hooked_launch_s"] = (
+                    entry[ev.name].get("hooked_launch_s", 0.0) + ev.seconds)
+        for name in ("MoERouter", "SSDScorer"):
+            entry[name] = {"cost_per_row_ms": snap[name]["cost_per_row"] * 1e3,
+                           "selectivity": snap[name]["selectivity"]}
+        per_policy[policy] = entry
+        print(f"  {policy}: {len(got)} rows in {wall!r} s; " + "; ".join(
+            f"{k} board launches {entry[k]['board_launches']} cost/row "
+            f"{entry[k]['cost_per_row_ms']!r} ms, launch to stream sync "
+            f"{entry[k].get('hooked_launch_s', 0.0)!r} s in all"
+            for k in ("moe_router", "ssd")), flush=True)
+    launches = {"moe_router": moe_router.launches, "ssd": ssd.launches}
+    print(f"  kernel launches {launches}, board launches {dict(board)}, "
+          f"launch batch sizes {({k: dict(sorted(v.items())) for k, v in sizes.items()})}")
+    for name, n in launches.items():
+        if not (n > 0 and n >= board[name]):
+            raise AssertionError(f"the triage query did not go through {name}")
+    return {"policies": per_policy, "launches": launches, "board": dict(board),
+            "sizes": {k: dict(sorted(v.items())) for k, v in sizes.items()}}
+
+
+def run_registry(toks_kept: np.ndarray, ids_kept: np.ndarray) -> dict:
+    """Each text kernel's predicate from ``build_predicate`` in an executor
+    over the kept rows, against its own whole-table oracle. The counters
+    are set to 0 after the oracles and read after the three runs."""
+    from repro_torch.core import Query, optimize
+    from repro_torch.core.policies import CostDriven
+    from repro_torch.examples.review_triage import source
+    from repro_torch.kernels import launch, moe_router, rglru, ssd
+    from repro_torch.udfs import build_predicate
+    kept_table = {"tokens": toks_kept, "_row_id": ids_kept}
+    preds = {k: build_predicate(k, device="cuda", seq=SEQ)
+             for k in ("moe_router", "ssd", "rglru")}
+    expect = {k: set(ids_kept[p.mask_from_outputs(
+        p.udf({"tokens": toks_kept}))].tolist()) for k, p in preds.items()}
+    modules = {"moe_router": moe_router, "ssd": ssd, "rglru": rglru}
+    for m in modules.values():
+        m.launches = 0
+    out = {}
+    for kernel, p in preds.items():
+        plan = optimize(Query(source=source(kept_table), predicates=[p]),
+                        executor_kwargs=dict(policy=CostDriven(), max_workers=4))
+        events = []
+        hook = launch.add_launch_hook(events.append)
+        t0 = time.perf_counter()
+        try:
+            got = set(plan.collect_rows()["_row_id"].tolist())
+        finally:
+            wall = time.perf_counter() - t0
+            launch.remove_launch_hook(hook)
+        sizes = collections.Counter(
+            ev.rows // SEQ if kernel != "moe_router" else ev.rows
+            for ev in events if ev.name == kernel)
+        entry = plan.executor.stats_snapshot().get(kernel)
+        print(f"  {kernel} ({p.name}): {len(got)} of {len(ids_kept)} rows in "
+              f"{wall!r} s; board launches "
+              f"{int(entry['batches']) if entry else 0}", flush=True)
+        if got != expect[kernel]:
+            raise AssertionError(f"registry {kernel}: {len(got)} rows, oracle "
+                                 f"{len(expect[kernel])}")
+        if entry is None or entry["batches"] <= 0:
+            raise AssertionError(f"registry {kernel}: no board entry")
+        out[kernel] = {"rows": len(got), "wall_s": wall,
+                       "board_launches": int(entry["batches"]),
+                       "sizes": dict(sorted(sizes.items()))}
+    launches = {k: m.launches for k, m in modules.items()}
+    print(f"  kernel launches {launches}")
+    for kernel, n in launches.items():
+        if not (n > 0 and n >= out[kernel]["board_launches"]):
+            raise AssertionError(f"the registry run did not go through {kernel}")
+    return {"runs": out, "launches": launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -153,7 +653,9 @@ def main() -> int:
     from repro_torch.core import AQPExecutor, CostDriven, make_batch
     from repro_torch.core.policies import EDDY_POLICIES
     from repro_torch.data.video import BREEDS, SyntheticVideo
+    from repro_torch.data.text import make_reviews
     from repro_torch.examples.lost_dog_query import build_plan, dog_table
+    from repro_torch.examples.review_triage import review_table
     from repro_torch.kernels import _build, hsv_color, launch, ref
     from repro_torch.roofline import hw
     from repro_torch.udfs import planted_detector, planted_predicate, rooflines
@@ -171,14 +673,23 @@ def main() -> int:
     print(nvcc.stdout.strip().splitlines()[-1])
     cutlass = "/usr/local/cutlass/include"
     print("cutlass headers:", "present" if os.path.isdir(cutlass) else "absent")
+    # the text scores' decision margins are ~1e-7: float32 products stay
+    # float32 (the text predicates set this too, and ref.ssd checks it)
+    torch.backends.cuda.matmul.allow_tf32 = False
 
     # ------------------------------------------------------------- 2 build
     phase("2 build")
-    built = _build.load("hsv_color")
-    print(f"  hsv_color: {built.path.name} built in {built.seconds:.2f}s")
-    for line in built.log.splitlines():
-        if "ptxas" in line:
-            print("   ", line.strip())
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(KERNELS)) as pool:  # one nvcc per source
+        libs = dict(zip(KERNELS, pool.map(_build.load, KERNELS)))
+    print(f"  {len(libs)} libraries in {time.perf_counter() - t0:.2f}s")
+    for name, lib in libs.items():
+        print(f"  {name}: {lib.path.name} built in {lib.seconds:.2f}s")
+        for line in lib.log.splitlines():
+            if "ptxas" in line and ("registers" in line or "spill" in line
+                                    or "smem" in line):
+                print("   ", line.strip())
+    built = libs["hsv_color"]
 
     # ------------------------------------------------------------- 3 kernels
     phase("3 kernels against the plain version")
@@ -211,6 +722,18 @@ def main() -> int:
 
     timings = {b: time_hsv(built, hsv_color, ref, hw, rooflines, ranges, b)
                for b in (16, 32, 4096)}
+
+    t0 = time.perf_counter()
+    reviews = review_table(make_reviews(TRIAGE_REVIEWS, seed=0))
+    kept = reviews["rating"] <= 2
+    toks_kept, ids_kept = reviews["tokens"][kept], reviews["_row_id"][kept]
+    print(f"\n  make_reviews({TRIAGE_REVIEWS}, seed=0): {int(kept.sum())} "
+          f"rows with rating <= 2, {toks_kept.nbytes / 1e6:.1f} MB of int32 "
+          f"tokens at seq {SEQ} ({time.perf_counter() - t0:.2f}s)")
+    inputs = TextInputs(toks_kept)
+    max_errs = check_text_kernels(inputs)
+    max_errs["hsv_color"] = max_err
+    text_timings = {b: time_text(inputs, b) for b in (*BUCKETS, BIG)}
 
     # ------------------------------------------------------------- 4 query
     phase(f"4 lost-dog query, SyntheticVideo({QUERY_FRAMES}, seed={QUERY_SEED})")
@@ -317,8 +840,31 @@ def main() -> int:
     if det_launches <= 0:
         raise AssertionError("the detector path did not launch the kernel")
 
-    # ------------------------------------------------------------- 6 lines
-    phase("6 summary")
+    # ------------------------------------------------------------- 6 triage
+    phase(f"6 review triage, make_reviews({TRIAGE_REVIEWS}, seed=0), "
+          "expert 0, rating <= 2")
+    oracle = triage_oracles(reviews, toks_kept, ids_kept)
+    for name, err in (("moe_router", oracle["stats"]["router_weight_max_abs_err"]),
+                      ("ssd", oracle["stats"]["score_max_abs_err"])):
+        max_errs[name] = max(max_errs[name], err)
+    invariance = batch_invariance(toks_kept)
+    t0 = time.perf_counter()
+    triage = run_triage(reviews, oracle["expect"])
+    triage_s = time.perf_counter() - t0
+
+    # ------------------------------------------------------------- 7 registry
+    phase("7 text predicates from the registry, each in an executor")
+    registry = run_registry(toks_kept, ids_kept)
+
+    # ------------------------------------------------------------- 8 lines
+    phase("8 summary")
+    main_sizes_text = {**triage["sizes"],
+                       "rglru": registry["runs"]["rglru"]["sizes"]}
+    text_main = {name: max(c, key=lambda b: (c[b], -b))
+                 for name, c in main_sizes_text.items()}
+    for name, b in text_main.items():
+        if b not in text_timings:
+            text_timings[b] = time_text(inputs, b)
     summary = {
         "card": card, "query": query, "query_frames": QUERY_FRAMES,
         "dog_crops": n_dogs, "expected_rows": len(expect),
@@ -326,6 +872,12 @@ def main() -> int:
         "detector": {"rows": len(got), "wall_s": wall,
                      "launches": det_launches, "sizes": sorted(set(sizes))},
         "timings": {str(b): t for b, t in timings.items()},
+        "triage": {"reviews": TRIAGE_REVIEWS, **oracle["stats"],
+                   "phase_s": triage_s, **triage},
+        "batch_invariance": invariance,
+        "registry": registry,
+        "text_timings": {str(b): t for b, t in text_timings.items()},
+        "text_main_batch": text_main,
     }
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
@@ -338,6 +890,17 @@ def main() -> int:
         "batch": main_b, **timings[main_b],
         "by_batch": {str(b): t for b, t in sorted(timings.items())},
     }]
+    launches = {**triage["launches"], "rglru": registry["launches"]["rglru"]}
+    for name, line in (("moe_router", 43), ("ssd", 92), ("rglru", 59)):
+        b = text_main[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "replaces": f"src/repro/kernels/{name}.py:{line}",
+            "launches": launches[name], "max_abs_err": max_errs[name],
+            "batch": b, **text_timings[b][name],
+            "by_batch": {str(bb): t[name] for bb, t in text_timings.items()},
+        })
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -2,9 +2,9 @@
 
 The port cannot import the JAX package, so state crosses as numpy arrays
 and files: a caller hands in ``np.asarray`` of a JAX array, or the path of
-a file the JAX package flushed. This slice carries the HSV range table and
-the ``ReuseCache`` snapshot; later slices add embedding tables and model
-parameters.
+a file the JAX package flushed. This module carries the HSV range table,
+the text predicates' embedding tables and the ``ReuseCache`` snapshot;
+later slices add model parameters.
 """
 from __future__ import annotations
 
@@ -22,6 +22,21 @@ def hsv_ranges(ranges, device="cpu") -> torch.Tensor:
     arr = np.array(ranges, dtype=np.float32)  # a copy the tensor may own
     if arr.ndim != 2 or arr.shape[1] != 6:
         raise ValueError(f"HSV ranges must be (C, 6), got {arr.shape}")
+    return torch.from_numpy(arr).to(device)
+
+
+def embedding_table(array, device="cpu") -> torch.Tensor:
+    """A (vocab, dim) embedding table -> a float32 tensor on ``device``.
+
+    The text predicates look token ids up in such tables, with id 0 as
+    padding; a table whose row 0 is not zero would let padding move a
+    score, so it raises."""
+    arr = np.array(array, dtype=np.float32)  # a copy the tensor may own
+    if arr.ndim != 2:
+        raise ValueError(f"an embedding table must be (vocab, dim), got "
+                         f"{arr.shape}")
+    if arr.shape[0] == 0 or np.any(arr[0] != 0):
+        raise ValueError("row 0 of an embedding table (padding) must be zero")
     return torch.from_numpy(arr).to(device)
 
 

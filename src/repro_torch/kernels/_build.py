@@ -5,8 +5,9 @@ a plain C interface and loaded with ``ctypes`` (no PyTorch headers, so a
 build takes seconds). The library goes into ``build/repro_torch/`` at the
 root of the checkout, named by a hash of its source and flags, so an
 edited source is rebuilt and an unchanged one is loaded as it is. The
-build happens once, at first use, under a lock: the executor's worker
-threads warm their predicates concurrently and may ask for it at once.
+build happens once, at first use, under a lock of its own: the
+executor's worker threads warm their predicates concurrently and may ask
+for one library at once, and different libraries build side by side.
 """
 from __future__ import annotations
 
@@ -29,11 +30,21 @@ NVCC_FLAGS = (
 )
 
 # C signature of each library's entry point: (argtypes, restype).
-_VOIDP, _INT = ctypes.c_void_p, ctypes.c_int
+_VOIDP, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "hsv_color": {
         "hsv_color_hist": ([_VOIDP, _VOIDP, _VOIDP, _INT, _INT, _INT, _VOIDP],
                            _INT),
+    },
+    "moe_router": {
+        "moe_router_tk": ([_VOIDP, _VOIDP, _VOIDP, _INT, _INT, _INT, _VOIDP],
+                          _INT),
+    },
+    "rglru": {
+        "rglru_bsw": ([_VOIDP] * 7 + [_INT, _INT, _INT, _FLOAT, _VOIDP], _INT),
+    },
+    "ssd": {
+        "ssd_bhcp": ([_VOIDP] * 8 + [_INT] * 7 + [_VOIDP], _INT),
     },
 }
 
@@ -48,7 +59,8 @@ class Built:
     log: str         # nvcc's output (ptxas registers / shared memory / spills)
 
 
-_LOCK = threading.Lock()
+_LOCKS_LOCK = threading.Lock()
+_LOCKS: Dict[str, threading.Lock] = {}
 _LOADED: Dict[str, Built] = {}
 
 
@@ -94,7 +106,9 @@ def load(name: str) -> Built:
     """The built library for ``csrc/<name>.cu``, compiling it on first use."""
     built = _LOADED.get(name)
     if built is None:
-        with _LOCK:
+        with _LOCKS_LOCK:
+            lock = _LOCKS.setdefault(name, threading.Lock())
+        with lock:
             built = _LOADED.get(name)
             if built is None:
                 built = _LOADED[name] = _compile(name)

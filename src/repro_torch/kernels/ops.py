@@ -4,6 +4,8 @@ The device of the input decides the path: a CUDA tensor runs the
 hand-written kernel, a CPU tensor the plain version in ``ref.py``. There is
 no switch that picks by whether a card is present. Every entry point
 launches through ``launch.kernel_call``, so timing hooks see each launch.
+Each takes the JAX package's model-natural layout and transposes inside,
+as ``repro.kernels.ops`` does.
 """
 from __future__ import annotations
 
@@ -11,6 +13,9 @@ import torch
 
 from repro_torch.kernels import launch, ref
 from repro_torch.kernels.hsv_color import hsv_color_hist
+from repro_torch.kernels.moe_router import moe_router_tk
+from repro_torch.kernels.rglru import rglru_bsw
+from repro_torch.kernels.ssd import ssd_bhcp
 
 
 def hsv_color_classify(
@@ -29,3 +34,52 @@ def hsv_color_classify(
         hsv_color_hist, name="hsv_color", rows=int(crops.shape[0]),
     )(crops, ranges)
     return hist, torch.argmax(hist, dim=-1)
+
+
+def moe_topk_router(logits: torch.Tensor, k: int):
+    """(T, E) logits -> (weights (T, k) renormalised, idx (T, k) int32)."""
+    return launch.kernel_call(
+        moe_router_tk, name="moe_router", rows=int(logits.shape[0]),
+    )(logits, k)
+
+
+def rglru(
+    x: torch.Tensor,        # (B, S, W)
+    r: torch.Tensor,
+    i: torch.Tensor,
+    a_param: torch.Tensor,  # (W,)
+    h0: torch.Tensor | None = None,
+    *,
+    c: float = 8.0,
+):
+    """(out (B, S, W), h_last (B, W)); ``h0`` defaults to zeros."""
+    b, s, w = x.shape
+    if h0 is None:
+        h0 = torch.zeros((b, w), dtype=x.dtype, device=x.device)
+    return launch.kernel_call(
+        lambda *a: rglru_bsw(*a, c=c), name="rglru", rows=b * s,
+    )(x, r, i, a_param, h0)
+
+
+def ssd(
+    x: torch.Tensor,    # (B, S, H, P)
+    dt: torch.Tensor,   # (B, S, H)
+    A: torch.Tensor,    # (H,)
+    Bm: torch.Tensor,   # (B, S, G, N)
+    Cm: torch.Tensor,   # (B, S, G, N)
+    h0: torch.Tensor | None = None,
+    *,
+    chunk: int = 64,
+):
+    """(y (B, S, H, P), h_last (B, H, P, N) float32); ``h0`` defaults to
+    zeros. The kernel takes heads before time, so inputs are transposed
+    in and y is transposed back."""
+    b, s, h, p = x.shape
+    n = Bm.shape[-1]
+    if h0 is None:
+        h0 = torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device)
+    y, h_last = launch.kernel_call(
+        lambda *a: ssd_bhcp(*a, chunk=min(chunk, s)), name="ssd", rows=b * s,
+    )(x.transpose(1, 2), dt.transpose(1, 2), A, Bm.transpose(1, 2),
+      Cm.transpose(1, 2), h0)
+    return y.transpose(1, 2), h_last

@@ -108,3 +108,160 @@ def inv_pixels(n: int) -> float:
     product), which can differ from the true quotient by one ulp; the
     kernel and this plain version scale the same way."""
     return float(np.float32(1.0) / np.float32(n))
+
+
+# --------------------------------------------------------------------------- #
+# MoE top-k router                                                             #
+# --------------------------------------------------------------------------- #
+MASKED = -1e30  # what the router writes over a chosen expert
+
+
+def softmax(x: torch.Tensor) -> torch.Tensor:
+    """Softmax over the last axis as ``jax.nn.softmax`` computes it: the
+    max subtracted, exp, divided by the sum."""
+    unnormalized = torch.exp(x - x.amax(dim=-1, keepdim=True))
+    return unnormalized / unnormalized.sum(dim=-1, keepdim=True)
+
+
+def moe_topk_router(logits: torch.Tensor, k: int):
+    """(T, E) -> (weights (T,k) renormalized softmax, idx (T,k) int32).
+
+    k rounds of argmax then mask, so the lowest index wins a tie as in the
+    JAX package's ``lax.top_k`` and its kernel (``torch.topk`` leaves the
+    order of ties unspecified)."""
+    remaining = softmax(logits.to(torch.float32))
+    ws, idxs = [], []
+    for _ in range(k):
+        idx = torch.argmax(remaining, dim=-1, keepdim=True)  # first maximum
+        ws.append(torch.gather(remaining, -1, idx))
+        idxs.append(idx)
+        remaining = remaining.scatter(-1, idx, MASKED)
+    w = torch.cat(ws, dim=-1)
+    w = w / w.sum(dim=-1, keepdim=True)
+    return w.to(logits.dtype), torch.cat(idxs, dim=-1).to(torch.int32)
+
+
+# --------------------------------------------------------------------------- #
+# RG-LRU (recurrentgemma / griffin)                                            #
+# --------------------------------------------------------------------------- #
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``, which is ``logaddexp(x, 0)``:
+    ``max(x, 0) + log1p(exp(-|x|))``."""
+    return torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-x.abs()))
+
+
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``1 / (1 + exp(-x))``, the form the CUDA kernel computes."""
+    return 1.0 / (1.0 + torch.exp(-x))
+
+
+def rglru(
+    x: torch.Tensor,        # (B, S, W) gated input
+    r: torch.Tensor,        # (B, S, W) recurrence gate pre-activation
+    i: torch.Tensor,        # (B, S, W) input gate pre-activation
+    a_param: torch.Tensor,  # (W,) learnable Lambda pre-activation
+    h0: torch.Tensor | None = None,  # (B, W) initial state
+    *,
+    c: float = 8.0,
+):
+    """RG-LRU: h_t = a_t * h_{t-1} + sqrt(1 - a_t^2) * (i_t * x_t).
+
+    a_t = exp(-c * softplus(a_param) * sigmoid(r_t)). Returns (h_seq,
+    h_last), both in x's dtype; the scan walks S in order."""
+    b, s, w = x.shape
+    xf = x.to(torch.float32)
+    log_a = -c * softplus(a_param.to(torch.float32)) * sigmoid(
+        r.to(torch.float32))
+    a = torch.exp(log_a)
+    gated = sigmoid(i.to(torch.float32)) * xf
+    multiplier = torch.sqrt(torch.clamp_min(1.0 - a * a, 1e-12))
+    inp = multiplier * gated
+    h = (torch.zeros((b, w), dtype=torch.float32, device=x.device)
+         if h0 is None else h0.to(torch.float32))
+    hs = []
+    for t in range(s):
+        h = a[:, t] * h + inp[:, t]
+        hs.append(h)
+    out = torch.stack(hs, dim=1) if hs else xf.new_zeros((b, 0, w))
+    return out.to(x.dtype), h.to(x.dtype)
+
+
+# --------------------------------------------------------------------------- #
+# Mamba-2 SSD (state-space duality)                                            #
+# --------------------------------------------------------------------------- #
+def _segsum(x: torch.Tensor) -> torch.Tensor:
+    """Stable segment-sum: out[..., i, j] = sum_{j < k <= i} x[..., k],
+    -inf above the diagonal."""
+    t = x.shape[-1]
+    cs = torch.cumsum(x, dim=-1)
+    out = cs[..., :, None] - cs[..., None, :]
+    mask = torch.tril(torch.ones((t, t), dtype=torch.bool, device=x.device))
+    return out.masked_fill(~mask, -torch.inf)
+
+
+def ssd(
+    x: torch.Tensor,    # (B, S, H, P)
+    dt: torch.Tensor,   # (B, S, H) positive step sizes
+    A: torch.Tensor,    # (H,) negative decay parameter
+    Bm: torch.Tensor,   # (B, S, G, N)
+    Cm: torch.Tensor,   # (B, S, G, N)
+    h0: torch.Tensor | None = None,  # (B, H, P, N)
+    *,
+    chunk: int = 64,
+):
+    """Chunked SSD (Mamba-2). G (B/C groups) must divide H. Returns
+    (y in x's dtype, h_last float32).
+
+    y_t = C_t^T sum_{s<=t} (prod_{s<r<=t} exp(A*dt_r)) dt_s B_s x_s,
+    computed chunkwise: quadratic within a chunk, a recurrence between."""
+    if x.is_cuda and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("ref.ssd needs float32 products on the card: set "
+                           "torch.backends.cuda.matmul.allow_tf32 = False")
+    b, s, h, p = x.shape
+    g, n = Bm.shape[2], Bm.shape[3]
+    if h % g or s % chunk:
+        raise ValueError(f"need G | H and chunk | S, got H={h} G={g} "
+                         f"S={s} chunk={chunk}")
+    nc = s // chunk
+    rep = h // g
+
+    xf = x.to(torch.float32)
+    dtf = dt.to(torch.float32)
+    Af = A.to(torch.float32)
+    Bf = torch.repeat_interleave(Bm.to(torch.float32), rep, dim=2)  # (B,S,H,N)
+    Cf = torch.repeat_interleave(Cm.to(torch.float32), rep, dim=2)
+
+    xc = xf.reshape(b, nc, chunk, h, p)
+    dtc = dtf.reshape(b, nc, chunk, h)
+    Bc = Bf.reshape(b, nc, chunk, h, n)
+    Cc = Cf.reshape(b, nc, chunk, h, n)
+
+    dA = (dtc * Af).movedim(-1, 2)              # (B,NC,H,L) log-decay per step
+    dA_cum = torch.cumsum(dA, dim=-1)
+
+    # within a chunk (quadratic)
+    Lmat = torch.exp(_segsum(dA))               # (B,NC,H,L,L)
+    scores = torch.einsum("bchln,bcmhn->bchlm", Cc.movedim(3, 2), Bc)
+    att = scores * Lmat * dtc.movedim(-1, 2)[:, :, :, None, :]
+    y_intra = torch.einsum("bchlm,bcmhp->bclhp", att, xc)
+
+    # each chunk's own state
+    decay_to_end = torch.exp(dA_cum[..., -1:] - dA_cum)  # (B,NC,H,L)
+    states = torch.einsum("bclhn,bchl,bclh,bclhp->bchpn",
+                          Bc, decay_to_end, dtc, xc)      # (B,NC,H,P,N)
+
+    # between chunks: the state entering each chunk
+    chunk_decay = torch.exp(dA_cum[..., -1])    # (B,NC,H)
+    hprev = (torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device)
+             if h0 is None else h0.to(torch.float32))
+    h_in = []
+    for ci in range(nc):
+        h_in.append(hprev)
+        hprev = hprev * chunk_decay[:, ci, :, None, None] + states[:, ci]
+    h_in = torch.stack(h_in, dim=1)             # (B,NC,H,P,N)
+
+    in_decay = torch.exp(dA_cum)                # chunk start to position l
+    y_inter = torch.einsum("bclhn,bchl,bchpn->bclhp", Cc, in_decay, h_in)
+
+    y = (y_intra + y_inter).reshape(b, s, h, p)
+    return y.to(x.dtype), hprev

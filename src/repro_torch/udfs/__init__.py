@@ -9,7 +9,7 @@ kernel's launch name, beside its predicate-level stats.
 Layout
 ------
 ``library``   kernel predicate builders + the ``KERNEL_PREDICATES``
-              registry (hsv_color so far)
+              registry (hsv_color, moe_router, ssd, rglru)
 ``rooflines`` analytic roofline cost priors (cold-start / SimClock only)
 ``synthetic`` planted predicates for deterministic benchmarks
 """
@@ -18,6 +18,9 @@ from repro_torch.udfs.library import (  # noqa: F401
     build_predicate,
     color_predicate,
     register_kernel_predicate,
+    rglru_gate_predicate,
+    ssd_scorer_predicate,
+    topic_router_predicate,
 )
 from repro_torch.udfs.synthetic import (  # noqa: F401
     planted_classifier,

@@ -17,7 +17,16 @@ Port of ``repro.udfs.library``. Every builder returns a first-class
 
 ``device`` defaults to ``"cuda"``: the predicate runs on the card, and
 building it without one raises. ``device="cpu"`` runs the plain version.
-The text predicates and their five kernels are not ported yet.
+
+Text-consuming kernels (moe_router, ssd, rglru) share a deterministic
+seeded featurizer: token ids index fixed embedding tables (row 0 =
+padding = zeros), so the predicate is a pure function of the ``tokens``
+column and an oracle can re-evaluate it exactly. The tables are drawn from
+``np.random.default_rng(seed)`` in the JAX package's order, so they equal
+its tables bit for bit. The featurizer's sums run in an order fixed by
+the shapes alone (``fixed_sum``), never by the batch, so a row's score is
+the same in any batch the executor puts it in, and the same on the card
+as on the CPU.
 """
 from __future__ import annotations
 
@@ -26,6 +35,7 @@ from typing import Callable, Dict
 import numpy as np
 import torch
 
+from repro_torch import convert
 from repro_torch.core.statstore import canonical_fingerprint
 from repro_torch.core.udf import Predicate, UDF
 from repro_torch.kernels import launch, ops, ref
@@ -67,6 +77,140 @@ def to_device(array: np.ndarray, device: torch.device) -> torch.Tensor:
     launching thread's stream."""
     host = torch.from_numpy(np.ascontiguousarray(array, dtype=np.float32))
     return host.to(device)
+
+
+def _embed_table(rng: np.random.Generator, vocab: int, dim: int,
+                 device: torch.device) -> torch.Tensor:
+    """Fixed random embedding table; row 0 (padding) embeds to zero."""
+    t = rng.standard_normal((vocab, dim)).astype(np.float32) / np.sqrt(dim)
+    t[0] = 0.0
+    return convert.embedding_table(t, device)
+
+
+def _draw(values: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A parameter drawn on the host -> float32 on ``device``."""
+    return torch.from_numpy(np.asarray(values, np.float32)).to(device)
+
+
+def _pad_tokens(tokens: np.ndarray, seq: int) -> np.ndarray:
+    """(B, L) int tokens -> (B, seq): truncate or zero-pad the time axis."""
+    toks = np.asarray(tokens)
+    b, length = toks.shape
+    if length == seq:
+        return toks.astype(np.int32)
+    out = np.zeros((b, seq), np.int32)
+    out[:, : min(length, seq)] = toks[:, :seq]
+    return out
+
+
+def _token_proxy(d: Dict[str, np.ndarray]) -> float:
+    """Data-aware load: live (non-pad) tokens, the paper's input-size proxy."""
+    return float((np.asarray(d["tokens"]) > 0).sum())
+
+
+def _text_device(device) -> torch.device:
+    """``device`` for a text predicate. On the card, float32 products stay
+    float32: TF32 keeps about three digits, and the scores' decision
+    margins are ~1e-7 (the plain SSD version's einsums check the flag)."""
+    dev = launch.require_device(device)
+    if dev.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+    return dev
+
+
+def device_tokens(tokens: np.ndarray, seq: int,
+                  device: torch.device) -> torch.Tensor:
+    """(B, L) host tokens -> (B, seq) int64 ids on ``device`` (int32 over
+    the bus). Call inside ``launch.thread_stream(device)``."""
+    host = torch.from_numpy(_pad_tokens(tokens, seq))
+    return host.to(device).long()
+
+
+def fixed_sum(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Sum over ``dim`` by halving it, in an order fixed by its length.
+
+    A library reduction may split its work by the other dimensions' sizes
+    (and a matrix product pick its algorithm by them), so a row's sum could
+    change with the batch it sits in; these elementwise adds cannot, and
+    they round the same on the card and on the CPU."""
+    x = x.movedim(dim, 0)
+    while x.shape[0] > 1:
+        half = x.shape[0] // 2
+        head = x[:half] + x[half:2 * half]
+        x = torch.cat([head, x[2 * half:]]) if x.shape[0] % 2 else head
+    return x[0]
+
+
+def row_mean(x: torch.Tensor) -> torch.Tensor:
+    """(B, ...) -> (B,) mean of each row: its ``fixed_sum`` scaled by the
+    float32 reciprocal of the count, as the JAX package's ``mean`` does."""
+    flat = x.flatten(1)
+    return fixed_sum(flat, 1) * float(np.float32(1) / np.float32(flat.shape[1]))
+
+
+def _mean_pool(emb: torch.Tensor, toks: torch.Tensor) -> torch.Tensor:
+    """(B, S) ids -> (B, dim): the sum of their embeddings over S divided
+    by the live (non-pad) count, at least 1."""
+    live = (toks > 0).sum(1, keepdim=True).clamp_min(1)
+    return fixed_sum(emb[toks], 1) / live.to(torch.float32)
+
+
+# The tables and kernel inputs of each text predicate. The builders below
+# and ``chip_smoke.py`` (which holds the kernels against their plain
+# versions on the predicates' own inputs) share them.
+def router_tables(*, n_experts: int = 8, dim: int = 16, vocab: int = 256,
+                  seed: int = 0, device="cpu"):
+    """(embedding table (vocab, dim), gate (dim, n_experts))."""
+    rng = np.random.default_rng(seed)
+    emb = _embed_table(rng, vocab, dim, device)
+    w_gate = _draw(
+        rng.standard_normal((dim, n_experts)).astype(np.float32) / np.sqrt(dim),
+        device)
+    return emb, w_gate
+
+
+def router_logits(emb: torch.Tensor, w_gate: torch.Tensor,
+                  toks: torch.Tensor) -> torch.Tensor:
+    """(B, S) ids -> (B, E) gate logits of the mean-pooled embeddings. The
+    (B, dim) @ (dim, E) product is an elementwise product and a
+    ``fixed_sum``, so a row's logits do not depend on its batch."""
+    return fixed_sum(_mean_pool(emb, toks)[:, :, None] * w_gate, 1)
+
+
+def ssd_tables(*, heads: int = 2, head_dim: int = 4, state: int = 4,
+               vocab: int = 256, seed: int = 1, device="cpu"):
+    """(x table, B table, C table, A (heads,))."""
+    rng = np.random.default_rng(seed)
+    emb_x = _embed_table(rng, vocab, heads * head_dim, device)
+    emb_b = _embed_table(rng, vocab, state, device)
+    emb_c = _embed_table(rng, vocab, state, device)
+    A = _draw(-np.abs(rng.standard_normal(heads)).astype(np.float32), device)
+    return emb_x, emb_b, emb_c, A
+
+
+def ssd_inputs(tables, toks: torch.Tensor, *, heads: int = 2,
+               head_dim: int = 4, state: int = 4):
+    """(B, S) ids -> (x (B,S,H,P), dt (B,S,H), A, Bm, Cm (B,S,1,N)), the
+    arguments of ``ops.ssd``. dt is 0.1 on live tokens and 0 on padding,
+    so pads never update the state."""
+    emb_x, emb_b, emb_c, A = tables
+    b, seq = toks.shape
+    x = emb_x[toks].reshape(b, seq, heads, head_dim)
+    dt = ((toks > 0).to(torch.float32) * 0.1)[..., None].expand(b, seq, heads)
+    Bm = emb_b[toks].reshape(b, seq, 1, state)
+    Cm = emb_c[toks].reshape(b, seq, 1, state)
+    return x, dt, A, Bm, Cm
+
+
+def rglru_tables(*, width: int = 16, vocab: int = 256, seed: int = 2,
+                 device="cpu"):
+    """(x table, r table, i table, a_param (width,))."""
+    rng = np.random.default_rng(seed)
+    emb_x = _embed_table(rng, vocab, width, device)
+    emb_r = _embed_table(rng, vocab, width, device)
+    emb_i = _embed_table(rng, vocab, width, device)
+    a_param = _draw(rng.standard_normal(width).astype(np.float32), device)
+    return emb_x, emb_r, emb_i, a_param
 
 
 def hsv_labels(crops: np.ndarray, ranges: torch.Tensor, device: torch.device,
@@ -115,12 +259,135 @@ def color_predicate(
     return Predicate(name, udf, compare=lambda o: o == target)
 
 
+def topic_router_predicate(
+    expert: int = 0,
+    *,
+    n_experts: int = 8,
+    k: int = 2,
+    dim: int = 16,
+    vocab: int = 256,
+    seq: int = 64,
+    seed: int = 0,
+    device="cuda",
+    resource: str = "cuda:0",
+    name: str = None,
+) -> Predicate:
+    """MoE top-k gate over mean-pooled token embeddings (``tokens`` column).
+
+    Passes rows whose top-1 expert == ``expert`` — content routing as a
+    predicate, with the fused moe_router kernel doing the gating."""
+    dev = _text_device(device)
+    emb, w_gate = router_tables(n_experts=n_experts, dim=dim, vocab=vocab,
+                                seed=seed, device=dev)
+
+    def fn(d):
+        with launch.thread_stream(dev):
+            toks = device_tokens(d["tokens"], seq, dev)
+            _, idx = ops.moe_topk_router(router_logits(emb, w_gate, toks), k)
+            return idx[:, 0].cpu().numpy()
+
+    name = name or f"routes_to_expert{expert}"
+    udf = UDF(
+        name, fn, columns=("tokens",), resource=resource,
+        warm_fn=one_row_probe(fn, {"tokens": (seq,)}, {"tokens": np.int32}),
+        cost_model=rooflines.moe_router(n_experts, k).cost_model,
+        proxy_cost=_token_proxy,
+        fingerprint=canonical_fingerprint(
+            "moe_router", expert=expert, n_experts=n_experts, k=k, dim=dim,
+            vocab=vocab, seq=seq, seed=seed, device=dev.type),
+    )
+    return Predicate(name, udf, compare=lambda o: o == expert)
+
+
+def ssd_scorer_predicate(
+    threshold: float = 0.0,
+    *,
+    seq: int = 64,
+    heads: int = 2,
+    head_dim: int = 4,
+    state: int = 4,
+    vocab: int = 256,
+    seed: int = 1,
+    device="cuda",
+    resource: str = "cuda:0",
+    name: str = None,
+) -> Predicate:
+    """Mamba-2 SSD sequence scorer over ``tokens``; passes score > threshold.
+
+    Token embeddings drive x/B/C; dt gates off padding (dt=0 there, so pads
+    never update the state). Score = mean of the scanned output."""
+    dev = _text_device(device)
+    tables = ssd_tables(heads=heads, head_dim=head_dim, state=state,
+                        vocab=vocab, seed=seed, device=dev)
+    chunk = block_divisor(seq, 64)
+
+    def fn(d):
+        with launch.thread_stream(dev):
+            toks = device_tokens(d["tokens"], seq, dev)
+            y, _ = ops.ssd(*ssd_inputs(tables, toks, heads=heads,
+                                       head_dim=head_dim, state=state),
+                           chunk=chunk)
+            return row_mean(y).cpu().numpy()
+
+    name = name or "ssd_score_pos"
+    udf = UDF(
+        name, fn, columns=("tokens",), resource=resource,
+        warm_fn=one_row_probe(fn, {"tokens": (seq,)}, {"tokens": np.int32}),
+        cost_model=rooflines.ssd(seq, heads, head_dim, state).cost_model,
+        proxy_cost=_token_proxy,
+        fingerprint=canonical_fingerprint(
+            "ssd", threshold=threshold, seq=seq, heads=heads,
+            head_dim=head_dim, state=state, vocab=vocab, seed=seed,
+            device=dev.type),
+    )
+    return Predicate(name, udf, compare=lambda o: o > threshold)
+
+
+def rglru_gate_predicate(
+    threshold: float = 0.0,
+    *,
+    seq: int = 64,
+    width: int = 16,
+    vocab: int = 256,
+    seed: int = 2,
+    device="cuda",
+    resource: str = "cuda:0",
+    name: str = None,
+) -> Predicate:
+    """RG-LRU recurrent scorer over ``tokens``: final-state mean > threshold."""
+    dev = _text_device(device)
+    emb_x, emb_r, emb_i, a_param = rglru_tables(width=width, vocab=vocab,
+                                                seed=seed, device=dev)
+
+    def fn(d):
+        with launch.thread_stream(dev):
+            toks = device_tokens(d["tokens"], seq, dev)
+            _, h_last = ops.rglru(emb_x[toks], emb_r[toks], emb_i[toks],
+                                  a_param)
+            return row_mean(h_last).cpu().numpy()
+
+    name = name or "rglru_gate_pos"
+    udf = UDF(
+        name, fn, columns=("tokens",), resource=resource,
+        warm_fn=one_row_probe(fn, {"tokens": (seq,)}, {"tokens": np.int32}),
+        cost_model=rooflines.rglru(seq, width).cost_model,
+        proxy_cost=_token_proxy,
+        fingerprint=canonical_fingerprint(
+            "rglru", threshold=threshold, seq=seq, width=width, vocab=vocab,
+            seed=seed, device=dev.type),
+    )
+    return Predicate(name, udf, compare=lambda o: o > threshold)
+
+
 # --------------------------------------------------------------------------- #
 # registry                                                                    #
 # --------------------------------------------------------------------------- #
 # kernel launch name (what StatsBoard entries report under) -> builder
 KERNEL_PREDICATES: Dict[str, Callable[..., Predicate]] = {
     "hsv_color": color_predicate,
+    "moe_router": topic_router_predicate,
+    "ssd": ssd_scorer_predicate,
+    "rglru": rglru_gate_predicate,
 }
 
 

@@ -1,10 +1,11 @@
 """Kernel-backed predicates of the port through its AQPExecutor, on the CPU.
 
-The hsv_color rows of the JAX package's tests/test_kernel_udfs.py: the
-executor's answer equals the oracle (and the JAX package's), launches land
-on the StatsBoard under the kernel's name, the hook is deregistered after
-a run and after a worker error, zero-row batches and bucket padding behave,
-and a predicate named after its kernel keeps its own entry.
+The rows of the JAX package's tests/test_kernel_udfs.py for the kernels
+ported so far: the executor's answer equals the oracle (and the JAX
+package's), launches land on the StatsBoard under the kernel's name, the
+hook is deregistered after a run and after a worker error, zero-row
+batches and bucket padding behave for every registered predicate, and a
+predicate named after its kernel keeps its own entry.
 """
 import numpy as np
 import torch
@@ -23,14 +24,21 @@ from repro_torch.kernels import hsv_color, launch
 torch.set_num_threads(1)
 
 SIZE = 8     # crop height/width for the hsv predicate
+SEQ = 16     # token sequence length for the text predicates
 
 
 def _dataset(n=24, seed=0):
-    """Crops with a planted dark third, plus a row id column."""
+    """Crops with a planted dark third, random token sequences and a row
+    id column."""
     rng = np.random.default_rng(seed)
     crops = rng.uniform(0, 255, (n, SIZE, SIZE, 3)).astype(np.float32)
     crops[: n // 3] = rng.uniform(0, 40, (n // 3, SIZE, SIZE, 3))  # black-ish
-    return {"crop": crops, "rid": np.arange(n)}
+    tokens = rng.integers(1, 256, (n, 12)).astype(np.int32)
+    return {"crop": crops, "tokens": tokens, "rid": np.arange(n)}
+
+
+def _build_kw(kernel):
+    return {"size": SIZE} if kernel == "hsv_color" else {"seq": SEQ}
 
 
 def _batches(core, data, per=6):
@@ -122,13 +130,13 @@ def test_hook_deregistered_when_worker_raises():
     assert ex._kernel_hook is None
 
 
-def test_zero_row_path_works_for_every_kernel_predicate():
-    for kernel in sorted(udfs.KERNEL_PREDICATES):
-        p = udfs.build_predicate(kernel, size=SIZE, device="cpu")
-        empty = {k: v[:0] for k, v in _dataset(n=6).items()}
-        out = p.udf(empty)
-        assert out.shape[0] == 0
-        assert p.mask_from_outputs(out).shape == (0,)
+@pytest.mark.parametrize("kernel", sorted(udfs.KERNEL_PREDICATES))
+def test_zero_row_path_works_for_every_kernel_predicate(kernel):
+    p = udfs.build_predicate(kernel, device="cpu", **_build_kw(kernel))
+    empty = {k: v[:0] for k, v in _dataset(n=6).items()}
+    out = p.udf(empty)
+    assert out.shape[0] == 0
+    assert p.mask_from_outputs(out).shape == (0,)
 
 
 def test_zero_row_udf_never_calls_fn_with_empty_arrays():
@@ -154,6 +162,21 @@ def test_bucket_padding_matches_unbucketed_outputs():
     with launch.launch_hooks(events.append):
         bucketed = p.udf(data)     # pads to 8 rows, slices back
     assert [e.rows for e in events if e.rows > 1] == [8]
+    p.udf.bucket = False
+    np.testing.assert_array_equal(bucketed, p.udf(data))
+
+
+@pytest.mark.parametrize("kernel", ["moe_router", "rglru", "ssd"])
+def test_bucket_padding_matches_unbucketed_outputs_for_text_predicates(kernel):
+    """The JAX package allows rtol 1e-5 here; the port's featurizer sums in
+    an order fixed by the shapes, so a row's output does not move at all."""
+    p = udfs.build_predicate(kernel, device="cpu", seq=SEQ)
+    data = _dataset(n=5, seed=3)   # 5 -> bucketed to 8
+    events = []
+    with launch.launch_hooks(events.append):
+        bucketed = p.udf(data)     # pads to 8 rows, slices back
+    per_row = 1 if kernel == "moe_router" else SEQ
+    assert [e.rows for e in events if e.rows > per_row] == [8 * per_row]
     p.udf.bucket = False
     np.testing.assert_array_equal(bucketed, p.udf(data))
 
@@ -209,7 +232,7 @@ def test_detector_launches_are_hooked_and_classifier_launches_are_not():
 
 def test_registry_and_fingerprints():
     with pytest.raises(KeyError, match="no kernel predicate"):
-        udfs.build_predicate("moe_router")
+        udfs.build_predicate("flash_attention")
     with pytest.raises(ValueError, match="already registered"):
         udfs.register_kernel_predicate("hsv_color", udfs.color_predicate)
     black = udfs.color_predicate("black", size=SIZE, device="cpu")
