@@ -1,6 +1,7 @@
 """Chip smoke test of the PyTorch port: build, check and time its kernels
-on one CUDA card, then drive the UC1 lost-dog query and the review-triage
-text query through them.
+on one CUDA card, then drive the UC1 lost-dog query, the review-triage
+text query, the kernel predicates and the multi-tenant query service
+through them.
 
     python3 chip_smoke.py
 
@@ -11,7 +12,8 @@ failed phase. Phases, in order:
 2. build   — compile every kernel from the sources in the checkout, one
              nvcc per source, all at once;
 3. kernels — each kernel against its plain PyTorch version on the card,
-             then timed with CUDA events beside its bound;
+             then timed with CUDA events beside its bound (and, for the
+             attention kernels, beside scaled_dot_product_attention);
 4. query   — the lost-dog query (5 minutes of 30-fps video) on the card
              under every eddy policy; row ids against the plain version
              on the CPU, launches on the kernel counter and the board;
@@ -22,9 +24,13 @@ failed phase. Phases, in order:
              row ids against the whole-table oracle through the kernels and
              through the plain versions, launches on the counters and the
              board;
-7. registry — each text kernel's predicate from ``build_predicate`` in an
-             executor over the same rows, against its whole-table oracle;
-8. the ``{"kernels": [...]}`` line, then the device line last.
+7. registry — each text and attention kernel's predicate from
+             ``build_predicate`` in an executor over the same rows, against
+             its whole-table oracle;
+8. service — the port's QueryService serving the triage, attention and
+             decode queries at once over the first 20,000 of those
+             reviews, each tenant against its oracle;
+9. the ``{"kernels": [...]}`` line, then the device line last.
 """
 from __future__ import annotations
 
@@ -38,6 +44,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -45,14 +52,24 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 TOL = 1e-6            # kernel vs plain version, max abs histogram error
 TOL_TIGHT = dict(rtol=1e-4, atol=1e-5)  # text kernels vs plain versions
 SCORE_ATOL = 1e-8     # SSD scores at the library shapes, kernel vs plain
+TOL_BF16 = dict(rtol=8e-2, atol=8e-2)  # bfloat16 attention (tests/test_kernels.py)
+ATT_SCORE_ATOL = 1e-7  # attention scores at the library shapes, kernel vs plain
 TIME_ITERS = 100
 QUERY_FRAMES = 9000   # 5 minutes of 30-fps video
 QUERY_SEED = 7
 TRIAGE_REVIEWS = 50_000
+SERVICE_REVIEWS = 20_000  # the first reviews of the same table, for phase 8
 SEQ = 64              # the text predicates' token window
+ATT_SEQ = 32          # the attention predicates' token window
 BUCKETS = (1, 2, 4, 8, 16, 32)  # the executor's bucketed batch sizes
 BIG = 4096            # rows for the throughput case
-KERNELS = ("hsv_color", "moe_router", "ssd", "rglru")
+KERNELS = ("hsv_color", "moe_router", "ssd", "rglru", "flash_attention",
+           "decode_attention")
+# bench_kernels' shapes: flash (B, S, H, Hkv, D, window), causal; decode
+# (B, S, H, Hkv, D) with full lengths
+FLASH_BENCH = ((1, 1024, 8, 2, 64, 0), (2, 2048, 8, 2, 64, 0),
+               (1, 4096, 4, 1, 64, 512))
+DECODE_BENCH = (8, 4096, 8, 2, 64)
 
 
 def phase(name: str) -> None:
@@ -426,6 +443,296 @@ def time_text(inputs: TextInputs, b: int) -> dict:
 
 
 # --------------------------------------------------------------------------- #
+# phase 3: the attention kernels against their plain versions                 #
+# --------------------------------------------------------------------------- #
+def bhsd(t: torch.Tensor) -> torch.Tensor:
+    """(B, S, H, D) -> (B * H, S, D), contiguous: the kernels' layout."""
+    b, s, h, d = t.shape
+    return t.transpose(1, 2).reshape(b * h, s, d).contiguous()
+
+
+def score_of(out_bhsd: torch.Tensor, heads: int) -> torch.Tensor:
+    """(B * H, S, D) kernel output -> (B,) predicate scores, the mean over
+    (S, H, D) as the attention predicates take it."""
+    from repro_torch.udfs.library import row_mean
+    bh, s, d = out_bhsd.shape
+    return row_mean(out_bhsd.reshape(bh // heads, heads, s, d).transpose(1, 2))
+
+
+def check_close(name: str, got, want, label: str, tol=TOL_TIGHT,
+                zero_rows=None, score=None) -> float:
+    """Hold one kernel result against its plain version: every element
+    within tol, no NaN, the given rows exactly 0, and the predicate scores
+    (``score``: (got, want)) within ATT_SCORE_ATOL."""
+    err, ok = within(got, want, **tol)
+    ok = ok and not bool(torch.isnan(got).any())
+    extra = ""
+    if zero_rows is not None:
+        zero = bool((got[zero_rows] == 0).all())
+        ok, extra = ok and zero, f", masked rows exactly 0: {zero}"
+    if score is not None:
+        err_s, ok_s = within(score[0], score[1], 0.0, ATT_SCORE_ATOL)
+        ok, extra = ok and ok_s, f"{extra}, score max_abs_err {err_s!r}"
+    print(f"  {name} {label}: {tuple(got.shape)} {got.dtype} max_abs_err "
+          f"{err!r}{extra}", flush=True)
+    if not ok:
+        raise AssertionError(f"{name} kernel disagrees on {label}")
+    return err
+
+
+class AttentionInputs:
+    """The attention predicates' own kernel inputs for the first rows of
+    the kept review table, made on the card by the library's featurizer,
+    in the kernels' layout."""
+
+    def __init__(self, toks_kept: np.ndarray):
+        from repro_torch.udfs import library as lib
+        dev = torch.device("cuda")
+        self.toks = lib.device_tokens(toks_kept[:BIG], ATT_SEQ, dev)
+        self.flash = lib.attention_tables(device=dev)
+        self.decode = lib.decode_tables(device=dev)
+
+    def flash_args(self, b: int):
+        """(q, k, v), each (2B, S, 8); group 1."""
+        from repro_torch.udfs.library import attention_inputs
+        return tuple(bhsd(t) for t in attention_inputs(self.flash,
+                                                       self.toks[:b]))
+
+    def decode_args(self, b: int):
+        """(q (B, 2, 8), k_cache, v_cache (B, S, 8), lengths (B,) int32);
+        one kv head."""
+        from repro_torch.udfs.library import decode_inputs
+        q, kc, vc, lens = decode_inputs(self.decode, self.toks[:b])
+        return q.contiguous(), bhsd(kc), bhsd(vc), lens
+
+
+def check_attention_kernels(inputs: AttentionInputs) -> dict:
+    """Phase 3 for flash_attention and decode_attention: the JAX package's
+    test shapes through ``ops`` (f32 and bf16, padded S, windows), the
+    predicates' inputs at every bucketed batch and at BIG rows, fully
+    masked rows, and the ops' block checks. Returns each kernel's largest
+    float32 error and the largest bfloat16 error."""
+    from repro_torch.kernels import decode_attention, flash_attention, ops, ref
+    rng = np.random.default_rng(13)
+
+    def T(a, dtype=torch.float32):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).cuda().to(dtype)
+
+    err = {"flash_attention": 0.0, "decode_attention": 0.0, "bf16": 0.0}
+    # ---- flash: the JAX suite's shapes through ops (S = 200 is padded)
+    for b, s, h, hkv, d in ((1, 128, 4, 4, 32), (2, 256, 4, 2, 64),
+                            (1, 256, 8, 1, 64), (2, 200, 4, 2, 32)):
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (T(rng.standard_normal((b, s, n, d)), dtype)
+                       for n in (h, hkv, hkv))
+            e = check_close("flash_attention", ops.flash_attention(q, k, v),
+                            ref.mha_attention(q, k, v),
+                            f"ops B={b} S={s} H={h} Hkv={hkv} D={d}",
+                            TOL_TIGHT if dtype == torch.float32 else TOL_BF16)
+            key = "flash_attention" if dtype == torch.float32 else "bf16"
+            err[key] = max(err[key], e)
+    for window in (32, 100, 256):
+        q, k, v = (T(rng.standard_normal((2, 256, n, 32))) for n in (4, 2, 2))
+        err["flash_attention"] = max(err["flash_attention"], check_close(
+            "flash_attention", ops.flash_attention(q, k, v, window=window),
+            ref.mha_attention(q, k, v, window=window), f"ops window={window}"))
+    # ---- flash: a window that hides every key from the queries past the
+    # keys' end (Sq > Sk): rows >= 39 of 64, and whole tiles of 128 rows
+    for sq in (64, 128):
+        q = T(rng.standard_normal((4, sq, 16)))
+        k, v = (T(rng.standard_normal((2, 32, 16))) for _ in range(2))
+        got = flash_attention.flash_attention_bhsd(q, k, v, group=2, window=8)
+        want = ref.flash_attention_bhsd(q, k, v, group=2, window=8)
+        err["flash_attention"] = max(err["flash_attention"], check_close(
+            "flash_attention", got, want, f"Sq={sq} Sk=32 window=8",
+            zero_rows=(slice(None), slice(39, None))))
+    # ---- flash: the predicate's inputs
+    for b in (*BUCKETS, BIG):
+        q, k, v = inputs.flash_args(b)
+        got = flash_attention.flash_attention_bhsd(q, k, v, group=1)
+        want = ref.flash_attention_bhsd(q, k, v, group=1)
+        err["flash_attention"] = max(err["flash_attention"], check_close(
+            "flash_attention", got, want, f"library B={b}",
+            score=(score_of(got, 2), score_of(want, 2))))
+    # ---- decode: the JAX suite's shapes through ops, lengths in [1, S]
+    for b, s, h, hkv, d in ((2, 512, 4, 2, 64), (1, 256, 8, 8, 32),
+                            (3, 512, 8, 1, 64)):
+        q = T(rng.standard_normal((b, h, d)))
+        kc, vc = (T(rng.standard_normal((b, s, hkv, d))) for _ in range(2))
+        lens = torch.from_numpy(rng.integers(1, s + 1, (b,)).astype(np.int32)).cuda()
+        err["decode_attention"] = max(err["decode_attention"], check_close(
+            "decode_attention", ops.decode_attention(q, kc, vc, lens),
+            ref.decode_attention(q, kc, vc, lens),
+            f"ops B={b} S={s} H={h} Hkv={hkv} D={d}"))
+    # ---- decode: lengths 0 (written as 0), past S (clamped), 1 and 17
+    q = T(rng.standard_normal((8, 4, 64)))
+    kc, vc = (T(rng.standard_normal((8, 96, 64))) for _ in range(2))
+    lens = torch.tensor([0, 101, 1, 17], dtype=torch.int32, device="cuda")
+    got = decode_attention.decode_attention_bkgd(q, kc, vc, lens, num_kv_heads=2)
+    want = ref.decode_attention_bkgd(q, kc, vc, lens, num_kv_heads=2)
+    err["decode_attention"] = max(err["decode_attention"], check_close(
+        "decode_attention", got, want, "lengths 0, 101 > S=96, 1, 17",
+        zero_rows=slice(0, 2)))
+    # ---- decode: S = 40 (one block of 40) through ops; S = 48 with
+    # blocks of 32 raises, as the JAX package's assert does
+    q = T(rng.standard_normal((2, 4, 16)))
+    kc, vc = (T(rng.standard_normal((2, 40, 2, 16))) for _ in range(2))
+    lens = torch.tensor([40, 3], dtype=torch.int32, device="cuda")
+    err["decode_attention"] = max(err["decode_attention"], check_close(
+        "decode_attention", ops.decode_attention(q, kc, vc, lens),
+        ref.decode_attention(q, kc, vc, lens), "ops S=40 block_k=256"))
+    cache48 = torch.zeros((2, 48, 2, 16), device="cuda")
+    try:
+        ops.decode_attention(q, cache48, cache48, lens, block_k=32)
+    except ValueError as e:
+        print(f"  decode_attention ops S=48 block_k=32 raises: {e}")
+    else:
+        raise AssertionError("decode with S not a multiple of the block ran")
+    # ---- decode: the predicate's inputs
+    for b in (*BUCKETS, BIG):
+        q, kc, vc, lens = inputs.decode_args(b)
+        got = decode_attention.decode_attention_bkgd(q, kc, vc, lens,
+                                                     num_kv_heads=1)
+        want = ref.decode_attention_bkgd(q, kc, vc, lens, num_kv_heads=1)
+        err["decode_attention"] = max(err["decode_attention"], check_close(
+            "decode_attention", got, want, f"library B={b}",
+            score=(score_of(got, 1), score_of(want, 1))))
+    print(f"  largest errors: float32 flash {err['flash_attention']!r}, "
+          f"decode {err['decode_attention']!r}; bfloat16 flash "
+          f"{err['bf16']!r} (tolerance {TOL_BF16})", flush=True)
+    return err
+
+
+def visible_pairs(s: int, causal: bool, window: int) -> int:
+    """(query, key) pairs a causal or sliding-window mask leaves over S."""
+    i = np.arange(s)
+    lo = np.maximum(i - window + 1, 0) if window > 0 else np.zeros_like(i)
+    hi = i + 1 if causal else np.full_like(i, s)
+    return int((hi - lo).sum())
+
+
+def time_flash(q, k, v, *, group: int, causal: bool, window: int,
+               label: str) -> dict:
+    """Times of the flash kernel on (BH, S, D) inputs in its layout:
+    through the wrapper, at its C entry point, of the plain version and of
+    ``scaled_dot_product_attention`` on the same work, beside the bound
+    (each input read once and the output written once; 4 flops per
+    visible (query, key) pair and dim)."""
+    from repro_torch.kernels import _build, flash_attention, ref
+    bh, s, d = q.shape
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream().cuda_stream
+    call = _build.load("flash_attention").lib.flash_attention_bhsd
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, s,
+            s, d, group, int(causal), window, d ** -0.5, 0)
+    if call(*args, stream) != 0:
+        raise AssertionError("flash_attention entry point failed")
+    # the same work for scaled_dot_product_attention: the programs as the
+    # heads of one sequence (query head i reads kv head i // group)
+    q4, k4, v4 = q.unsqueeze(0), k.unsqueeze(0), v.unsqueeze(0)
+    if window > 0:
+        i = torch.arange(s, device=q.device)
+        mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
+        library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            q4, k4, v4, attn_mask=mask, enable_gqa=True)
+    else:
+        library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            q4, k4, v4, is_causal=causal, enable_gqa=True)
+    big = bh * s > 2 * 4096
+    t = {
+        "ms": time_ms(lambda: flash_attention.flash_attention_bhsd(
+            q, k, v, group=group, causal=causal, window=window), TIME_ITERS),
+        "entry_ms": time_ms(lambda: call(*args, stream), TIME_ITERS),
+        "plain_ms": time_ms(lambda: ref.flash_attention_bhsd(
+            q, k, v, group=group, causal=causal, window=window),
+            10 if big else TIME_ITERS),
+        "library_ms": time_ms(library, TIME_ITERS),
+        **dict(zip(("bound_ms", "bound_by"), bound_ms(
+            (2 * q.numel() + k.numel() + v.numel()) * q.element_size(),
+            4.0 * visible_pairs(s, causal, window) * bh * d))),
+    }
+    print(f"  flash_attention {label}: kernel {t['ms']!r} ms (entry point "
+          f"{t['entry_ms']!r} ms), plain {t['plain_ms']!r} ms, "
+          f"scaled_dot_product_attention {t['library_ms']!r} ms, bound "
+          f"{t['bound_ms']!r} ms ({t['bound_by']})", flush=True)
+    return t
+
+
+def time_decode(q, kc, vc, lens, *, num_kv_heads: int, label: str) -> dict:
+    """Times of the decode kernel on (B * Hkv, G, D) queries against (B *
+    Hkv, S, D) caches, as ``time_flash`` times the flash kernel; the bound
+    counts the cache entries the lengths leave (4 flops a key, row and
+    dim) and SDPA gets the same work as a length mask."""
+    from repro_torch.kernels import _build, decode_attention, ref
+    bkv, g, d = q.shape
+    s = kc.shape[1]
+    b = bkv // num_kv_heads
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream().cuda_stream
+    call = _build.load("decode_attention").lib.decode_attention_bkgd
+    args = (q.data_ptr(), kc.data_ptr(), vc.data_ptr(), lens.data_ptr(),
+            out.data_ptr(), bkv, g, s, d, num_kv_heads, d ** -0.5, 0)
+    if call(*args, stream) != 0:
+        raise AssertionError("decode_attention entry point failed")
+    used = lens.to(torch.int64).clamp(0, s).repeat_interleave(num_kv_heads)
+    keys = int(used.sum())
+    q4 = q.reshape(b, num_kv_heads * g, 1, d)
+    k4 = kc.reshape(b, num_kv_heads, s, d)
+    v4 = vc.reshape(b, num_kv_heads, s, d)
+    mask = (torch.arange(s, device=q.device)[None, :]
+            < lens.to(torch.int64)[:, None])[:, None, None, :]
+    t = {
+        "ms": time_ms(lambda: decode_attention.decode_attention_bkgd(
+            q, kc, vc, lens, num_kv_heads=num_kv_heads), TIME_ITERS),
+        "entry_ms": time_ms(lambda: call(*args, stream), TIME_ITERS),
+        "plain_ms": time_ms(lambda: ref.decode_attention_bkgd(
+            q, kc, vc, lens, num_kv_heads=num_kv_heads), TIME_ITERS),
+        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, attn_mask=mask, enable_gqa=True), TIME_ITERS),
+        **dict(zip(("bound_ms", "bound_by"), bound_ms(
+            (2 * q.numel() + 2 * keys * d) * q.element_size()
+            + lens.numel() * 4, 4.0 * keys * g * d))),
+    }
+    print(f"  decode_attention {label}: kernel {t['ms']!r} ms (entry point "
+          f"{t['entry_ms']!r} ms), plain {t['plain_ms']!r} ms, "
+          f"scaled_dot_product_attention {t['library_ms']!r} ms, bound "
+          f"{t['bound_ms']!r} ms ({t['bound_by']})", flush=True)
+    return t
+
+
+def time_attention(inputs: AttentionInputs, b: int) -> dict:
+    """Both attention kernels on the predicates' inputs for b rows."""
+    q, k, v = inputs.flash_args(b)
+    flash = time_flash(q, k, v, group=1, causal=True, window=0,
+                       label=f"B={b}")
+    dq, kc, vc, lens = inputs.decode_args(b)
+    decode = time_decode(dq, kc, vc, lens, num_kv_heads=1, label=f"B={b}")
+    return {"flash_attention": flash, "decode_attention": decode}
+
+
+def time_attention_bench() -> dict:
+    """Both attention kernels at the JAX package's bench_kernels shapes."""
+    rng = np.random.default_rng(14)
+    out = {}
+    for b, s, h, hkv, d, window in FLASH_BENCH:
+        q, k, v = (bhsd(torch.from_numpy(rng.standard_normal(
+            (b, s, n, d)).astype(np.float32)).cuda()) for n in (h, hkv, hkv))
+        label = f"bench B={b} S={s} H={h} Hkv={hkv} D={d} window={window}"
+        out[label] = {"flash_attention": time_flash(
+            q, k, v, group=h // hkv, causal=True, window=window, label=label)}
+    b, s, h, hkv, d = DECODE_BENCH
+    q = torch.from_numpy(rng.standard_normal((b * hkv, h // hkv, d)).astype(
+        np.float32)).cuda()
+    kc, vc = (bhsd(torch.from_numpy(rng.standard_normal(
+        (b, s, hkv, d)).astype(np.float32)).cuda()) for _ in range(2))
+    lens = torch.full((b,), s, dtype=torch.int32, device="cuda")
+    label = f"bench B={b} S={s} H={h} Hkv={hkv} D={d}"
+    out[label] = {"decode_attention": time_decode(
+        q, kc, vc, lens, num_kv_heads=hkv, label=label)}
+    return out
+
+
+# --------------------------------------------------------------------------- #
 # phases 6 and 7: the review-triage query and the text registry               #
 # --------------------------------------------------------------------------- #
 def triage_oracles(table, toks_kept: np.ndarray, ids_kept: np.ndarray) -> dict:
@@ -594,21 +901,71 @@ def run_triage(table, expect: set) -> dict:
             "sizes": {k: dict(sorted(v.items())) for k, v in sizes.items()}}
 
 
+def attention_oracle(kernel: str, toks_kept: np.ndarray,
+                     ids_kept: np.ndarray, expect: set) -> dict:
+    """The attention predicate's whole-table oracle through the kernel
+    wrapper and through the plain version on the card, on the same
+    featurized inputs: both must give ``expect`` (the predicate's own)."""
+    from repro_torch.kernels import decode_attention, flash_attention, ref
+    from repro_torch.udfs import library as lib
+    dev = torch.device("cuda")
+    toks = lib.device_tokens(toks_kept, ATT_SEQ, dev)
+    if kernel == "flash_attention":
+        q, k, v = (bhsd(t) for t in lib.attention_inputs(
+            lib.attention_tables(device=dev), toks))
+        score_k = score_of(flash_attention.flash_attention_bhsd(
+            q, k, v, group=1), 2)
+        score_p = score_of(ref.flash_attention_bhsd(q, k, v, group=1), 2)
+    else:
+        q, kc, vc, lens = lib.decode_inputs(lib.decode_tables(device=dev), toks)
+        kc, vc = bhsd(kc), bhsd(vc)
+        score_k = score_of(decode_attention.decode_attention_bkgd(
+            q.contiguous(), kc, vc, lens, num_kv_heads=1), 1)
+        score_p = score_of(ref.decode_attention_bkgd(
+            q.contiguous(), kc, vc, lens, num_kv_heads=1), 1)
+    torch.cuda.synchronize()
+    through_kernel = set(ids_kept[(score_k > 0).cpu().numpy()].tolist())
+    through_plain = set(ids_kept[(score_p > 0).cpu().numpy()].tolist())
+    stats = {"min_abs_score": float(score_p.abs().min()),
+             "score_max_abs_err": float((score_k - score_p).abs().max()),
+             "decisions_differing": int(((score_k > 0) != (score_p > 0)).sum())}
+    print(f"  {kernel} oracle: {len(expect)} rows through the predicate, "
+          f"{len(through_kernel)} through the kernel wrapper, "
+          f"{len(through_plain)} through the plain version; smallest |score| "
+          f"{stats['min_abs_score']!r}, kernel vs plain score "
+          f"{stats['score_max_abs_err']!r}, decisions differing "
+          f"{stats['decisions_differing']}", flush=True)
+    if not (expect == through_kernel == through_plain):
+        raise AssertionError(f"the {kernel} oracles disagree")
+    return stats
+
+
 def run_registry(toks_kept: np.ndarray, ids_kept: np.ndarray) -> dict:
-    """Each text kernel's predicate from ``build_predicate`` in an executor
-    over the kept rows, against its own whole-table oracle. The counters
-    are set to 0 after the oracles and read after the three runs."""
+    """Each kernel predicate of the text table from ``build_predicate`` in
+    an executor over the kept rows, against its own whole-table oracle
+    (for the attention predicates also computed through the kernel wrapper
+    and the plain version on the card). The counters are set to 0 after
+    the oracles and read after the five runs."""
     from repro_torch.core import Query, optimize
     from repro_torch.core.policies import CostDriven
     from repro_torch.examples.review_triage import source
-    from repro_torch.kernels import launch, moe_router, rglru, ssd
+    from repro_torch.kernels import (decode_attention, flash_attention, launch,
+                                     moe_router, rglru, ssd)
     from repro_torch.udfs import build_predicate
     kept_table = {"tokens": toks_kept, "_row_id": ids_kept}
-    preds = {k: build_predicate(k, device="cuda", seq=SEQ)
-             for k in ("moe_router", "ssd", "rglru")}
+    seqs = {"moe_router": SEQ, "ssd": SEQ, "rglru": SEQ,
+            "flash_attention": ATT_SEQ, "decode_attention": ATT_SEQ}
+    rows_per_input = {"moe_router": 1, "ssd": SEQ, "rglru": SEQ,
+                      "flash_attention": 2 * ATT_SEQ, "decode_attention": 2}
+    preds = {k: build_predicate(k, device="cuda", seq=seq)
+             for k, seq in seqs.items()}
     expect = {k: set(ids_kept[p.mask_from_outputs(
         p.udf({"tokens": toks_kept}))].tolist()) for k, p in preds.items()}
-    modules = {"moe_router": moe_router, "ssd": ssd, "rglru": rglru}
+    oracles = {k: attention_oracle(k, toks_kept, ids_kept, expect[k])
+               for k in ("flash_attention", "decode_attention")}
+    modules = {"moe_router": moe_router, "ssd": ssd, "rglru": rglru,
+               "flash_attention": flash_attention,
+               "decode_attention": decode_attention}
     for m in modules.values():
         m.launches = 0
     out = {}
@@ -623,9 +980,8 @@ def run_registry(toks_kept: np.ndarray, ids_kept: np.ndarray) -> dict:
         finally:
             wall = time.perf_counter() - t0
             launch.remove_launch_hook(hook)
-        sizes = collections.Counter(
-            ev.rows // SEQ if kernel != "moe_router" else ev.rows
-            for ev in events if ev.name == kernel)
+        sizes = collections.Counter(ev.rows // rows_per_input[kernel]
+                                    for ev in events if ev.name == kernel)
         entry = plan.executor.stats_snapshot().get(kernel)
         print(f"  {kernel} ({p.name}): {len(got)} of {len(ids_kept)} rows in "
               f"{wall!r} s; board launches "
@@ -643,7 +999,98 @@ def run_registry(toks_kept: np.ndarray, ids_kept: np.ndarray) -> dict:
     for kernel, n in launches.items():
         if not (n > 0 and n >= out[kernel]["board_launches"]):
             raise AssertionError(f"the registry run did not go through {kernel}")
-    return {"runs": out, "launches": launches}
+    return {"runs": out, "launches": launches, "oracles": oracles,
+            "expect": expect}
+
+
+# --------------------------------------------------------------------------- #
+# phase 8: three tenants of the port's QueryService at once                   #
+# --------------------------------------------------------------------------- #
+def run_service(reviews, expect: dict) -> dict:
+    """The triage, attention and decode queries submitted together to one
+    ``QueryService(max_concurrent=3)``, each built as the serving layer's
+    CLI builds its query (``Query`` over ``review_source`` with ``rating <=
+    2``, ``batches_of``); each tenant's rows against its oracle. The
+    kernel counters are set to 0 just before the submits and read after
+    the last result; a launch hook counts the launches each tenant's
+    board saw (those made under a tenant's launch context)."""
+    from repro_torch import udfs
+    from repro_torch.core import Query, TrivialPredicate, batches_of
+    from repro_torch.core.policies import EDDY_POLICIES, DataAware
+    from repro_torch.examples.review_triage import triage_predicates
+    from repro_torch.kernels import (decode_attention, flash_attention, launch,
+                                     moe_router, ssd)
+    from repro_torch.launch.serve import QueryService, review_source
+    tenants = {
+        "triage": (triage_predicates(expert=0, device="cuda"), "hydro"),
+        "attention": ([udfs.attention_scorer_predicate(device="cuda")], "cost"),
+        "decode": ([udfs.decode_relevance_predicate(device="cuda")],
+                   "selectivity"),
+    }
+    modules = {"moe_router": moe_router, "ssd": ssd,
+               "flash_attention": flash_attention,
+               "decode_attention": decode_attention}
+    board = collections.Counter()
+    sizes = {"flash_attention": collections.Counter(),
+             "decode_attention": collections.Counter()}
+    per_row = {"flash_attention": 2 * ATT_SEQ, "decode_attention": 2}
+
+    def count(ev):
+        if launch.current_launch_context() is not None:
+            board[ev.name] += 1
+            if ev.name in sizes:
+                sizes[ev.name][ev.rows // per_row[ev.name]] += 1
+
+    reports = {}
+    hook = launch.add_launch_hook(count)
+    t0 = time.perf_counter()
+    try:
+        with QueryService(max_concurrent=3) as svc:
+            for m in modules.values():
+                m.launches = 0
+            handles = {}
+            for name, (preds, policy) in tenants.items():
+                q = Query(source=review_source(reviews), predicates=preds,
+                          trivial=[TrivialPredicate("rating", "<=", 2)])
+                handles[name] = svc.submit(
+                    preds, batches_of(q), policy=EDDY_POLICIES[policy](),
+                    laminar_policy_factory=DataAware, max_workers=4,
+                    qid=name)
+            for name, h in handles.items():
+                reports[name] = h.result(timeout=900)
+            launches = {k: m.launches for k, m in modules.items()}
+            snapshot = svc.snapshot()
+    finally:
+        wall = time.perf_counter() - t0
+        launch.remove_launch_hook(hook)
+    out = {"wall_s": wall, "tenants": {}, "launches": launches,
+           "board": dict(board), "snapshot": snapshot,
+           "sizes": {k: dict(sorted(v.items())) for k, v in sizes.items()}}
+    for name, rep in reports.items():
+        got = set(map(int, rep.row_ids))
+        print(f"  {name} ({tenants[name][1]}): {rep.state}, {len(got)} rows, "
+              f"queue {rep.queue_time_s!r} s, eval {rep.eval_time_s!r} s, "
+              f"{rep.batches} batches; board {list(rep.board_predicates)}",
+              flush=True)
+        if got != expect[name]:
+            raise AssertionError(
+                f"service tenant {name}: {len(got)} rows, oracle "
+                f"{len(expect[name])}; missing {sorted(expect[name] - got)[:10]}"
+                f" extra {sorted(got - expect[name])[:10]}")
+        out["tenants"][name] = {
+            "rows": len(got), "policy": tenants[name][1],
+            "queue_time_s": rep.queue_time_s, "eval_time_s": rep.eval_time_s,
+            "batches": rep.batches, "board_predicates": rep.board_predicates}
+    print(f"  service wall {wall!r} s; snapshot {snapshot}")
+    print(f"  kernel launches {launches}, board launches {dict(board)}, "
+          f"attention launch sizes {out['sizes']}", flush=True)
+    if snapshot["completed"] != 3:
+        raise AssertionError(f"the service completed {snapshot['completed']} "
+                             "of 3 queries")
+    for kernel, n in launches.items():
+        if not (n > 0 and n >= board[kernel]):
+            raise AssertionError(f"the service did not go through {kernel}")
+    return out
 
 
 def main() -> int:
@@ -724,7 +1171,8 @@ def main() -> int:
                for b in (16, 32, 4096)}
 
     t0 = time.perf_counter()
-    reviews = review_table(make_reviews(TRIAGE_REVIEWS, seed=0))
+    review_list = make_reviews(TRIAGE_REVIEWS, seed=0)
+    reviews = review_table(review_list)
     kept = reviews["rating"] <= 2
     toks_kept, ids_kept = reviews["tokens"][kept], reviews["_row_id"][kept]
     print(f"\n  make_reviews({TRIAGE_REVIEWS}, seed=0): {int(kept.sum())} "
@@ -734,6 +1182,13 @@ def main() -> int:
     max_errs = check_text_kernels(inputs)
     max_errs["hsv_color"] = max_err
     text_timings = {b: time_text(inputs, b) for b in (*BUCKETS, BIG)}
+    print()
+    att_inputs = AttentionInputs(toks_kept)
+    att_errs = check_attention_kernels(att_inputs)
+    max_errs.update((k, att_errs[k]) for k in ("flash_attention",
+                                                "decode_attention"))
+    att_timings = {BIG: time_attention(att_inputs, BIG)}
+    att_bench = time_attention_bench()
 
     # ------------------------------------------------------------- 4 query
     phase(f"4 lost-dog query, SyntheticVideo({QUERY_FRAMES}, seed={QUERY_SEED})")
@@ -853,11 +1308,25 @@ def main() -> int:
     triage_s = time.perf_counter() - t0
 
     # ------------------------------------------------------------- 7 registry
-    phase("7 text predicates from the registry, each in an executor")
+    phase("7 text and attention predicates from the registry, each in an "
+          "executor")
     registry = run_registry(toks_kept, ids_kept)
+    for name in ("flash_attention", "decode_attention"):
+        max_errs[name] = max(max_errs[name],
+                             registry["oracles"][name]["score_max_abs_err"])
 
-    # ------------------------------------------------------------- 8 lines
-    phase("8 summary")
+    # ------------------------------------------------------------- 8 service
+    phase(f"8 QueryService: triage, attention and decode tenants at once over "
+          f"the first {SERVICE_REVIEWS} of make_reviews({TRIAGE_REVIEWS}, "
+          "seed=0)")
+    served = {r.rid for r in review_list[:SERVICE_REVIEWS]}
+    service = run_service(review_list[:SERVICE_REVIEWS], {
+        "triage": oracle["expect"] & served,
+        "attention": registry["expect"]["flash_attention"] & served,
+        "decode": registry["expect"]["decode_attention"] & served})
+
+    # ------------------------------------------------------------- 9 lines
+    phase("9 summary")
     main_sizes_text = {**triage["sizes"],
                        "rglru": registry["runs"]["rglru"]["sizes"]}
     text_main = {name: max(c, key=lambda b: (c[b], -b))
@@ -865,6 +1334,10 @@ def main() -> int:
     for name, b in text_main.items():
         if b not in text_timings:
             text_timings[b] = time_text(inputs, b)
+    att_main = {name: max(c, key=lambda b: (c[b], -b))
+                for name, c in service["sizes"].items()}
+    for b in set(att_main.values()) - set(att_timings):
+        att_timings[b] = time_attention(att_inputs, b)
     summary = {
         "card": card, "query": query, "query_frames": QUERY_FRAMES,
         "dog_crops": n_dogs, "expected_rows": len(expect),
@@ -875,13 +1348,18 @@ def main() -> int:
         "triage": {"reviews": TRIAGE_REVIEWS, **oracle["stats"],
                    "phase_s": triage_s, **triage},
         "batch_invariance": invariance,
-        "registry": registry,
+        "registry": {k: v for k, v in registry.items() if k != "expect"},
         "text_timings": {str(b): t for b, t in text_timings.items()},
         "text_main_batch": text_main,
+        "attention_errors": att_errs,
+        "attention_timings": {str(b): t for b, t in att_timings.items()},
+        "attention_bench": att_bench,
+        "attention_main_batch": att_main,
+        "service": service,
     }
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
-        json.dump(summary, f, indent=1)
+        json.dump(summary, f, indent=1, default=str)
     kernels = [{
         "name": "hsv_color", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/hsv_color.cu",
@@ -900,6 +1378,19 @@ def main() -> int:
             "launches": launches[name], "max_abs_err": max_errs[name],
             "batch": b, **text_timings[b][name],
             "by_batch": {str(bb): t[name] for bb, t in text_timings.items()},
+        })
+    for name, line in (("flash_attention", 91), ("decode_attention", 68)):
+        b = att_main[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "replaces": f"src/repro/kernels/{name}.py:{line}",
+            "launches": service["launches"][name],
+            "max_abs_err": max_errs[name],
+            "batch": b, **att_timings[b][name],
+            "by_batch": {**{str(bb): t[name] for bb, t in att_timings.items()},
+                         **{label: t[name] for label, t in att_bench.items()
+                            if name in t}},
         })
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -32,6 +32,14 @@ NVCC_FLAGS = (
 # C signature of each library's entry point: (argtypes, restype).
 _VOIDP, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
+    "decode_attention": {
+        "decode_attention_bkgd": ([_VOIDP] * 5 + [_INT] * 5
+                                  + [_FLOAT, _INT, _VOIDP], _INT),
+    },
+    "flash_attention": {
+        "flash_attention_bhsd": ([_VOIDP] * 4 + [_INT] * 7
+                                 + [_FLOAT, _INT, _VOIDP], _INT),
+    },
     "hsv_color": {
         "hsv_color_hist": ([_VOIDP, _VOIDP, _VOIDP, _INT, _INT, _INT, _VOIDP],
                            _INT),

@@ -113,7 +113,8 @@ def inv_pixels(n: int) -> float:
 # --------------------------------------------------------------------------- #
 # MoE top-k router                                                             #
 # --------------------------------------------------------------------------- #
-MASKED = -1e30  # what the router writes over a chosen expert
+MASKED = -1e30  # what the router writes over a chosen expert, and what a
+                # masked attention logit becomes (finite, not -inf)
 
 
 def softmax(x: torch.Tensor) -> torch.Tensor:
@@ -265,3 +266,171 @@ def ssd(
 
     y = (y_intra + y_inter).reshape(b, s, h, p)
     return y.to(x.dtype), hprev
+
+
+# --------------------------------------------------------------------------- #
+# attention                                                                    #
+# --------------------------------------------------------------------------- #
+def _require_float32_products(x: torch.Tensor, name: str) -> None:
+    if x.is_cuda and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError(f"ref.{name} needs float32 products on the card: "
+                           "set torch.backends.cuda.matmul.allow_tf32 = False")
+
+
+def _gqa_expand(k: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """(B, S, Hkv, D) -> (B, S, H, D) by repeating kv heads per group."""
+    return torch.repeat_interleave(k, num_heads // k.shape[2], dim=2)
+
+
+def _visible(sq: int, sk: int, *, causal: bool, window: int, q_offset: int = 0,
+             k_offset: int = 0, device=None) -> torch.Tensor:
+    """(Sq, Sk) bool: key position j visible to query position i, with
+    (not causal or j <= i) and (window <= 0 or j > i - window)."""
+    qpos = torch.arange(sq, device=device)[:, None] + q_offset
+    kpos = torch.arange(sk, device=device)[None, :] + k_offset
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=device)
+    if causal:
+        mask &= kpos <= qpos
+    if window > 0:
+        mask &= kpos > qpos - window
+    return mask
+
+
+def _attn_dense(q, k, v, *, causal, window, q_offset, k_offset=0, kv_len=None):
+    """One dense attention tile; q (B,Sq,H,D) vs k/v (B,Sk,H,D) fp32 math.
+
+    Masked logits are -1e30, so a row with no visible key averages every
+    value row, as the JAX package's version does."""
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    scale = float(1.0 / np.sqrt(d))
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32),
+                          k.to(torch.float32)) * scale
+    mask = _visible(sq, sk, causal=causal, window=window, q_offset=q_offset,
+                    k_offset=k_offset, device=q.device)[None, None]
+    if kv_len is not None:
+        # kv_len masks ABSOLUTE positions (kpos includes k_offset)
+        kpos = torch.arange(sk, device=q.device) + k_offset
+        mask = mask & (kpos < kv_len[:, None, None, None])
+    probs = softmax(logits.masked_fill(~mask, MASKED))
+    out = torch.einsum("bhqk,bkhd->bqhd", probs, v.to(torch.float32))
+    return out.to(q.dtype)
+
+
+Q_CHUNK = 512  # q blocking of the chunked path: bounds the live S x S tile
+
+
+def mha_attention(
+    q: torch.Tensor,   # (B, Sq, H, D)
+    k: torch.Tensor,   # (B, Sk, Hkv, D)
+    v: torch.Tensor,   # (B, Sk, Hkv, D)
+    *,
+    causal: bool = True,
+    window: int = 0,            # >0: sliding window (causal)
+    q_offset: int = 0,          # absolute position of q[0] (for decode/chunks)
+    kv_len: torch.Tensor | None = None,  # (B,) valid kv length (masks the rest)
+    chunk_q: int = Q_CHUNK,     # 0 disables chunking (dense)
+) -> torch.Tensor:
+    """Reference attention: GQA, causal, sliding-window, length masking.
+
+    q is processed in ``chunk_q`` blocks, one at a time, so only one
+    (chunk, Sk) score tile is live; with a sliding window each block sees
+    only its (window + chunk) band of k/v."""
+    _require_float32_products(q, "mha_attention")
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    k = _gqa_expand(k, h)
+    v = _gqa_expand(v, h)
+
+    if chunk_q <= 0 or sq <= chunk_q or sq % chunk_q != 0:
+        return _attn_dense(q, k, v, causal=causal, window=window,
+                           q_offset=q_offset, kv_len=kv_len)
+
+    banded = window > 0 and window + chunk_q < sk
+    band = window + chunk_q
+    outs = []
+    for ci in range(sq // chunk_q):
+        qb = q[:, ci * chunk_q:(ci + 1) * chunk_q]
+        if banded:
+            start = min(max(ci * chunk_q - window, 0), sk - band)
+            outs.append(_attn_dense(
+                qb, k[:, start:start + band], v[:, start:start + band],
+                causal=causal, window=window,
+                q_offset=q_offset + ci * chunk_q, k_offset=start,
+                kv_len=kv_len))
+        else:
+            outs.append(_attn_dense(
+                qb, k, v, causal=causal, window=window,
+                q_offset=q_offset + ci * chunk_q, kv_len=kv_len))
+    return torch.cat(outs, dim=1)
+
+
+def decode_attention(
+    q: torch.Tensor,        # (B, H, D) one new token per sequence
+    k_cache: torch.Tensor,  # (B, S, Hkv, D)
+    v_cache: torch.Tensor,  # (B, S, Hkv, D)
+    lengths: torch.Tensor,  # (B,) int32 — number of valid cache entries
+) -> torch.Tensor:
+    out = mha_attention(q[:, None], k_cache, v_cache, causal=False,
+                        kv_len=lengths)
+    return out[:, 0]
+
+
+def _attend(logits: torch.Tensor, mask: torch.Tensor,
+            v: torch.Tensor) -> torch.Tensor:
+    """Softmax over the visible logits, then the weighted sum of v rows. A
+    row with no visible key is 0: the kernels' rule (the TPU kernels write
+    0 where the running sum l is 0), not the dense version's average."""
+    if not logits.shape[-1]:  # no keys at all
+        return logits.new_zeros(logits.shape[:-1] + v.shape[-1:])
+    probs = softmax(logits.masked_fill(~mask, MASKED))
+    probs = probs.masked_fill(~mask.any(-1, keepdim=True), 0.0)
+    return torch.matmul(probs, v.to(torch.float32))
+
+
+def flash_attention_bhsd(
+    q: torch.Tensor,  # (BH, Sq, D)
+    k: torch.Tensor,  # (BH / group, Sk, D)
+    v: torch.Tensor,  # (BH / group, Sk, D)
+    *,
+    group: int,
+    causal: bool = True,
+    window: int = 0,
+    scale: float | None = None,
+) -> torch.Tensor:
+    """The flash kernel's plain version in its own layout: program b reads
+    kv head b // group; query and key positions both start at 0. Returns
+    (BH, Sq, D) in q's dtype."""
+    _require_float32_products(q, "flash_attention_bhsd")
+    bh, sq, d = q.shape
+    sk = k.shape[1]
+    scale = d ** -0.5 if scale is None else scale
+    kx = torch.repeat_interleave(k, group, dim=0).to(torch.float32)
+    vx = torch.repeat_interleave(v, group, dim=0)
+    logits = torch.matmul(q.to(torch.float32), kx.transpose(1, 2)) * scale
+    mask = _visible(sq, sk, causal=causal, window=window, device=q.device)
+    return _attend(logits, mask, vx).to(q.dtype)
+
+
+def decode_attention_bkgd(
+    q: torch.Tensor,        # (B * Hkv, G, D)
+    k_cache: torch.Tensor,  # (B * Hkv, S, D)
+    v_cache: torch.Tensor,  # (B * Hkv, S, D)
+    lengths: torch.Tensor,  # (B,)
+    *,
+    num_kv_heads: int,
+    scale: float | None = None,
+) -> torch.Tensor:
+    """The decode kernel's plain version in its own layout: program b sees
+    the first lengths[b // num_kv_heads] cache entries (a length past S
+    sees all of them; 0 writes 0). Returns (B * Hkv, G, D) in q's dtype."""
+    _require_float32_products(q, "decode_attention_bkgd")
+    bkv, g, d = q.shape
+    s = k_cache.shape[1]
+    scale = d ** -0.5 if scale is None else scale
+    prog = torch.arange(bkv, device=q.device) // num_kv_heads
+    length = lengths.to(device=q.device, dtype=torch.int64)[prog]
+    logits = torch.matmul(q.to(torch.float32),
+                          k_cache.to(torch.float32).transpose(1, 2)) * scale
+    mask = (torch.arange(s, device=q.device)[None, :] < length[:, None])
+    return _attend(logits, mask[:, None, :], v_cache).to(q.dtype)

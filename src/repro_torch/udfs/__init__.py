@@ -9,14 +9,17 @@ kernel's launch name, beside its predicate-level stats.
 Layout
 ------
 ``library``   kernel predicate builders + the ``KERNEL_PREDICATES``
-              registry (hsv_color, moe_router, ssd, rglru)
+              registry (hsv_color, moe_router, ssd, rglru, flash_attention,
+              decode_attention)
 ``rooflines`` analytic roofline cost priors (cold-start / SimClock only)
 ``synthetic`` planted predicates for deterministic benchmarks
 """
 from repro_torch.udfs.library import (  # noqa: F401
     KERNEL_PREDICATES,
+    attention_scorer_predicate,
     build_predicate,
     color_predicate,
+    decode_relevance_predicate,
     register_kernel_predicate,
     rglru_gate_predicate,
     ssd_scorer_predicate,

@@ -18,7 +18,8 @@ Port of ``repro.udfs.library``. Every builder returns a first-class
 ``device`` defaults to ``"cuda"``: the predicate runs on the card, and
 building it without one raises. ``device="cpu"`` runs the plain version.
 
-Text-consuming kernels (moe_router, ssd, rglru) share a deterministic
+Text-consuming kernels (moe_router, ssd, rglru, flash and decode
+attention) share a deterministic
 seeded featurizer: token ids index fixed embedding tables (row 0 =
 padding = zeros), so the predicate is a pure function of the ``tokens``
 column and an oracle can re-evaluate it exactly. The tables are drawn from
@@ -213,6 +214,49 @@ def rglru_tables(*, width: int = 16, vocab: int = 256, seed: int = 2,
     return emb_x, emb_r, emb_i, a_param
 
 
+def attention_tables(*, heads: int = 2, head_dim: int = 8, vocab: int = 256,
+                     seed: int = 3, device="cpu"):
+    """(q table, k table, v table), each (vocab, heads * head_dim)."""
+    rng = np.random.default_rng(seed)
+    return tuple(_embed_table(rng, vocab, heads * head_dim, device)
+                 for _ in range(3))
+
+
+def attention_inputs(tables, toks: torch.Tensor, *, heads: int = 2,
+                     head_dim: int = 8):
+    """(B, S) ids -> (q, k, v), each (B, S, heads, head_dim): the
+    arguments of ``ops.flash_attention``. Pad tokens embed to zero, so a
+    pad key scores exactly 0 and is attended, not masked."""
+    b, seq = toks.shape
+    return tuple(t[toks].reshape(b, seq, heads, head_dim) for t in tables)
+
+
+def decode_tables(*, heads: int = 2, head_dim: int = 8, kv_heads: int = 1,
+                  vocab: int = 256, seed: int = 4, device="cpu"):
+    """(k table, v table, each (vocab, kv_heads * head_dim), and the fixed
+    query (heads, head_dim))."""
+    rng = np.random.default_rng(seed)
+    emb_k = _embed_table(rng, vocab, kv_heads * head_dim, device)
+    emb_v = _embed_table(rng, vocab, kv_heads * head_dim, device)
+    query = _draw(rng.standard_normal((heads, head_dim)).astype(np.float32),
+                  device)
+    return emb_k, emb_v, query
+
+
+def decode_inputs(tables, toks: torch.Tensor, *, kv_heads: int = 1):
+    """(B, S) ids -> (q (B, heads, head_dim), k and v caches (B, S,
+    kv_heads, head_dim), lengths (B,) int32): the arguments of
+    ``ops.decode_attention``. A row's length is its live (non-pad) token
+    count, at least 1."""
+    emb_k, emb_v, query = tables
+    b, seq = toks.shape
+    head_dim = query.shape[1]
+    lengths = (toks > 0).sum(1).clamp_min(1).to(torch.int32)
+    return (query.expand(b, *query.shape),
+            emb_k[toks].reshape(b, seq, kv_heads, head_dim),
+            emb_v[toks].reshape(b, seq, kv_heads, head_dim), lengths)
+
+
 def hsv_labels(crops: np.ndarray, ranges: torch.Tensor, device: torch.device,
                block_rows: int) -> np.ndarray:
     """(B, H, W, 3) host crops -> (B,) int64 dominant-color labels, through
@@ -379,6 +423,86 @@ def rglru_gate_predicate(
     return Predicate(name, udf, compare=lambda o: o > threshold)
 
 
+def attention_scorer_predicate(
+    threshold: float = 0.0,
+    *,
+    seq: int = 32,
+    heads: int = 2,
+    head_dim: int = 8,
+    vocab: int = 256,
+    seed: int = 3,
+    device="cuda",
+    resource: str = "cuda:0",
+    name: str = None,
+) -> Predicate:
+    """Causal flash-attention scorer over ``tokens``: output mean > threshold."""
+    dev = _text_device(device)
+    tables = attention_tables(heads=heads, head_dim=head_dim, vocab=vocab,
+                              seed=seed, device=dev)
+
+    def fn(d):
+        with launch.thread_stream(dev):
+            toks = device_tokens(d["tokens"], seq, dev)
+            out = ops.flash_attention(
+                *attention_inputs(tables, toks, heads=heads,
+                                  head_dim=head_dim),
+                causal=True, block_q=seq, block_k=seq)
+            return row_mean(out).cpu().numpy()
+
+    name = name or "attn_score_pos"
+    udf = UDF(
+        name, fn, columns=("tokens",), resource=resource,
+        warm_fn=one_row_probe(fn, {"tokens": (seq,)}, {"tokens": np.int32}),
+        cost_model=rooflines.flash_attention(seq, heads, head_dim).cost_model,
+        proxy_cost=_token_proxy,
+        fingerprint=canonical_fingerprint(
+            "flash_attention", threshold=threshold, seq=seq, heads=heads,
+            head_dim=head_dim, vocab=vocab, seed=seed, device=dev.type),
+    )
+    return Predicate(name, udf, compare=lambda o: o > threshold)
+
+
+def decode_relevance_predicate(
+    threshold: float = 0.0,
+    *,
+    seq: int = 32,
+    heads: int = 2,
+    head_dim: int = 8,
+    kv_heads: int = 1,
+    vocab: int = 256,
+    seed: int = 4,
+    device="cuda",
+    resource: str = "cuda:0",
+    name: str = None,
+) -> Predicate:
+    """Decode-attention relevance over ``tokens``: a fixed query attends the
+    row's token KV cache (true lengths mask padding); mean > threshold."""
+    dev = _text_device(device)
+    tables = decode_tables(heads=heads, head_dim=head_dim, kv_heads=kv_heads,
+                           vocab=vocab, seed=seed, device=dev)
+
+    def fn(d):
+        with launch.thread_stream(dev):
+            toks = device_tokens(d["tokens"], seq, dev)
+            out = ops.decode_attention(
+                *decode_inputs(tables, toks, kv_heads=kv_heads), block_k=seq)
+            return row_mean(out).cpu().numpy()
+
+    name = name or "decode_relevance_pos"
+    udf = UDF(
+        name, fn, columns=("tokens",), resource=resource,
+        warm_fn=one_row_probe(fn, {"tokens": (seq,)}, {"tokens": np.int32}),
+        cost_model=rooflines.decode_attention(
+            seq, heads, head_dim, kv_heads).cost_model,
+        proxy_cost=_token_proxy,
+        fingerprint=canonical_fingerprint(
+            "decode_attention", threshold=threshold, seq=seq, heads=heads,
+            head_dim=head_dim, kv_heads=kv_heads, vocab=vocab, seed=seed,
+            device=dev.type),
+    )
+    return Predicate(name, udf, compare=lambda o: o > threshold)
+
+
 # --------------------------------------------------------------------------- #
 # registry                                                                    #
 # --------------------------------------------------------------------------- #
@@ -388,6 +512,8 @@ KERNEL_PREDICATES: Dict[str, Callable[..., Predicate]] = {
     "moe_router": topic_router_predicate,
     "ssd": ssd_scorer_predicate,
     "rglru": rglru_gate_predicate,
+    "flash_attention": attention_scorer_predicate,
+    "decode_attention": decode_relevance_predicate,
 }
 
 

@@ -48,6 +48,9 @@ def test_port_imports_neither_jax_nor_repro():
     mods = _port_modules()
     assert "repro_torch.core.executor" in mods
     assert "repro_torch.examples.lost_dog_query" in mods
+    for m in ("launch.serve", "kernels.flash_attention",
+              "kernels.decode_attention"):
+        assert f"repro_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

@@ -232,7 +232,7 @@ def test_detector_launches_are_hooked_and_classifier_launches_are_not():
 
 def test_registry_and_fingerprints():
     with pytest.raises(KeyError, match="no kernel predicate"):
-        udfs.build_predicate("flash_attention")
+        udfs.build_predicate("paged_attention")
     with pytest.raises(ValueError, match="already registered"):
         udfs.register_kernel_predicate("hsv_color", udfs.color_predicate)
     black = udfs.color_predicate("black", size=SIZE, device="cpu")
