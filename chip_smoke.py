@@ -99,6 +99,17 @@ def time_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def paired_ms(fns: dict, rounds: int = 5) -> dict:
+    """Median ``time_ms`` of each call over ``rounds`` rounds that take the
+    calls in turn, reversing the order every round, so that host noise
+    (these calls are host-bound at small batches) falls on all of them."""
+    times = {name: [] for name in fns}
+    for r in range(rounds):
+        for name in (list(fns) if r % 2 == 0 else list(fns)[::-1]):
+            times[name].append(time_ms(fns[name], TIME_ITERS))
+    return {name: float(np.median(t)) for name, t in times.items()}
+
+
 # --------------------------------------------------------------------------- #
 # phase 3 inputs                                                              #
 # --------------------------------------------------------------------------- #
@@ -363,6 +374,21 @@ def bound_ms(nbytes: int, flops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def attention_bound(nbytes: int, flops: float, dtype: torch.dtype) -> dict:
+    """The attention kernels' bound: bytes over the memory rate against the
+    products on the tensor cores at the rate the kernel's precision
+    allows (float32 as 3xTF32: three TF32 products each at 495 TFLOP/s;
+    bf16 at 989 TFLOP/s), whichever is larger; beside it the float32
+    CUDA-core time (67 TFLOP/s)."""
+    from repro_torch.roofline import hw
+    t_bytes = nbytes / hw.HBM_BW * 1e3
+    t_ops = (flops / hw.PEAK_FLOPS_BF16 if dtype == torch.bfloat16
+             else 3 * flops / hw.PEAK_FLOPS_TF32) * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_f32_cores_ms": bound_ms(nbytes, flops)[0]}
+
+
 def time_text(inputs: TextInputs, b: int) -> dict:
     """Times of the three text kernels through their wrappers and of their
     plain versions, on the library's inputs for b rows, beside the bounds
@@ -597,6 +623,59 @@ def check_attention_kernels(inputs: AttentionInputs) -> dict:
         err["decode_attention"] = max(err["decode_attention"], check_close(
             "decode_attention", got, want, f"library B={b}",
             score=(score_of(got, 1), score_of(want, 1))))
+    # ---- decode: every edge of the fixed 256-key split at S = 4,096
+    b, s, hkv, g, d = 8, 4096, 2, 4, 64
+    lens = torch.tensor([0, 1, 255, 256, 257, 4095, 4096, 5000],
+                        dtype=torch.int32, device="cuda")
+    for dtype in (torch.float32, torch.bfloat16):
+        q = T(rng.standard_normal((b * hkv, g, d)), dtype)
+        kc, vc = (T(rng.standard_normal((b * hkv, s, d)), dtype)
+                  for _ in range(2))
+        got = decode_attention.decode_attention_bkgd(q, kc, vc, lens,
+                                                     num_kv_heads=hkv)
+        e = check_close("decode_attention", got, ref.decode_attention_bkgd(
+            q, kc, vc, lens, num_kv_heads=hkv),
+            f"S={s} split edges {lens.tolist()} {dtype}",
+            TOL_TIGHT if dtype == torch.float32 else TOL_BF16,
+            zero_rows=slice(0, hkv))
+        key = "decode_attention" if dtype == torch.float32 else "bf16"
+        err[key] = max(err[key], e)
+        if dtype == torch.float32:   # the split kernel's own arithmetic
+            err[key] = max(err[key], check_close(
+                "decode_attention", got, ref.decode_attention_split(
+                    q, kc, vc, lens, num_kv_heads=hkv,
+                    split=decode_attention.SPLIT),
+                "split edges against ref.decode_attention_split"))
+    # ---- both: strided (B, S, H, D) views straight into the kernels
+    # through ops, the output their only allocation
+    def allocations() -> int:
+        return torch.cuda.memory_stats()["allocation.all.allocated"]
+
+    for d in (64, 6):   # 6: rows that are not 16-byte aligned
+        b, s, h, hkv = 2, 200, 4, 2
+        qbase = T(rng.standard_normal((b, s, h + 2, d)))
+        kv = T(rng.standard_normal((b, s, 2, hkv, d)))
+        q, k, v = qbase[:, :, 1:h + 1], kv[:, :, 0], kv[:, :, 1]
+        before = allocations()
+        got = ops.flash_attention(q, k, v)
+        extra = allocations() - before - 1
+        err["flash_attention"] = max(err["flash_attention"], check_close(
+            "flash_attention", got, ref.mha_attention(
+                q.contiguous(), k.contiguous(), v.contiguous()),
+            f"ops on strided views D={d}, allocations besides the output: "
+            f"{extra}"))
+        dq = qbase[:, 7, 1:h + 1]
+        lens = torch.tensor([150, 3], dtype=torch.int32, device="cuda")
+        before = allocations()
+        got = ops.decode_attention(dq, k, v, lens, block_k=s)
+        extra_d = allocations() - before - 1
+        err["decode_attention"] = max(err["decode_attention"], check_close(
+            "decode_attention", got, ref.decode_attention(
+                dq.contiguous(), k.contiguous(), v.contiguous(), lens),
+            f"ops on strided views D={d}, allocations besides the output: "
+            f"{extra_d}"))
+        if extra or extra_d:
+            raise AssertionError("ops copied an operand")
     print(f"  largest errors: float32 flash {err['flash_attention']!r}, "
           f"decode {err['decode_attention']!r}; bfloat16 flash "
           f"{err['bf16']!r} (tolerance {TOL_BF16})", flush=True)
@@ -614,18 +693,21 @@ def visible_pairs(s: int, causal: bool, window: int) -> int:
 def time_flash(q, k, v, *, group: int, causal: bool, window: int,
                label: str) -> dict:
     """Times of the flash kernel on (BH, S, D) inputs in its layout:
-    through the wrapper, at its C entry point, of the plain version and of
-    ``scaled_dot_product_attention`` on the same work, beside the bound
-    (each input read once and the output written once; 4 flops per
-    visible (query, key) pair and dim)."""
+    through the wrapper, at its C entry point and of
+    ``scaled_dot_product_attention`` on the same work (in q's dtype), taken
+    in turns (``paired_ms``), and of the plain version, beside the bound (each input read once and the output written once; 4
+    flops per visible (query, key) pair and dim)."""
     from repro_torch.kernels import _build, flash_attention, ref
     bh, s, d = q.shape
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream().cuda_stream
-    call = _build.load("flash_attention").lib.flash_attention_bhsd
-    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, s,
-            s, d, group, int(causal), window, d ** -0.5, 0)
-    if call(*args, stream) != 0:
+    call = _build.load("flash_attention").lib.flash_attention_bshd
+    lay = flash_attention.bhsd_layout
+    args = flash_attention.pack_args(
+        q, k, v, out, (lay(q, group), lay(k, 1), lay(v, 1), lay(out, group)),
+        batch=bh // group, heads=group, group=group, sq=s, sk=s,
+        causal=causal, window=window, scale=d ** -0.5)
+    if call(args, stream) != 0:
         raise AssertionError("flash_attention entry point failed")
     # the same work for scaled_dot_product_attention: the programs as the
     # heads of one sequence (query head i reads kv head i // group)
@@ -640,21 +722,24 @@ def time_flash(q, k, v, *, group: int, causal: bool, window: int,
             q4, k4, v4, is_causal=causal, enable_gqa=True)
     big = bh * s > 2 * 4096
     t = {
-        "ms": time_ms(lambda: flash_attention.flash_attention_bhsd(
-            q, k, v, group=group, causal=causal, window=window), TIME_ITERS),
-        "entry_ms": time_ms(lambda: call(*args, stream), TIME_ITERS),
+        "dtype": str(q.dtype).replace("torch.", ""),
+        **paired_ms({
+            "ms": lambda: flash_attention.flash_attention_bhsd(
+                q, k, v, group=group, causal=causal, window=window),
+            "entry_ms": lambda: call(args, stream),
+            "library_ms": library}),
         "plain_ms": time_ms(lambda: ref.flash_attention_bhsd(
             q, k, v, group=group, causal=causal, window=window),
             10 if big else TIME_ITERS),
-        "library_ms": time_ms(library, TIME_ITERS),
-        **dict(zip(("bound_ms", "bound_by"), bound_ms(
+        **attention_bound(
             (2 * q.numel() + k.numel() + v.numel()) * q.element_size(),
-            4.0 * visible_pairs(s, causal, window) * bh * d))),
+            4.0 * visible_pairs(s, causal, window) * bh * d, q.dtype),
     }
     print(f"  flash_attention {label}: kernel {t['ms']!r} ms (entry point "
           f"{t['entry_ms']!r} ms), plain {t['plain_ms']!r} ms, "
           f"scaled_dot_product_attention {t['library_ms']!r} ms, bound "
-          f"{t['bound_ms']!r} ms ({t['bound_by']})", flush=True)
+          f"{t['bound_ms']!r} ms ({t['bound_by']}; float32 CUDA cores "
+          f"{t['bound_f32_cores_ms']!r} ms)", flush=True)
     return t
 
 
@@ -664,15 +749,21 @@ def time_decode(q, kc, vc, lens, *, num_kv_heads: int, label: str) -> dict:
     counts the cache entries the lengths leave (4 flops a key, row and
     dim) and SDPA gets the same work as a length mask."""
     from repro_torch.kernels import _build, decode_attention, ref
+    from repro_torch.kernels.flash_attention import bhsd_layout
     bkv, g, d = q.shape
     s = kc.shape[1]
     b = bkv // num_kv_heads
     out = torch.empty_like(q)
+    n = decode_attention.splits(s)
+    part = torch.empty(bkv * n * g * (d + 2), device=q.device) if n > 1 \
+        else None
     stream = torch.cuda.current_stream().cuda_stream
-    call = _build.load("decode_attention").lib.decode_attention_bkgd
-    args = (q.data_ptr(), kc.data_ptr(), vc.data_ptr(), lens.data_ptr(),
-            out.data_ptr(), bkv, g, s, d, num_kv_heads, d ** -0.5, 0)
-    if call(*args, stream) != 0:
+    call = _build.load("decode_attention").lib.decode_attention_bshd
+    args = decode_attention.pack_args(
+        q, kc, vc, lens, out, part,
+        tuple(bhsd_layout(t, num_kv_heads) for t in (q, kc, vc, out)),
+        batch=b, kv_heads=num_kv_heads, g=g, s=s, scale=d ** -0.5)
+    if call(args, stream) != 0:
         raise AssertionError("decode_attention entry point failed")
     used = lens.to(torch.int64).clamp(0, s).repeat_interleave(num_kv_heads)
     keys = int(used.sum())
@@ -682,16 +773,17 @@ def time_decode(q, kc, vc, lens, *, num_kv_heads: int, label: str) -> dict:
     mask = (torch.arange(s, device=q.device)[None, :]
             < lens.to(torch.int64)[:, None])[:, None, None, :]
     t = {
-        "ms": time_ms(lambda: decode_attention.decode_attention_bkgd(
-            q, kc, vc, lens, num_kv_heads=num_kv_heads), TIME_ITERS),
-        "entry_ms": time_ms(lambda: call(*args, stream), TIME_ITERS),
+        "dtype": str(q.dtype).replace("torch.", ""),
+        **paired_ms({
+            "ms": lambda: decode_attention.decode_attention_bkgd(
+                q, kc, vc, lens, num_kv_heads=num_kv_heads),
+            "entry_ms": lambda: call(args, stream),
+            "library_ms": lambda: F.scaled_dot_product_attention(
+                q4, k4, v4, attn_mask=mask, enable_gqa=True)}),
         "plain_ms": time_ms(lambda: ref.decode_attention_bkgd(
             q, kc, vc, lens, num_kv_heads=num_kv_heads), TIME_ITERS),
-        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-            q4, k4, v4, attn_mask=mask, enable_gqa=True), TIME_ITERS),
-        **dict(zip(("bound_ms", "bound_by"), bound_ms(
-            (2 * q.numel() + 2 * keys * d) * q.element_size()
-            + lens.numel() * 4, 4.0 * keys * g * d))),
+        **attention_bound((2 * q.numel() + 2 * keys * d) * q.element_size()
+                          + lens.numel() * 4, 4.0 * keys * g * d, q.dtype),
     }
     print(f"  decode_attention {label}: kernel {t['ms']!r} ms (entry point "
           f"{t['entry_ms']!r} ms), plain {t['plain_ms']!r} ms, "
@@ -711,24 +803,39 @@ def time_attention(inputs: AttentionInputs, b: int) -> dict:
 
 
 def time_attention_bench() -> dict:
-    """Both attention kernels at the JAX package's bench_kernels shapes."""
+    """Both attention kernels at the JAX package's bench_kernels shapes:
+    flash in float32 (and the causal shapes in bfloat16, beside SDPA in
+    bfloat16), decode with full lengths and with lengths drawn from the
+    seed in [1, S]."""
     rng = np.random.default_rng(14)
     out = {}
     for b, s, h, hkv, d, window in FLASH_BENCH:
-        q, k, v = (bhsd(torch.from_numpy(rng.standard_normal(
-            (b, s, n, d)).astype(np.float32)).cuda()) for n in (h, hkv, hkv))
-        label = f"bench B={b} S={s} H={h} Hkv={hkv} D={d} window={window}"
-        out[label] = {"flash_attention": time_flash(
-            q, k, v, group=h // hkv, causal=True, window=window, label=label)}
+        qkv = [torch.from_numpy(rng.standard_normal((b, s, n, d)).astype(
+            np.float32)).cuda() for n in (h, hkv, hkv)]
+        for dtype in (torch.float32, torch.bfloat16):
+            if dtype == torch.bfloat16 and window:
+                continue
+            q, k, v = (bhsd(t.to(dtype)) for t in qkv)
+            label = (f"bench B={b} S={s} H={h} Hkv={hkv} D={d} "
+                     f"window={window}")
+            if dtype == torch.bfloat16:
+                label += " bf16"
+            out[label] = {"flash_attention": time_flash(
+                q, k, v, group=h // hkv, causal=True, window=window,
+                label=label)}
     b, s, h, hkv, d = DECODE_BENCH
     q = torch.from_numpy(rng.standard_normal((b * hkv, h // hkv, d)).astype(
         np.float32)).cuda()
     kc, vc = (bhsd(torch.from_numpy(rng.standard_normal(
         (b, s, hkv, d)).astype(np.float32)).cuda()) for _ in range(2))
-    lens = torch.full((b,), s, dtype=torch.int32, device="cuda")
-    label = f"bench B={b} S={s} H={h} Hkv={hkv} D={d}"
-    out[label] = {"decode_attention": time_decode(
-        q, kc, vc, lens, num_kv_heads=hkv, label=label)}
+    for name, lens in (
+            ("", torch.full((b,), s, dtype=torch.int32, device="cuda")),
+            (" lengths 1-S", torch.from_numpy(rng.integers(
+                1, s + 1, (b,)).astype(np.int32)).cuda())):
+        label = f"bench B={b} S={s} H={h} Hkv={hkv} D={d}{name}"
+        print(f"  {label}: lengths {lens.tolist()}")
+        out[label] = {"decode_attention": time_decode(
+            q, kc, vc, lens, num_kv_heads=hkv, label=label)}
     return out
 
 
@@ -1132,10 +1239,12 @@ def main() -> int:
     print(f"  {len(libs)} libraries in {time.perf_counter() - t0:.2f}s")
     for name, lib in libs.items():
         print(f"  {name}: {lib.path.name} built in {lib.seconds:.2f}s")
-        for line in lib.log.splitlines():
-            if "ptxas" in line and ("registers" in line or "spill" in line
-                                    or "smem" in line):
-                print("   ", line.strip())
+        for line in lib.log.splitlines():  # ptxas: each instance's use
+            if "Compiling entry function" in line:
+                print("   ", line.split("'")[1])   # the (mangled) instance
+            elif "spill stores" in line or (
+                    "ptxas" in line and ("registers" in line or "smem" in line)):
+                print("     ", line.strip())
     built = libs["hsv_color"]
 
     # ------------------------------------------------------------- 3 kernels
@@ -1187,7 +1296,7 @@ def main() -> int:
     att_errs = check_attention_kernels(att_inputs)
     max_errs.update((k, att_errs[k]) for k in ("flash_attention",
                                                 "decode_attention"))
-    att_timings = {BIG: time_attention(att_inputs, BIG)}
+    att_timings = {b: time_attention(att_inputs, b) for b in (*BUCKETS, BIG)}
     att_bench = time_attention_bench()
 
     # ------------------------------------------------------------- 4 query

@@ -3,7 +3,7 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` into a shared library with
 a plain C interface and loaded with ``ctypes`` (no PyTorch headers, so a
 build takes seconds). The library goes into ``build/repro_torch/`` at the
-root of the checkout, named by a hash of its source and flags, so an
+root of the checkout, named by a hash of its source and its own flags, so an
 edited source is rebuilt and an unchanged one is loaded as it is. The
 build happens once, at first use, under a lock of its own: the
 executor's worker threads warm their predicates concurrently and may ask
@@ -22,23 +22,38 @@ from dataclasses import dataclass
 from pathlib import Path
 from typing import Dict
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "--fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
 )
+# hsv_color, moe_router, ssd and rglru equal their plain versions bit for
+# bit (or within a few ulps) only without FMA contraction; the attention
+# kernels are held to a tolerance and contract freely.
+NO_FMA = ("--fmad=false",)
+LIBRARY_FLAGS = {
+    "decode_attention": (),
+    "flash_attention": (),
+    "hsv_color": NO_FMA,
+    "moe_router": NO_FMA,
+    "rglru": NO_FMA,
+    "ssd": NO_FMA,
+}
 
-# C signature of each library's entry point: (argtypes, restype).
+# C signature of each library's entry point: (argtypes, restype). The
+# attention kernels take their arguments packed into one buffer (a bytes
+# object from the wrapper's struct format) and the stream: ctypes converts
+# two arguments where it would convert ~27.
 _VOIDP, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "decode_attention": {
-        "decode_attention_bkgd": ([_VOIDP] * 5 + [_INT] * 5
-                                  + [_FLOAT, _INT, _VOIDP], _INT),
+        "decode_attention_bshd": ([ctypes.c_char_p, _VOIDP], _INT),
     },
     "flash_attention": {
-        "flash_attention_bhsd": ([_VOIDP] * 4 + [_INT] * 7
-                                 + [_FLOAT, _INT, _VOIDP], _INT),
+        "flash_attention_bshd": ([ctypes.c_char_p, _VOIDP], _INT),
     },
     "hsv_color": {
         "hsv_color_hist": ([_VOIDP, _VOIDP, _VOIDP, _INT, _INT, _INT, _VOIDP],
@@ -84,16 +99,21 @@ def nvcc_path() -> str:
                        "the port's kernels")
 
 
+def flags(name: str) -> tuple:
+    """nvcc's flags for ``csrc/<name>.cu``."""
+    return NVCC_FLAGS + LIBRARY_FLAGS[name]
+
+
 def _compile(name: str) -> Built:
     src = CSRC / f"{name}.cu"
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        src.read_bytes() + " ".join(flags(name)).encode()).hexdigest()[:16]
     out = BUILD_DIR / f"lib{name}-{digest}.so"
     seconds, log = 0.0, ""
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        cmd = [nvcc_path(), *flags(name), "-o", str(tmp), str(src)]
         t0 = time.perf_counter()
         proc = subprocess.run(cmd, capture_output=True, text=True)
         seconds = time.perf_counter() - t0
@@ -108,6 +128,14 @@ def _compile(name: str) -> Built:
         fn.argtypes = argtypes
         fn.restype = restype
     return Built(lib=lib, path=out, seconds=seconds, log=log)
+
+
+def raw_stream(index: int) -> int:
+    """The handle of the current CUDA stream on card ``index``, as an int
+    for a ctypes call: PyTorch's own raw lookup, which builds no Stream
+    object (torch.cuda.current_stream(...).cuda_stream takes several
+    microseconds a call on the card's host)."""
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def load(name: str) -> Built:

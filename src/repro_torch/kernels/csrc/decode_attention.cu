@@ -1,211 +1,502 @@
-// GQA flash-decode for Hopper (sm_90a): one new token's query heads
-// against an S-long KV cache, masked by a per-sequence length.
+// Split-cache GQA flash-decode for Hopper (sm_90a): one new token's query
+// heads against an S-long KV cache, masked by a per-sequence length, with
+// strided operands.
 //
 // Replaces the TPU kernel
 // src/repro/kernels/decode_attention.py::decode_attention_bkgd
-// (_decode_kernel). Program b is one (sequence, kv head) pair; with
-// len = lengths[b / num_kv_heads] clamped to [0, S], each of its G query
-// rows g gives
+// (_decode_kernel). Program p = b * kv_heads + kh is one (sequence, kv
+// head) pair; with len = lengths[b] clamped to [0, S], each of its G
+// query rows g gives
 //   o_g = sum_{j < len} p_gj v_j / sum_{j < len} p_gj,
 //   p_gj = exp(s_gj - max_j s_gj),   s_gj = scale * (q_g . k_j),
-// computed online tile by tile in float32 from a running maximum of -1e30.
-// len 0 writes 0, as the TPU kernel does where its running sum l is 0.
+// in float32 from a running maximum of -1e30. A key past the length
+// weighs exactly 0, and len 0 writes 0, as the TPU kernel does where its
+// running sum l is 0.
 //
-// Bound: bytes. Each program reads len keys and values of D floats and
-// does ~4 G D flops per key, so at the predicate's G = 2 and D = 8 (and at
-// G = 4, D = 64) there are 1-2 flops per byte, far below the card's
-// ~20 float32 flops per byte. This simple version gives each program one
-// CTA that walks the cache in order, so at a long cache with few programs
-// most SMs sit idle (splitting the cache over CTAs is later work).
+// Bound: bytes. Each key brings 2 D elements and costs ~4 G D flops, so
+// at the predicate's G = 2, D = 8 and at bench_kernels' G = 4, D = 64
+// there are 1-2 flops a byte, far below the card's ~20 float32 flops a
+// byte: the products stay on the CUDA cores (with FMA), and the design
+// is about keeping many bytes in flight on many SMs.
 //
-// Design. One CTA of 8 warps per program; warp w owns rows w, w + 8, ...
-// (G <= 32) with their running max m, sum l and float32 accumulator in
-// registers (lane c holds dims c, c + 32, ...). The CTA stages its G
-// query rows, then each tile of 32 keys and values, in shared memory as
-// float32 (K rows padded to D + 1 floats for conflict-free reads), and
-// stops at the tile that holds position len - 1 (the TPU kernel skips
-// blocks past the length). Per row and tile: lane j forms the logit of
-// key j (dot over D in index order), a warp max gives the tile's max,
-// lane j writes p_j (0 past the length) to shared memory, and every lane
-// sums p and its dims of p . V in index order. No FMA contraction (the
-// build passes --fmad=false). A row's arithmetic depends on its own
-// query, cache and length only, never on the batch.
+// Design (flash-decoding).
+// - Grid: program x split x row chunk. A split is a fixed stretch of the
+//   cache (the caller passes its length, 256 keys), never sized by the
+//   batch or the SM count; a row chunk is up to R query rows: 4 where G <=
+//   4, else 32 / (dims a lane holds). At (8, 4096, 8, 2, 64) that is 256
+//   CTAs on 132 SMs. A CTA whose split starts at or past the length exits
+//   at once (writing its rows' 0 when the cache is one split); the
+//   combine never reads it.
+// - Per CTA: W warps (4 at D <= 64, 2 at D = 128, 1 at D = 256, so that
+//   the rings fit in shared memory). The CTA stages its rows of q once
+//   (float32, zero past D). Warp w takes the split's 32-key tiles w, w +
+//   W, ... and streams them through a private two-stage ring of K and V
+//   tiles in shared memory, filled by cp.async (16 bytes a thread, zero
+//   past the length and D): tile i + 1 lands while tile i is computed,
+//   with no block-wide barrier. Per tile, lane j forms key j's logits
+//   (float4 reads of its K row against broadcast q rows), a warp max and
+//   sum update each row's running max m and sum l, and each lane adds p
+//   . V for its dims (c, c + 32, ...), p broadcast by shuffles.
+// - The W warps' (m, l, acc) are merged in warp order through shared
+//   memory. With one split (S <= 256: the predicates' S = 32) the CTA
+//   writes o = acc / l (0 where l = 0) directly and nothing else
+//   launches. With more, it writes the partial (m, l, acc) in float32 to
+//   a scratch buffer, and a combine kernel merges a program's live splits
+//   in split order (max, rescale, sum) and writes o. The choice of path
+//   is made from S alone.
+// - A row's arithmetic depends on its own query, cache, length, D and
+//   the dtype only, never on the batch or the grid.
 
+#include <climits>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kRowsPerWarp = 4;
-constexpr int kMaxRows = kWarps * kRowsPerWarp;  // query heads per kv head
-constexpr int kBlockK = 32;                       // keys per tile: one a lane
+constexpr int kTileKeys = 32;  // keys of one warp tile: one a lane
+constexpr int kMaxRows = 32;   // query heads per kv head
 constexpr int kMaxHeadDim = 256;
 constexpr float kNegInf = -1e30f;
+
+// element strides of one operand: between sequences, kv heads and rows
+// (query rows for q and o, cache positions for k and v)
+struct Layout {
+  long long batch, head, row;
+};
+
+struct Params {
+  const void* q;
+  const void* k;
+  const void* v;
+  const int* lengths;
+  void* o;
+  float* part;  // (programs, splits, G, D + 2): acc, then m and l
+  Layout lq, lk, lv, lo;
+  int kv_heads, g, s, d, split, splits, row_chunks, vec;
+  float scale;
+};
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
+}
+template <typename T>
+__device__ __forceinline__ T zero();
+template <>
+__device__ __forceinline__ float zero<float>() { return 0.f; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 zero<__nv_bfloat16>() {
+  return __float2bfloat16(0.f);
 }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);  // round to nearest even, as torch's cast
 }
 
+// four consecutive elements as float32 (16 bytes of float, 8 of bf16)
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(&u.x);
+  const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(&u.y);
+  const float2 fa = __bfloat1622float2(a);
+  const float2 fb = __bfloat1622float2(b);
+  return make_float4(fa.x, fa.y, fb.x, fb.y);
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_1() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
 __device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
   return x;
 }
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    x += __shfl_xor_sync(0xffffffffu, x, off);
+  return x;  // the same value in every lane
+}
 
-template <typename T, int kDimsPerLane>
-__global__ void __launch_bounds__(kWarps * 32)
-decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, const int* __restrict__ lengths,
-              T* __restrict__ o, int g, int s, int d, int num_kv_heads,
-              float scale) {
-  extern __shared__ float smem[];
-  const int kstride = d + 1;
-  float* s_q = smem;                     // (G, d)
-  float* s_k = s_q + g * d;              // (kBlockK, d + 1)
-  float* s_v = s_k + kBlockK * kstride;  // (kBlockK, d)
-  float* s_p = s_v + kBlockK * d;        // (G, kBlockK)
+// keys [pos0, pos0 + 32) of one program's cache into a (32, RS) tile by
+// one warp, zero from position end and from column d on
+template <typename T, int DP>
+__device__ __forceinline__ void load_tile(T* dst, const T* src,
+                                          long long stride, int pos0, int end,
+                                          int d, bool vec, int lane) {
+  constexpr int RS = DP + 16 / (int)sizeof(T);
+  if (vec) {
+    constexpr int kVec = 16 / (int)sizeof(T);
+    constexpr int kChunks = DP / kVec;
+    for (int i = lane; i < kTileKeys * kChunks; i += 32) {
+      const int r = i / kChunks;
+      const int col = (i - r * kChunks) * kVec;
+      const int pos = pos0 + r;
+      const bool in = pos < end && col < d;
+      cp_async16(dst + r * RS + col, in ? src + pos * stride + col : src,
+                 in ? 16 : 0);
+    }
+  } else {
+    for (int i = lane; i < kTileKeys * DP; i += 32) {
+      const int r = i / DP;
+      const int col = i - r * DP;
+      const int pos = pos0 + r;
+      dst[r * RS + col] =
+          pos < end && col < d ? src[pos * stride + col] : zero<T>();
+    }
+  }
+}
+
+template <int DP>
+struct Shape {
+  static constexpr int kDimsPerLane = DP <= 32 ? 1 : DP / 32;
+  static constexpr int kRows = kMaxRows / kDimsPerLane;  // rows per CTA
+  static constexpr int kWarps = DP <= 64 ? 4 : (DP == 128 ? 2 : 1);
+};
+constexpr int kFewRows = 4;  // G <= 4 (the predicates' 2, bench's 4)
+
+// R: the query rows of one CTA (Shape<DP>::kRows, or kFewRows for G <= 4)
+template <typename T, int DP, int R>
+__global__ void __launch_bounds__(Shape<DP>::kWarps * 32)
+decode_split_kernel(const Params p) {
+  constexpr int DPL = Shape<DP>::kDimsPerLane;
+  constexpr int W = Shape<DP>::kWarps;
+  constexpr int RS = DP + 16 / (int)sizeof(T);
+  constexpr int kStage = kTileKeys * RS;  // elements of one K or V tile
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* s_q = reinterpret_cast<float*>(smem_raw);  // (R, DP)
+  T* s_ring = reinterpret_cast<T*>(s_q + R * DP);   // W x (K, V) x 2 stages
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int b = blockIdx.x;
-  const int len = min(max(lengths[b / num_kv_heads], 0), s);
-  const T* qb = q + (size_t)b * g * d;
-  const T* kb = k + (size_t)b * s * d;
-  const T* vb = v + (size_t)b * s * d;
+  const int chunk = blockIdx.x % p.row_chunks;
+  const int rest = blockIdx.x / p.row_chunks;
+  const int split = rest % p.splits;
+  const int prog = rest / p.splits;
+  const int b = prog / p.kv_heads;
+  const int kh = prog - b * p.kv_heads;
+  const int len = min(max(p.lengths[b], 0), p.s);
+  const int key0 = split * p.split;
+  const int row0 = chunk * R;
+  const int rows = min(R, p.g - row0);
+  if (key0 >= len) {  // past the length: the combine never reads it
+    if (p.splits == 1) {  // len 0 with one split: the rows are 0
+      T* ob = static_cast<T*>(p.o) + b * p.lo.batch + kh * p.lo.head;
+      for (int i = tid; i < rows * p.d; i += W * 32)
+        store(ob + (row0 + i / p.d) * p.lo.row + i % p.d, 0.f);
+    }
+    return;
+  }
+  const int key_end = min(key0 + p.split, len);
+  const T* qb = static_cast<const T*>(p.q) + b * p.lq.batch +
+                kh * p.lq.head + row0 * p.lq.row;
+  const T* kb = static_cast<const T*>(p.k) + b * p.lk.batch + kh * p.lk.head;
+  const T* vb = static_cast<const T*>(p.v) + b * p.lv.batch + kh * p.lv.head;
+  const bool vec = p.vec != 0;
 
-  for (int i = tid; i < g * d; i += kWarps * 32) s_q[i] = to_f32(qb[i]);
+  // this warp's tiles: w, w + W, ... of the split's live keys
+  const int n_split_tiles = (key_end - key0 + kTileKeys - 1) / kTileKeys;
+  const int n_tiles =
+      warp < n_split_tiles ? (n_split_tiles - warp + W - 1) / W : 0;
+  T* ring_k = s_ring + warp * 4 * kStage;  // 2 stages of K, then 2 of V
+  T* ring_v = ring_k + 2 * kStage;
+  if (n_tiles > 0) {
+    const int pos = key0 + warp * kTileKeys;
+    load_tile<T, DP>(ring_k, kb, p.lk.row, pos, key_end, p.d, vec, lane);
+    load_tile<T, DP>(ring_v, vb, p.lv.row, pos, key_end, p.d, vec, lane);
+  }
+  cp_async_commit();
 
-  float m[kRowsPerWarp], l[kRowsPerWarp], acc[kRowsPerWarp][kDimsPerLane];
+  for (int i = tid; i < R * DP; i += W * 32) {
+    const int r = i / DP;
+    const int c = i - r * DP;
+    s_q[i] = r < rows && c < p.d ? to_f32(qb[r * p.lq.row + c]) : 0.f;
+  }
+  __syncthreads();
+
+  float m[R], l[R], acc[R][DPL];
 #pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
+  for (int r = 0; r < R; ++r) {
     m[r] = kNegInf;
     l[r] = 0.f;
 #pragma unroll
-    for (int i = 0; i < kDimsPerLane; ++i) acc[r][i] = 0.f;
+    for (int i = 0; i < DPL; ++i) acc[r][i] = 0.f;
   }
 
-  for (int k_start = 0; k_start < len; k_start += kBlockK) {
-    __syncthreads();  // the queries are staged; the previous tile is consumed
-    for (int i = tid; i < kBlockK * d; i += kWarps * 32) {
-      const int r = i / d;
-      const bool in = k_start + r < len;
-      s_k[r * kstride + (i - r * d)] =
-          in ? to_f32(kb[(size_t)k_start * d + i]) : 0.f;
-      s_v[i] = in ? to_f32(vb[(size_t)k_start * d + i]) : 0.f;
+  for (int it = 0; it < n_tiles; ++it) {
+    const int pos = key0 + (warp + it * W) * kTileKeys;
+    if (it + 1 < n_tiles) {
+      const int next = pos + W * kTileKeys;
+      const int stage = (it + 1) & 1;
+      load_tile<T, DP>(ring_k + stage * kStage, kb, p.lk.row, next, key_end,
+                       p.d, vec, lane);
+      load_tile<T, DP>(ring_v + stage * kStage, vb, p.lv.row, next, key_end,
+                       p.d, vec, lane);
     }
-    __syncthreads();
-    const bool visible = k_start + lane < len;
+    cp_async_commit();
+    cp_async_wait_1();  // all but the newest group: tile it has landed
+    __syncwarp();
+    const T* tk = ring_k + (it & 1) * kStage;
+    const T* tv = ring_v + (it & 1) * kStage;
+    const bool visible = pos + lane < key_end;
+
+    // logits of key `lane` for every row
+    float sc[R];
 #pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) {
-      const int row = warp + kWarps * r;
-      if (row >= g) continue;
-      float sc = kNegInf;
-      if (visible) {
-        const float* qr = s_q + row * d;
-        const float* kr = s_k + lane * kstride;
-        float dot = 0.f;
-        for (int c = 0; c < d; ++c) dot += qr[c] * kr[c];
-        sc = dot * scale;
-      }
-      const float m_new = fmaxf(m[r], warp_max(sc));
-      float* pr = s_p + row * kBlockK;
-      pr[lane] = visible ? expf(sc - m_new) : 0.f;
-      __syncwarp();
-      const float corr = expf(m[r] - m_new);
-      float psum = 0.f;
-      for (int j = 0; j < kBlockK; ++j) psum += pr[j];
-      l[r] = l[r] * corr + psum;
+    for (int r = 0; r < R; ++r) sc[r] = 0.f;
 #pragma unroll
-      for (int i = 0; i < kDimsPerLane; ++i) {
-        const int c = lane + 32 * i;
-        if (c < d) {
-          float pv = 0.f;
-          for (int j = 0; j < kBlockK; ++j) pv += pr[j] * s_v[j * d + c];
-          acc[r][i] = acc[r][i] * corr + pv;
+    for (int c = 0; c < DP; c += 4) {
+      const float4 kv = load4(tk + lane * RS + c);
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        if (r < rows) {
+          const float4 qv = *reinterpret_cast<const float4*>(s_q + r * DP + c);
+          sc[r] = fmaf(qv.x, kv.x, sc[r]);
+          sc[r] = fmaf(qv.y, kv.y, sc[r]);
+          sc[r] = fmaf(qv.z, kv.z, sc[r]);
+          sc[r] = fmaf(qv.w, kv.w, sc[r]);
         }
       }
-      m[r] = m_new;
     }
+    // online softmax per row; sc becomes p
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if (r < rows) {
+        const float x = visible ? sc[r] * p.scale : kNegInf;
+        const float m_new = fmaxf(m[r], warp_max(x));
+        sc[r] = visible ? expf(x - m_new) : 0.f;
+        const float corr = expf(m[r] - m_new);
+        l[r] = l[r] * corr + warp_sum(sc[r]);
+        m[r] = m_new;
+#pragma unroll
+        for (int i = 0; i < DPL; ++i) acc[r][i] *= corr;
+      }
+    }
+    // acc += p . V over the tile's keys, in key order
+#pragma unroll 4
+    for (int j = 0; j < kTileKeys; ++j) {
+      float vj[DPL];
+#pragma unroll
+      for (int i = 0; i < DPL; ++i) {
+        const int c = lane + 32 * i;
+        vj[i] = c < DP ? to_f32(tv[j * RS + c]) : 0.f;
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        if (r < rows) {
+          const float pj = __shfl_sync(0xffffffffu, sc[r], j);
+#pragma unroll
+          for (int i = 0; i < DPL; ++i) acc[r][i] = fmaf(pj, vj[i], acc[r][i]);
+        }
+      }
+    }
+    __syncwarp();  // the stage is consumed before it is refilled
   }
 
+  // merge the warps' (m, l, acc) in warp order through shared memory
+  __syncthreads();  // every warp is done with its ring
+  float* s_acc = reinterpret_cast<float*>(s_ring);  // (W, R, DP)
+  float* s_ml = s_acc + W * R * DP;                 // (W, R, 2)
 #pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    const int row = warp + kWarps * r;
-    if (row >= g) continue;
-    const float denom = l[r] == 0.f ? 1.f : l[r];  // length 0 -> 0
-    T* orow = o + ((size_t)b * g + row) * d;
+  for (int r = 0; r < R; ++r) {
+    if (r < rows) {
 #pragma unroll
-    for (int i = 0; i < kDimsPerLane; ++i) {
-      const int c = lane + 32 * i;
-      if (c < d) store(orow + c, acc[r][i] / denom);
+      for (int i = 0; i < DPL; ++i) {
+        const int c = lane + 32 * i;
+        if (c < DP) s_acc[(warp * R + r) * DP + c] = acc[r][i];
+      }
+      if (lane == 0) {
+        s_ml[(warp * R + r) * 2] = m[r];
+        s_ml[(warp * R + r) * 2 + 1] = l[r];
+      }
+    }
+  }
+  __syncthreads();
+  const bool direct = p.splits == 1;
+  T* ob = static_cast<T*>(p.o) + b * p.lo.batch + kh * p.lo.head;
+  float* part = p.part + ((long long)prog * p.splits + split) * p.g *
+                             (long long)(p.d + 2);
+  for (int i = tid; i < rows * p.d; i += W * 32) {
+    const int r = i / p.d;
+    const int c = i - r * p.d;
+    float mx = kNegInf;
+#pragma unroll
+    for (int w = 0; w < W; ++w) mx = fmaxf(mx, s_ml[(w * R + r) * 2]);
+    float sum = 0.f, a = 0.f;
+#pragma unroll
+    for (int w = 0; w < W; ++w) {
+      const float f = expf(s_ml[(w * R + r) * 2] - mx);
+      sum += s_ml[(w * R + r) * 2 + 1] * f;
+      a += s_acc[(w * R + r) * DP + c] * f;
+    }
+    if (direct) {
+      store(ob + (row0 + r) * p.lo.row + c, sum == 0.f ? 0.f : a / sum);
+    } else {
+      float* pr = part + (long long)(row0 + r) * (p.d + 2);
+      pr[c] = a;
+      if (c == 0) {
+        pr[p.d] = mx;
+        pr[p.d + 1] = sum;
+      }
     }
   }
 }
 
-template <typename T, int kDimsPerLane>
-int launch(const void* q, const void* k, const void* v, const int* lengths,
-           void* o, int bkv, int g, int s, int d, int num_kv_heads,
-           float scale, size_t smem, cudaStream_t stream) {
-  auto kernel = decode_kernel<T, kDimsPerLane>;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
+// one CTA per program: merge its live splits in split order and write o
+template <typename T>
+__global__ void __launch_bounds__(128)
+decode_combine_kernel(const Params p) {
+  __shared__ float s_max[kMaxRows], s_sum[kMaxRows];
+  const int prog = blockIdx.x;
+  const int b = prog / p.kv_heads;
+  const int kh = prog - b * p.kv_heads;
+  const int len = min(max(p.lengths[b], 0), p.s);
+  const int live = (len + p.split - 1) / p.split;
+  const long long ss = (long long)p.g * (p.d + 2);  // between splits
+  const float* part = p.part + prog * p.splits * ss;
+  // each row's max and rescaled sum (loads unrolled, so they overlap)
+  for (int r = threadIdx.x; r < p.g; r += blockDim.x) {
+    const float* pr = part + r * (p.d + 2);
+    float mx = kNegInf;
+#pragma unroll 8
+    for (int s = 0; s < live; ++s) mx = fmaxf(mx, pr[s * ss + p.d]);
+    float sum = 0.f;
+#pragma unroll 8
+    for (int s = 0; s < live; ++s)
+      sum += pr[s * ss + p.d + 1] * expf(pr[s * ss + p.d] - mx);
+    s_max[r] = mx;
+    s_sum[r] = sum;
   }
-  kernel<<<bkv, kWarps * 32, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), lengths, static_cast<T*>(o), g, s, d,
-      num_kv_heads, scale);
+  __syncthreads();
+  T* ob = static_cast<T*>(p.o) + b * p.lo.batch + kh * p.lo.head;
+  for (int i = threadIdx.x; i < p.g * p.d; i += blockDim.x) {
+    const int r = i / p.d;
+    const int c = i - r * p.d;
+    const float* pr = part + r * (p.d + 2);
+    const float mx = s_max[r];
+    float a = 0.f;
+#pragma unroll 8
+    for (int s = 0; s < live; ++s)
+      a += pr[s * ss + c] * expf(pr[s * ss + p.d] - mx);
+    store(ob + r * p.lo.row + c, s_sum[r] == 0.f ? 0.f : a / s_sum[r]);
+  }
+}
+
+template <typename T, int DP, int R>
+int launch(const Params& p, int programs, cudaStream_t stream) {
+  using S = Shape<DP>;
+  constexpr int RS = DP + 16 / (int)sizeof(T);
+  constexpr size_t kRing = (size_t)S::kWarps * 4 * kTileKeys * RS * sizeof(T);
+  constexpr size_t kMerge = (size_t)S::kWarps * R * (DP + 2) * 4;
+  constexpr size_t kSmem =
+      (size_t)R * DP * 4 + (kRing > kMerge ? kRing : kMerge);
+  static_assert(kSmem <= 232448, "rings exceed a block's shared memory");
+  Params q = p;
+  q.row_chunks = (p.g + R - 1) / R;
+  const long long blocks = (long long)programs * p.splits * q.row_chunks;
+  if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
+  auto kernel = decode_split_kernel<T, DP, R>;
+  if (kSmem > 48 * 1024) {
+    static const cudaError_t attr = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmem);
+    if (attr != cudaSuccess) return (int)attr;
+  }
+  kernel<<<(int)blocks, S::kWarps * 32, kSmem, stream>>>(q);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || p.splits == 1) return (int)err;
+  decode_combine_kernel<T><<<programs, 128, 0, stream>>>(q);
   return (int)cudaGetLastError();
 }
 
+template <typename T, int DP>
+int by_rows(const Params& p, int programs, cudaStream_t stream) {
+  constexpr int kRows = Shape<DP>::kRows;
+  if (kRows > kFewRows && p.g <= kFewRows)
+    return launch<T, DP, (kRows > kFewRows ? kFewRows : kRows)>(p, programs,
+                                                                stream);
+  return launch<T, DP, kRows>(p, programs, stream);
+}
+
 template <typename T>
-int dispatch(const void* q, const void* k, const void* v, const int* lengths,
-             void* o, int bkv, int g, int s, int d, int num_kv_heads,
-             float scale, size_t smem, cudaStream_t stream) {
-  if (d <= 32)
-    return launch<T, 1>(q, k, v, lengths, o, bkv, g, s, d, num_kv_heads,
-                        scale, smem, stream);
-  if (d <= 64)
-    return launch<T, 2>(q, k, v, lengths, o, bkv, g, s, d, num_kv_heads,
-                        scale, smem, stream);
-  if (d <= 128)
-    return launch<T, 4>(q, k, v, lengths, o, bkv, g, s, d, num_kv_heads,
-                        scale, smem, stream);
-  return launch<T, 8>(q, k, v, lengths, o, bkv, g, s, d, num_kv_heads, scale,
-                      smem, stream);
+int dispatch(const Params& p, int programs, cudaStream_t stream) {
+  if (p.d <= 8) return by_rows<T, 8>(p, programs, stream);
+  if (p.d <= 16) return by_rows<T, 16>(p, programs, stream);
+  if (p.d <= 32) return by_rows<T, 32>(p, programs, stream);
+  if (p.d <= 64) return by_rows<T, 64>(p, programs, stream);
+  if (p.d <= 128) return by_rows<T, 128>(p, programs, stream);
+  return by_rows<T, 256>(p, programs, stream);
+}
+
+bool aligned16(const void* ptr, const Layout& l, size_t elem) {
+  const size_t a = 16 / elem;  // elements in 16 bytes
+  return reinterpret_cast<uintptr_t>(ptr) % 16 == 0 && l.batch % a == 0 &&
+         l.head % a == 0 && l.row % a == 0;
 }
 
 }  // namespace
 
-// q, o: (B * Hkv, G, D); k_cache, v_cache: (B * Hkv, S, D); lengths: (B,)
-// int32; all contiguous on the card, float32 (bf16 == 0) or bfloat16
-// (bf16 == 1), o in q's type. 1 <= G <= 32, 1 <= D <= 256, S >= 1,
-// num_kv_heads >= 1 divides B * Hkv. Returns cudaGetLastError() after the
-// launch; the caller raises if it is not cudaSuccess.
-extern "C" int decode_attention_bkgd(const void* q, const void* k_cache,
-                                     const void* v_cache, const int* lengths,
-                                     void* o, int bkv, int g, int s, int d,
-                                     int num_kv_heads, float scale, int bf16,
-                                     void* stream) {
-  if (bkv <= 0 || g <= 0 || g > kMaxRows || s <= 0 || d <= 0 ||
-      d > kMaxHeadDim || num_kv_heads <= 0 || bkv % num_kv_heads != 0)
+// The entry point's arguments, packed by the caller (Python's struct
+// format "<6Q12q7if", no padding): the six pointers; the element strides
+// (between sequences, kv heads and rows) of q, the caches and o; the
+// sizes, the split length, the dtype flag and the scale.
+struct DecodeArgs {
+  const void* q;
+  const void* k;
+  const void* v;
+  const int* lengths;
+  void* o;
+  void* partials;
+  Layout lq, lk, lv, lo;
+  int batch, kv_heads, g, s, d, split, bf16;
+  float scale;
+};
+static_assert(sizeof(DecodeArgs) == 176, "DecodeArgs must match <6Q12q7if");
+
+// q, o: (batch, kv_heads, G, D) and k_cache, v_cache: (batch, kv_heads, S,
+// D), each addressed by its own strides with the last dimension
+// contiguous; lengths: (batch,) int32, contiguous. float32 (bf16 == 0) or
+// bfloat16 (bf16 == 1), o in q's type. 1 <= G <= 32, 1 <= D <= 256, S >=
+// 1; split is the keys of one CTA, a positive multiple of 32. With S >
+// split, `partials` holds batch * kv_heads * ceil(S / split) * G * (D + 2)
+// floats of scratch (unused otherwise). Returns cudaGetLastError() after
+// the launches; the caller raises if it is not cudaSuccess.
+extern "C" int decode_attention_bshd(const DecodeArgs* a, void* stream) {
+  if (a->batch <= 0 || a->kv_heads <= 0 || a->g <= 0 || a->g > kMaxRows ||
+      a->s <= 0 || a->d <= 0 || a->d > kMaxHeadDim || a->split <= 0 ||
+      a->split % kTileKeys != 0)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = ((size_t)g * d + (size_t)kBlockK * (d + 1) +
-                       (size_t)kBlockK * d + (size_t)g * kBlockK) *
-                      sizeof(float);
+  const long long programs = (long long)a->batch * a->kv_heads;
+  const int splits = (a->s + a->split - 1) / a->split;
+  if (programs > INT_MAX || (splits > 1 && a->partials == nullptr))
+    return (int)cudaErrorInvalidValue;
+  Params p{a->q,       a->k,      a->v,     a->lengths,
+           a->o,       static_cast<float*>(a->partials),
+           a->lq,      a->lk,     a->lv,    a->lo,
+           a->kv_heads, a->g,     a->s,     a->d,
+           a->split,   splits,    1,        0,
+           a->scale};
+  const size_t elem = a->bf16 ? 2 : 4;
+  p.vec = a->d % (16 / elem) == 0 && aligned16(a->k, a->lk, elem) &&
+          aligned16(a->v, a->lv, elem);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bf16)
-    return dispatch<__nv_bfloat16>(q, k_cache, v_cache, lengths, o, bkv, g,
-                                   s, d, num_kv_heads, scale, smem, st);
-  return dispatch<float>(q, k_cache, v_cache, lengths, o, bkv, g, s, d,
-                         num_kv_heads, scale, smem, st);
+  if (a->bf16) return dispatch<__nv_bfloat16>(p, (int)programs, st);
+  return dispatch<float>(p, (int)programs, st);
 }

@@ -1,227 +1,649 @@
-// Blocked flash attention (forward) for Hopper (sm_90a), with GQA and a
-// causal / sliding-window mask.
+// Blocked flash attention (forward) for Hopper (sm_90a) on the tensor
+// cores, with GQA, a causal / sliding-window mask and strided operands.
 //
 // Replaces the TPU kernel
 // src/repro/kernels/flash_attention.py::flash_attention_bhsd (_flash_kernel).
-// For program bh and query row i, over the keys j of kv head bh / group
-// (positions of both start at 0):
+// For program p = b * heads + h and query row i, over the keys j of kv
+// head h / group of sequence b (positions of both start at 0):
 //   s_ij = scale * (q_i . k_j),   visible when (not causal or j <= i)
 //                                 and (window <= 0 or j > i - window)
 //   o_i  = sum_j p_ij v_j / sum_j p_ij,   p_ij = exp(s_ij - max_j s_ij)
 // over the visible keys, computed online tile by tile in float32 with
-// -1e30 (not -inf) as the running maximum's start. A row with no visible
-// key writes 0, as the TPU kernel does where its running sum l is 0.
+// -1e30 (not -inf) as the running maximum's start. A masked key weighs
+// exactly 0, and a row with no visible key writes 0, as the TPU kernel
+// does where its running sum l is 0. scale is D ** -0.5 on the true D
+// unless the caller gives one; bf16 results round to nearest even.
 //
-// Bound: at the predicate's shapes (S = 32, D = 8, two heads a row) a
-// CTA does ~16 K flops on ~4 KB, so latency: a handful of dependent
-// steps inside one CTA. At long S (1,024-4,096, D = 64) the S^2 products
-// dominate and the work is bound by operations; with no tensor cores
-// here, by the card's float32 rate, and this simple version stays well
-// below it (wgmma tiles, TMA and a deeper pipeline are later work).
+// Bound: operations. At long S the S^2 products dominate (at bench_kernels'
+// (1, 1024, 8, 2, 64) causal: ~0.27 GFLOP on ~2.6 MB), and on this card
+// the products go to the tensor cores: bf16 at 989 TFLOP/s, and float32
+// at a third of TF32's 495 TFLOP/s, because every float32 product is
+// three TF32 products (below). At the predicate's S = 32, D = 8 the work
+// is a few dependent steps inside one CTA: latency.
 //
-// Design. One CTA of 8 warps per (bh, tile of 32 query rows). Each warp
-// owns 4 rows and keeps their running max m, sum l and float32
-// accumulator in registers (lane c holds dims c, c + 32, ...). The CTA
-// stages its q tile, then each tile of 32 keys and values, in shared
-// memory as float32 (K rows padded to D + 1 floats, so 32 lanes reading
-// 32 rows hit 32 banks). For each row and tile: lane j forms the logit of
-// key j (dot over D in index order); a warp max gives the tile's max;
-// lane j writes p_j (0 for a masked key) to shared memory; every lane
-// then sums p in index order, so all hold the same l, and each of its
-// dims of p . V in index order. No FMA contraction (the build passes
-// --fmad=false). Tiles that the TPU kernel's block test finds fully
-// masked for the CTA's rows are skipped; a masked key weighs exactly 0
-// and leaves m, l and the accumulator unchanged bit for bit, so a row's
-// result depends neither on the skipping nor on the rows beside it, the
-// grid or the batch.
+// Design.
+// - Tiles: a CTA of 8 warps owns 64 query rows of one program: 4 row
+//   warps of 16 rows (one m16 row block) times 2 key groups, the first
+//   taking the even K/V tiles and the second the odd ones, their (m, l,
+//   o) merged at the end through shared memory. So a heavy query tile's
+//   keys take half as long and an SM holds 8 warps, not 4. Where Sk fits
+//   one tile (the predicates' S = 32) the CTA is the 4 row warps alone,
+//   which gives the same sums. K/V tiles are
+//   BK = 64 keys (float32: 32 at D = 128, 16 at D = 256; bf16: 32 at D =
+//   256); D is padded to DP (8, 16, ..., 256; 16 at least for bf16) with
+//   zeros. Tile sizes and the order in which a row's keys are summed
+//   depend on D and the dtype only, never on the batch or the grid, so a
+//   row's result is bit-equal alone and in any batch.
+// - Copies: Q and a two-stage ring of K/V tile pairs in shared memory,
+//   filled by cp.async (16 bytes a thread, zero-filled past S and D): pair
+//   t + 1 lands while pair t is computed, one __syncthreads a pair. Rows are
+//   padded by 16 bytes so the fragment loads below hit 32 banks. Operands
+//   that are not 16-byte aligned (a ragged D, odd strides) are copied
+//   element by element instead.
+// - Products: mma.sync on the tensor cores, m16n8k8 TF32 for float32 and
+//   m16n8k16 bf16 for bf16, both with float32 accumulators. mma.sync was
+//   taken over wgmma: the float32 path splits each operand in registers
+//   (below), which wgmma's shared-memory B operand would need as two more
+//   copies of every K and V tile, and the predicates' D = 8 and S = 32
+//   are below wgmma's 64-row, 32-byte-deep tiles.
+// - 3xTF32: float32 operands are split as hi = tf32(x), lo = tf32(x -
+//   hi) (tf32: round to nearest, ties away, as cvt.rna.tf32.f32 does, in
+//   integer operations that run at full rate), and a product is lo*hi' +
+//   hi*lo' + hi*hi' (never one TF32 product: that keeps ~3 digits, enough
+//   to flip the predicates' decisions). Both QK^T and P.V go this way. The
+//   tensor cores add into their accumulator rounding toward zero, which
+//   over a long sum biases it; so QK^T keeps the hi*hi' terms and the
+//   small lo terms in separate accumulators, P.V sums each tile from zero,
+//   and those partial sums are added in float32, rounding to nearest.
+// - Softmax in registers, on the accumulator fragments, in base 2 (scale
+//   * log2 e folded into the logits): row max and sum over a quad by
+//   shuffles, rescale by exp2(m - m_new). P feeds P.V from
+//   the same registers: for bf16 the m16n8k16 A fragment is the QK^T C
+//   fragment; for TF32 the keys of each 8-key step are taken in the order
+//   (0, 2, 4, 6 | 1, 3, 5, 7), so the C fragment is the A fragment again
+//   and V's B fragment reads the matching rows.
+// - Work order: tiles wholly outside the causal or window band are
+//   skipped per CTA (and per warp); the late (heavy) query tiles of every
+//   program launch first.
+// - FMA contraction is allowed in this library.
 
 #include <climits>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kRowsPerWarp = 4;
-constexpr int kBlockQ = kWarps * kRowsPerWarp;  // query rows per CTA
-constexpr int kBlockK = 32;                      // keys per tile: one a lane
+constexpr int kRowWarps = 4;              // 16 query rows each
+constexpr int kMaxGroups = 2;             // key groups: even, odd tiles
+constexpr int kGroupThreads = kRowWarps * 32;
+constexpr int kBlockQ = kRowWarps * 16;   // query rows per CTA
 constexpr int kMaxHeadDim = 256;
 constexpr float kNegInf = -1e30f;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
+// element strides of one operand: between sequences, heads and positions
+struct Layout {
+  long long batch, head, seq;
+};
+
+struct Params {
+  const void* q;
+  const void* k;
+  const void* v;
+  void* o;
+  Layout lq, lk, lv, lo;
+  int heads, group, sq, sk, d, causal, window, programs, q_tiles, vec;
+  int groups;        // key groups of a CTA: 2, or 1 where Sk fits a tile
+  float scale_log2;  // scale * log2(e): the softmax runs in base 2
+};
+
+template <typename T>
+__device__ __forceinline__ T zero();
+template <>
+__device__ __forceinline__ float zero<float>() { return 0.f; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 zero<__nv_bfloat16>() {
+  return __float2bfloat16(0.f);
 }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);  // round to nearest even, as torch's cast
 }
 
-__device__ __forceinline__ float warp_max(float x) {
-  for (int off = 16; off > 0; off >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-template <typename T, int kDimsPerLane>
-__global__ void __launch_bounds__(kWarps * 32)
-flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, T* __restrict__ o, int sq, int sk,
-             int d, int group, int causal, int window, float scale) {
-  extern __shared__ float smem[];
-  const int kstride = d + 1;
-  float* s_q = smem;                     // (kBlockQ, d)
-  float* s_k = s_q + kBlockQ * d;        // (kBlockK, d + 1)
-  float* s_v = s_k + kBlockK * kstride;  // (kBlockK, d)
-  float* s_p = s_v + kBlockK * d;        // (kBlockQ, kBlockK)
+// rows [pos0, pos0 + R) of one program's (positions, D) operand into a
+// (R, RS) tile by `threads` threads, zero past position n and column d
+template <typename T, int DP, int R>
+__device__ __forceinline__ void load_tile(T* dst, const T* src,
+                                          long long stride, int pos0, int n,
+                                          int d, bool vec, int tid,
+                                          int threads) {
+  constexpr int RS = DP + 16 / (int)sizeof(T);
+  if (vec) {
+    constexpr int kVec = 16 / (int)sizeof(T);
+    constexpr int kChunks = DP / kVec;
+    for (int i = tid; i < R * kChunks; i += threads) {
+      const int r = i / kChunks;
+      const int col = (i - r * kChunks) * kVec;
+      const int pos = pos0 + r;
+      const bool in = pos < n && col < d;
+      cp_async16(dst + r * RS + col, in ? src + pos * stride + col : src,
+                 in ? 16 : 0);
+    }
+  } else {
+    for (int i = tid; i < R * DP; i += threads) {
+      const int r = i / DP;
+      const int col = i - r * DP;
+      const int pos = pos0 + r;
+      dst[r * RS + col] =
+          pos < n && col < d ? src[pos * stride + col] : zero<T>();
+    }
+  }
+}
+
+// x rounded to TF32 (10 stored mantissa bits), to nearest with ties away
+// from zero: cvt.rna.tf32.f32's result, in two full-rate integer
+// operations (cvt runs on the conversion unit at a fraction of the rate)
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo,
+                                              __nv_bfloat16 hi) {
+  const __nv_bfloat162 v = __halves2bfloat162(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Fragment coordinates below: lane = 4 * g + t; a C fragment c[0..3]
+// holds rows (g, g, g + 8, g + 8) and columns (2t, 2t + 1, 2t, 2t + 1).
+
+// s[j] = Q(16, DP) . K(keys 8j .. 8j + 7, DP)^T. The tensor cores add
+// into their accumulator rounding toward zero, so the hi.hi terms and the
+// small lo terms are summed apart and added once, rounding to nearest.
+template <int DP, int BK>
+__device__ __forceinline__ void qk_tile(float (&s)[BK / 8][4],
+                                        const float* sq, const float* sk,
+                                        int g, int t) {
+  constexpr int RS = DP + 4;
+  float small[BK / 8][4];
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) small[j][e] = s[j][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < DP; kk += 8) {
+    uint32_t a_hi[4], a_lo[4];
+    split_tf32(sq[g * RS + kk + t], a_hi[0], a_lo[0]);
+    split_tf32(sq[(g + 8) * RS + kk + t], a_hi[1], a_lo[1]);
+    split_tf32(sq[g * RS + kk + t + 4], a_hi[2], a_lo[2]);
+    split_tf32(sq[(g + 8) * RS + kk + t + 4], a_hi[3], a_lo[3]);
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+      const float* kr = sk + (j * 8 + g) * RS + kk;
+      uint32_t b_hi[2], b_lo[2];
+      split_tf32(kr[t], b_hi[0], b_lo[0]);
+      split_tf32(kr[t + 4], b_hi[1], b_lo[1]);
+      mma_tf32(small[j], a_lo, b_hi);
+      mma_tf32(small[j], a_hi, b_lo);
+      mma_tf32(s[j], a_hi, b_hi);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] += small[j][e];
+}
+template <int DP, int BK>
+__device__ __forceinline__ void qk_tile(float (&s)[BK / 8][4],
+                                        const __nv_bfloat16* sq,
+                                        const __nv_bfloat16* sk, int g,
+                                        int t) {
+  constexpr int RS = DP + 8;
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < DP; kk += 16) {
+    uint32_t a[4];
+    a[0] = ld32(sq + g * RS + kk + 2 * t);
+    a[1] = ld32(sq + (g + 8) * RS + kk + 2 * t);
+    a[2] = ld32(sq + g * RS + kk + 2 * t + 8);
+    a[3] = ld32(sq + (g + 8) * RS + kk + 2 * t + 8);
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+      const __nv_bfloat16* kr = sk + (j * 8 + g) * RS + kk;
+      const uint32_t b[2] = {ld32(kr + 2 * t), ld32(kr + 2 * t + 8)};
+      mma_bf16(s[j], a, b);
+    }
+  }
+}
+
+// dim blocks of 8 whose P.V sums one pass keeps in registers
+template <int DP>
+constexpr int kDimBlocks = DP / 8 < 4 ? DP / 8 : 4;
+
+// o[n] = o[n] * corr + P(16, BK) . V(BK, dims 8n .. 8n + 7); p holds the
+// softmax weights in the QK^T C-fragment layout, corr each row's rescale.
+// Each tile's products are summed from zero on the tensor cores (the lo
+// terms apart) and added to o in float32 with one rounding to nearest,
+// so the running sum never sees the tensor cores' truncation.
+template <int DP, int BK>
+__device__ __forceinline__ void pv_tile(float (&o)[DP / 8][4],
+                                        const float (&p)[BK / 8][4],
+                                        const float* sv, int g, int t,
+                                        const float (&corr)[2]) {
+  constexpr int RS = DP + 4;
+  // A column t is key 8j + 2t, column t + 4 is key 8j + 2t + 1
+  uint32_t a_hi[BK / 8][4], a_lo[BK / 8][4];
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j) {
+    split_tf32(p[j][0], a_hi[j][0], a_lo[j][0]);
+    split_tf32(p[j][2], a_hi[j][1], a_lo[j][1]);
+    split_tf32(p[j][1], a_hi[j][2], a_lo[j][2]);
+    split_tf32(p[j][3], a_hi[j][3], a_lo[j][3]);
+  }
+  // NB dim blocks at a time, keys outermost: 2 NB independent chains of
+  // products in flight instead of two
+#pragma unroll
+  for (int n0 = 0; n0 < DP / 8; n0 += kDimBlocks<DP>) {
+    constexpr int NB = kDimBlocks<DP>;
+    float big[NB][4], small[NB][4];
+#pragma unroll
+    for (int nn = 0; nn < NB; ++nn)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) big[nn][e] = small[nn][e] = 0.f;
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+      const float* v0 = sv + (j * 8 + 2 * t) * RS + n0 * 8 + g;
+#pragma unroll
+      for (int nn = 0; nn < NB; ++nn) {
+        uint32_t b_hi[2], b_lo[2];
+        split_tf32(v0[nn * 8], b_hi[0], b_lo[0]);
+        split_tf32(v0[RS + nn * 8], b_hi[1], b_lo[1]);
+        mma_tf32(small[nn], a_lo[j], b_hi);
+        mma_tf32(small[nn], a_hi[j], b_lo);
+        mma_tf32(big[nn], a_hi[j], b_hi);
+      }
+    }
+#pragma unroll
+    for (int nn = 0; nn < NB; ++nn)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        o[n0 + nn][e] = fmaf(o[n0 + nn][e], corr[e >> 1],
+                             big[nn][e] + small[nn][e]);
+  }
+}
+template <int DP, int BK>
+__device__ __forceinline__ void pv_tile(float (&o)[DP / 8][4],
+                                        const float (&p)[BK / 8][4],
+                                        const __nv_bfloat16* sv, int g,
+                                        int t, const float (&corr)[2]) {
+  constexpr int RS = DP + 8;
+  uint32_t a[BK / 16][4];
+#pragma unroll
+  for (int c = 0; c < BK / 16; ++c) {
+    a[c][0] = pack_bf16(p[2 * c][0], p[2 * c][1]);
+    a[c][1] = pack_bf16(p[2 * c][2], p[2 * c][3]);
+    a[c][2] = pack_bf16(p[2 * c + 1][0], p[2 * c + 1][1]);
+    a[c][3] = pack_bf16(p[2 * c + 1][2], p[2 * c + 1][3]);
+  }
+#pragma unroll
+  for (int n0 = 0; n0 < DP / 8; n0 += kDimBlocks<DP>) {
+    constexpr int NB = kDimBlocks<DP>;
+    float acc[NB][4];
+#pragma unroll
+    for (int nn = 0; nn < NB; ++nn)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[nn][e] = 0.f;
+#pragma unroll
+    for (int c = 0; c < BK / 16; ++c) {
+      const __nv_bfloat16* v0 = sv + (c * 16 + 2 * t) * RS + n0 * 8 + g;
+#pragma unroll
+      for (int nn = 0; nn < NB; ++nn) {
+        const __nv_bfloat16* vn = v0 + nn * 8;
+        const uint32_t b[2] = {pack_bf16(vn[0], vn[RS]),
+                               pack_bf16(vn[8 * RS], vn[9 * RS])};
+        mma_bf16(acc[nn], a[c], b);
+      }
+    }
+#pragma unroll
+    for (int nn = 0; nn < NB; ++nn)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        o[n0 + nn][e] = fmaf(o[n0 + nn][e], corr[e >> 1], acc[nn][e]);
+  }
+}
+
+template <typename T, int DP, int BK>
+__global__ void __launch_bounds__(kMaxGroups * kGroupThreads)
+flash_kernel(const Params p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int RS = DP + 16 / (int)sizeof(T);
+  constexpr int kTile = BK * RS;  // elements of one K or V tile
+  T* s_q = reinterpret_cast<T*>(smem_raw);  // (kBlockQ, RS)
+  const int groups = p.groups;
+  const int threads = groups * kGroupThreads;
+  T* s_k = s_q + kBlockQ * RS;  // 2 stages x groups tiles of (BK, RS)
+  T* s_v = s_k + 2 * groups * kTile;
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int nq = (sq + kBlockQ - 1) / kBlockQ;
-  const int bh = blockIdx.x / nq;
-  const int q_start = (blockIdx.x - bh * nq) * kBlockQ;
-  const int q_last = q_start + kBlockQ - 1;
-  const T* qb = q + (size_t)bh * sq * d;
-  const T* kb = k + (size_t)(bh / group) * sk * d;
-  const T* vb = v + (size_t)(bh / group) * sk * d;
+  const int rw = warp % kRowWarps;  // which 16 rows
+  const int kg = warp / kRowWarps;  // which key group
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  // the last query tile of every program first: those see the most keys
+  const int rank = blockIdx.x / p.programs;
+  const int prog = blockIdx.x - rank * p.programs;
+  const int q_start = (p.q_tiles - 1 - rank) * kBlockQ;
+  const int b = prog / p.heads;
+  const int h = prog - b * p.heads;
+  const int kh = h / p.group;
+  const T* qb = static_cast<const T*>(p.q) + b * p.lq.batch + h * p.lq.head;
+  const T* kb = static_cast<const T*>(p.k) + b * p.lk.batch + kh * p.lk.head;
+  const T* vb = static_cast<const T*>(p.v) + b * p.lv.batch + kh * p.lv.head;
+  T* ob = static_cast<T*>(p.o) + b * p.lo.batch + h * p.lo.head;
+  const bool vec = p.vec != 0;
 
-  for (int i = tid; i < kBlockQ * d; i += kWarps * 32)
-    s_q[i] = q_start + i / d < sq ? to_f32(qb[(size_t)q_start * d + i]) : 0.f;
+  // the TPU kernel's block test over this CTA's rows [q_start, q_last]:
+  // key tiles (aligned to BK from key 0) that some row can see; key
+  // group kg takes tiles kg, kg + 2, ...
+  const int q_last = min(q_start + kBlockQ, p.sq) - 1;
+  const int k_end = p.causal ? min(p.sk, q_last + 1) : p.sk;
+  const int k_begin =
+      p.window > 0 ? max(0, q_start - p.window + 1) / BK * BK : 0;
+  const int n_tiles = k_end > k_begin ? (k_end - k_begin + BK - 1) / BK : 0;
+  const int n_steps = (n_tiles + groups - 1) / groups;
 
-  float m[kRowsPerWarp], l[kRowsPerWarp], acc[kRowsPerWarp][kDimsPerLane];
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    m[r] = kNegInf;
-    l[r] = 0.f;
-#pragma unroll
-    for (int i = 0; i < kDimsPerLane; ++i) acc[r][i] = 0.f;
+  load_tile<T, DP, kBlockQ>(s_q, qb, p.lq.seq, q_start, p.sq, p.d, vec, tid,
+                            threads);
+  for (int grp = 0; grp < groups && grp < n_tiles; ++grp) {
+    load_tile<T, DP, BK>(s_k + grp * kTile, kb, p.lk.seq, k_begin + grp * BK,
+                         p.sk, p.d, vec, tid, threads);
+    load_tile<T, DP, BK>(s_v + grp * kTile, vb, p.lv.seq, k_begin + grp * BK,
+                         p.sk, p.d, vec, tid, threads);
   }
+  cp_async_commit();
 
-  for (int k_start = 0; k_start < sk; k_start += kBlockK) {
-    // the TPU kernel's block test over this CTA's rows [q_start, q_last]
-    if (causal && k_start > q_last) break;
-    if (window > 0 && k_start + kBlockK - 1 < q_start - window + 1) continue;
-    __syncthreads();  // the q tile is staged; the previous tile is consumed
-    for (int i = tid; i < kBlockK * d; i += kWarps * 32) {
-      const int r = i / d;
-      const bool in = k_start + r < sk;
-      s_k[r * kstride + (i - r * d)] =
-          in ? to_f32(kb[(size_t)k_start * d + i]) : 0.f;
-      s_v[i] = in ? to_f32(vb[(size_t)k_start * d + i]) : 0.f;
-    }
-    __syncthreads();
-    const int kpos = k_start + lane;
+  const int row0 = q_start + rw * 16;  // this warp's rows
+  const int qpos[2] = {row0 + g, row0 + g + 8};
+  const int row_last = min(row0 + 15, p.sq - 1);
+  float o[DP / 8][4];
 #pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) {
-      const int row = warp * kRowsPerWarp + r;
-      const int qpos = q_start + row;
-      bool visible = kpos < sk;
-      if (causal) visible = visible && kpos <= qpos;
-      if (window > 0) visible = visible && kpos > qpos - window;
-      float s = kNegInf;
-      if (visible) {
-        const float* qr = s_q + row * d;
-        const float* kr = s_k + lane * kstride;
-        float dot = 0.f;
-        for (int c = 0; c < d; ++c) dot += qr[c] * kr[c];
-        s = dot * scale;
-      }
-      const float m_new = fmaxf(m[r], warp_max(s));
-      float* pr = s_p + row * kBlockK;
-      pr[lane] = visible ? expf(s - m_new) : 0.f;
-      __syncwarp();
-      const float corr = expf(m[r] - m_new);
-      float psum = 0.f;
-      for (int j = 0; j < kBlockK; ++j) psum += pr[j];
-      l[r] = l[r] * corr + psum;
+  for (int n = 0; n < DP / 8; ++n)
 #pragma unroll
-      for (int i = 0; i < kDimsPerLane; ++i) {
-        const int c = lane + 32 * i;
-        if (c < d) {
-          float pv = 0.f;
-          for (int j = 0; j < kBlockK; ++j) pv += pr[j] * s_v[j * d + c];
-          acc[r][i] = acc[r][i] * corr + pv;
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  float m[2] = {kNegInf, kNegInf};
+  float l[2] = {0.f, 0.f};  // this lane's share of the row sums
+
+  for (int it = 0; it < n_steps; ++it) {
+    cp_async_wait_all();
+    __syncthreads();  // step it has landed; step it - 1 is consumed
+    if (it + 1 < n_steps) {
+      T* nk = s_k + ((it + 1) & 1) * groups * kTile;
+      T* nv = s_v + ((it + 1) & 1) * groups * kTile;
+      for (int grp = 0; grp < groups; ++grp) {
+        const int tile = (it + 1) * groups + grp;
+        if (tile < n_tiles) {
+          load_tile<T, DP, BK>(nk + grp * kTile, kb, p.lk.seq,
+                               k_begin + tile * BK, p.sk, p.d, vec, tid,
+                               threads);
+          load_tile<T, DP, BK>(nv + grp * kTile, vb, p.lv.seq,
+                               k_begin + tile * BK, p.sk, p.d, vec, tid,
+                               threads);
         }
       }
+    }
+    cp_async_commit();
+    const int tile = it * groups + kg;
+    const int k_start = k_begin + tile * BK;
+    // the same block test for this warp's 16 rows
+    if (tile >= n_tiles || row0 >= p.sq ||
+        (p.causal && k_start > row_last) ||
+        (p.window > 0 && k_start + BK - 1 <= row0 - p.window))
+      continue;
+    const int slot = (it & 1) * groups + kg;
+    const T* cur_k = s_k + slot * kTile;
+    const T* cur_v = s_v + slot * kTile;
+
+    float s[BK / 8][4];
+    qk_tile<DP, BK>(s, s_q + rw * 16 * RS, cur_k, g, t);
+
+    // logits in log2 units (scale * log2 e folded in), the masked ones
+    // left out of the max and weighted exactly 0; a tile that every row
+    // of this warp sees whole skips the per-key test
+    const bool whole = k_start + BK <= p.sk &&
+                       (!p.causal || k_start + BK - 1 <= row0) &&
+                       (p.window <= 0 || k_start > row0 + 15 - p.window);
+    uint64_t visible = ~0ull;
+    if (!whole) {
+      visible = 0;
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kpos = k_start + j * 8 + 2 * t + (e & 1);
+          const int i = qpos[e >> 1];
+          if (kpos < p.sk && (!p.causal || kpos <= i) &&
+              (p.window <= 0 || kpos > i - p.window))
+            visible |= 1ull << (j * 4 + e);
+        }
+    }
+    float tile_max[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] *= p.scale_log2;
+        if ((visible >> (j * 4 + e)) & 1)
+          tile_max[e >> 1] = fmaxf(tile_max[e >> 1], s[j][e]);
+      }
+    float corr[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float x = tile_max[r];
+      x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+      x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+      const float m_new = fmaxf(m[r], x);
+      corr[r] = exp2f(m[r] - m_new);
       m[r] = m_new;
     }
+    float psum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = (visible >> (j * 4 + e)) & 1 ? exp2f(s[j][e] - m[e >> 1])
+                                               : 0.f;
+        psum[e >> 1] += s[j][e];
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + psum[r];
+    pv_tile<DP, BK>(o, s, cur_v, g, t, corr);
+  }
+
+  if (groups > 1) {
+    // merge the odd tiles' (m, l, o) into the even tiles' through shared
+    // memory: M = max, each side rescaled by exp2(m - M), then summed
+    constexpr int kLaneFloats = DP / 2 + 4;
+    float* mine = reinterpret_cast<float*>(s_k) + (rw * 32 + lane) *
+                                                     kLaneFloats;
+    __syncthreads();  // every warp is done with the ring
+    if (kg == 1) {
+#pragma unroll
+      for (int n = 0; n < DP / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) mine[n * 4 + e] = o[n][e];
+      mine[DP / 2] = m[0];
+      mine[DP / 2 + 1] = m[1];
+      mine[DP / 2 + 2] = l[0];
+      mine[DP / 2 + 3] = l[1];
+    }
+    __syncthreads();
+    if (kg == 1) return;
+    float f_mine[2], f_other[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float m_other = mine[DP / 2 + r];
+      const float m_new = fmaxf(m[r], m_other);
+      f_mine[r] = exp2f(m[r] - m_new);
+      f_other[r] = exp2f(m_other - m_new);
+      l[r] = l[r] * f_mine[r] + mine[DP / 2 + 2 + r] * f_other[r];
+    }
+#pragma unroll
+    for (int n = 0; n < DP / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        o[n][e] = o[n][e] * f_mine[e >> 1] + mine[n * 4 + e] * f_other[e >> 1];
   }
 
 #pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    const int qpos = q_start + warp * kRowsPerWarp + r;
-    if (qpos >= sq) continue;
-    const float denom = l[r] == 0.f ? 1.f : l[r];  // no visible key -> 0
-    T* orow = o + ((size_t)bh * sq + qpos) * d;
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
 #pragma unroll
-    for (int i = 0; i < kDimsPerLane; ++i) {
-      const int c = lane + 32 * i;
-      if (c < d) store(orow + c, acc[r][i] / denom);
+  for (int r = 0; r < 2; ++r) {
+    if (qpos[r] >= p.sq) continue;
+    const float denom = l[r] == 0.f ? 1.f : l[r];  // no visible key -> 0
+    T* orow = ob + qpos[r] * p.lo.seq;
+#pragma unroll
+    for (int n = 0; n < DP / 8; ++n) {
+      const int col = n * 8 + 2 * t;
+      if (col < p.d) store(orow + col, o[n][2 * r] / denom);
+      if (col + 1 < p.d) store(orow + col + 1, o[n][2 * r + 1] / denom);
     }
   }
 }
 
-template <typename T, int kDimsPerLane>
-int launch(const void* q, const void* k, const void* v, void* o, int blocks,
-           int sq, int sk, int d, int group, int causal, int window,
-           float scale, size_t smem, cudaStream_t stream) {
-  auto kernel = flash_kernel<T, kDimsPerLane>;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
+// Sk within one tile leaves the second key group nothing to do: one group
+// then, which gives the same sums (an empty partner merges as exactly 0)
+template <typename T, int DP, int BK>
+int launch(Params p, int blocks, cudaStream_t stream) {
+  constexpr int RS = DP + 16 / (int)sizeof(T);
+  constexpr size_t kGroupRing = (size_t)4 * BK * RS * sizeof(T);
+  constexpr size_t kMerge = (size_t)kRowWarps * 32 * (DP / 2 + 4) * 4;
+  static_assert(kMerge <= kMaxGroups * kGroupRing,
+                "the merge must fit in the ring");
+  constexpr size_t kQ = (size_t)kBlockQ * RS * sizeof(T);
+  constexpr size_t kMaxSmem = kQ + kMaxGroups * kGroupRing;
+  static_assert(kMaxSmem <= 232448, "tiles exceed a block's shared memory");
+  auto kernel = flash_kernel<T, DP, BK>;
+  if (kMaxSmem > 48 * 1024) {
+    static const cudaError_t attr = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kMaxSmem);
+    if (attr != cudaSuccess) return (int)attr;
   }
-  kernel<<<blocks, kWarps * 32, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), sq, sk, d, group, causal,
-      window, scale);
+  p.groups = p.sk > BK ? kMaxGroups : 1;
+  kernel<<<blocks, p.groups * kGroupThreads, kQ + p.groups * kGroupRing,
+           stream>>>(p);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* o, int blocks,
-             int sq, int sk, int d, int group, int causal, int window,
-             float scale, size_t smem, cudaStream_t stream) {
-  if (d <= 32)
-    return launch<T, 1>(q, k, v, o, blocks, sq, sk, d, group, causal, window,
-                        scale, smem, stream);
-  if (d <= 64)
-    return launch<T, 2>(q, k, v, o, blocks, sq, sk, d, group, causal, window,
-                        scale, smem, stream);
-  if (d <= 128)
-    return launch<T, 4>(q, k, v, o, blocks, sq, sk, d, group, causal, window,
-                        scale, smem, stream);
-  return launch<T, 8>(q, k, v, o, blocks, sq, sk, d, group, causal, window,
-                      scale, smem, stream);
+bool aligned16(const void* ptr, const Layout& l, size_t elem) {
+  const size_t a = 16 / elem;  // elements in 16 bytes
+  return reinterpret_cast<uintptr_t>(ptr) % 16 == 0 && l.batch % a == 0 &&
+         l.head % a == 0 && l.seq % a == 0;
 }
 
 }  // namespace
 
-// q, o: (BH, Sq, D); k, v: (BH / group, Sk, D); all contiguous on the
-// card, float32 (bf16 == 0) or bfloat16 (bf16 == 1), o in q's type.
-// 1 <= D <= 256, group >= 1 divides BH, Sk >= 0. Returns
-// cudaGetLastError() after the launch; the caller raises if it is not
-// cudaSuccess.
-extern "C" int flash_attention_bhsd(const void* q, const void* k,
-                                    const void* v, void* o, int bh, int sq,
-                                    int sk, int d, int group, int causal,
-                                    int window, float scale, int bf16,
-                                    void* stream) {
-  if (bh <= 0 || sq <= 0 || sk < 0 || d <= 0 || d > kMaxHeadDim ||
-      group <= 0 || bh % group != 0)
+// The entry point's arguments, packed by the caller (Python's struct
+// format "<4Q12q9if", no padding): the four pointers; the element strides
+// (between sequences, heads and positions) of q, k, v and o; the sizes,
+// flags and the scale.
+struct FlashArgs {
+  const void* q;
+  const void* k;
+  const void* v;
+  void* o;
+  Layout lq, lk, lv, lo;
+  int batch, heads, group, sq, sk, d, causal, window, bf16;
+  float scale;
+};
+static_assert(sizeof(FlashArgs) == 168, "FlashArgs must match <4Q12q9if");
+
+// q, o: (batch, heads, Sq, D) and k, v: (batch, heads / group, Sk, D),
+// each addressed by its own strides with the last dimension contiguous;
+// float32 (bf16 == 0) or bfloat16 (bf16 == 1), o in q's type. Program p =
+// b * heads + h reads kv head h / group of sequence b. 1 <= D <= 256,
+// group divides heads, Sk >= 0. Returns cudaGetLastError() after the
+// launch; the caller raises if it is not cudaSuccess.
+extern "C" int flash_attention_bshd(const FlashArgs* a, void* stream) {
+  if (a->batch <= 0 || a->heads <= 0 || a->sq <= 0 || a->sk < 0 ||
+      a->d <= 0 || a->d > kMaxHeadDim || a->group <= 0 ||
+      a->heads % a->group != 0)
     return (int)cudaErrorInvalidValue;
-  const long long blocks =
-      (long long)bh * ((sq + kBlockQ - 1) / kBlockQ);
-  if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
-  const size_t smem = ((size_t)kBlockQ * d + (size_t)kBlockK * (d + 1) +
-                       (size_t)kBlockK * d + (size_t)kBlockQ * kBlockK) *
-                      sizeof(float);
+  const long long programs = (long long)a->batch * a->heads;
+  const long long q_tiles = (a->sq + kBlockQ - 1) / kBlockQ;
+  if (programs * q_tiles > INT_MAX) return (int)cudaErrorInvalidValue;
+  Params p{a->q,      a->k,      a->v,         a->o,          a->lq,
+           a->lk,     a->lv,     a->lo,        a->heads,      a->group,
+           a->sq,     a->sk,     a->d,         a->causal,     a->window,
+           (int)programs, (int)q_tiles, 0, 1,
+           (float)(a->scale * 1.4426950408889634)};
+  const size_t elem = a->bf16 ? 2 : 4;
+  p.vec = a->d % (16 / elem) == 0 && aligned16(a->q, a->lq, elem) &&
+          aligned16(a->k, a->lk, elem) && aligned16(a->v, a->lv, elem);
+  const int blocks = (int)(programs * q_tiles);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16)
-    return dispatch<__nv_bfloat16>(q, k, v, o, (int)blocks, sq, sk, d, group,
-                                   causal, window, scale, smem, s);
-  return dispatch<float>(q, k, v, o, (int)blocks, sq, sk, d, group, causal,
-                         window, scale, smem, s);
+  const int d = a->d;
+  if (a->bf16) {
+    if (d <= 16) return launch<__nv_bfloat16, 16, 64>(p, blocks, s);
+    if (d <= 32) return launch<__nv_bfloat16, 32, 64>(p, blocks, s);
+    if (d <= 64) return launch<__nv_bfloat16, 64, 64>(p, blocks, s);
+    if (d <= 128) return launch<__nv_bfloat16, 128, 64>(p, blocks, s);
+    return launch<__nv_bfloat16, 256, 32>(p, blocks, s);
+  }
+  if (d <= 8) return launch<float, 8, 64>(p, blocks, s);
+  if (d <= 16) return launch<float, 16, 64>(p, blocks, s);
+  if (d <= 32) return launch<float, 32, 64>(p, blocks, s);
+  if (d <= 64) return launch<float, 64, 64>(p, blocks, s);
+  if (d <= 128) return launch<float, 128, 32>(p, blocks, s);
+  return launch<float, 256, 16>(p, blocks, s);
 }

@@ -4,17 +4,17 @@ The device of the input decides the path: a CUDA tensor runs the
 hand-written kernel, a CPU tensor the plain version in ``ref.py``. There is
 no switch that picks by whether a card is present. Every entry point
 launches through ``launch.kernel_call``, so timing hooks see each launch.
-Each takes the JAX package's model-natural layout and transposes inside,
-as ``repro.kernels.ops`` does.
+Each takes the JAX package's model-natural layout. The attention kernels
+read it through strides as it is; the others transpose inside, as
+``repro.kernels.ops`` does.
 """
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.kernels import launch, ref
-from repro_torch.kernels.decode_attention import decode_attention_bkgd
-from repro_torch.kernels.flash_attention import flash_attention_bhsd
+from repro_torch.kernels.decode_attention import decode_attention_bshd
+from repro_torch.kernels.flash_attention import flash_attention_bshd
 from repro_torch.kernels.hsv_color import hsv_color_hist
 from repro_torch.kernels.moe_router import moe_router_tk
 from repro_torch.kernels.rglru import rglru_bsw
@@ -33,31 +33,23 @@ def flash_attention(
 ) -> torch.Tensor:
     """(B, S, H, D) attention, GQA over H // Hkv query heads per kv head.
 
-    The kernel picks its own tiles; the block sizes keep the JAX package's
-    behaviour only: the causal path pads S to a multiple of
-    ``max(block_q, block_k)`` (the mask keeps padding from real rows, and
-    padded rows are sliced off), and a non-causal S that is not such a
-    multiple raises."""
+    The kernel picks its own tiles and reads the (B, S, H, D) views through
+    their strides: no transpose, no copy, no padding (a ragged causal S
+    needs none: the mask keeps keys past a row from it). The block sizes
+    keep the JAX package's one refusal: a non-causal S that is not a
+    multiple of ``max(block_q, block_k)`` raises."""
     b, s, h, d = q.shape
     hkv = k.shape[2]
     if hkv == 0 or h % hkv:
         raise ValueError(f"Hkv must divide H, got H={h} Hkv={hkv}")
-    pad = (-s) % max(block_q, block_k)
-    if pad:
-        if not causal:
-            raise ValueError("the non-causal flash path needs S to be a "
-                             f"multiple of the block, got S={s} block="
-                             f"{max(block_q, block_k)}")
-        q, k, v = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (q, k, v))
-    sp = s + pad
-    out = launch.kernel_call(
-        lambda *a: flash_attention_bhsd(*a, group=h // hkv,
-                                        causal=causal, window=window),
-        name="flash_attention", rows=b * h * sp,
-    )(q.transpose(1, 2).reshape(b * h, sp, d),
-      k.transpose(1, 2).reshape(b * hkv, sp, d),
-      v.transpose(1, 2).reshape(b * hkv, sp, d))
-    return out.reshape(b, h, sp, d).transpose(1, 2)[:, :s]
+    if not causal and s % max(block_q, block_k):
+        raise ValueError("the non-causal flash path needs S to be a "
+                         f"multiple of the block, got S={s} block="
+                         f"{max(block_q, block_k)}")
+    return launch.kernel_call(
+        lambda *a: flash_attention_bshd(*a, causal=causal, window=window),
+        name="flash_attention", rows=b * h * s,
+    )(q, k, v)
 
 
 def decode_attention(
@@ -69,8 +61,9 @@ def decode_attention(
     block_k: int = 256,
 ) -> torch.Tensor:
     """(B, H, D): each sequence's new token against its first ``lengths``
-    cache entries. The kernel picks its own tiles; as in the JAX package,
-    S must be a multiple of ``min(block_k, S)``."""
+    cache entries. The kernel picks its own tiles and reads the views
+    through their strides; as in the JAX package, S must be a multiple of
+    ``min(block_k, S)``."""
     b, h, d = q.shape
     s, hkv = k_cache.shape[1], k_cache.shape[2]
     block = min(block_k, s)
@@ -79,13 +72,9 @@ def decode_attention(
                          f"got S={s} block_k={block_k}")
     if hkv == 0 or h % hkv:
         raise ValueError(f"Hkv must divide H, got H={h} Hkv={hkv}")
-    out = launch.kernel_call(
-        lambda *a: decode_attention_bkgd(*a, num_kv_heads=hkv),
-        name="decode_attention", rows=b * h,
-    )(q.reshape(b * hkv, h // hkv, d),
-      k_cache.transpose(1, 2).reshape(b * hkv, s, d),
-      v_cache.transpose(1, 2).reshape(b * hkv, s, d), lengths)
-    return out.reshape(b, h, d)
+    return launch.kernel_call(
+        decode_attention_bshd, name="decode_attention", rows=b * h,
+    )(q, k_cache, v_cache, lengths)
 
 
 def hsv_color_classify(

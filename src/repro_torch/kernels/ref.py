@@ -434,3 +434,64 @@ def decode_attention_bkgd(
                           k_cache.to(torch.float32).transpose(1, 2)) * scale
     mask = (torch.arange(s, device=q.device)[None, :] < length[:, None])
     return _attend(logits, mask[:, None, :], v_cache).to(q.dtype)
+
+
+def decode_attention_split(
+    q: torch.Tensor,        # (B * Hkv, G, D)
+    k_cache: torch.Tensor,  # (B * Hkv, S, D)
+    v_cache: torch.Tensor,  # (B * Hkv, S, D)
+    lengths: torch.Tensor,  # (B,)
+    *,
+    num_kv_heads: int,
+    split: int,
+    scale: float | None = None,
+) -> torch.Tensor:
+    """``decode_attention_bkgd`` as the split-cache kernel computes it: a
+    partial (m, l, acc) over each ``split``-key stretch of the cache (m =
+    -1e30, l = 0, acc = 0 where the stretch holds no live key), then the
+    partials merged in split order: M = max m, L = sum l exp(m - M), o =
+    sum acc exp(m - M) / L, and 0 where L = 0."""
+    _require_float32_products(q, "decode_attention_split")
+    bkv, g, d = q.shape
+    s = k_cache.shape[1]
+    scale = d ** -0.5 if scale is None else scale
+    n = -(-s // split)
+    pad = n * split - s
+    k = torch.nn.functional.pad(k_cache.to(torch.float32), (0, 0, 0, pad))
+    v = torch.nn.functional.pad(v_cache.to(torch.float32), (0, 0, 0, pad))
+    prog = torch.arange(bkv, device=q.device) // num_kv_heads
+    length = lengths.to(device=q.device, dtype=torch.int64)[prog].clamp(0, s)
+    live = (torch.arange(n * split, device=q.device)[None, :]
+            < length[:, None]).reshape(bkv, 1, n, split)
+    logits = torch.matmul(q.to(torch.float32)[:, :, None, None, :],
+                          k.reshape(bkv, 1, n, split, d).transpose(-1, -2))
+    logits = (logits[..., 0, :] * scale).masked_fill(~live, MASKED)
+    m = logits.amax(-1)                                # (bkv, G, n)
+    p = torch.exp(logits - m[..., None]).masked_fill(~live, 0.0)
+    l = p.sum(-1)
+    acc = torch.matmul(p[..., None, :],
+                       v.reshape(bkv, 1, n, split, d))[..., 0, :]
+    big = m.amax(-1, keepdim=True)
+    f = torch.exp(m - big)
+    total = (l * f).sum(-1)                            # (bkv, G)
+    out = (acc * f[..., None]).sum(-2)
+    out = torch.where(total[..., None] == 0, torch.zeros_like(out),
+                      out / torch.where(total == 0, 1.0, total)[..., None])
+    return out.to(q.dtype)
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """float32 rounded to TF32 (10 stored mantissa bits) to nearest, ties
+    away from zero, as ``cvt.rna.tf32.f32`` does."""
+    bits = x.to(torch.float32).contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def mm_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b as the flash kernel forms float32 products on the tensor cores:
+    each operand split into hi = tf32(x) and lo = tf32(x - hi), and
+    lo.hi' + hi.lo' + hi.hi' summed in float32 (the lo.lo' term, ~2^-22 of
+    the product, is dropped)."""
+    a_hi, b_hi = tf32_round(a), tf32_round(b)
+    a_lo, b_lo = tf32_round(a - a_hi), tf32_round(b - b_hi)
+    return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi

@@ -325,11 +325,11 @@ def test_launches_are_hooked_under_their_names(rng):
     q, k, v = map(_t, _qkv(rng, 2, 40, 4, 2, 8))
     events = []
     with launch.launch_hooks(events.append):
-        ops.flash_attention(q, k, v, block_q=32, block_k=32)   # padded to 64
+        ops.flash_attention(q, k, v, block_q=32, block_k=32)   # S = 40, unpadded
         ops.decode_attention(q[:, 0], k[:, :32], v[:, :32],
                              torch.tensor([1, 9]), block_k=32)
     assert [(e.name, e.backend, e.rows) for e in events] == [
-        ("flash_attention", "cpu", 2 * 4 * 64), ("decode_attention", "cpu", 8)]
+        ("flash_attention", "cpu", 2 * 4 * 40), ("decode_attention", "cpu", 8)]
 
 
 # --------------------------------------------------------------------------- #
