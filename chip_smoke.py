@@ -9,11 +9,14 @@ Needs a CUDA card and nvcc; exits non-zero without them, and on any
 failed phase. Phases, in order:
 
 1. setup   — card name and power limit, torch/CUDA/nvcc versions;
-2. build   — compile every kernel from the sources in the checkout, one
-             nvcc per source, all at once;
+2. build   — compile every kernel from the sources in the checkout (and
+             an empty kernel, the launch floor), one nvcc per source, all
+             at once;
 3. kernels — each kernel against its plain PyTorch version on the card,
-             then timed with CUDA events beside its bound (and, for the
-             attention kernels, beside scaled_dot_product_attention);
+             then timed with CUDA events through its wrapper and at its C
+             entry point beside its bound, the launch floor (and, for the
+             attention kernels, beside scaled_dot_product_attention; for
+             ssd, its P = N = 4 instance beside its generic one);
 4. query   — the lost-dog query (5 minutes of 30-fps video) on the card
              under every eddy policy; row ids against the plain version
              on the CPU, launches on the kernel counter and the board;
@@ -35,6 +38,7 @@ failed phase. Phases, in order:
 from __future__ import annotations
 
 import collections
+import ctypes
 import json
 import os
 import subprocess
@@ -65,6 +69,7 @@ BUCKETS = (1, 2, 4, 8, 16, 32)  # the executor's bucketed batch sizes
 BIG = 4096            # rows for the throughput case
 KERNELS = ("hsv_color", "moe_router", "ssd", "rglru", "flash_attention",
            "decode_attention")
+LIBRARIES = (*KERNELS, "empty")   # empty: the launch floor, not a TPU kernel
 # bench_kernels' shapes: flash (B, S, H, Hkv, D, window), causal; decode
 # (B, S, H, Hkv, D) with full lengths
 FLASH_BENCH = ((1, 1024, 8, 2, 64, 0), (2, 2048, 8, 2, 64, 0),
@@ -97,6 +102,34 @@ def time_ms(fn, iters: int, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(call, n: int = 100, reps: int = 20) -> float:
+    """Milliseconds a launch of ``call(stream)`` (a C entry point) takes
+    when n launches are replayed as one CUDA graph: the device time with
+    no host work between launches, which the tight loops of ``time_ms``
+    cannot show for kernels shorter than a launch's host cost."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            call(side.cuda_stream)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        stream = torch.cuda.current_stream().cuda_stream
+        for _ in range(n):
+            call(stream)
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (n * reps)
 
 
 def paired_ms(fns: dict, rounds: int = 5) -> dict:
@@ -167,28 +200,51 @@ def hsv_bound_ms(hw, rooflines, b: int, h: int, w: int, c: int):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def time_hsv(built, hsv_color, ref, hw, rooflines, ranges, b: int) -> dict:
+def time_hsv(hsv_color, ref, hw, rooflines, ranges, b: int) -> dict:
     """Times of the hsv_color kernel on b 64x64 integer crops: through its
-    wrapper (``ms``, what a caller pays), from its C entry point in a tight
-    loop (``entry_ms``, the device time while the host keeps ahead), and of
-    the plain version (``plain_ms``), beside the bound."""
+    wrapper (``ms``, what a caller pays) and from its C entry point
+    (``entry_ms``, the device time while the host keeps ahead), taken in
+    turns (``paired_ms``), and of the plain version (``plain_ms``), beside
+    the bound."""
+    from repro_torch.kernels import _build
     c = ranges.shape[0]
     x = torch.from_numpy(np.random.default_rng(b).integers(
         0, 256, (b, 64, 64, 3)).astype(np.float32)).cuda()
     out = torch.empty((b, c + 1), device="cuda")
-    args = (x.data_ptr(), ranges.data_ptr(), out.data_ptr(), b, 64 * 64, c,
-            torch.cuda.current_stream().cuda_stream)
-    assert built.lib.hsv_color_hist(*args) == 0
-    k_ms = time_ms(lambda: hsv_color.hsv_color_hist(x, ranges), TIME_ITERS)
-    e_ms = time_ms(lambda: built.lib.hsv_color_hist(*args), TIME_ITERS)
+    call = _build.load("hsv_color").lib.hsv_color_hist
+    args = hsv_color.pack_args(x, ranges, out, b, 64 * 64, c)
+    stream = torch.cuda.current_stream().cuda_stream
+    assert call(args, stream) == 0
+    t = paired_ms({"ms": lambda: hsv_color.hsv_color_hist(x, ranges),
+                   "entry_ms": lambda: call(args, stream)})
+    t["graph_ms"] = graph_ms(lambda st: call(args, st))
     p_ms = time_ms(lambda: ref.hsv_color_classify(x, ranges),
                    TIME_ITERS if b <= 32 else 10)
     bound, bound_by = hsv_bound_ms(hw, rooflines, b, 64, 64, c)
-    print(f"  B={b} 64x64: kernel {k_ms!r} ms (entry point {e_ms!r} ms), "
-          f"plain {p_ms!r} ms, bound {bound!r} ms ({bound_by}, "
-          f"{b * 64 * 64 * 12} B of crops)", flush=True)
-    return {"ms": k_ms, "entry_ms": e_ms, "plain_ms": p_ms,
-            "bound_ms": bound, "bound_by": bound_by, "library_ms": None}
+    plan = hsv_color.plan(b, 64 * 64)
+    print(f"  B={b} 64x64: kernel {t['ms']!r} ms (entry point "
+          f"{t['entry_ms']!r} ms, in a graph {t['graph_ms']!r} ms), plain "
+          f"{p_ms!r} ms, bound {bound!r} ms "
+          f"({bound_by}, {b * 64 * 64 * 12} B of crops); {plan}", flush=True)
+    return {**t, "plain_ms": p_ms, "bound_ms": bound, "bound_by": bound_by,
+            "library_ms": None}
+
+
+def launch_floor_ms() -> dict:
+    """One empty kernel (``csrc/empty.cu``) launched from its C entry point
+    as the kernels' entry points are timed: in a tight loop (what a launch
+    costs the host) and replayed in a graph (what it costs the card)."""
+    from repro_torch.kernels import _build
+    call = _build.load("empty").lib.empty_launch
+    stream = torch.cuda.current_stream().cuda_stream
+    if call(stream) != 0:
+        raise AssertionError("empty kernel launch failed")
+    t = {"entry_ms": time_ms(lambda: call(stream), 10 * TIME_ITERS),
+         "graph_ms": graph_ms(call)}
+    print(f"  empty kernel: {t['entry_ms']!r} ms a launch from its entry "
+          f"point, {t['graph_ms']!r} ms in a graph (the launch floor)",
+          flush=True)
+    return t
 
 
 # --------------------------------------------------------------------------- #
@@ -247,6 +303,31 @@ def check_ssd(x, dt, A, Bm, Cm, h0, chunk: int, label: str,
           f"{err_h!r}{extra}", flush=True)
     if not ok:
         raise AssertionError(f"ssd kernel disagrees on {label}")
+    return max(err_y, err_h)
+
+
+def check_ssd_ops(x, dt, A, Bm, Cm, label: str) -> float:
+    """``ops.ssd`` on the predicate's own views (ssd_inputs: a dt broadcast
+    over heads, no h0) against the plain version: one launch, nothing
+    allocated but y and h_last, scores within SCORE_ATOL."""
+    from repro_torch.kernels import ops, ref, ssd
+    from repro_torch.udfs.library import row_mean
+    stats = torch.cuda.memory_stats
+    before = (ssd.launches, stats()["allocation.all.allocated"])
+    y, h_last = ops.ssd(x, dt, A, Bm, Cm, chunk=SEQ)
+    launched = ssd.launches - before[0]
+    allocated = stats()["allocation.all.allocated"] - before[1]
+    y_p, h_p = ref.ssd(x, dt, A, Bm, Cm, None, chunk=SEQ)
+    torch.cuda.synchronize()
+    err_y, ok_y = within(y, y_p, **TOL_TIGHT)
+    err_h, ok_h = within(h_last, h_p, **TOL_TIGHT)
+    err_s, ok_s = within(row_mean(y), row_mean(y_p), 0.0, SCORE_ATOL)
+    print(f"  ssd {label} through ops (dt stride {dt.stride()}, h0 None): "
+          f"y max_abs_err {err_y!r}, h_last {err_h!r}, score {err_s!r}; "
+          f"launches {launched}, allocations {allocated} (y and h_last)",
+          flush=True)
+    if not (ok_y and ok_h and ok_s and launched == 1 and allocated == 2):
+        raise AssertionError(f"ssd through ops disagrees or copies on {label}")
     return max(err_y, err_h)
 
 
@@ -349,9 +430,15 @@ def check_text_kernels(inputs: TextInputs) -> dict:
     err["ssd"] = max(err["ssd"], ssd_case(
         2, 128, 4, 8, 2, 8, 32, "dt=0 across chunk edges, nonzero h0",
         h0_scale=1.0, dt_zero=((20, 70), (100, 128))))
+    err["ssd"] = max(err["ssd"], ssd_case(
+        2, 256, 2, 4, 1, 4, 64, "4 chunks of 64, nonzero h0", h0_scale=1.0))
+    err["ssd"] = max(err["ssd"], ssd_case(
+        2, 48, 2, 6, 1, 3, 24, "ragged P and N, nonzero h0", h0_scale=1.0))
     for b in (*BUCKETS, BIG):
         err["ssd"] = max(err["ssd"], check_ssd(
             *inputs.ssd_args(b), SEQ, f"library B={b}", score_atol=SCORE_ATOL))
+        err["ssd"] = max(err["ssd"], check_ssd_ops(
+            *inputs.ssd_args(b)[:5], f"library B={b}"))
 
     # ---- rglru
     for b, s, w in ((1, 64, 64), (2, 128, 128), (2, 96, 256), (4, 1, 16),
@@ -389,26 +476,108 @@ def attention_bound(nbytes: int, flops: float, dtype: torch.dtype) -> dict:
             "bound_f32_cores_ms": bound_ms(nbytes, flops)[0]}
 
 
+def ssd_view_args(x, dt, A, Bm, Cm, y, h_last) -> bytes:
+    """The ssd entry point's packed arguments for the main path's call:
+    the model's (B, S, H, P) views read through their strides, no h0."""
+    from repro_torch.kernels import ssd
+    b, s, h, p = x.shape
+    g, n = Bm.shape[2], Bm.shape[3]
+    return ssd.ARGS.pack(
+        x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
+        Cm.data_ptr(), 0, y.data_ptr(), h_last.data_ptr(),
+        *(v for t in (x, dt, Bm, Cm, y) for v in t.stride()),
+        b, h, s, p, g, n, SEQ, 0)
+
+
+SSD_DISPATCH = "  if (k.p == 4 && k.n == 4) return launch<4, 4>(k, warps, bytes, s);\n"
+
+
+def build_ssd_generic():
+    """The ssd entry point of a copy of ``csrc/ssd.cu`` whose dispatch
+    leaves out the P = N = 4 instance, so every shape runs the generic
+    one; built with the library's own flags, for ``ssd_instances``."""
+    from repro_torch.kernels import _build
+    src = (_build.CSRC / "ssd.cu").read_text()
+    if SSD_DISPATCH not in src:
+        raise AssertionError("ssd.cu: the P = N = 4 dispatch line is gone")
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    variant = _build.BUILD_DIR / "ssd_generic.cu"
+    variant.write_text(src.replace(SSD_DISPATCH, ""))
+    lib_path = variant.with_suffix(".so")
+    proc = subprocess.run([_build.nvcc_path(), *_build.flags("ssd"), "-o",
+                           str(lib_path), str(variant)],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {variant.name}:\n"
+                           f"{proc.stdout}{proc.stderr}")
+    fn = ctypes.CDLL(str(lib_path)).ssd_scan
+    fn.argtypes, fn.restype = _build.SIGNATURES["ssd"]["ssd_scan"]
+    return fn
+
+
+def ssd_instances(inputs: TextInputs, generic) -> dict:
+    """The ssd kernel's P = N = 4 instance against its generic instance
+    (``build_ssd_generic``) on the main path's call at B = 4 and BIG rows:
+    each replayed in a CUDA graph (``graph_ms``), in the order special,
+    generic, generic, special, and the largest difference of their y and
+    h_last."""
+    from repro_torch.kernels import _build
+    calls = {"p4n4": _build.load("ssd").lib.ssd_scan, "generic": generic}
+    stream = torch.cuda.current_stream().cuda_stream
+    out = {}
+    for b in (4, BIG):
+        x, dt, A, Bm, Cm, h0 = inputs.ssd_args(b)
+        res, times = {}, {name: [] for name in calls}
+        for name in calls:
+            res[name] = (torch.empty_like(x), torch.empty_like(h0))
+        args = {name: ssd_view_args(x, dt, A, Bm, Cm, *res[name])
+                for name in calls}
+        for name in ("p4n4", "generic", "generic", "p4n4"):
+            call, a = calls[name], args[name]
+            if call(a, stream) != 0:
+                raise AssertionError(f"ssd {name} instance failed")
+            times[name].append(graph_ms(lambda st: call(a, st)))
+        torch.cuda.synchronize()
+        diff = max(float((u - v).abs().max())
+                   for u, v in zip(res["p4n4"], res["generic"]))
+        out[str(b)] = {**{f"{name}_graph_ms": float(np.mean(t))
+                          for name, t in times.items()},
+                       "max_abs_diff": diff}
+        print(f"  ssd instances B={b}: P = N = 4 "
+              f"{out[str(b)]['p4n4_graph_ms']!r} ms, generic "
+              f"{out[str(b)]['generic_graph_ms']!r} ms in a graph; "
+              f"outputs differ by {diff!r}", flush=True)
+        if not diff <= TOL_TIGHT["atol"]:
+            raise AssertionError("ssd instances disagree")
+    return out
+
+
 def time_text(inputs: TextInputs, b: int) -> dict:
-    """Times of the three text kernels through their wrappers and of their
-    plain versions, on the library's inputs for b rows, beside the bounds
-    (each input read once, each output written once; flops of the cost
-    model in ``udfs/rooflines.py``)."""
-    from repro_torch.kernels import _build, moe_router, ref, rglru, ssd
+    """Times of the three text kernels through their wrappers (``ms``) and
+    from their C entry points (``entry_ms``), taken in turns
+    (``paired_ms``), and of their plain versions, on the library's inputs
+    for b rows, beside the bounds (each input read once, each output
+    written once; flops of the cost model in ``udfs/rooflines.py``). For
+    ssd these are the main path's call, ``ssd_bshp`` on the predicate's own
+    views (ssd_inputs: a dt broadcast over heads, no h0), with ``ops_ms``
+    the same through ``ops.ssd``; the ``bhcp_`` keys time ``ssd_bhcp`` on
+    contiguous (B, H, S, P) copies with a zero h0."""
+    from repro_torch.kernels import _build, moe_router, ops, ref, rglru, ssd
     from repro_torch.udfs import rooflines
     iters = TIME_ITERS if b <= 32 else 10
     stream = torch.cuda.current_stream().cuda_stream
 
-    def entry_ms(name: str, fn: str, *args) -> float:
-        """The C entry point alone in a tight loop: the device time while
-        the host keeps ahead of it."""
-        call = getattr(_build.load(name).lib, fn)
-        if call(*args, stream) != 0:
-            raise AssertionError(f"{name} entry point failed")
-        return time_ms(lambda: call(*args, stream), TIME_ITERS)
+    graphs = {}
 
-    def ptrs(*ts):
-        return [t.data_ptr() for t in ts]
+    def entry(name: str, fn: str, args: bytes, key: str | None = None):
+        """The C entry point alone: the device time while the host keeps
+        ahead of it (and, in ``graphs[key or name]``, replayed in a CUDA
+        graph)."""
+        call = getattr(_build.load(name).lib, fn)
+        if call(args, stream) != 0:
+            raise AssertionError(f"{name} entry point failed")
+        graphs[key or name] = graph_ms(lambda st: call(args, st))
+        return lambda: call(args, stream)
 
     out = {}
     logits = inputs.logits(b)
@@ -416,53 +585,78 @@ def time_text(inputs: TextInputs, b: int) -> dict:
     w_out = torch.empty((b, k), device=logits.device)
     i_out = torch.empty((b, k), dtype=torch.int32, device=logits.device)
     out["moe_router"] = {
-        "ms": time_ms(lambda: moe_router.moe_router_tk(logits, k), TIME_ITERS),
-        "entry_ms": entry_ms("moe_router", "moe_router_tk",
-                             *ptrs(logits, w_out, i_out), b, e, k),
+        **paired_ms({
+            "ms": lambda: moe_router.moe_router_tk(logits, k),
+            "entry_ms": entry("moe_router", "moe_router_tk", moe_router.ARGS.pack(
+                logits.data_ptr(), w_out.data_ptr(), i_out.data_ptr(), b, e,
+                k, 0))}),
         "plain_ms": time_ms(lambda: ref.moe_topk_router(logits, k), iters),
         **dict(zip(("bound_ms", "bound_by"), bound_ms(
             b * e * 4 + b * k * 8,
             b * rooflines.moe_router(e, k).flops_per_row))),
     }
+    # ssd: the main path's call, ssd_bshp on the predicate's own views (a
+    # dt broadcast over heads, no h0), then ssd_bhcp on contiguous
+    # (B, H, S, P) copies with a zero h0 under the bhcp_ keys
     x, dt, A, Bm, Cm, h0 = inputs.ssd_args(b)
-    kx, kdt, kB, kC = (t.transpose(1, 2).contiguous() for t in (x, dt, Bm, Cm))
     _, s, h, p = x.shape
     g, n = Bm.shape[2], Bm.shape[3]
-    y_out = torch.empty_like(kx)
     h_out = torch.empty_like(h0)
+    main_args = ssd_view_args(x, dt, A, Bm, Cm, torch.empty_like(x), h_out)
+    kx, kdt, kB, kC = (t.transpose(1, 2).contiguous() for t in (x, dt, Bm, Cm))
+    ky_out = torch.empty_like(kx)
+    strides = tuple(map(ssd.bhsp_strides, (kx, kdt, kB, kC, ky_out)))
+    bhcp_args = ssd.ARGS.pack(
+        kx.data_ptr(), kdt.data_ptr(), A.data_ptr(), kB.data_ptr(),
+        kC.data_ptr(), h0.data_ptr(), ky_out.data_ptr(), h_out.data_ptr(),
+        *(v for st in strides for v in st), b, h, s, p, g, n, SEQ, 0)
     out["ssd"] = {
-        "ms": time_ms(lambda: ssd.ssd_bhcp(kx, kdt, A, kB, kC, h0, chunk=SEQ),
-                      TIME_ITERS),
-        "entry_ms": entry_ms("ssd", "ssd_bhcp",
-                             *ptrs(kx, kdt, A, kB, kC, h0, y_out, h_out),
-                             b, h, s, p, g, n, SEQ),
-        "plain_ms": time_ms(lambda: ref.ssd(x, dt, A, Bm, Cm, h0, chunk=SEQ),
+        **paired_ms({
+            "ms": lambda: ssd.ssd_bshp(x, dt, A, Bm, Cm, chunk=SEQ),
+            "entry_ms": entry("ssd", "ssd_scan", main_args),
+            "ops_ms": lambda: ops.ssd(x, dt, A, Bm, Cm, chunk=SEQ),
+            "bhcp_ms": lambda: ssd.ssd_bhcp(kx, kdt, A, kB, kC, h0, chunk=SEQ),
+            "bhcp_entry_ms": entry("ssd", "ssd_scan", bhcp_args, "ssd_bhcp")}),
+        "plain_ms": time_ms(lambda: ref.ssd(x, dt, A, Bm, Cm, None, chunk=SEQ),
                             iters),
+        # x and y, dt once a token (stride 0 over heads), A, Bm, Cm, h_last
         **dict(zip(("bound_ms", "bound_by"), bound_ms(
+            4 * (2 * b * s * h * p + b * s + h + 2 * b * s * g * n
+                 + b * h * p * n),
+            b * rooflines.ssd(s, h, p, n).flops_per_row))),
+        # the same with dt per head and h0 read: the bhcp call's work
+        "bhcp_bound_ms": bound_ms(
             4 * (2 * b * h * s * p + b * h * s + h + 2 * b * g * s * n
                  + 2 * b * h * p * n),
-            b * rooflines.ssd(s, h, p, n).flops_per_row))),
+            b * rooflines.ssd(s, h, p, n).flops_per_row)[0],
     }
     rx, rr, ri, a_param, rh0 = inputs.rglru_args(b)
     w = rx.shape[2]
     o_out = torch.empty_like(rx)
     hl_out = torch.empty_like(rh0)
     out["rglru"] = {
-        "ms": time_ms(lambda: rglru.rglru_bsw(rx, rr, ri, a_param, rh0),
-                      TIME_ITERS),
-        "entry_ms": entry_ms("rglru", "rglru_bsw",
-                             *ptrs(rx, rr, ri, a_param, rh0, o_out, hl_out),
-                             b, SEQ, w, 8.0),
+        **paired_ms({
+            "ms": lambda: rglru.rglru_bsw(rx, rr, ri, a_param, rh0),
+            "entry_ms": entry("rglru", "rglru_bsw", rglru.ARGS.pack(
+                *(t.data_ptr() for t in (rx, rr, ri, a_param, rh0, o_out,
+                                         hl_out)), b, SEQ, w, 8.0))}),
         "plain_ms": time_ms(lambda: ref.rglru(rx, rr, ri, a_param, rh0),
                             iters),
         **dict(zip(("bound_ms", "bound_by"), bound_ms(
             4 * (4 * b * SEQ * w + w + 2 * b * w),
             b * rooflines.rglru(SEQ, w).flops_per_row))),
     }
+    out["ssd"]["bhcp_graph_ms"] = graphs["ssd_bhcp"]
     for name, t in out.items():
         t["library_ms"] = None  # no single PyTorch call computes it
+        t["graph_ms"] = graphs[name]
+        extra = (f", ops.ssd {t['ops_ms']!r} ms; ssd_bhcp on contiguous "
+                 f"copies {t['bhcp_ms']!r} ms (entry point "
+                 f"{t['bhcp_entry_ms']!r}, in a graph {t['bhcp_graph_ms']!r}, "
+                 f"bound {t['bhcp_bound_ms']!r})" if name == "ssd" else "")
         print(f"  {name} B={b}: kernel {t['ms']!r} ms (entry point "
-              f"{t['entry_ms']!r} ms), plain "
+              f"{t['entry_ms']!r} ms, in a graph {t['graph_ms']!r} ms"
+              f"{extra}), plain "
               f"{t['plain_ms']!r} ms, bound {t['bound_ms']!r} ms "
               f"({t['bound_by']})", flush=True)
     return out
@@ -863,12 +1057,8 @@ def triage_oracles(table, toks_kept: np.ndarray, ids_kept: np.ndarray) -> dict:
     w_k, idx_k = moe_router.moe_router_tk(logits, 2)
     w_p, idx_p = ref.moe_topk_router(logits, 2)
     x, dt, A, Bm, Cm = lib.ssd_inputs(lib.ssd_tables(device=dev), toks)
-    h0 = torch.zeros((len(toks), x.shape[2], x.shape[3], Bm.shape[3]),
-                     device=dev)
-    y_k, _ = ssd.ssd_bhcp(x.transpose(1, 2), dt.transpose(1, 2), A,
-                          Bm.transpose(1, 2), Cm.transpose(1, 2), h0, chunk=SEQ)
-    score_k = lib.row_mean(y_k.transpose(1, 2))
-    score_p = lib.row_mean(ref.ssd(x, dt, A, Bm, Cm, h0, chunk=SEQ)[0])
+    score_k = lib.row_mean(ssd.ssd_bshp(x, dt, A, Bm, Cm, chunk=SEQ)[0])
+    score_p = lib.row_mean(ref.ssd(x, dt, A, Bm, Cm, chunk=SEQ)[0])
     probs = ref.softmax(logits).sort(dim=-1, descending=True).values
     torch.cuda.synchronize()
     mask_k = ((idx_k[:, 0] == 0) & (score_k > 0)).cpu().numpy()
@@ -918,13 +1108,8 @@ def batch_invariance(toks_kept: np.ndarray) -> dict:
     def path(t):
         logits = lib.router_logits(*router, t)
         _, idx = moe_router.moe_router_tk(logits, 2)
-        x, dt, A, Bm, Cm = lib.ssd_inputs(ssd_t, t)
-        h0 = torch.zeros((len(t), x.shape[2], x.shape[3], Bm.shape[3]),
-                         device=dev)
-        y, _ = ssd.ssd_bhcp(x.transpose(1, 2), dt.transpose(1, 2), A,
-                            Bm.transpose(1, 2), Cm.transpose(1, 2), h0,
-                            chunk=SEQ)
-        return logits, idx[:, 0], lib.row_mean(y.transpose(1, 2))
+        y, _ = ssd.ssd_bshp(*lib.ssd_inputs(ssd_t, t), chunk=SEQ)
+        return logits, idx[:, 0], lib.row_mean(y)
 
     def library_gate(t):
         emb, w_gate = router
@@ -1234,8 +1419,10 @@ def main() -> int:
     # ------------------------------------------------------------- 2 build
     phase("2 build")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNELS)) as pool:  # one nvcc per source
-        libs = dict(zip(KERNELS, pool.map(_build.load, KERNELS)))
+    with ThreadPoolExecutor(len(LIBRARIES) + 1) as pool:  # one nvcc a source
+        generic = pool.submit(build_ssd_generic)
+        libs = dict(zip(LIBRARIES, pool.map(_build.load, LIBRARIES)))
+        ssd_generic = generic.result()
     print(f"  {len(libs)} libraries in {time.perf_counter() - t0:.2f}s")
     for name, lib in libs.items():
         print(f"  {name}: {lib.path.name} built in {lib.seconds:.2f}s")
@@ -1245,7 +1432,6 @@ def main() -> int:
             elif "spill stores" in line or (
                     "ptxas" in line and ("registers" in line or "smem" in line)):
                 print("     ", line.strip())
-    built = libs["hsv_color"]
 
     # ------------------------------------------------------------- 3 kernels
     phase("3 kernels against the plain version")
@@ -1276,8 +1462,9 @@ def main() -> int:
                                      ranges)
     assert tuple(empty.shape) == (0, c + 1)
 
-    timings = {b: time_hsv(built, hsv_color, ref, hw, rooflines, ranges, b)
-               for b in (16, 32, 4096)}
+    floor_ms = launch_floor_ms()
+    timings = {b: time_hsv(hsv_color, ref, hw, rooflines, ranges, b)
+               for b in (4, 16, 32, 4096)}
 
     t0 = time.perf_counter()
     review_list = make_reviews(TRIAGE_REVIEWS, seed=0)
@@ -1291,6 +1478,7 @@ def main() -> int:
     max_errs = check_text_kernels(inputs)
     max_errs["hsv_color"] = max_err
     text_timings = {b: time_text(inputs, b) for b in (*BUCKETS, BIG)}
+    instances = ssd_instances(inputs, ssd_generic)
     print()
     att_inputs = AttentionInputs(toks_kept)
     att_errs = check_attention_kernels(att_inputs)
@@ -1364,8 +1552,8 @@ def main() -> int:
         raise AssertionError("the query did not go through the hsv_color kernel")
     main_b = main_sizes.most_common(1)[0][0]
     if main_b not in timings:
-        timings[main_b] = time_hsv(built, hsv_color, ref, hw, rooflines,
-                                   ranges, main_b)
+        timings[main_b] = time_hsv(hsv_color, ref, hw, rooflines, ranges,
+                                   main_b)
 
     # ------------------------------------------------------------- 5 detector
     phase("5 planted detectors with adaptive coalescing")
@@ -1448,7 +1636,8 @@ def main() -> int:
     for b in set(att_main.values()) - set(att_timings):
         att_timings[b] = time_attention(att_inputs, b)
     summary = {
-        "card": card, "query": query, "query_frames": QUERY_FRAMES,
+        "card": card, "launch_floor_ms": floor_ms, "query": query,
+        "query_frames": QUERY_FRAMES,
         "dog_crops": n_dogs, "expected_rows": len(expect),
         "main_launch_sizes": dict(sorted(main_sizes.items())),
         "detector": {"rows": len(got), "wall_s": wall,
@@ -1460,6 +1649,7 @@ def main() -> int:
         "registry": {k: v for k, v in registry.items() if k != "expect"},
         "text_timings": {str(b): t for b, t in text_timings.items()},
         "text_main_batch": text_main,
+        "ssd_instances": instances,
         "attention_errors": att_errs,
         "attention_timings": {str(b): t for b, t in att_timings.items()},
         "attention_bench": att_bench,

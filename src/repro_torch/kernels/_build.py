@@ -36,6 +36,7 @@ NVCC_FLAGS = (
 NO_FMA = ("--fmad=false",)
 LIBRARY_FLAGS = {
     "decode_attention": (),
+    "empty": (),
     "flash_attention": (),
     "hsv_color": NO_FMA,
     "moe_router": NO_FMA,
@@ -43,32 +44,21 @@ LIBRARY_FLAGS = {
     "ssd": NO_FMA,
 }
 
-# C signature of each library's entry point: (argtypes, restype). The
-# attention kernels take their arguments packed into one buffer (a bytes
-# object from the wrapper's struct format) and the stream: ctypes converts
-# two arguments where it would convert ~27.
-_VOIDP, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C signature of each library's entry point: (argtypes, restype). Each
+# kernel takes its arguments packed into one buffer (a bytes object from
+# the wrapper's struct format) and the stream: ctypes converts two
+# arguments where it would convert up to ~27. ``empty`` launches a kernel
+# that does nothing: the launch floor beside the kernels' times.
+_VOIDP, _INT = ctypes.c_void_p, ctypes.c_int
+_PACKED = ([ctypes.c_char_p, _VOIDP], _INT)
 SIGNATURES = {
-    "decode_attention": {
-        "decode_attention_bshd": ([ctypes.c_char_p, _VOIDP], _INT),
-    },
-    "flash_attention": {
-        "flash_attention_bshd": ([ctypes.c_char_p, _VOIDP], _INT),
-    },
-    "hsv_color": {
-        "hsv_color_hist": ([_VOIDP, _VOIDP, _VOIDP, _INT, _INT, _INT, _VOIDP],
-                           _INT),
-    },
-    "moe_router": {
-        "moe_router_tk": ([_VOIDP, _VOIDP, _VOIDP, _INT, _INT, _INT, _VOIDP],
-                          _INT),
-    },
-    "rglru": {
-        "rglru_bsw": ([_VOIDP] * 7 + [_INT, _INT, _INT, _FLOAT, _VOIDP], _INT),
-    },
-    "ssd": {
-        "ssd_bhcp": ([_VOIDP] * 8 + [_INT] * 7 + [_VOIDP], _INT),
-    },
+    "decode_attention": {"decode_attention_bshd": _PACKED},
+    "empty": {"empty_launch": ([_VOIDP], _INT)},
+    "flash_attention": {"flash_attention_bshd": _PACKED},
+    "hsv_color": {"hsv_color_hist": _PACKED},
+    "moe_router": {"moe_router_tk": _PACKED},
+    "rglru": {"rglru_bsw": _PACKED},
+    "ssd": {"ssd_scan": _PACKED},
 }
 
 

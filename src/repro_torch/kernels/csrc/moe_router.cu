@@ -68,15 +68,23 @@ moe_router_kernel(const float* __restrict__ logits, float* __restrict__ w,
 
 }  // namespace
 
+// RouterArgs in the wrapper's struct format.
+struct RouterArgs {
+  const float* logits;  // (T, E)
+  float* w;             // (T, k)
+  int32_t* idx;         // (T, k)
+  int t, e, k, pad;
+};
+static_assert(sizeof(RouterArgs) == 40, "RouterArgs must match <3Q4i");
+
 // logits: (T, E) float32, w: (T, k) float32, idx: (T, k) int32, all
 // contiguous on the card; 1 <= k <= E <= 64. Returns cudaGetLastError()
 // after the launch; the caller raises if it is not cudaSuccess.
-extern "C" int moe_router_tk(const float* logits, float* w, int32_t* idx,
-                             int t, int e, int k, void* stream) {
-  if (t <= 0 || e <= 0 || e > kMaxExperts || k <= 0 || k > e)
+extern "C" int moe_router_tk(const RouterArgs* a, void* stream) {
+  if (a->t <= 0 || a->e <= 0 || a->e > kMaxExperts || a->k <= 0 || a->k > a->e)
     return (int)cudaErrorInvalidValue;
-  const int blocks = (t + kThreads - 1) / kThreads;
+  const int blocks = (a->t + kThreads - 1) / kThreads;
   moe_router_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      logits, w, idx, t, e, k);
+      a->logits, a->w, a->idx, a->t, a->e, a->k);
   return (int)cudaGetLastError();
 }

@@ -8,6 +8,7 @@ show that it went through the kernel.
 """
 from __future__ import annotations
 
+import struct
 import threading
 
 import torch
@@ -19,6 +20,11 @@ MAX_EXPERTS = 64  # the kernel keeps a row's probabilities in registers
 launches = 0
 _COUNT_LOCK = threading.Lock()
 
+# the C entry point's packed arguments (RouterArgs in the source): logits,
+# w, idx; T, E, k and a pad
+ARGS = struct.Struct("<3Q4i")
+_entry = None  # the library's C function, looked up once
+
 
 def moe_router_tk(
     logits: torch.Tensor,  # (T, E)
@@ -27,7 +33,7 @@ def moe_router_tk(
     """(weights (T, k) in the logits' dtype, idx (T, k) int32): softmax
     over E, k rounds of argmax (lowest index on ties) and mask, then the k
     weights renormalised. Each row has its own thread, so T is free."""
-    global launches
+    global _entry, launches
     if logits.dim() != 2:
         raise ValueError(f"logits must be (T, E), got {tuple(logits.shape)}")
     t, e = logits.shape
@@ -36,21 +42,26 @@ def moe_router_tk(
     if t == 0:
         return (torch.zeros((0, k), dtype=logits.dtype, device=logits.device),
                 torch.zeros((0, k), dtype=torch.int32, device=logits.device))
-    if logits.device.type == "cpu":
+    if not logits.is_cuda:
+        if logits.device.type != "cpu":
+            raise ValueError(f"moe_router_tk runs on cpu or cuda, not "
+                             f"{logits.device}")
         return ref.moe_topk_router(logits, k)
-    if logits.device.type != "cuda":
-        raise ValueError(f"moe_router_tk runs on cpu or cuda, not {logits.device}")
     if e > MAX_EXPERTS:
         raise ValueError(f"at most {MAX_EXPERTS} experts, got {e}")
-    x = logits.to(torch.float32).contiguous()
+    x = logits
+    if x.dtype != torch.float32 or not x.is_contiguous():
+        x = x.to(torch.float32).contiguous()
     w = torch.empty((t, k), dtype=torch.float32, device=x.device)
     idx = torch.empty((t, k), dtype=torch.int32, device=x.device)
-    lib = _build.load("moe_router").lib
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = lib.moe_router_tk(x.data_ptr(), w.data_ptr(), idx.data_ptr(),
-                            t, e, k, stream)
+    if _entry is None:
+        _entry = _build.load("moe_router").lib.moe_router_tk
+    err = _entry(ARGS.pack(x.data_ptr(), w.data_ptr(), idx.data_ptr(), t, e,
+                           k, 0), _build.raw_stream(x.get_device()))
     if err != 0:
         raise RuntimeError(f"moe_router kernel launch failed: CUDA error {err}")
     with _COUNT_LOCK:
         launches += 1
-    return w.to(logits.dtype), idx
+    if logits.dtype != torch.float32:
+        w = w.to(logits.dtype)
+    return w, idx

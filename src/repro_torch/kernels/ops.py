@@ -4,9 +4,8 @@ The device of the input decides the path: a CUDA tensor runs the
 hand-written kernel, a CPU tensor the plain version in ``ref.py``. There is
 no switch that picks by whether a card is present. Every entry point
 launches through ``launch.kernel_call``, so timing hooks see each launch.
-Each takes the JAX package's model-natural layout. The attention kernels
-read it through strides as it is; the others transpose inside, as
-``repro.kernels.ops`` does.
+Each takes the JAX package's model-natural layout. The attention and SSD
+kernels read it through strides as it is; the others need no transpose.
 """
 from __future__ import annotations
 
@@ -18,7 +17,7 @@ from repro_torch.kernels.flash_attention import flash_attention_bshd
 from repro_torch.kernels.hsv_color import hsv_color_hist
 from repro_torch.kernels.moe_router import moe_router_tk
 from repro_torch.kernels.rglru import rglru_bsw
-from repro_torch.kernels.ssd import ssd_bhcp
+from repro_torch.kernels.ssd import ssd_bshp
 
 
 def flash_attention(
@@ -85,8 +84,8 @@ def hsv_color_classify(
 ):
     """(hist (B, C+1) float32, label (B,) int64 argmax, lowest on ties).
 
-    ``block_rows`` keeps the JAX package's signature; the kernel walks each
-    crop whole and needs no row blocking."""
+    ``block_rows`` keeps the JAX package's signature; the kernel splits
+    each crop by pixels and needs no row blocking."""
     if ranges is None:
         ranges = torch.as_tensor(ref.COLOR_RANGES, device=crops.device)
     hist = launch.kernel_call(
@@ -131,14 +130,10 @@ def ssd(
     chunk: int = 64,
 ):
     """(y (B, S, H, P), h_last (B, H, P, N) float32); ``h0`` defaults to
-    zeros. The kernel takes heads before time, so inputs are transposed
-    in and y is transposed back."""
-    b, s, h, p = x.shape
-    n = Bm.shape[-1]
-    if h0 is None:
-        h0 = torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device)
-    y, h_last = launch.kernel_call(
-        lambda *a: ssd_bhcp(*a, chunk=min(chunk, s)), name="ssd", rows=b * s,
-    )(x.transpose(1, 2), dt.transpose(1, 2), A, Bm.transpose(1, 2),
-      Cm.transpose(1, 2), h0)
-    return y.transpose(1, 2), h_last
+    zeros. The kernel reads the (B, S, H, P) views through their strides
+    (a dt broadcast over heads included), starts from a zero state itself
+    when ``h0`` is None and writes y in this layout: one launch, no copy."""
+    b, s = x.shape[:2]
+    return launch.kernel_call(
+        lambda *a: ssd_bshp(*a, chunk=min(chunk, s)), name="ssd", rows=b * s,
+    )(x, dt, A, Bm, Cm, h0)

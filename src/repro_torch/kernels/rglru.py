@@ -8,6 +8,7 @@ so a run can show that it went through the kernel.
 """
 from __future__ import annotations
 
+import struct
 import threading
 
 import torch
@@ -16,6 +17,11 @@ from repro_torch.kernels import _build, ref
 
 launches = 0
 _COUNT_LOCK = threading.Lock()
+
+# the C entry point's packed arguments (RglruArgs in the source): x, r, i,
+# a_param, h0, out, h_last; B, S, W and c
+ARGS = struct.Struct("<7Q3if")
+_entry = None  # the library's C function, looked up once
 
 
 def rglru_bsw(
@@ -29,7 +35,7 @@ def rglru_bsw(
 ):
     """(out (B, S, W), h_last (B, W)), both in x's dtype. Each channel's
     whole sequence is one thread's, so S and W are free."""
-    global launches
+    global _entry, launches
     if x.dim() != 3:
         raise ValueError(f"x must be (B, S, W), got {tuple(x.shape)}")
     b, s, w = x.shape
@@ -41,21 +47,26 @@ def rglru_bsw(
                          f"{tuple(a_param.shape)} and {tuple(h0.shape)}")
     if b == 0 or w == 0:
         return torch.zeros_like(x), torch.zeros_like(h0, dtype=x.dtype)
-    if x.device.type == "cpu":
+    if not x.is_cuda:
+        if x.device.type != "cpu":
+            raise ValueError(f"rglru_bsw runs on cpu or cuda, not {x.device}")
         return ref.rglru(x, r, i, a_param, h0, c=c)
-    if x.device.type != "cuda":
-        raise ValueError(f"rglru_bsw runs on cpu or cuda, not {x.device}")
-    ins = [t.to(torch.float32).contiguous() for t in (x, r, i, a_param, h0)]
-    if any(t.device != x.device for t in ins):
+    dev = x.get_device()
+    ins = [t if t.dtype == torch.float32 and t.is_contiguous()
+           else t.to(torch.float32).contiguous() for t in (x, r, i, a_param, h0)]
+    if any(t.get_device() != dev for t in ins):
         raise ValueError(f"all inputs must lie on {x.device}")
     out = torch.empty((b, s, w), dtype=torch.float32, device=x.device)
     h_last = torch.empty((b, w), dtype=torch.float32, device=x.device)
-    lib = _build.load("rglru").lib
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = lib.rglru_bsw(*(t.data_ptr() for t in ins), out.data_ptr(),
-                        h_last.data_ptr(), b, s, w, float(c), stream)
+    if _entry is None:
+        _entry = _build.load("rglru").lib.rglru_bsw
+    err = _entry(ARGS.pack(*(t.data_ptr() for t in ins), out.data_ptr(),
+                           h_last.data_ptr(), b, s, w, float(c)),
+                 _build.raw_stream(dev))
     if err != 0:
         raise RuntimeError(f"rglru kernel launch failed: CUDA error {err}")
     with _COUNT_LOCK:
         launches += 1
-    return out.to(x.dtype), h_last.to(x.dtype)
+    if x.dtype != torch.float32:
+        out, h_last = out.to(x.dtype), h_last.to(x.dtype)
+    return out, h_last

@@ -109,6 +109,83 @@ def test_hue_floor_mod_follows_jax_remainder(jx):
     assert 170 < float(hsv[0, 0]) < 180
 
 
+def test_hue_needs_no_fmod_for_any_integer_red_max_pixel():
+    """Over every integer (r, g, b) whose maximum is r, the hue's quotient
+    x = (g - b) / diff lies in [-1, 1], so fmod(x, 6) == x bit for bit and
+    the kernel's x < 0 ? x + 6 : x equals ``ref._remainder`` (the JAX
+    package's float %), -0.0 included."""
+    r = torch.arange(256, dtype=torch.float32)
+    r, g, b = torch.meshgrid(r, r, r, indexing="ij")
+    red = (r >= g) & (r >= b)
+    r, g, b = r[red], g[red], b[red]
+    assert r.numel() == sum((v + 1) ** 2 for v in range(256))
+    diff = r - torch.minimum(g, b)
+    x = (g - b) / torch.where(diff == 0, torch.ones_like(diff), diff)
+    assert float(x.abs().max()) <= 1.0
+    bits = lambda t: t.view(torch.int32)  # noqa: E731
+    assert torch.equal(bits(torch.fmod(x, 6.0)), bits(x))
+    kernel = torch.where(x < 0, x + 6.0, x)
+    assert torch.equal(bits(kernel), bits(ref._remainder(x, 6.0)))
+
+
+def emulate_cluster_counts(buckets: np.ndarray, k: int, nb: int) -> np.ndarray:
+    """(hw,) buckets of one crop -> (nb,) counts as the kernel forms them
+    over k CTAs: CTA r takes [r * stretch, (r + 1) * stretch), stretch a
+    multiple of 4; each thread takes groups of 4 pixels strided by the
+    CTA's threads, adds one to a 4-bit field per pixel and moves the fields
+    into integer counters every 3 groups; the counters are summed over the
+    threads and the CTAs in any order."""
+    hw = len(buckets)
+    stretch = (-(-hw // k) + 3) // 4 * 4
+    threads = min(hsv_color.MAX_THREADS, (stretch // 4 + 31) // 32 * 32)
+    total = np.zeros(nb, np.int64)
+    for rank in range(k):
+        begin, end = rank * stretch, min(hw, (rank + 1) * stretch)
+        for t in range(threads):
+            fields, pending = 0, []
+            groups = range(begin + 4 * t, end, 4 * threads)
+            for i, g in enumerate(groups):
+                for bucket in buckets[g:min(g + 4, end)]:
+                    fields += 1 << (4 * int(bucket))
+                    pending.append(int(bucket))
+                if i % 3 == 2 or i == len(groups) - 1:   # the flush
+                    got = [(fields >> (4 * j)) & 15 for j in range(nb)]
+                    # no field overflowed into its neighbour
+                    assert got == np.bincount(pending, minlength=nb).tolist()
+                    total += got
+                    fields, pending = 0, []
+    return total
+
+
+@pytest.mark.parametrize("hw", [1, 49, 4096, 9216])
+def test_split_over_a_cluster_sums_to_the_plain_histogram(hw):
+    side = {1: (1, 1), 49: (7, 7), 4096: (64, 64), 9216: (96, 96)}[hw]
+    x = torch.from_numpy(np.random.default_rng(hw).integers(
+        0, 256, (1, *side, 3)).astype(np.float32))
+    ranges = torch.as_tensor(ref.COLOR_RANGES)
+    buckets = ref.hsv_color_buckets(x, ranges).reshape(-1).numpy()
+    want = ref.hsv_color_classify(x, ranges)[0][0]
+    nb = len(ref.COLOR_RANGES) + 1
+    for k in range(1, 17):
+        counts = emulate_cluster_counts(buckets, k, nb)
+        assert counts.sum() == hw
+        hist = torch.from_numpy(counts).to(torch.float32) * ref.inv_pixels(hw)
+        assert torch.equal(hist, want), k
+
+
+@pytest.mark.parametrize("batch", [1, 4, 16, 32, 264, 4096, 1 << 24])
+@pytest.mark.parametrize("hw", [1, 49, 960, 4096, 9216])
+def test_plan_covers_each_crop_once(batch, hw):
+    p = hsv_color.plan(batch, hw)
+    assert p.cluster in (1, 2, 4, 8) and p.stretch % 4 == 0
+    assert p.cluster * p.stretch >= hw > (p.cluster - 1) * p.stretch
+    assert p.threads % 32 == 0 and 32 <= p.threads <= hsv_color.MAX_THREADS
+    assert 4 * p.threads >= min(p.stretch, 4 * hsv_color.MAX_THREADS)
+    if p.cluster > 1:   # split only to fill the card, never below 512 px
+        assert batch * p.cluster // 2 < hsv_color.FILL_CTAS
+        assert p.stretch >= hsv_color.MIN_STRETCH
+
+
 # --------------------------------------------------------------------------- #
 # the port against the Pallas kernel (interpret mode)                         #
 # --------------------------------------------------------------------------- #
@@ -224,3 +301,36 @@ def test_hooked_launch_on_card_reports_cuda_backend(card):
             ops.hsv_color_classify(x)
     assert [(e.name, e.backend, e.rows) for e in events] == [
         ("hsv_color", "cuda", 4)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("side", [1, 7, 96])
+@pytest.mark.parametrize("c", [1, 9, 16, 31])
+def test_kernel_bit_equal_at_ragged_sizes_and_range_counts(card, side, c):
+    """Ragged crops (1x1, 7x7: not 16-byte aligned; 96x96: eight CTAs of
+    1,152 pixels) against 1, 9, 16 and 31 ranges (the 16- and 32-bucket
+    instances), bit for bit."""
+    rng = np.random.default_rng(side * 100 + c)
+    x = torch.from_numpy(rng.integers(0, 256, (5, side, side, 3)).astype(
+        np.float32)).to(card)
+    base = np.tile(ref.COLOR_RANGES, (4, 1))[:c]
+    ranges = torch.from_numpy(np.ascontiguousarray(base)).to(card)
+    got = hsv_color.hsv_color_hist(x, ranges)
+    want = ref.hsv_color_classify(x, ranges)[0]
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_histogram_rows_do_not_depend_on_the_batch(card):
+    """A crop alone (a cluster of 8 CTAs) and among 4,096 (one CTA a crop)
+    gives the same bits."""
+    x = torch.from_numpy(np.random.default_rng(4).integers(
+        0, 256, (4096, 64, 64, 3)).astype(np.float32)).to(card)
+    ranges = torch.as_tensor(ref.COLOR_RANGES, device=card)
+    assert hsv_color.plan(1, 4096).cluster == 8
+    assert hsv_color.plan(4096, 4096).cluster == 1
+    whole = hsv_color.hsv_color_hist(x, ranges)
+    for i in (0, 1, 2047, 4095):
+        assert torch.equal(hsv_color.hsv_color_hist(x[i:i + 1], ranges),
+                           whole[i:i + 1])
+    assert torch.equal(hsv_color.hsv_color_hist(x[:16], ranges), whole[:16])
