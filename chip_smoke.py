@@ -12,11 +12,13 @@ failed phase. Phases, in order:
 2. build   — compile every kernel from the sources in the checkout (and
              an empty kernel, the launch floor), one nvcc per source, all
              at once;
-3. kernels — each kernel against its plain PyTorch version on the card,
-             then timed with CUDA events through its wrapper and at its C
-             entry point beside its bound, the launch floor (and, for the
-             attention kernels, beside scaled_dot_product_attention; for
-             ssd, its P = N = 4 instance beside its generic one);
+3. kernels — each kernel against its plain PyTorch version on the card
+             (rglru and the router's logits bit for bit, through both entry
+             points of each), then timed with CUDA events through its
+             wrapper and at its C entry point beside its bound, the launch
+             floor (and, for the attention kernels, beside
+             scaled_dot_product_attention; for ssd, its P = N = 4 instance
+             beside its generic one);
 4. query   — the lost-dog query (5 minutes of 30-fps video) on the card
              under every eddy policy; row ids against the plain version
              on the CPU, launches on the kernel counter and the board;
@@ -26,7 +28,9 @@ failed phase. Phases, in order:
              0 AND rating <= 2) over 50,000 reviews under every eddy policy;
              row ids against the whole-table oracle through the kernels and
              through the plain versions, launches on the counters and the
-             board;
+             board; the router and RG-LRU predicates' calls (one launch
+             through the token entries) against the parent's featurizer
+             path: torch operations and host time a call;
 7. registry — each text and attention kernel's predicate from
              ``build_predicate`` in an executor over the same rows, against
              its whole-table oracle;
@@ -49,6 +53,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils._python_dispatch import TorchDispatchMode
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -64,6 +69,7 @@ QUERY_SEED = 7
 TRIAGE_REVIEWS = 50_000
 SERVICE_REVIEWS = 20_000  # the first reviews of the same table, for phase 8
 SEQ = 64              # the text predicates' token window
+VOCAB = 256           # the text predicates' embedding tables' rows
 ATT_SEQ = 32          # the attention predicates' token window
 BUCKETS = (1, 2, 4, 8, 16, 32)  # the executor's bucketed batch sizes
 BIG = 4096            # rows for the throughput case
@@ -331,18 +337,70 @@ def check_ssd_ops(x, dt, A, Bm, Cm, label: str) -> float:
     return max(err_y, err_h)
 
 
+def bit_equal(got, want, label: str) -> float:
+    """Raise unless every (got, want) pair is equal bit for bit; returns
+    the largest absolute difference (0.0)."""
+    err = max(within(g, w, 0.0, 0.0)[0] for g, w in zip(got, want))
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError(f"{label}: not bit-equal (max_abs_err {err!r})")
+    return err
+
+
 def check_rglru(x, r, i, a_param, h0, label: str) -> float:
+    """``rglru_bsw`` against ``ref.rglru``: equal bit for bit."""
     from repro_torch.kernels import ref, rglru
-    out, h_last = rglru.rglru_bsw(x, r, i, a_param, h0)
-    out_p, h_p = ref.rglru(x, r, i, a_param, h0)
+    got = rglru.rglru_bsw(x, r, i, a_param, h0)
+    want = ref.rglru(x, r, i, a_param, h0)
     torch.cuda.synchronize()
-    err_o, ok_o = within(out, out_p, **TOL_TIGHT)
-    err_h, ok_h = within(h_last, h_p, **TOL_TIGHT)
-    print(f"  rglru {label}: (B,S,W) {tuple(x.shape)} out max_abs_err "
-          f"{err_o!r}, h_last {err_h!r}", flush=True)
-    if not (ok_o and ok_h):
-        raise AssertionError(f"rglru kernel disagrees on {label}")
-    return max(err_o, err_h)
+    err = bit_equal(got, want, f"rglru {label}")
+    print(f"  rglru {label}: (B,S,W) {tuple(x.shape)} h0 "
+          f"{'None' if h0 is None else 'given'}: out and h_last max_abs_err "
+          f"{err!r} (bit-equal)", flush=True)
+    return err
+
+
+def check_rglru_tokens(toks, tables, a_param, h0, label: str) -> float:
+    """``rglru_tokens`` against ``ref.rglru`` on the gathered rows, and
+    ``rglru_bsw`` on the same rows: all equal bit for bit."""
+    from repro_torch.kernels import ref, rglru
+    got = rglru.rglru_tokens(toks, *tables, a_param, h0)
+    t = toks.long()
+    rows = [tab[t] for tab in tables]
+    want = ref.rglru(*rows, a_param, h0)
+    dense = rglru.rglru_bsw(*rows, a_param, h0)
+    torch.cuda.synchronize()
+    err = bit_equal((*got, *dense), (*want, *want), f"rglru_tokens {label}")
+    print(f"  rglru_tokens {label}: toks {tuple(toks.shape)} tables "
+          f"{tuple(tables[0].shape)} h0 {'None' if h0 is None else 'given'}: "
+          f"out and h_last max_abs_err {err!r} (bit-equal, and to rglru_bsw "
+          f"on the gathered rows)", flush=True)
+    return err
+
+
+def check_router_tokens(toks, emb, w_gate, k: int, label: str) -> float:
+    """``moe_router_tokens`` against the plain path (``router_logits`` then
+    ``ref.moe_topk_router``): logits bit-equal, idx equal, weights within
+    TOL_TIGHT; and the weights bit-equal to ``moe_router_tk`` on the same
+    logits (the two entries share the body)."""
+    from repro_torch.kernels import moe_router, ref
+    b, e = toks.shape[0], w_gate.shape[1]
+    logits = torch.empty((b, e), device=toks.device)
+    w, idx = moe_router.moe_router_tokens(toks, emb, w_gate, k, logits)
+    want = ref.router_logits(emb, w_gate, toks)
+    w_p, idx_p = ref.moe_topk_router(want, k)
+    w_tk, idx_tk = moe_router.moe_router_tk(want, k)
+    torch.cuda.synchronize()
+    logits_eq = torch.equal(logits, want)
+    same = torch.equal(idx, idx_p) and torch.equal(idx, idx_tk)
+    same_tk = torch.equal(w, w_tk)
+    err, ok = within(w, w_p, **TOL_TIGHT)
+    print(f"  moe_router_tokens {label}: toks {tuple(toks.shape)} D="
+          f"{emb.shape[1]} E={e} k={k}: logits bit-equal {logits_eq}, idx "
+          f"equal {same}, weights max_abs_err {err!r} (bit-equal to "
+          f"moe_router_tk: {same_tk})", flush=True)
+    if not (logits_eq and same and same_tk and ok):
+        raise AssertionError(f"moe_router_tokens disagrees on {label}")
+    return err
 
 
 class TextInputs:
@@ -352,13 +410,13 @@ class TextInputs:
     def __init__(self, toks_kept: np.ndarray):
         from repro_torch.udfs import library as lib
         dev = torch.device("cuda")
-        self.toks = lib.device_tokens(toks_kept[:BIG], SEQ, dev)
+        self.toks = lib.token_ids(toks_kept[:BIG], SEQ, VOCAB, dev)  # int32
         self.router = lib.router_tables(device=dev)
         self.ssd = lib.ssd_tables(device=dev)
         self.rglru = lib.rglru_tables(device=dev)
 
     def logits(self, b: int) -> torch.Tensor:
-        from repro_torch.udfs.library import router_logits
+        from repro_torch.kernels.ref import router_logits
         return router_logits(*self.router, self.toks[:b])
 
     def ssd_args(self, b: int):
@@ -406,6 +464,19 @@ def check_text_kernels(inputs: TextInputs) -> dict:
         for t in (129, 1000):
             err["moe_router"] = max(err["moe_router"], check_router(
                 T(rng.standard_normal((t, e))), 1, f"k=1 T={t} E={e}"))
+    # the token entry: the predicate's own ids and tables, then other
+    # windows, widths and expert counts on random tables (row 0 zero)
+    for b in (*BUCKETS, 7, BIG):
+        err["moe_router"] = max(err["moe_router"], check_router_tokens(
+            inputs.toks[:b], *inputs.router, 2, f"library B={b}"))
+    for b, seq, d, e, k in ((33, 100, 16, 8, 2), (33, 5, 7, 3, 3),
+                            (33, 1, 12, 64, 1), (1000, 63, 16, 8, 2)):
+        emb = T(rng.standard_normal((50, d)))
+        emb[0] = 0.0
+        toks = torch.from_numpy(rng.integers(0, 50, (b, seq)).astype(
+            np.int32)).cuda()
+        err["moe_router"] = max(err["moe_router"], check_router_tokens(
+            toks, emb, T(rng.standard_normal((d, e))), k, "random tables"))
 
     # ---- ssd
     def ssd_case(b, s, h, p, g, n, chunk, label, h0_scale=0.0, dt_zero=()):
@@ -450,6 +521,27 @@ def check_text_kernels(inputs: TextInputs) -> dict:
     for b in (*BUCKETS, BIG):
         err["rglru"] = max(err["rglru"], check_rglru(
             *inputs.rglru_args(b), f"library B={b}"))
+        x, r, i, a_param, _ = inputs.rglru_args(b)
+        err["rglru"] = max(err["rglru"], check_rglru(
+            x, r, i, a_param, None, f"library B={b}"))
+    # the token entry: the predicate's own ids and tables (no h0, as the
+    # predicate calls it, and a given one), then ragged shapes (W past a
+    # tile of 32 and not a multiple of 4, S past a chunk of 32, S = 1, 0)
+    for b in (*BUCKETS, 7, BIG):
+        tables, a_param = inputs.rglru[:3], inputs.rglru[3]
+        err["rglru"] = max(err["rglru"], check_rglru_tokens(
+            inputs.toks[:b], tables, a_param, None, f"library B={b}"))
+    err["rglru"] = max(err["rglru"], check_rglru_tokens(
+        inputs.toks[:16], inputs.rglru[:3], inputs.rglru[3],
+        T(rng.standard_normal((16, 16))), "library B=16, nonzero h0"))
+    for b, s, w in ((3, 70, 40), (5, 33, 7), (2, 1, 16), (4, 0, 16),
+                    (2, 96, 256)):
+        tables = [T(rng.standard_normal((50, w))) for _ in range(3)]
+        toks = torch.from_numpy(rng.integers(0, 50, (b, s)).astype(
+            np.int32)).cuda()
+        for h0 in (None, T(rng.standard_normal((b, w)))):
+            err["rglru"] = max(err["rglru"], check_rglru_tokens(
+                toks, tables, T(rng.standard_normal(w)), h0, "random tables"))
     return err
 
 
@@ -557,11 +649,15 @@ def time_text(inputs: TextInputs, b: int) -> dict:
     from their C entry points (``entry_ms``), taken in turns
     (``paired_ms``), and of their plain versions, on the library's inputs
     for b rows, beside the bounds (each input read once, each output
-    written once; flops of the cost model in ``udfs/rooflines.py``). For
-    ssd these are the main path's call, ``ssd_bshp`` on the predicate's own
-    views (ssd_inputs: a dt broadcast over heads, no h0), with ``ops_ms``
-    the same through ``ops.ssd``; the ``bhcp_`` keys time ``ssd_bhcp`` on
-    contiguous (B, H, S, P) copies with a zero h0."""
+    written once; flops of the cost model in ``udfs/rooflines.py``). Each
+    kernel's plain keys time the main path's own call: ``ssd_bshp`` on the
+    predicate's views (ssd_inputs: a dt broadcast over heads, no h0), with
+    ``ops_ms`` the same through ``ops.ssd``, and the token entries
+    ``moe_router_tokens`` and ``rglru_tokens`` (no h0) on the predicates'
+    int32 ids and tables. The ``bhcp_`` keys time ``ssd_bhcp`` on
+    contiguous (B, H, S, P) copies with a zero h0, the ``tk_`` keys
+    ``moe_router_tk`` on the featurizer's logits, the ``bsw_`` keys
+    ``rglru_bsw`` on the gathered rows with a zero h0."""
     from repro_torch.kernels import _build, moe_router, ops, ref, rglru, ssd
     from repro_torch.udfs import rooflines
     iters = TIME_ITERS if b <= 32 else 10
@@ -580,20 +676,40 @@ def time_text(inputs: TextInputs, b: int) -> dict:
         return lambda: call(args, stream)
 
     out = {}
+    # moe_router: the main path's call, the token entry on the predicate's
+    # ids and tables; moe_router_tk on their logits under the tk_ keys
     logits = inputs.logits(b)
-    e, k = logits.shape[1], 2
+    ids = inputs.toks[:b]
+    emb, w_gate = inputs.router
+    (v, d), e, k = emb.shape, w_gate.shape[1], 2
     w_out = torch.empty((b, k), device=logits.device)
     i_out = torch.empty((b, k), dtype=torch.int32, device=logits.device)
     out["moe_router"] = {
         **paired_ms({
-            "ms": lambda: moe_router.moe_router_tk(logits, k),
-            "entry_ms": entry("moe_router", "moe_router_tk", moe_router.ARGS.pack(
-                logits.data_ptr(), w_out.data_ptr(), i_out.data_ptr(), b, e,
-                k, 0))}),
-        "plain_ms": time_ms(lambda: ref.moe_topk_router(logits, k), iters),
+            "ms": lambda: moe_router.moe_router_tokens(ids, emb, w_gate, k),
+            "entry_ms": entry("moe_router", "moe_router_tokens",
+                              moe_router.TOKENS_ARGS.pack(
+                                  ids.data_ptr(), emb.data_ptr(),
+                                  w_gate.data_ptr(), 0, w_out.data_ptr(),
+                                  i_out.data_ptr(), b, SEQ, d, e, k, v)),
+            "tk_ms": lambda: moe_router.moe_router_tk(logits, k),
+            "tk_entry_ms": entry("moe_router", "moe_router_tk",
+                                 moe_router.ARGS.pack(
+                                     logits.data_ptr(), w_out.data_ptr(),
+                                     i_out.data_ptr(), b, e, k, 0),
+                                 "moe_router_tk")}),
+        "plain_ms": time_ms(lambda: ref.moe_router_tokens(ids, emb, w_gate, k),
+                            iters),
+        "tk_plain_ms": time_ms(lambda: ref.moe_topk_router(logits, k), iters),
+        # ids, the table and the gate read once, weights and idx written;
+        # the featurizer's adds, divisions and gate products besides the
+        # router's flops
         **dict(zip(("bound_ms", "bound_by"), bound_ms(
-            b * e * 4 + b * k * 8,
-            b * rooflines.moe_router(e, k).flops_per_row))),
+            4 * (b * SEQ + v * d + d * e + 2 * b * k),
+            b * (SEQ * d + d + 2 * d * e
+                 + rooflines.moe_router(e, k).flops_per_row)))),
+        "tk_bound_ms": bound_ms(b * e * 4 + b * k * 8,
+                                b * rooflines.moe_router(e, k).flops_per_row)[0],
     }
     # ssd: the main path's call, ssd_bshp on the predicate's own views (a
     # dt broadcast over heads, no h0), then ssd_bhcp on contiguous
@@ -630,30 +746,57 @@ def time_text(inputs: TextInputs, b: int) -> dict:
                  + 2 * b * h * p * n),
             b * rooflines.ssd(s, h, p, n).flops_per_row)[0],
     }
+    # rglru: the main path's call, the token entry on the predicate's ids
+    # and tables with no h0; rglru_bsw on the gathered rows with a zero h0
+    # under the bsw_ keys
     rx, rr, ri, a_param, rh0 = inputs.rglru_args(b)
-    w = rx.shape[2]
+    tables = inputs.rglru[:3]
+    v, w = tables[0].shape
     o_out = torch.empty_like(rx)
     hl_out = torch.empty_like(rh0)
     out["rglru"] = {
         **paired_ms({
-            "ms": lambda: rglru.rglru_bsw(rx, rr, ri, a_param, rh0),
-            "entry_ms": entry("rglru", "rglru_bsw", rglru.ARGS.pack(
+            "ms": lambda: rglru.rglru_tokens(ids, *tables, a_param),
+            "entry_ms": entry("rglru", "rglru_tokens", rglru.TOKENS_ARGS.pack(
+                ids.data_ptr(), *(t.data_ptr() for t in tables),
+                a_param.data_ptr(), 0, o_out.data_ptr(), hl_out.data_ptr(),
+                b, SEQ, w, v, 8.0, 0)),
+            "bsw_ms": lambda: rglru.rglru_bsw(rx, rr, ri, a_param, rh0),
+            "bsw_entry_ms": entry("rglru", "rglru_bsw", rglru.ARGS.pack(
                 *(t.data_ptr() for t in (rx, rr, ri, a_param, rh0, o_out,
-                                         hl_out)), b, SEQ, w, 8.0))}),
-        "plain_ms": time_ms(lambda: ref.rglru(rx, rr, ri, a_param, rh0),
+                                         hl_out)), b, SEQ, w, 8.0),
+                "rglru_bsw")}),
+        "plain_ms": time_ms(lambda: ref.rglru_tokens(ids, *tables, a_param),
                             iters),
+        "bsw_plain_ms": time_ms(lambda: ref.rglru(rx, rr, ri, a_param, rh0),
+                                iters),
+        # ids, the three tables and a_param read once, out and h_last
+        # written
         **dict(zip(("bound_ms", "bound_by"), bound_ms(
-            4 * (4 * b * SEQ * w + w + 2 * b * w),
+            4 * (b * SEQ + 3 * v * w + w + b * SEQ * w + b * w),
             b * rooflines.rglru(SEQ, w).flops_per_row))),
+        # x, r and i, a_param and h0 read, out and h_last written
+        "bsw_bound_ms": bound_ms(
+            4 * (4 * b * SEQ * w + w + 2 * b * w),
+            b * rooflines.rglru(SEQ, w).flops_per_row)[0],
     }
     out["ssd"]["bhcp_graph_ms"] = graphs["ssd_bhcp"]
+    out["moe_router"]["tk_graph_ms"] = graphs["moe_router_tk"]
+    out["rglru"]["bsw_graph_ms"] = graphs["rglru_bsw"]
+    other = {"ssd": ("bhcp", "ssd_bhcp on contiguous copies"),
+             "moe_router": ("tk", "moe_router_tk on the logits"),
+             "rglru": ("bsw", "rglru_bsw on the gathered rows")}
     for name, t in out.items():
         t["library_ms"] = None  # no single PyTorch call computes it
         t["graph_ms"] = graphs[name]
-        extra = (f", ops.ssd {t['ops_ms']!r} ms; ssd_bhcp on contiguous "
-                 f"copies {t['bhcp_ms']!r} ms (entry point "
-                 f"{t['bhcp_entry_ms']!r}, in a graph {t['bhcp_graph_ms']!r}, "
-                 f"bound {t['bhcp_bound_ms']!r})" if name == "ssd" else "")
+        key, what = other[name]
+        ops_ms = f", ops.ssd {t['ops_ms']!r} ms" if name == "ssd" else ""
+        plain = (f", plain {t[key + '_plain_ms']!r}"
+                 if key + "_plain_ms" in t else "")
+        extra = (f"{ops_ms}; {what} {t[key + '_ms']!r} ms (entry point "
+                 f"{t[key + '_entry_ms']!r}, in a graph "
+                 f"{t[key + '_graph_ms']!r}{plain}, bound "
+                 f"{t[key + '_bound_ms']!r})")
         print(f"  {name} B={b}: kernel {t['ms']!r} ms (entry point "
               f"{t['entry_ms']!r} ms, in a graph {t['graph_ms']!r} ms"
               f"{extra}), plain "
@@ -708,7 +851,7 @@ class AttentionInputs:
     def __init__(self, toks_kept: np.ndarray):
         from repro_torch.udfs import library as lib
         dev = torch.device("cuda")
-        self.toks = lib.device_tokens(toks_kept[:BIG], ATT_SEQ, dev)
+        self.toks = lib.token_ids(toks_kept[:BIG], ATT_SEQ, VOCAB, dev)
         self.flash = lib.attention_tables(device=dev)
         self.decode = lib.decode_tables(device=dev)
 
@@ -1039,8 +1182,10 @@ def time_attention_bench() -> dict:
 def triage_oracles(table, toks_kept: np.ndarray, ids_kept: np.ndarray) -> dict:
     """The triage conjunction over the whole kept table, once through the
     predicates (the kernels, one launch each), once through the kernel
-    wrappers directly and once through the plain versions on the card, on
-    the same featurized inputs. All three must agree."""
+    wrappers directly (the router's token entry on the int32 ids, whose
+    logits must equal the featurizer's bit for bit) and once through the
+    plain versions on the card, on the same inputs. All three must
+    agree."""
     from repro_torch.examples.review_triage import oracle_ids, triage_predicates
     from repro_torch.kernels import moe_router, ref, ssd
     from repro_torch.udfs import library as lib
@@ -1052,9 +1197,11 @@ def triage_oracles(table, toks_kept: np.ndarray, ids_kept: np.ndarray) -> dict:
     through_predicates = oracle_ids(table, preds, max_rating=2)
     t_pred = time.perf_counter() - t0
 
-    toks = lib.device_tokens(toks_kept, SEQ, dev)
-    logits = lib.router_logits(*lib.router_tables(device=dev), toks)
-    w_k, idx_k = moe_router.moe_router_tk(logits, 2)
+    toks = lib.token_ids(toks_kept, SEQ, VOCAB, dev)
+    emb, w_gate = lib.router_tables(device=dev)
+    logits = ref.router_logits(emb, w_gate, toks)
+    logits_k = torch.empty_like(logits)
+    w_k, idx_k = moe_router.moe_router_tokens(toks, emb, w_gate, 2, logits_k)
     w_p, idx_p = ref.moe_topk_router(logits, 2)
     x, dt, A, Bm, Cm = lib.ssd_inputs(lib.ssd_tables(device=dev), toks)
     score_k = lib.row_mean(ssd.ssd_bshp(x, dt, A, Bm, Cm, chunk=SEQ)[0])
@@ -1071,6 +1218,7 @@ def triage_oracles(table, toks_kept: np.ndarray, ids_kept: np.ndarray) -> dict:
         "min_abs_score": float(score_p.abs().min()),
         "min_top1_top2_gap": float((probs[:, 0] - probs[:, 1]).min()),
         "score_max_abs_err": float((score_k - score_p).abs().max()),
+        "router_logits_bit_equal": torch.equal(logits_k, logits),
         "router_weight_max_abs_err": float((w_k - w_p).abs().max()),
         "router_idx_rows_differing": int((idx_k != idx_p).any(-1).sum()),
         "ssd_decisions_differing": int(((score_k > 0) != (score_p > 0)).sum()),
@@ -1081,10 +1229,14 @@ def triage_oracles(table, toks_kept: np.ndarray, ids_kept: np.ndarray) -> dict:
           f"{len(through_plain)} through the plain versions")
     print(f"  smallest |score| {stats['min_abs_score']!r}, smallest top-1/top-2 "
           f"gap {stats['min_top1_top2_gap']!r}; kernel vs plain: score "
-          f"{stats['score_max_abs_err']!r}, router weights "
+          f"{stats['score_max_abs_err']!r}, router logits bit-equal "
+          f"{stats['router_logits_bit_equal']}, router weights "
           f"{stats['router_weight_max_abs_err']!r}, idx rows differing "
           f"{stats['router_idx_rows_differing']}, ssd decisions differing "
           f"{stats['ssd_decisions_differing']}", flush=True)
+    if not stats["router_logits_bit_equal"]:
+        raise AssertionError("moe_router_tokens' logits differ from "
+                             "router_logits over the kept table")
     if not (through_predicates == through_kernels == through_plain):
         raise AssertionError("the triage oracles disagree: kernels vs plain "
                              f"{sorted(through_kernels ^ through_plain)[:10]}")
@@ -1094,22 +1246,25 @@ def triage_oracles(table, toks_kept: np.ndarray, ids_kept: np.ndarray) -> dict:
 
 
 def batch_invariance(toks_kept: np.ndarray) -> dict:
-    """A row's router logits, top-1 expert and SSD score, computed alone and
-    in batches of 3, 16 and BIG rows, against the same rows in the whole
-    table: the port's path must give the same bits. Also counts how many
-    rows a plain ``torch.matmul`` gate and ``sum`` would have changed, to
-    show which library call the fixed-order featurizer avoids."""
-    from repro_torch.kernels import moe_router, ssd
+    """A row's router logits, top-1 expert, SSD score and RG-LRU state,
+    computed alone and in batches of 3, 16 and BIG rows, against the same
+    rows in the whole table: the port's path must give the same bits.
+    Also counts how many rows a plain ``torch.matmul`` gate and ``sum``
+    would have changed, to show which library call the fixed-order
+    featurizer avoids."""
+    from repro_torch.kernels import moe_router, rglru, ssd
     from repro_torch.udfs import library as lib
     dev = torch.device("cuda")
     router, ssd_t = lib.router_tables(device=dev), lib.ssd_tables(device=dev)
-    toks = lib.device_tokens(toks_kept, SEQ, dev)
+    rglru_t = lib.rglru_tables(device=dev)
+    toks = lib.token_ids(toks_kept, SEQ, VOCAB, dev)
 
     def path(t):
-        logits = lib.router_logits(*router, t)
-        _, idx = moe_router.moe_router_tk(logits, 2)
+        logits = torch.empty((t.shape[0], router[1].shape[1]), device=dev)
+        _, idx = moe_router.moe_router_tokens(t, *router, 2, logits)
         y, _ = ssd.ssd_bshp(*lib.ssd_inputs(ssd_t, t), chunk=SEQ)
-        return logits, idx[:, 0], lib.row_mean(y)
+        _, h_last = rglru.rglru_tokens(t, *rglru_t)
+        return logits, idx[:, 0], lib.row_mean(y), h_last
 
     def library_gate(t):
         emb, w_gate = router
@@ -1129,6 +1284,88 @@ def batch_invariance(toks_kept: np.ndarray) -> dict:
               flush=True)
         if not same:
             raise AssertionError(f"the text path is not batch-invariant at B={b}")
+    return out
+
+
+class OpCount(TorchDispatchMode):
+    """Counts the torch operations dispatched inside a ``with`` block
+    (each aten call, on any device)."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.ops.append(str(func))
+        return func(*args, **(kwargs or {}))
+
+
+def predicate_calls(toks_kept: np.ndarray, rows: int = 16,
+                    calls: int = 200) -> dict:
+    """One call of the router and RG-LRU predicates on ``rows`` kept rows:
+    through the token entries (one launch, no featurizer), against the
+    same call as the parent made it (the torch featurizer or gather, then
+    ``moe_router_tk`` or ``rglru_bsw`` on a zero h0). Outputs must agree;
+    counts the torch operations of each call and times ``calls`` calls of
+    each on the host clock (a call ends in the copy back, so its device
+    work is inside), the two taken in turns (``paired_ms``'s order)."""
+    from repro_torch.kernels import launch, ops, ref
+    from repro_torch.udfs import build_predicate
+    from repro_torch.udfs import library as lib
+    dev = torch.device("cuda")
+    data = {"tokens": toks_kept[:rows]}
+    emb, w_gate = lib.router_tables(device=dev)
+    emb_x, emb_r, emb_i, a_param = lib.rglru_tables(device=dev)
+
+    def router_parent(d):
+        with launch.thread_stream(dev):
+            toks = lib.token_ids(d["tokens"], SEQ, VOCAB, dev).long()
+            _, idx = ops.moe_topk_router(ref.router_logits(emb, w_gate, toks),
+                                         2)
+            return idx[:, 0].cpu().numpy()
+
+    def rglru_parent(d):
+        with launch.thread_stream(dev):
+            toks = lib.token_ids(d["tokens"], SEQ, VOCAB, dev).long()
+            h0 = torch.zeros((toks.shape[0], a_param.shape[0]), device=dev)
+            _, h_last = ops.rglru(emb_x[toks], emb_r[toks], emb_i[toks],
+                                  a_param, h0)
+            return lib.row_mean(h_last).cpu().numpy()
+
+    pairs = {"moe_router": (build_predicate("moe_router", device=dev,
+                                            seq=SEQ).udf.fn, router_parent),
+             "rglru": (build_predicate("rglru", device=dev, seq=SEQ).udf.fn,
+                       rglru_parent)}
+    out = {}
+    for name, (new, parent) in pairs.items():
+        if not np.array_equal(new(data), parent(data)):
+            raise AssertionError(f"the {name} predicate's token path and the "
+                                 "parent's path disagree")
+        counts = {}
+        for key, fn in (("token_entry", new), ("parent_path", parent)):
+            with OpCount() as c:
+                fn(data)
+            counts[key] = len(c.ops)
+        times = {"token_entry": [], "parent_path": []}
+        for r in range(5):
+            order = ("token_entry", "parent_path")
+            for key in (order if r % 2 == 0 else order[::-1]):
+                fn = new if key == "token_entry" else parent
+                t0 = time.perf_counter()
+                for _ in range(calls):
+                    fn(data)
+                times[key].append((time.perf_counter() - t0) / calls * 1e3)
+        out[name] = {"rows": rows, "torch_ops": counts,
+                     "call_ms": {k: float(np.median(v))
+                                 for k, v in times.items()}}
+        print(f"  {name} predicate, {rows} rows: torch operations a call "
+              f"{counts['token_entry']} through the token entry, "
+              f"{counts['parent_path']} as the parent called it; host ms a "
+              f"call {out[name]['call_ms']['token_entry']!r} against "
+              f"{out[name]['call_ms']['parent_path']!r}", flush=True)
+    if out["moe_router"]["torch_ops"]["token_entry"] > 8:
+        raise AssertionError("the router predicate issues more than 8 torch "
+                             "operations a call")
     return out
 
 
@@ -1201,7 +1438,7 @@ def attention_oracle(kernel: str, toks_kept: np.ndarray,
     from repro_torch.kernels import decode_attention, flash_attention, ref
     from repro_torch.udfs import library as lib
     dev = torch.device("cuda")
-    toks = lib.device_tokens(toks_kept, ATT_SEQ, dev)
+    toks = lib.token_ids(toks_kept, ATT_SEQ, VOCAB, dev)
     if kernel == "flash_attention":
         q, k, v = (bhsd(t) for t in lib.attention_inputs(
             lib.attention_tables(device=dev), toks))
@@ -1389,6 +1626,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     from repro_torch.core import AQPExecutor, CostDriven, make_batch
     from repro_torch.core.policies import EDDY_POLICIES
     from repro_torch.data.video import BREEDS, SyntheticVideo
@@ -1600,6 +1838,7 @@ def main() -> int:
                       ("ssd", oracle["stats"]["score_max_abs_err"])):
         max_errs[name] = max(max_errs[name], err)
     invariance = batch_invariance(toks_kept)
+    calls = predicate_calls(toks_kept)
     t0 = time.perf_counter()
     triage = run_triage(reviews, oracle["expect"])
     triage_s = time.perf_counter() - t0
@@ -1646,6 +1885,7 @@ def main() -> int:
         "triage": {"reviews": TRIAGE_REVIEWS, **oracle["stats"],
                    "phase_s": triage_s, **triage},
         "batch_invariance": invariance,
+        "predicate_calls": calls,
         "registry": {k: v for k, v in registry.items() if k != "expect"},
         "text_timings": {str(b): t for b, t in text_timings.items()},
         "text_main_batch": text_main,
@@ -1655,6 +1895,7 @@ def main() -> int:
         "attention_bench": att_bench,
         "attention_main_batch": att_main,
         "service": service,
+        "total_s": time.perf_counter() - t_start,
     }
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
@@ -1668,6 +1909,15 @@ def main() -> int:
         "by_batch": {str(b): t for b, t in sorted(timings.items())},
     }]
     launches = {**triage["launches"], "rglru": registry["launches"]["rglru"]}
+
+    def measured(t: dict) -> dict:
+        """A kernel's timings without its other bounds (another entry's,
+        ``tk_`` / ``bhcp_`` / ``bsw_bound_ms``, or attention's
+        ``bound_f32_cores_ms``): worked out, not measured, they stay in the
+        phase-3 lines and chip_smoke.json."""
+        return {k: v for k, v in t.items()
+                if k in ("bound_ms", "bound_by") or "bound" not in k}
+
     for name, line in (("moe_router", 43), ("ssd", 92), ("rglru", 59)):
         b = text_main[name]
         kernels.append({
@@ -1675,8 +1925,9 @@ def main() -> int:
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
             "replaces": f"src/repro/kernels/{name}.py:{line}",
             "launches": launches[name], "max_abs_err": max_errs[name],
-            "batch": b, **text_timings[b][name],
-            "by_batch": {str(bb): t[name] for bb, t in text_timings.items()},
+            "batch": b, **measured(text_timings[b][name]),
+            "by_batch": {str(bb): measured(t[name])
+                         for bb, t in text_timings.items()},
         })
     for name, line in (("flash_attention", 91), ("decode_attention", 68)):
         b = att_main[name]
@@ -1686,11 +1937,13 @@ def main() -> int:
             "replaces": f"src/repro/kernels/{name}.py:{line}",
             "launches": service["launches"][name],
             "max_abs_err": max_errs[name],
-            "batch": b, **att_timings[b][name],
-            "by_batch": {**{str(bb): t[name] for bb, t in att_timings.items()},
-                         **{label: t[name] for label, t in att_bench.items()
-                            if name in t}},
+            "batch": b, **measured(att_timings[b][name]),
+            "by_batch": {**{str(bb): measured(t[name])
+                            for bb, t in att_timings.items()},
+                         **{label: measured(t[name])
+                            for label, t in att_bench.items() if name in t}},
         })
+    print(f"  chip_smoke.py took {summary['total_s']:.1f} s, builds included")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` into a shared library with
 a plain C interface and loaded with ``ctypes`` (no PyTorch headers, so a
 build takes seconds). The library goes into ``build/repro_torch/`` at the
-root of the checkout, named by a hash of its source and its own flags, so an
-edited source is rebuilt and an unchanged one is loaded as it is. The
+root of the checkout, named by a hash of its source, the headers it may
+include (``csrc/*.cuh``) and its own flags, so an edited source is rebuilt
+and an unchanged one is loaded as it is. The
 build happens once, at first use, under a lock of its own: the
 executor's worker threads warm their predicates concurrently and may ask
 for one library at once, and different libraries build side by side.
@@ -56,8 +57,8 @@ SIGNATURES = {
     "empty": {"empty_launch": ([_VOIDP], _INT)},
     "flash_attention": {"flash_attention_bshd": _PACKED},
     "hsv_color": {"hsv_color_hist": _PACKED},
-    "moe_router": {"moe_router_tk": _PACKED},
-    "rglru": {"rglru_bsw": _PACKED},
+    "moe_router": {"moe_router_tk": _PACKED, "moe_router_tokens": _PACKED},
+    "rglru": {"rglru_bsw": _PACKED, "rglru_tokens": _PACKED},
     "ssd": {"ssd_scan": _PACKED},
 }
 
@@ -96,8 +97,11 @@ def flags(name: str) -> tuple:
 
 def _compile(name: str) -> Built:
     src = CSRC / f"{name}.cu"
+    # the shared headers count as part of every source that may include them
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(flags(name)).encode()).hexdigest()[:16]
+        src.read_bytes() + headers + " ".join(flags(name)).encode()
+    ).hexdigest()[:16]
     out = BUILD_DIR / f"lib{name}-{digest}.so"
     seconds, log = 0.0, ""
     if not out.exists():
@@ -118,6 +122,14 @@ def _compile(name: str) -> Built:
         fn.argtypes = argtypes
         fn.restype = restype
     return Built(lib=lib, path=out, seconds=seconds, log=log)
+
+
+def f32_contiguous(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as a contiguous float32 tensor: itself when it already is one,
+    so a kernel's usual input costs no copy and no dispatch."""
+    if t.dtype == torch.float32 and t.is_contiguous():
+        return t
+    return t.to(torch.float32).contiguous()
 
 
 def raw_stream(index: int) -> int:

@@ -16,7 +16,9 @@ from repro_torch.kernels.decode_attention import decode_attention_bshd
 from repro_torch.kernels.flash_attention import flash_attention_bshd
 from repro_torch.kernels.hsv_color import hsv_color_hist
 from repro_torch.kernels.moe_router import moe_router_tk
+from repro_torch.kernels.moe_router import moe_router_tokens as _router_tokens
 from repro_torch.kernels.rglru import rglru_bsw
+from repro_torch.kernels.rglru import rglru_tokens as _rglru_tokens
 from repro_torch.kernels.ssd import ssd_bshp
 
 
@@ -101,6 +103,20 @@ def moe_topk_router(logits: torch.Tensor, k: int):
     )(logits, k)
 
 
+def moe_router_tokens(
+    toks: torch.Tensor,    # (B, S) int32 token ids
+    emb: torch.Tensor,     # (V, D)
+    w_gate: torch.Tensor,  # (D, E)
+    k: int,
+):
+    """(B, S) token ids -> (weights (B, k), idx (B, k) int32) of the router
+    over each row's mean-pooled embeddings (``ref.router_logits``): the
+    featurizer and the router in one launch."""
+    return launch.kernel_call(
+        _router_tokens, name="moe_router", rows=int(toks.shape[0]),
+    )(toks, emb, w_gate, k)
+
+
 def rglru(
     x: torch.Tensor,        # (B, S, W)
     r: torch.Tensor,
@@ -110,13 +126,28 @@ def rglru(
     *,
     c: float = 8.0,
 ):
-    """(out (B, S, W), h_last (B, W)); ``h0`` defaults to zeros."""
+    """(out (B, S, W), h_last (B, W)); ``h0`` None is a zero state."""
     b, s, w = x.shape
-    if h0 is None:
-        h0 = torch.zeros((b, w), dtype=x.dtype, device=x.device)
     return launch.kernel_call(
         lambda *a: rglru_bsw(*a, c=c), name="rglru", rows=b * s,
     )(x, r, i, a_param, h0)
+
+
+def rglru_tokens(
+    toks: torch.Tensor,     # (B, S) int32 token ids
+    emb_x: torch.Tensor,    # (V, W)
+    emb_r: torch.Tensor,
+    emb_i: torch.Tensor,
+    a_param: torch.Tensor,  # (W,)
+    h0: torch.Tensor | None = None,
+):
+    """(B, S) token ids -> (out (B, S, W), h_last (B, W)): ``rglru`` over
+    the tables' rows of the tokens, the gather and the recurrence in one
+    launch; ``h0`` None is a zero state."""
+    b, s = toks.shape
+    return launch.kernel_call(
+        _rglru_tokens, name="rglru", rows=b * s,
+    )(toks, emb_x, emb_r, emb_i, a_param, h0)
 
 
 def ssd(

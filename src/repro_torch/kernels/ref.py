@@ -142,6 +142,52 @@ def moe_topk_router(logits: torch.Tensor, k: int):
     return w.to(logits.dtype), torch.cat(idxs, dim=-1).to(torch.int32)
 
 
+def fixed_sum(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Sum over ``dim`` by halving it, in an order fixed by its length.
+
+    A library reduction may split its work by the other dimensions' sizes
+    (and a matrix product pick its algorithm by them), so a row's sum could
+    change with the batch it sits in; these elementwise adds cannot, and
+    they round the same on the card and on the CPU. Each level adds
+    element j + half to element j for j < half; an odd length moves its
+    last element to slot half. The router kernel's token entry sums in
+    this order too."""
+    x = x.movedim(dim, 0)
+    while x.shape[0] > 1:
+        half = x.shape[0] // 2
+        head = x[:half] + x[half:2 * half]
+        x = torch.cat([head, x[2 * half:]]) if x.shape[0] % 2 else head
+    return x[0]
+
+
+def _mean_pool(emb: torch.Tensor, toks: torch.Tensor) -> torch.Tensor:
+    """(B, S) ids -> (B, dim): the sum of their embeddings over S divided
+    by the live (non-pad) count, at least 1."""
+    live = (toks > 0).sum(1, keepdim=True).clamp_min(1)
+    return fixed_sum(emb[toks], 1) / live.to(torch.float32)
+
+
+def router_logits(emb: torch.Tensor, w_gate: torch.Tensor,
+                  toks: torch.Tensor) -> torch.Tensor:
+    """(B, S) ids -> (B, E) gate logits of the mean-pooled embeddings. The
+    (B, dim) @ (dim, E) product is an elementwise product and a
+    ``fixed_sum``, so a row's logits do not depend on its batch."""
+    return fixed_sum(_mean_pool(emb, toks)[:, :, None] * w_gate, 1)
+
+
+def moe_router_tokens(toks: torch.Tensor, emb: torch.Tensor,
+                      w_gate: torch.Tensor, k: int,
+                      logits_out: torch.Tensor | None = None):
+    """The router over each row's mean-pooled token embeddings: (B, S) ids
+    -> (weights (B, k), idx (B, k) int32), ``moe_topk_router`` of
+    ``router_logits``; ``logits_out`` (B, E), if given, receives the
+    logits."""
+    logits = router_logits(emb, w_gate, toks)
+    if logits_out is not None:
+        logits_out.copy_(logits)
+    return moe_topk_router(logits, k)
+
+
 # --------------------------------------------------------------------------- #
 # RG-LRU (recurrentgemma / griffin)                                            #
 # --------------------------------------------------------------------------- #
@@ -185,6 +231,20 @@ def rglru(
         hs.append(h)
     out = torch.stack(hs, dim=1) if hs else xf.new_zeros((b, 0, w))
     return out.to(x.dtype), h.to(x.dtype)
+
+
+def rglru_tokens(
+    toks: torch.Tensor,     # (B, S) token ids
+    emb_x: torch.Tensor,    # (V, W)
+    emb_r: torch.Tensor,    # (V, W)
+    emb_i: torch.Tensor,    # (V, W)
+    a_param: torch.Tensor,  # (W,)
+    h0: torch.Tensor | None = None,
+    *,
+    c: float = 8.0,
+):
+    """``rglru`` over the embedding rows of each row's tokens."""
+    return rglru(emb_x[toks], emb_r[toks], emb_i[toks], a_param, h0, c=c)
 
 
 # --------------------------------------------------------------------------- #

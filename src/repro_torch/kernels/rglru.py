@@ -1,10 +1,13 @@
 """RG-LRU linear recurrence (recurrentgemma / Griffin), for Hopper.
 
 Port of ``repro.kernels.rglru``. For a CUDA tensor ``rglru_bsw`` launches
-the hand-written kernel in ``csrc/rglru.cu`` (one thread per channel
-walking S in order, see the source's note) or raises; for a CPU tensor it
-runs the plain version in ``ref.py``. ``launches`` counts kernel launches,
-so a run can show that it went through the kernel.
+the hand-written kernel in ``csrc/rglru.cu`` (a CTA per row and tile of
+channels: the terms formed in parallel into shared memory, then the
+chain walked in order, see the source's note) or raises, and
+``rglru_tokens`` launches its token-fed entry (the same kernel gathering
+x, r and i from embedding tables by token id); for a CPU tensor each runs
+its plain version in ``ref.py``. ``launches`` counts kernel launches of
+both entries, so a run can show that it went through the kernel.
 """
 from __future__ import annotations
 
@@ -18,10 +21,47 @@ from repro_torch.kernels import _build, ref
 launches = 0
 _COUNT_LOCK = threading.Lock()
 
-# the C entry point's packed arguments (RglruArgs in the source): x, r, i,
-# a_param, h0, out, h_last; B, S, W and c
+# the C entry points' packed arguments: RglruArgs (x, r, i, a_param, h0 or
+# 0, out, h_last; B, S, W and c) and RglruTokensArgs (toks, emb_x, emb_r,
+# emb_i, a_param, h0 or 0, out, h_last; B, S, W, V, c and a pad) in the
+# source
 ARGS = struct.Struct("<7Q3if")
-_entry = None  # the library's C function, looked up once
+TOKENS_ARGS = struct.Struct("<8Q4ifi")
+_entries: dict = {}  # the library's C functions, looked up once
+
+
+def _check_state(a_param: torch.Tensor, h0, b: int, w: int) -> None:
+    if tuple(a_param.shape) != (w,) or (
+            h0 is not None and tuple(h0.shape) != (b, w)):
+        raise ValueError(f"a_param must be ({w},) and h0 ({b}, {w}) or None, "
+                         f"got {tuple(a_param.shape)} and "
+                         f"{None if h0 is None else tuple(h0.shape)}")
+
+
+def _launch(fn: str, pack, ins: list, h0, out_shape: tuple, dev: int,
+            device: torch.device):
+    """Launch entry ``fn`` on float32 contiguous copies of ``ins`` and h0
+    (None: a null pointer, the kernel's zero state); ``pack(pointers, out,
+    h_last)`` packs the arguments. Returns (out, h_last) float32."""
+    global launches
+    if h0 is not None:
+        ins.append(_build.f32_contiguous(h0))
+    if any(t.get_device() != dev for t in ins):
+        raise ValueError(f"all inputs must lie on {device}")
+    out = torch.empty(out_shape, dtype=torch.float32, device=device)
+    h_last = torch.empty((out_shape[0], out_shape[2]), dtype=torch.float32,
+                         device=device)
+    ptrs = [t.data_ptr() for t in ins] + ([] if h0 is not None else [0])
+    entry = _entries.get(fn)
+    if entry is None:
+        entry = _entries[fn] = getattr(_build.load("rglru").lib, fn)
+    err = entry(pack(ptrs, out.data_ptr(), h_last.data_ptr()),
+                _build.raw_stream(dev))
+    if err != 0:
+        raise RuntimeError(f"rglru kernel launch failed: CUDA error {err}")
+    with _COUNT_LOCK:
+        launches += 1
+    return out, h_last
 
 
 def rglru_bsw(
@@ -29,44 +69,76 @@ def rglru_bsw(
     r: torch.Tensor,        # (B, S, W)
     i: torch.Tensor,        # (B, S, W)
     a_param: torch.Tensor,  # (W,)
-    h0: torch.Tensor,       # (B, W)
+    h0: torch.Tensor | None,  # (B, W); None: a zero state
     *,
     c: float = 8.0,
 ):
-    """(out (B, S, W), h_last (B, W)), both in x's dtype. Each channel's
-    whole sequence is one thread's, so S and W are free."""
-    global _entry, launches
+    """(out (B, S, W), h_last (B, W)), both in x's dtype. S and W are
+    free."""
     if x.dim() != 3:
         raise ValueError(f"x must be (B, S, W), got {tuple(x.shape)}")
     b, s, w = x.shape
     if r.shape != x.shape or i.shape != x.shape:
         raise ValueError(f"r and i must match x {tuple(x.shape)}, got "
                          f"{tuple(r.shape)} and {tuple(i.shape)}")
-    if tuple(a_param.shape) != (w,) or tuple(h0.shape) != (b, w):
-        raise ValueError(f"a_param must be ({w},) and h0 ({b}, {w}), got "
-                         f"{tuple(a_param.shape)} and {tuple(h0.shape)}")
+    _check_state(a_param, h0, b, w)
     if b == 0 or w == 0:
-        return torch.zeros_like(x), torch.zeros_like(h0, dtype=x.dtype)
+        return torch.zeros_like(x), torch.zeros((b, w), dtype=x.dtype,
+                                                device=x.device)
     if not x.is_cuda:
         if x.device.type != "cpu":
             raise ValueError(f"rglru_bsw runs on cpu or cuda, not {x.device}")
         return ref.rglru(x, r, i, a_param, h0, c=c)
-    dev = x.get_device()
-    ins = [t if t.dtype == torch.float32 and t.is_contiguous()
-           else t.to(torch.float32).contiguous() for t in (x, r, i, a_param, h0)]
-    if any(t.get_device() != dev for t in ins):
-        raise ValueError(f"all inputs must lie on {x.device}")
-    out = torch.empty((b, s, w), dtype=torch.float32, device=x.device)
-    h_last = torch.empty((b, w), dtype=torch.float32, device=x.device)
-    if _entry is None:
-        _entry = _build.load("rglru").lib.rglru_bsw
-    err = _entry(ARGS.pack(*(t.data_ptr() for t in ins), out.data_ptr(),
-                           h_last.data_ptr(), b, s, w, float(c)),
-                 _build.raw_stream(dev))
-    if err != 0:
-        raise RuntimeError(f"rglru kernel launch failed: CUDA error {err}")
-    with _COUNT_LOCK:
-        launches += 1
+    out, h_last = _launch(
+        "rglru_bsw",
+        lambda p, o, hl: ARGS.pack(*p, o, hl, b, s, w, float(c)),
+        [_build.f32_contiguous(t) for t in (x, r, i, a_param)], h0,
+        (b, s, w), x.get_device(), x.device)
     if x.dtype != torch.float32:
         out, h_last = out.to(x.dtype), h_last.to(x.dtype)
     return out, h_last
+
+
+def rglru_tokens(
+    toks: torch.Tensor,     # (B, S) int32 token ids
+    emb_x: torch.Tensor,    # (V, W)
+    emb_r: torch.Tensor,    # (V, W)
+    emb_i: torch.Tensor,    # (V, W)
+    a_param: torch.Tensor,  # (W,)
+    h0: torch.Tensor | None = None,  # (B, W); None: a zero state
+    *,
+    c: float = 8.0,
+):
+    """(out (B, S, W), h_last (B, W)) float32: ``rglru_bsw(emb_x[toks],
+    emb_r[toks], emb_i[toks], a_param, h0)`` bit for bit, in one launch on
+    the card, whose loads gather each staged row from the tables by token
+    id. The caller keeps the ids in [0, V): on the card an id outside is
+    taken as the JAX package's gather takes it (the predicate refuses such
+    ids on the host); the plain version's indexing raises or wraps."""
+    if toks.dim() != 2 or emb_x.dim() != 2:
+        raise ValueError(f"need toks (B, S) and tables (V, W), got "
+                         f"{tuple(toks.shape)} and {tuple(emb_x.shape)}")
+    b, s = toks.shape
+    v, w = emb_x.shape
+    if emb_r.shape != emb_x.shape or emb_i.shape != emb_x.shape:
+        raise ValueError(f"the tables must match emb_x {tuple(emb_x.shape)}, "
+                         f"got {tuple(emb_r.shape)} and {tuple(emb_i.shape)}")
+    _check_state(a_param, h0, b, w)
+    if b == 0 or w == 0:
+        return (torch.zeros((b, s, w), dtype=torch.float32, device=toks.device),
+                torch.zeros((b, w), dtype=torch.float32, device=toks.device))
+    if v == 0:
+        raise ValueError("the tables are empty")
+    if not toks.is_cuda:
+        if toks.device.type != "cpu":
+            raise ValueError(f"rglru_tokens runs on cpu or cuda, not "
+                             f"{toks.device}")
+        return ref.rglru_tokens(toks, emb_x, emb_r, emb_i, a_param, h0, c=c)
+    ids = toks if toks.dtype == torch.int32 and toks.is_contiguous() else \
+        toks.to(torch.int32).contiguous()
+    return _launch(
+        "rglru_tokens",
+        lambda p, o, hl: TOKENS_ARGS.pack(*p, o, hl, b, s, w, v, float(c), 0),
+        [ids] + [_build.f32_contiguous(t)
+                 for t in (emb_x, emb_r, emb_i, a_param)],
+        h0, (b, s, w), toks.get_device(), toks.device)

@@ -40,6 +40,7 @@ from repro_torch import convert
 from repro_torch.core.statstore import canonical_fingerprint
 from repro_torch.core.udf import Predicate, UDF
 from repro_torch.kernels import launch, ops, ref
+from repro_torch.kernels.ref import fixed_sum
 from repro_torch.udfs import rooflines
 
 
@@ -119,27 +120,20 @@ def _text_device(device) -> torch.device:
     return dev
 
 
-def device_tokens(tokens: np.ndarray, seq: int,
-                  device: torch.device) -> torch.Tensor:
-    """(B, L) host tokens -> (B, seq) int64 ids on ``device`` (int32 over
-    the bus). Call inside ``launch.thread_stream(device)``."""
-    host = torch.from_numpy(_pad_tokens(tokens, seq))
-    return host.to(device).long()
-
-
-def fixed_sum(x: torch.Tensor, dim: int) -> torch.Tensor:
-    """Sum over ``dim`` by halving it, in an order fixed by its length.
-
-    A library reduction may split its work by the other dimensions' sizes
-    (and a matrix product pick its algorithm by them), so a row's sum could
-    change with the batch it sits in; these elementwise adds cannot, and
-    they round the same on the card and on the CPU."""
-    x = x.movedim(dim, 0)
-    while x.shape[0] > 1:
-        half = x.shape[0] // 2
-        head = x[:half] + x[half:2 * half]
-        x = torch.cat([head, x[2 * half:]]) if x.shape[0] % 2 else head
-    return x[0]
+def token_ids(tokens: np.ndarray, seq: int, vocab: int,
+              device: torch.device) -> torch.Tensor:
+    """(B, L) host tokens -> (B, seq) int32 ids on ``device``: the input of
+    the token-fed kernels, and what the other text predicates index their
+    tables with. Raises ValueError for an id outside [0, vocab), checked on
+    the host before the copy: a kernel would take such an id as the JAX
+    package's gather does (clamped), torch indexing raises on the CPU and
+    fails on the card. Call inside ``launch.thread_stream(device)``."""
+    toks = np.asarray(tokens)
+    head = toks[:, :seq]
+    if head.size and (head.min() < 0 or head.max() >= vocab):
+        raise ValueError(f"token ids must lie in [0, {vocab}), got "
+                         f"{head.min()}..{head.max()}")
+    return torch.from_numpy(_pad_tokens(toks, seq)).to(device)
 
 
 def row_mean(x: torch.Tensor) -> torch.Tensor:
@@ -147,13 +141,6 @@ def row_mean(x: torch.Tensor) -> torch.Tensor:
     float32 reciprocal of the count, as the JAX package's ``mean`` does."""
     flat = x.flatten(1)
     return fixed_sum(flat, 1) * float(np.float32(1) / np.float32(flat.shape[1]))
-
-
-def _mean_pool(emb: torch.Tensor, toks: torch.Tensor) -> torch.Tensor:
-    """(B, S) ids -> (B, dim): the sum of their embeddings over S divided
-    by the live (non-pad) count, at least 1."""
-    live = (toks > 0).sum(1, keepdim=True).clamp_min(1)
-    return fixed_sum(emb[toks], 1) / live.to(torch.float32)
 
 
 # The tables and kernel inputs of each text predicate. The builders below
@@ -168,14 +155,6 @@ def router_tables(*, n_experts: int = 8, dim: int = 16, vocab: int = 256,
         rng.standard_normal((dim, n_experts)).astype(np.float32) / np.sqrt(dim),
         device)
     return emb, w_gate
-
-
-def router_logits(emb: torch.Tensor, w_gate: torch.Tensor,
-                  toks: torch.Tensor) -> torch.Tensor:
-    """(B, S) ids -> (B, E) gate logits of the mean-pooled embeddings. The
-    (B, dim) @ (dim, E) product is an elementwise product and a
-    ``fixed_sum``, so a row's logits do not depend on its batch."""
-    return fixed_sum(_mean_pool(emb, toks)[:, :, None] * w_gate, 1)
 
 
 def ssd_tables(*, heads: int = 2, head_dim: int = 4, state: int = 4,
@@ -326,9 +305,9 @@ def topic_router_predicate(
 
     def fn(d):
         with launch.thread_stream(dev):
-            toks = device_tokens(d["tokens"], seq, dev)
-            _, idx = ops.moe_topk_router(router_logits(emb, w_gate, toks), k)
-            return idx[:, 0].cpu().numpy()
+            toks = token_ids(d["tokens"], seq, vocab, dev)
+            _, idx = ops.moe_router_tokens(toks, emb, w_gate, k)
+            return idx.cpu().numpy()[:, 0]
 
     name = name or f"routes_to_expert{expert}"
     udf = UDF(
@@ -367,7 +346,7 @@ def ssd_scorer_predicate(
 
     def fn(d):
         with launch.thread_stream(dev):
-            toks = device_tokens(d["tokens"], seq, dev)
+            toks = token_ids(d["tokens"], seq, vocab, dev)
             y, _ = ops.ssd(*ssd_inputs(tables, toks, heads=heads,
                                        head_dim=head_dim, state=state),
                            chunk=chunk)
@@ -405,9 +384,8 @@ def rglru_gate_predicate(
 
     def fn(d):
         with launch.thread_stream(dev):
-            toks = device_tokens(d["tokens"], seq, dev)
-            _, h_last = ops.rglru(emb_x[toks], emb_r[toks], emb_i[toks],
-                                  a_param)
+            toks = token_ids(d["tokens"], seq, vocab, dev)
+            _, h_last = ops.rglru_tokens(toks, emb_x, emb_r, emb_i, a_param)
             return row_mean(h_last).cpu().numpy()
 
     name = name or "rglru_gate_pos"
@@ -442,7 +420,7 @@ def attention_scorer_predicate(
 
     def fn(d):
         with launch.thread_stream(dev):
-            toks = device_tokens(d["tokens"], seq, dev)
+            toks = token_ids(d["tokens"], seq, vocab, dev)
             out = ops.flash_attention(
                 *attention_inputs(tables, toks, heads=heads,
                                   head_dim=head_dim),
@@ -483,7 +461,7 @@ def decode_relevance_predicate(
 
     def fn(d):
         with launch.thread_stream(dev):
-            toks = device_tokens(d["tokens"], seq, dev)
+            toks = token_ids(d["tokens"], seq, vocab, dev)
             out = ops.decode_attention(
                 *decode_inputs(tables, toks, kv_heads=kv_heads), block_k=seq)
             return row_mean(out).cpu().numpy()

@@ -410,7 +410,7 @@ def test_attention_predicates_raise_without_a_card():
 @pytest.mark.parametrize("b", [1, 7, 32, 4096])
 def test_attention_kernels_match_plain_versions_on_card(card, b):
     torch.backends.cuda.matmul.allow_tf32 = False
-    toks = lib.device_tokens(_tokens(b, 32, seed=5), 32, card)
+    toks = lib.token_ids(_tokens(b, 32, seed=5), 32, 256, card)
     before = (flash_attention.launches, decode_attention.launches)
     q, k, v = lib.attention_inputs(lib.attention_tables(device=card), toks)
     out = ops.flash_attention(q, k, v, block_q=32, block_k=32)

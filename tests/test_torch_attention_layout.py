@@ -167,7 +167,7 @@ def _predicate_scores(kernel: str, mm) -> np.ndarray:
     toks = np.zeros((2000, 32), np.int32)
     for j, r in enumerate(reviews):
         toks[j, :min(len(r.tokens), 32)] = r.tokens[:32]
-    toks = lib.device_tokens(toks, 32, torch.device("cpu"))
+    toks = lib.token_ids(toks, 32, 256, torch.device("cpu"))
     if kernel == "flash_attention":
         q, k, v = (t.transpose(1, 2) for t in lib.attention_inputs(
             lib.attention_tables(), toks))          # (B, H, S, D)

@@ -321,7 +321,7 @@ def test_kernel_matches_plain_version_on_card(card, b, s, h, p, g, n, chunk,
 def test_predicate_layout_is_one_launch_and_no_copy(card):
     """ops.ssd on ssd_inputs' own views (stride-0 dt, no h0) launches once
     and allocates only y and h_last; strided views give the same bits."""
-    toks = lib.device_tokens(_triage_tokens(64), 64, card)
+    toks = lib.token_ids(_triage_tokens(64), 64, 256, card)
     x, dt, A, Bm, Cm = lib.ssd_inputs(lib.ssd_tables(device=card), toks)
     assert dt.stride(-1) == 0
     ops.ssd(x, dt, A, Bm, Cm)   # warm: the library is loaded
@@ -343,7 +343,7 @@ def test_predicate_layout_is_one_launch_and_no_copy(card):
 
 @pytest.mark.gpu
 def test_rows_do_not_depend_on_the_batch(card):
-    toks = lib.device_tokens(_triage_tokens(4096), 64, card)
+    toks = lib.token_ids(_triage_tokens(4096), 64, 256, card)
     tables = lib.ssd_tables(device=card)
     whole, whole_h = ssd.ssd_bshp(*lib.ssd_inputs(tables, toks))
     for lo, hi in ((0, 1), (7, 8), (100, 116), (4095, 4096)):
