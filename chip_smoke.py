@@ -37,11 +37,22 @@ failed phase. Phases, in order:
 8. service — the port's QueryService serving the triage, attention and
              decode queries at once over the first 20,000 of those
              reviews, each tenant against its oracle;
-9. the ``{"kernels": [...]}`` line, then the device line last.
+9. llm     — the LLM(...) predicate at SmolLM-135M's full width in bf16
+             (30 layers, random weights from a seed): one forward at (10,
+             512) through the flash kernel (30 launches) against the same
+             forward with the plain attention, prefill and greedy decode
+             against full forwards, the serving CLI's query over 5,000
+             reviews on a QueryService under every eddy policy against a
+             whole-table oracle scored through the kernel and through the
+             plain attention, and the call's times: at 10 and 64 rows, its
+             device time by kernel (torch.profiler), and the flash kernel at
+             its shapes beside its bound and scaled_dot_product_attention;
+10. the ``{"kernels": [...]}`` line, then the device line last.
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import json
 import os
@@ -81,6 +92,15 @@ LIBRARIES = (*KERNELS, "empty")   # empty: the launch floor, not a TPU kernel
 FLASH_BENCH = ((1, 1024, 8, 2, 64, 0), (2, 2048, 8, 2, 64, 0),
                (1, 4096, 4, 1, 64, 512))
 DECODE_BENCH = (8, 4096, 8, 2, 64)
+LLM_ARCH = "smollm-135m"  # the LLM predicate's model, at its published widths
+LLM_SEED = 0
+LLM_REVIEWS = 5000        # the LLM query's table
+LLM_ROWS = 10             # the serving CLI's routing batch
+LLM_ORACLE_ROWS = 64      # the whole-table oracle's batch
+LLM_PROMPT, LLM_STEPS = 64, 8   # prefill length, greedy decode steps
+LLM_MARGIN = 4            # the row gate's margin, in units of the largest
+                          # score difference between batches of 10 and 64
+LLM_ROUNDS = 7            # timed LLM calls, of which the median is kept
 
 
 def phase(name: str) -> None:
@@ -1029,26 +1049,47 @@ def visible_pairs(s: int, causal: bool, window: int) -> int:
 
 def time_flash(q, k, v, *, group: int, causal: bool, window: int,
                label: str) -> dict:
-    """Times of the flash kernel on (BH, S, D) inputs in its layout:
-    through the wrapper, at its C entry point and of
-    ``scaled_dot_product_attention`` on the same work (in q's dtype), taken
-    in turns (``paired_ms``), and of the plain version, beside the bound (each input read once and the output written once; 4
+    """Times of the flash kernel on (BH, S, D) inputs in its layout, or on
+    the model's (B, S, H, D) views (4-d inputs, through
+    ``flash_attention_bshd``): through the wrapper, at its C entry point
+    and of ``scaled_dot_product_attention`` on the same work (in q's
+    dtype), taken in turns (``paired_ms``), and of the plain version,
+    beside the bound (each input read once and the output written once; 4
     flops per visible (query, key) pair and dim)."""
     from repro_torch.kernels import _build, flash_attention, ref
-    bh, s, d = q.shape
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream().cuda_stream
     call = _build.load("flash_attention").lib.flash_attention_bshd
-    lay = flash_attention.bhsd_layout
-    args = flash_attention.pack_args(
-        q, k, v, out, (lay(q, group), lay(k, 1), lay(v, 1), lay(out, group)),
-        batch=bh // group, heads=group, group=group, sq=s, sk=s,
-        causal=causal, window=window, scale=d ** -0.5)
+    if q.dim() == 4:
+        b, s, h, d = q.shape
+        bh = b * h
+        args = flash_attention.pack_args(
+            q, k, v, out,
+            tuple(map(flash_attention.bshd_layout, (q, k, v, out))),
+            batch=b, heads=h, group=group, sq=s, sk=s, causal=causal,
+            window=window, scale=d ** -0.5)
+        wrapper = lambda: flash_attention.flash_attention_bshd(  # noqa: E731
+            q, k, v, causal=causal, window=window)
+        plain = lambda: ref.flash_attention_bshd(  # noqa: E731
+            q, k, v, causal=causal, window=window)
+        q4, k4, v4 = (t.transpose(1, 2) for t in (q, k, v))
+    else:
+        bh, s, d = q.shape
+        lay = flash_attention.bhsd_layout
+        args = flash_attention.pack_args(
+            q, k, v, out,
+            (lay(q, group), lay(k, 1), lay(v, 1), lay(out, group)),
+            batch=bh // group, heads=group, group=group, sq=s, sk=s,
+            causal=causal, window=window, scale=d ** -0.5)
+        wrapper = lambda: flash_attention.flash_attention_bhsd(  # noqa: E731
+            q, k, v, group=group, causal=causal, window=window)
+        plain = lambda: ref.flash_attention_bhsd(  # noqa: E731
+            q, k, v, group=group, causal=causal, window=window)
+        # the same work for scaled_dot_product_attention: the programs as
+        # the heads of one sequence (query head i reads kv head i // group)
+        q4, k4, v4 = q.unsqueeze(0), k.unsqueeze(0), v.unsqueeze(0)
     if call(args, stream) != 0:
         raise AssertionError("flash_attention entry point failed")
-    # the same work for scaled_dot_product_attention: the programs as the
-    # heads of one sequence (query head i reads kv head i // group)
-    q4, k4, v4 = q.unsqueeze(0), k.unsqueeze(0), v.unsqueeze(0)
     if window > 0:
         i = torch.arange(s, device=q.device)
         mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
@@ -1061,13 +1102,10 @@ def time_flash(q, k, v, *, group: int, causal: bool, window: int,
     t = {
         "dtype": str(q.dtype).replace("torch.", ""),
         **paired_ms({
-            "ms": lambda: flash_attention.flash_attention_bhsd(
-                q, k, v, group=group, causal=causal, window=window),
+            "ms": wrapper,
             "entry_ms": lambda: call(args, stream),
             "library_ms": library}),
-        "plain_ms": time_ms(lambda: ref.flash_attention_bhsd(
-            q, k, v, group=group, causal=causal, window=window),
-            10 if big else TIME_ITERS),
+        "plain_ms": time_ms(plain, 10 if big else TIME_ITERS),
         **attention_bound(
             (2 * q.numel() + k.numel() + v.numel()) * q.element_size(),
             4.0 * visible_pairs(s, causal, window) * bh * d, q.dtype),
@@ -1622,6 +1660,347 @@ def run_service(reviews, expect: dict) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------- #
+# phase 9: the LLM(...) predicate at SmolLM-135M's full width                 #
+# --------------------------------------------------------------------------- #
+@contextlib.contextmanager
+def plain_attention():
+    """Inside the block the model's attention runs the plain version
+    (``ref.flash_attention_bshd``): the kernel's wrapper is swapped out of
+    ``models.attention``. Only for the main thread's comparisons, while no
+    query runs."""
+    from repro_torch.kernels import ref
+    from repro_torch.models import attention
+    kernel = attention.flash_attention_bshd
+    attention.flash_attention_bshd = ref.flash_attention_bshd
+    try:
+        yield
+    finally:
+        attention.flash_attention_bshd = kernel
+
+
+def llm_scores(fn, tokens: np.ndarray, rows: int) -> np.ndarray:
+    """The LLM predicate's score of every row, ``rows`` rows a call."""
+    return np.concatenate([fn({"tokens": tokens[i:i + rows]})
+                           for i in range(0, len(tokens), rows)])
+
+
+def check_llm_forward(cfg, model, x: torch.Tensor) -> dict:
+    """One forward through the kernel: one launch a layer, and logits
+    within TOL_BF16 of the same forward with the plain attention."""
+    from repro_torch.kernels import flash_attention
+    from repro_torch.models import transformer as tf
+    with torch.inference_mode():
+        before = flash_attention.launches
+        logits = tf.forward(cfg, model, {"tokens": x})
+        after = flash_attention.launches
+        with plain_attention():
+            plain = tf.forward(cfg, model, {"tokens": x})
+    err, ok = within(logits, plain, **TOL_BF16)
+    finite = bool(torch.isfinite(logits).all())
+    print(f"  forward {tuple(x.shape)}: logits {tuple(logits.shape)} "
+          f"{logits.dtype}, max_abs_err against the plain attention {err!r} "
+          f"(|logit| up to {float(plain.float().abs().max())!r}), finite "
+          f"{finite}; flash_attention.launches {before} -> {after}",
+          flush=True)
+    if after - before != cfg.num_layers:
+        raise AssertionError(f"the forward launched the flash kernel "
+                             f"{after - before} times, not {cfg.num_layers}")
+    if not (ok and finite):
+        raise AssertionError("the forward through the flash kernel disagrees "
+                             "with the plain attention")
+    return {"shape": list(x.shape), "launches": after - before,
+            "max_abs_err": err}
+
+
+def check_llm_decode(cfg, model, prompt: torch.Tensor) -> dict:
+    """A prefill of the prompt, then LLM_STEPS greedy decode steps: the
+    prefill's and each step's logits within TOL_BF16 of a full forward's
+    last position over the same tokens."""
+    from repro_torch.models import transformer as tf
+    errs = []
+    with torch.inference_mode():
+        cache, last = tf.prefill(cfg, model, {"tokens": prompt},
+                                 pad_cache_to=prompt.shape[1] + LLM_STEPS)
+        seq = prompt
+        for step in range(LLM_STEPS + 1):
+            if step:
+                token = last.argmax(-1).to(torch.int32)
+                seq = torch.cat([seq, token[:, None]], dim=1)
+                cache, last = tf.decode_step(cfg, model, cache,
+                                             {"token": token})
+            full = tf.forward(cfg, model, {"tokens": seq})[:, -1]
+            err, ok = within(last, full, **TOL_BF16)
+            errs.append(err)
+            if not (ok and bool(torch.isfinite(last).all())):
+                raise AssertionError(f"decode step {step}: logits disagree "
+                                     "with the full forward")
+    lengths = cache["lengths"].tolist()
+    print(f"  prefill {tuple(prompt.shape)} and {LLM_STEPS} greedy decode "
+          f"steps: max_abs_err against the full forward per step {errs!r}; "
+          f"cache {tuple(cache['k'].shape)}, lengths {lengths}", flush=True)
+    if lengths != [prompt.shape[1] + LLM_STEPS] * prompt.shape[0]:
+        raise AssertionError(f"decode left the cache lengths at {lengths}")
+    return {"prompt": list(prompt.shape), "steps": LLM_STEPS,
+            "max_abs_err_by_step": errs}
+
+
+def llm_query(udf, reviews, policy: str) -> tuple:
+    """The serving CLI's query (``launch/serve.py::main``) on one policy:
+    (report, wall seconds)."""
+    from repro_torch.core import Predicate, Query, TrivialPredicate, batches_of
+    from repro_torch.core.policies import EDDY_POLICIES, DataAware
+    from repro_torch.launch.serve import QueryService, review_source
+    pred = Predicate("LLM_is_food", udf, compare=lambda s: s > 0)
+    q = Query(source=review_source(reviews), predicates=[pred],
+              trivial=[TrivialPredicate("rating", "<=", 1)],
+              batch_rows=LLM_ROWS)
+    t0 = time.perf_counter()
+    with QueryService(max_concurrent=1) as service:
+        handle = service.submit(
+            [pred], batches_of(q), policy=EDDY_POLICIES[policy](),
+            laminar_policy_factory=DataAware, max_workers=4)
+        rep = handle.result(timeout=900)
+    return rep, time.perf_counter() - t0
+
+
+def llm_trace(fn, data) -> dict:
+    """Device time of one LLM call by kernel, from a ``torch.profiler``
+    trace: the flash launches, the vocabulary GEMM (the longest GEMM), the
+    layers' GEMMs, log-softmax, copies and the rest."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn(data)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn(data)
+        torch.cuda.synchronize()
+    split, count, by_name, gemms = (collections.Counter(),
+                                    collections.Counter(),
+                                    collections.Counter(), [])
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        ms = e.time_range.elapsed_us() / 1e3
+        name = e.name.lower()
+        if "flash" in name:
+            key = "flash_attention"
+        elif name.startswith(("memcpy", "memset")):
+            key = "copies"
+        elif "softmax" in name:
+            key = "log_softmax"
+        elif any(w in name for w in ("gemm", "gemv", "cutlass", "xmma",
+                                     "nvjet")):
+            key = "layer_gemms"
+            gemms.append(ms)
+        else:
+            key = "other"
+        split[key] += ms
+        count[key] += 1
+        by_name[e.name[:100]] += ms
+    if gemms:
+        split["layer_gemms"] -= max(gemms)
+        count["layer_gemms"] -= 1
+        split["vocab_gemm"], count["vocab_gemm"] = max(gemms), 1
+    return {"device_ms": sum(split.values()), "kernels": sum(count.values()),
+            "split_ms": dict(split), "split_launches": dict(count),
+            "top_kernels_ms": dict(by_name.most_common(12))}
+
+
+def time_llm(cfg, model, udf, toks: np.ndarray) -> dict:
+    """One LLM call at 10 and 64 rows: ms a call on the host clock and
+    between CUDA events on its stream (the median of LLM_ROUNDS, each
+    ending in the copy back), torch operations a call,
+    its device time by kernel, and its parts timed alone with CUDA events:
+    the flash kernel at its shape (beside its bound and SDPA), the
+    vocabulary GEMM, and the float32 log-softmax with the masked pool."""
+    from repro_torch.kernels import launch, ref
+    from repro_torch.kernels.flash_attention import flash_attention_bshd
+    from repro_torch.models.layers import embed_tokens
+    dev = torch.device("cuda")
+    out = {}
+    rng = np.random.default_rng(17)
+    for rows in (LLM_ROWS, LLM_ORACLE_ROWS):
+        data = {"tokens": toks[:rows]}
+        for _ in range(2):
+            udf.fn(data)
+        times, events = [], []
+        for _ in range(LLM_ROUNDS):
+            # the call runs on this thread's stream: events there bracket it
+            with launch.thread_stream(dev):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                t0 = time.perf_counter()
+                udf.fn(data)
+                times.append((time.perf_counter() - t0) * 1e3)
+                end.record()
+            end.synchronize()
+            events.append(start.elapsed_time(end))
+        with OpCount() as c:
+            udf.fn(data)
+        trace = llm_trace(udf.fn, data)
+        x = torch.from_numpy(data["tokens"]).to(dev)
+        qkv = [torch.from_numpy(rng.standard_normal(
+            (rows, x.shape[1], n, cfg.head_dim)).astype(np.float32)).to(
+                dev, torch.bfloat16) for n in (cfg.num_heads,
+                                               cfg.num_kv_heads,
+                                               cfg.num_kv_heads)]
+        label = (f"llm B={rows} S={x.shape[1]} H={cfg.num_heads} "
+                 f"Hkv={cfg.num_kv_heads} D={cfg.head_dim} bf16")
+        group = cfg.num_heads // cfg.num_kv_heads
+        flash_err = check_close(
+            "flash_attention", flash_attention_bshd(*qkv),
+            ref.flash_attention_bshd(*qkv), label, tol=TOL_BF16)
+        flash = time_flash(*qkv, group=group, causal=True, window=0,
+                           label=label)
+        with torch.inference_mode():
+            h = embed_tokens(x, model.embed)
+            head = model.embed.T
+            logits = torch.matmul(h, head)
+            mask = (x > 0)[..., None].to(logits.dtype)
+            gemm_ms = time_ms(lambda: torch.matmul(h, head), 20)
+            pool_ms = time_ms(lambda: (torch.log_softmax(
+                logits.to(torch.float32), -1) * mask).sum(1), 20)
+        call_ms = float(np.median(times))
+        t = {"rows": rows, "call_ms": call_ms, "call_ms_rounds": times,
+             "call_event_ms": float(np.median(events)),
+             "torch_ops": len(c.ops), "trace": trace,
+             "busy_share": trace["device_ms"] / call_ms,
+             "flash_label": label, "flash_attention": flash,
+             "flash_max_abs_err": flash_err,
+             "flash_launches": cfg.num_layers,
+             "flash_ms_per_call": cfg.num_layers * flash["entry_ms"],
+             "vocab_gemm_ms": gemm_ms,
+             "vocab_gemm_gflop": 2.0 * x.numel() * cfg.d_model
+             * cfg.vocab_padded / 1e9,
+             "log_softmax_pool_ms": pool_ms}
+        print(f"  LLM call, {rows} rows: {call_ms!r} ms on the host clock "
+              f"(rounds {times!r}), {t['call_event_ms']!r} ms between CUDA "
+              f"events on its stream, {len(c.ops)} torch operations; device "
+              f"time in one traced call {trace['device_ms']!r} ms over "
+              f"{trace['kernels']} kernels (busy share {t['busy_share']!r}), "
+              f"split {trace['split_ms']}, launches "
+              f"{trace['split_launches']}", flush=True)
+        print(f"    top kernels: {trace['top_kernels_ms']}")
+        print(f"    alone: {cfg.num_layers} flash launches "
+              f"{t['flash_ms_per_call']!r} ms, vocabulary GEMM {gemm_ms!r} "
+              f"ms ({t['vocab_gemm_gflop']!r} GFLOP), float32 log-softmax "
+              f"and pool {pool_ms!r} ms", flush=True)
+        out[str(rows)] = t
+    return out
+
+
+def run_llm(reviews, cfg, model, dev: torch.device) -> dict:
+    """The LLM predicate on ``model``: forward and decode checks, then the
+    serving CLI's query under every policy against the whole-table
+    oracle."""
+    from repro_torch.core.policies import EDDY_POLICIES
+    from repro_torch.kernels import flash_attention
+    from repro_torch.launch.serve import build_llm_udf, review_source
+    from repro_torch.models import transformer as tf
+    print(f"  {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"heads {cfg.num_heads}/{cfg.num_kv_heads}, head_dim "
+          f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+          f"{cfg.dtype}; {tf.param_count(cfg)} parameters drawn on "
+          f"{dev} from seed {LLM_SEED}")
+    parts = list(review_source(reviews))
+    table = {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+    low = table["rating"] <= 1
+    toks, ids = table["tokens"][low], table["_row_id"][low]
+    live = (toks > 0).sum(1)
+    print(f"  make_reviews({len(reviews)}, seed=0): {len(ids)} rows with "
+          f"rating <= 1, {toks.shape[1]} token slots each, {live.min()}.."
+          f"{live.max()} live (mean {live.mean():.1f}), 0-padded")
+    x = torch.from_numpy(toks[:LLM_ROWS]).to(dev)
+    forward = check_llm_forward(cfg, model, x)
+    decode = check_llm_decode(cfg, model, x[:, :LLM_PROMPT])
+
+    # the whole-table oracle, through the kernel and the plain attention
+    udf = build_llm_udf(params=model, cfg=cfg, device=dev)
+    t0 = time.perf_counter()
+    s64 = llm_scores(udf.fn, toks, LLM_ORACLE_ROWS)
+    s10 = llm_scores(udf.fn, toks, LLM_ROWS)
+    with plain_attention():
+        p64 = llm_scores(udf.fn, toks, LLM_ORACLE_ROWS)
+    oracle_s = time.perf_counter() - t0
+    # cuBLAS need not give a row the same bits in a batch of 10 and of 64;
+    # a row whose |score| lies within LLM_MARGIN times the largest such
+    # difference may flip between the served batches and the oracle's
+    batch_diff = float(np.abs(s10 - s64).max())
+    margin = LLM_MARGIN * batch_diff
+    sure = np.abs(s64) > margin
+    # the plain attention rounds its bf16 outputs at other places: 30
+    # layers on, the scores differ by up to plain_diff, so the two
+    # oracles' decisions are compared outside LLM_MARGIN times that
+    plain_diff = float(np.abs(p64 - s64).max())
+    plain_margin = LLM_MARGIN * plain_diff
+    differ = (p64 > 0) != (s64 > 0)
+    flips = differ & (np.abs(s64) > plain_margin)
+    expect = set(ids[s64 > 0].tolist())
+    decided = set(ids[sure].tolist())
+    print(f"  oracle ({oracle_s:.2f}s): {len(expect)} of {len(ids)} rows "
+          f"score > 0; |score| {float(np.abs(s64).min())!r}.."
+          f"{float(np.abs(s64).max())!r}; largest score difference between "
+          f"batches of {LLM_ROWS} and {LLM_ORACLE_ROWS} {batch_diff!r}, "
+          f"margin {LLM_MARGIN} x that = {margin!r} with {int((~sure).sum())}"
+          f" rows inside it", flush=True)
+    print(f"  oracle through the plain attention: largest score difference "
+          f"{plain_diff!r}; {int(differ.sum())} decisions differ (|score| "
+          f"{sorted(np.abs(s64[differ]).tolist())!r}); margin {LLM_MARGIN} x "
+          f"that = {plain_margin!r} with "
+          f"{int((np.abs(s64) <= plain_margin).sum())} rows inside it",
+          flush=True)
+    if not (np.isfinite(s64).all() and np.isfinite(p64).all()):
+        raise AssertionError("the LLM oracle's scores are not finite")
+    if flips.any():
+        raise AssertionError("the oracle through the plain attention "
+                             "disagrees outside its margin")
+
+    # the serving CLI's query under every policy
+    runs = {}
+    flash_attention.launches = 0
+    for policy in sorted(EDDY_POLICIES):
+        before = flash_attention.launches
+        rep, wall = llm_query(udf, reviews, policy)
+        n = flash_attention.launches - before
+        got = set(map(int, rep.row_ids))
+        wrong = (got ^ expect) & decided
+        print(f"  {policy}: {rep.state}, {len(got)} rows in {wall!r} s "
+              f"(eval {rep.eval_time_s!r} s, {rep.batches} batches); "
+              f"{n} flash launches; board {list(rep.board_predicates)}; "
+              f"rows differing from the oracle {len(got ^ expect)}, outside "
+              f"the margin {len(wrong)}", flush=True)
+        if rep.state != "DONE" or wrong:
+            raise AssertionError(f"LLM query, policy {policy}: {rep.state}, "
+                                 f"{len(wrong)} rows outside the margin "
+                                 f"differ from the oracle: "
+                                 f"{sorted(wrong)[:10]}")
+        if n <= 0 or n % cfg.num_layers:
+            raise AssertionError(f"LLM query, policy {policy}: {n} flash "
+                                 "launches, not a positive multiple of "
+                                 f"{cfg.num_layers}")
+        runs[policy] = {"rows": len(got), "wall_s": wall,
+                        "eval_s": rep.eval_time_s, "batches": rep.batches,
+                        "flash_launches": n, "llm_calls": n // cfg.num_layers,
+                        "differ_inside_margin": len(got ^ expect),
+                        "board_predicates": rep.board_predicates}
+    launches = flash_attention.launches
+    print(f"  flash_attention launches over the {len(runs)} queries: "
+          f"{launches}")
+    return {"arch": cfg.name, "params": tf.param_count(cfg),
+            "rows": len(ids), "forward": forward, "decode": decode,
+            "oracle": {"rows_true": len(expect), "batch_diff": batch_diff,
+                       "margin": margin, "inside_margin": int((~sure).sum()),
+                       "plain_diff": plain_diff, "plain_margin": plain_margin,
+                       "plain_decisions_differ": int(differ.sum()),
+                       "plain_inside_margin": int(
+                           (np.abs(s64) <= plain_margin).sum()),
+                       "seconds": oracle_s},
+            "query": runs, "launches": launches, "udf": udf, "tokens": toks}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -1861,8 +2240,21 @@ def main() -> int:
         "attention": registry["expect"]["flash_attention"] & served,
         "decode": registry["expect"]["decode_attention"] & served})
 
-    # ------------------------------------------------------------- 9 lines
-    phase("9 summary")
+    # ------------------------------------------------------------- 9 llm
+    phase(f"9 the LLM(...) predicate, {LLM_ARCH} at full width, over "
+          f"make_reviews({LLM_REVIEWS}, seed=0)")
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tf
+    llm_cfg = get_config(LLM_ARCH)
+    llm_model = tf.init_params(
+        llm_cfg, torch.Generator("cuda").manual_seed(LLM_SEED), device="cuda")
+    llm = run_llm(make_reviews(LLM_REVIEWS, seed=0), llm_cfg, llm_model,
+                  torch.device("cuda"))
+    llm["timings"] = time_llm(llm_cfg, llm_model, llm.pop("udf"),
+                              llm.pop("tokens"))
+
+    # ------------------------------------------------------------- 10 lines
+    phase("10 summary")
     main_sizes_text = {**triage["sizes"],
                        "rglru": registry["runs"]["rglru"]["sizes"]}
     text_main = {name: max(c, key=lambda b: (c[b], -b))
@@ -1895,6 +2287,7 @@ def main() -> int:
         "attention_bench": att_bench,
         "attention_main_batch": att_main,
         "service": service,
+        "llm": llm,
         "total_s": time.perf_counter() - t_start,
     }
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
@@ -1929,19 +2322,26 @@ def main() -> int:
             "by_batch": {str(bb): measured(t[name])
                          for bb, t in text_timings.items()},
         })
+    llm_flash = {t["flash_label"]: {**measured(t["flash_attention"]),
+                                    "max_abs_err": t["flash_max_abs_err"]}
+                 for t in llm["timings"].values()}
     for name, line in (("flash_attention", 91), ("decode_attention", 68)):
         b = att_main[name]
+        paths = {"service": service["launches"][name]}
+        if name == "flash_attention":
+            paths["llm"] = llm["launches"]
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
             "replaces": f"src/repro/kernels/{name}.py:{line}",
-            "launches": service["launches"][name],
+            "launches": sum(paths.values()), "launches_by_path": paths,
             "max_abs_err": max_errs[name],
             "batch": b, **measured(att_timings[b][name]),
             "by_batch": {**{str(bb): measured(t[name])
                             for bb, t in att_timings.items()},
                          **{label: measured(t[name])
-                            for label, t in att_bench.items() if name in t}},
+                            for label, t in att_bench.items() if name in t},
+                         **(llm_flash if name == "flash_attention" else {})},
         })
     print(f"  chip_smoke.py took {summary['total_s']:.1f} s, builds included")
     print(card)

@@ -3,8 +3,8 @@
 The port cannot import the JAX package, so state crosses as numpy arrays
 and files: a caller hands in ``np.asarray`` of a JAX array, or the path of
 a file the JAX package flushed. This module carries the HSV range table,
-the text predicates' embedding tables and the ``ReuseCache`` snapshot;
-later slices add model parameters.
+the text predicates' embedding tables, the ``ReuseCache`` snapshot and
+the dense decoder's parameters.
 """
 from __future__ import annotations
 
@@ -68,3 +68,38 @@ def reuse_cache(path: str) -> ReuseCache:
             elif not key.endswith("__vals"):
                 raise ValueError(f"{path}: unexpected entry {key!r}")
     return ReuseCache(path)
+
+
+def transformer_params(params, cfg, device="cpu"):
+    """The JAX package's dense (or vlm) parameter pytree -> the port's
+    ``Transformer`` holding the same values in ``cfg.dtype`` on ``device``.
+
+    ``params`` is the nested dict of ``init_params``, each leaf a numpy
+    array (``jax.tree.map(np.asarray, params)`` on the caller's side); the
+    layers' leaves are stacked over the layers, and layer i of the port
+    takes slice i. Raises ValueError on a missing or
+    extra leaf and on a shape that differs, and NotImplementedError for
+    a family the port does not have yet."""
+    from repro_torch.models.registry import family_module
+    from repro_torch.models.transformer import (Transformer, param_leaves,
+                                                param_shapes, set_param)
+
+    family_module(cfg.family)  # raises for a family with no port
+    want = dict(param_leaves(param_shapes(cfg)))
+    got = dict(param_leaves(params))
+    missing, extra = sorted(set(want) - set(got)), sorted(set(got) - set(want))
+    if missing or extra:
+        raise ValueError(f"parameter leaves differ from {cfg.name}'s: "
+                         f"missing {missing}, extra {extra}")
+    model = Transformer(cfg, device=device)
+    with torch.no_grad():
+        for name, spec in want.items():
+            arr = np.asarray(got[name])
+            if arr.shape != tuple(spec.shape):
+                raise ValueError(f"parameter {name}: shape {arr.shape}, "
+                                 f"{cfg.name} needs {tuple(spec.shape)}")
+            # through float32, which holds every bfloat16 value exactly
+            value = torch.from_numpy(np.array(arr, dtype=np.float32))
+            set_param(model, name, value.to(device))
+    return model
+

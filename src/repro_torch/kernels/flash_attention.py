@@ -184,12 +184,8 @@ def flash_attention_bshd(
     if not q.is_cuda:
         if q.device.type != "cpu":
             raise _not_cuda(q)
-        out = ref.flash_attention_bhsd(
-            q.transpose(1, 2).reshape(b * h, sq, d),
-            k.transpose(1, 2).reshape(b * hkv, sk, d),
-            v.transpose(1, 2).reshape(b * hkv, sk, d), group=h // hkv,
-            causal=causal, window=window, scale=scale)
-        return out.reshape(b, h, sq, d).transpose(1, 2)
+        return ref.flash_attention_bshd(q, k, v, causal=causal,
+                                        window=window, scale=scale)
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     return _launch(q, k, v, out, tuple(map(bshd_layout, (q, k, v, out))),
                    b, h, h // hkv, sq, sk, causal, window, scale)

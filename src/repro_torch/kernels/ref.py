@@ -472,6 +472,27 @@ def flash_attention_bhsd(
     return _attend(logits, mask, vx).to(q.dtype)
 
 
+def flash_attention_bshd(
+    q: torch.Tensor,  # (B, Sq, H, D)
+    k: torch.Tensor,  # (B, Sk, Hkv, D)
+    v: torch.Tensor,  # (B, Sk, Hkv, D)
+    *,
+    causal: bool = True,
+    window: int = 0,
+    scale: float | None = None,
+) -> torch.Tensor:
+    """``flash_attention_bhsd`` in the model's layout: query head h of
+    sequence b reads kv head h // (H // Hkv). Returns (B, Sq, H, D)."""
+    b, sq, h, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    out = flash_attention_bhsd(
+        q.transpose(1, 2).reshape(b * h, sq, d),
+        k.transpose(1, 2).reshape(b * hkv, sk, d),
+        v.transpose(1, 2).reshape(b * hkv, sk, d), group=h // hkv,
+        causal=causal, window=window, scale=scale)
+    return out.reshape(b, h, sq, d).transpose(1, 2)
+
+
 def decode_attention_bkgd(
     q: torch.Tensor,        # (B * Hkv, G, D)
     k_cache: torch.Tensor,  # (B * Hkv, S, D)

@@ -1,12 +1,13 @@
 """QueryService — the always-on multi-tenant serving layer, on the port.
 
-Port of ``repro.launch.serve`` with only its imports rewritten: the
-service, its handles and reports, and ``review_source``. The reference's
-``build_llm_udf`` (the LLM(...) predicate, a decoder forward) and its
-single-query CLI ``main``, which serves that predicate, need the language
-model substrate and come with it; serve a query here by submitting any
-predicates of ``repro_torch.udfs`` (they run on the card their
-``device`` names).
+Port of ``repro.launch.serve``: the service, its handles and reports, and
+``review_source`` with only their imports rewritten; ``build_llm_udf``
+(the LLM(...) predicate, a decoder forward through the hand-written flash
+kernel, then a token-pool score) and the single-query CLI ``main`` written
+for torch. Both take ``device=`` (``--device``), the card by default:
+
+  python -m repro_torch.launch.serve --reviews 200 --policy cost
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
 
 Everything below ``launch/`` used to be one-shot: build an ``AQPExecutor``,
 run one query, tear it down.  Production ML-query traffic is N concurrent
@@ -69,6 +70,7 @@ deadline.  Service threads are daemons named ``svc-dispatch`` /
 """
 from __future__ import annotations
 
+import argparse
 import heapq
 import itertools
 import threading
@@ -535,7 +537,59 @@ class QueryService:
         self.close()
 
 
-# ----------------------------- scan source ----------------------------- #
+# ----------------------------- single-query CLI ----------------------------- #
+def build_llm_udf(arch: str = "smollm-135m", params=None, cfg=None, *,
+                  device="cuda"):
+    """The LLM(...) predicate: a real decoder forward + token-pool scoring.
+
+    As the JAX package's: ``get_config(arch).reduce_for_smoke()`` unless a
+    ``cfg`` is given, weights from ``init_params`` with seed 0 unless
+    ``params`` (a ``Transformer``, e.g. from ``convert.transformer_params``)
+    is given, and the score of a row is its float32 log-softmax summed over
+    its live positions, averaged over FOOD_WORDS less the average over
+    SERVICE_WORDS. Runs on ``device`` (raises at once without a card when
+    it is "cuda"): the copy in, the forward and the copy back run on the
+    worker thread's own stream (``launch.thread_stream``). Token ids
+    outside the vocabulary raise ValueError (``library.token_ids``)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.udf import UDF
+    from repro_torch.data.text import FOOD_WORDS, SERVICE_WORDS
+    from repro_torch.kernels import launch
+    from repro_torch.models.registry import model_api
+    from repro_torch.udfs.library import token_ids
+
+    dev = launch.require_device(device)
+    cfg = cfg or get_config(arch).reduce_for_smoke()
+    api = model_api(cfg)
+    if params is None:
+        params = api.init_params(cfg, torch.Generator(dev).manual_seed(0),
+                                 device=dev)
+
+    food = torch.as_tensor(FOOD_WORDS, device=dev)
+    service = torch.as_tensor(SERVICE_WORDS, device=dev)
+
+    def score(tokens):  # (rows, MAX_LEN) int32, 0-padded
+        logits = api.forward(cfg, params, {"tokens": tokens})  # (rows, L, V)
+        mask = (tokens > 0)[..., None].to(logits.dtype)
+        pooled = (torch.log_softmax(logits.to(torch.float32), -1)
+                  * mask).sum(1)
+        return pooled[:, food].mean(-1) - pooled[:, service].mean(-1)
+
+    def fn(data):
+        tokens = np.asarray(data["tokens"])
+        with torch.inference_mode(), launch.thread_stream(dev):
+            out = score(token_ids(tokens, tokens.shape[1], cfg.vocab_size,
+                                  dev))
+            return out.cpu().numpy()
+
+    return UDF(
+        "LLM", fn, columns=("tokens",), resource="cuda:0",
+        proxy_cost=lambda d: float((d["tokens"] > 0).sum()),  # text length
+    )
+
+
 def review_source(reviews, chunk=64):
     for i in range(0, len(reviews), chunk):
         part = reviews[i : i + chunk]
@@ -547,3 +601,49 @@ def review_source(reviews, chunk=64):
             "rating": np.array([r.rating for r in part], np.int32),
             "_row_id": np.array([r.rid for r in part], np.int64),
         }
+
+
+def main(argv=None) -> None:
+    """Single-query driver, rebuilt on QueryService (max_concurrent=1):
+    the one-off path and the multi-tenant path share one implementation."""
+    from repro_torch.core.plan import Query, TrivialPredicate, batches_of
+    from repro_torch.core.policies import EDDY_POLICIES, DataAware
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--reviews", type=int, default=200)
+    ap.add_argument("--policy", default="cost", choices=sorted(EDDY_POLICIES))
+    ap.add_argument("--batch-rows", type=int, default=10)
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+
+    from repro_torch.data.text import make_reviews
+
+    reviews = make_reviews(args.reviews)
+    llm = build_llm_udf(device=args.device)
+    pred = Predicate("LLM_is_food", llm, compare=lambda s: s > 0)
+    q = Query(
+        source=review_source(reviews),
+        predicates=[pred],
+        trivial=[TrivialPredicate("rating", "<=", 1)],
+        batch_rows=args.batch_rows,
+    )
+    t0 = time.perf_counter()
+    with QueryService(max_concurrent=1) as service:
+        handle = service.submit(
+            [pred], batches_of(q),
+            policy=EDDY_POLICIES[args.policy](),
+            laminar_policy_factory=DataAware,
+            max_workers=4,
+        )
+        report = handle.result()
+    dt = time.perf_counter() - t0
+    print(f"[serve] matched {report.rows} negative food reviews in {dt:.2f}s"
+          f" (queue {report.queue_time_s*1e3:.1f}ms,"
+          f" eval {report.eval_time_s:.2f}s)")
+    print("[serve] routing:", report.routing)
+    print("[serve] cache hit rates:", report.cache_hit_rates)
+    print("[serve] service:", service.snapshot())
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,31 @@
+"""Family registry: maps ModelConfig.family -> implementation module.
+
+Port of ``repro.models.registry``. The dense and vlm families are ported;
+the others raise ``NotImplementedError`` naming the ROADMAP item that ports
+them, so no config quietly runs another family's model.
+
+Every ported module offers: param_shapes, init_params, param_count,
+active_param_count, forward, prefill, decode_step, cache_shapes.
+"""
+from __future__ import annotations
+
+from types import ModuleType
+
+FAMILIES = ("dense", "moe", "encdec", "hybrid", "ssm", "vlm")
+UNPORTED = ("moe", "encdec", "hybrid", "ssm")
+
+
+def family_module(family: str) -> ModuleType:
+    if family not in FAMILIES:
+        raise KeyError(f"unknown family {family!r}")
+    if family in UNPORTED:
+        raise NotImplementedError(
+            f"the {family} family is not ported yet: ROADMAP.md, queue 1, "
+            "item 1 (the moe, ssm, hybrid and encdec families)")
+    from repro_torch.models import transformer, vlm
+
+    return {"dense": transformer, "vlm": vlm}[family]
+
+
+def model_api(cfg) -> ModuleType:
+    return family_module(cfg.family)

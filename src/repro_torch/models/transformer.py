@@ -1,0 +1,293 @@
+"""Dense GQA decoder LM: parameters, forward, prefill and decode.
+
+Port of ``repro.models.transformer`` at world size 1. The parameters live
+in a ``Transformer`` module whose tensors keep the JAX package's shapes,
+one ``nn.ParameterDict`` a layer (``wq`` (d, H, hd), ``wo`` (H, hd, d),
+...), so that ``convert.transformer_params`` is a copy; a loop over the
+layers takes the place of ``lax.scan``. The functions take the module
+where the reference takes its parameter pytree.
+
+Not here yet: ``loss_fn`` and ``make_train_step`` (training);
+``input_specs``, ``roofline_units`` and ``param_logical`` (dry-run and
+sharding); remat, a training-memory knob (``cfg.remat`` is read nowhere).
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict
+
+import torch
+from torch import nn
+
+from repro_torch.models import attention as attn
+from repro_torch.models.layers import (
+    dtype_of,
+    embed_tokens,
+    lm_logits,
+    rms_norm,
+    swiglu_mlp,
+    trunc_normal,
+)
+
+VISION_FEAT_DIM = 1024  # stub frontend feature width (llava patch embeddings)
+
+
+# --------------------------------------------------------------------------- #
+# parameter schema (dense)                                                     #
+# --------------------------------------------------------------------------- #
+def _spec(shape, dtype) -> torch.Tensor:
+    """A shape and dtype with no storage (the JAX ShapeDtypeStruct)."""
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def layer_param_shapes(cfg) -> Dict[str, torch.Tensor]:
+    """Every layer's parameters, stacked over the layers as in the JAX
+    package, as tensors on the meta device."""
+    d, h, kv, hd, f = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+                       cfg.head_dim, cfg.d_ff)
+    L = cfg.num_layers
+    dt = dtype_of(cfg)
+    return {
+        "attn_norm": _spec((L, d), dt),
+        "wq": _spec((L, d, h, hd), dt),
+        "wk": _spec((L, d, kv, hd), dt),
+        "wv": _spec((L, d, kv, hd), dt),
+        "wo": _spec((L, h, hd, d), dt),
+        "mlp_norm": _spec((L, d), dt),
+        "w_gate": _spec((L, d, f), dt),
+        "w_up": _spec((L, d, f), dt),
+        "w_down": _spec((L, f, d), dt),
+    }
+
+
+def param_shapes(cfg) -> Dict:
+    d, vp = cfg.d_model, cfg.vocab_padded
+    dt = dtype_of(cfg)
+    out = {
+        "embed": _spec((vp, d), dt),
+        "final_norm": _spec((d,), dt),
+        "layers": layer_param_shapes(cfg),
+    }
+    if not cfg.tie_embeddings:
+        out["out_head"] = _spec((d, vp), dt)
+    if cfg.family == "vlm":
+        out["vision_proj"] = _spec((VISION_FEAT_DIM, d), dt)
+    return out
+
+
+def param_leaves(tree: Dict, prefix: str = ""):
+    """(dotted name, leaf) pairs of a nested dict, in sorted key order (the
+    order ``jax.tree.flatten`` walks a dict in)."""
+    for key in sorted(tree):
+        value = tree[key]
+        if isinstance(value, dict):
+            yield from param_leaves(value, f"{prefix}{key}.")
+        else:
+            yield prefix + key, value
+
+
+def param_count(cfg) -> int:
+    return sum(math.prod(s.shape) for _, s in param_leaves(param_shapes(cfg)))
+
+
+def active_param_count(cfg) -> int:
+    return param_count(cfg)
+
+
+class Transformer(nn.Module):
+    """The dense (and vlm) decoder's parameters: ``embed``, ``final_norm``,
+    ``out_head`` unless the embeddings are tied, ``vision_proj`` for a vlm,
+    and ``layers``, one ``nn.ParameterDict`` a layer holding one layer's
+    slice of each stacked tensor of ``layer_param_shapes``. Made empty;
+    ``init_params`` and ``convert.transformer_params`` fill it."""
+
+    def __init__(self, cfg, *, device="cuda"):
+        super().__init__()
+        self.cfg = cfg
+        shapes = param_shapes(cfg)
+
+        def param(spec):
+            return nn.Parameter(torch.empty(spec.shape, dtype=spec.dtype,
+                                            device=device),
+                                requires_grad=False)
+
+        for name, spec in shapes.items():
+            if name != "layers":
+                setattr(self, name, param(spec))
+        self.layers = nn.ModuleList(
+            nn.ParameterDict({name: param(spec[0])
+                              for name, spec in shapes["layers"].items()})
+            for _ in range(cfg.num_layers))
+
+    def forward(self, batch):
+        return forward(self.cfg, self, batch)
+
+
+def init_params(cfg, generator: torch.Generator, *, device="cuda") -> Transformer:
+    """A ``Transformer`` drawn as the JAX package draws its parameters:
+    every tensor of two or more dimensions in the stacked layout (the
+    layers' norms included) from a normal truncated at ±2 with std 0.02,
+    the rest zero. ``generator`` (seeded by the caller) lives on
+    ``device``; the numbers are torch's, not ``jax.random``'s."""
+    model = Transformer(cfg, device=device)
+    std = 0.02
+    with torch.no_grad():
+        for name, spec in param_leaves(param_shapes(cfg)):
+            if len(spec.shape) >= 2:
+                value = trunc_normal(generator, spec.shape, std, spec.dtype,
+                                     device)
+            else:
+                value = torch.zeros(spec.shape, dtype=spec.dtype,
+                                    device=device)
+            set_param(model, name, value)
+    return model
+
+
+def set_param(model: Transformer, name: str, value: torch.Tensor) -> None:
+    """Copy ``value``, in the JAX layout, into the parameter ``name`` (a
+    dotted name of ``param_shapes``; ``layers.<p>`` stacked over layers)."""
+    if name.startswith("layers."):
+        key = name[len("layers."):]
+        for lp, v in zip(model.layers, value):
+            lp[key].copy_(v)
+    else:
+        getattr(model, name).copy_(value)
+
+
+# --------------------------------------------------------------------------- #
+# forward                                                                      #
+# --------------------------------------------------------------------------- #
+def dense_block(cfg, lp, h, positions):
+    a_in = rms_norm(h, lp["attn_norm"], cfg.norm_eps)
+    a_out, _ = attn.attention_train(cfg, a_in, lp, positions,
+                                    window=cfg.sliding_window)
+    h = h + a_out
+    m_in = rms_norm(h, lp["mlp_norm"], cfg.norm_eps)
+    return h + swiglu_mlp(m_in, lp["w_gate"], lp["w_up"], lp["w_down"])
+
+
+def stack_forward(cfg, params: Transformer, h, positions,
+                  block_fn=dense_block):
+    for lp in params.layers:
+        h = block_fn(cfg, lp, h, positions)
+    return h
+
+
+def embed_input(cfg, params: Transformer, batch):
+    """Token (+ optional patch) embedding. Returns (h, positions)."""
+    tokens = batch["tokens"]
+    h = embed_tokens(tokens, params.embed)
+    b, s = tokens.shape
+    if cfg.family == "vlm":
+        patches = batch["patches"].to(h.dtype)  # (B, P, VISION_FEAT_DIM)
+        pe = torch.matmul(patches, params.vision_proj.to(h.dtype))
+        h = torch.cat([pe, h], dim=1)
+        s = h.shape[1]
+    positions = torch.arange(s, dtype=torch.int32,
+                             device=h.device).expand(b, s)
+    return h, positions
+
+
+def _head(cfg, params: Transformer) -> torch.Tensor:
+    return params.embed.T if cfg.tie_embeddings else params.out_head
+
+
+def forward(cfg, params: Transformer, batch, block_fn=dense_block):
+    h, positions = embed_input(cfg, params, batch)
+    h = stack_forward(cfg, params, h, positions, block_fn)
+    h = rms_norm(h, params.final_norm, cfg.norm_eps)
+    return lm_logits(h, _head(cfg, params), cfg.vocab_size)
+
+
+# --------------------------------------------------------------------------- #
+# serving                                                                      #
+# --------------------------------------------------------------------------- #
+def cache_len(cfg, seq_len: int) -> int:
+    if cfg.sliding_window:
+        return min(cfg.sliding_window, seq_len)
+    return seq_len
+
+
+def cache_dtype_of(cfg) -> torch.dtype:
+    """KV-cache storage dtype ("" = the model's)."""
+    cd = getattr(cfg, "cache_dtype", "")
+    return getattr(torch, cd) if cd else dtype_of(cfg)
+
+
+def cache_shapes(cfg, batch: int, seq_len: int) -> Dict[str, torch.Tensor]:
+    """The cache's tensors on the meta device. The JAX package also
+    returns their logical sharding names, which belong to sharding, not
+    ported yet."""
+    L, kv, hd = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
+    s = cache_len(cfg, seq_len)
+    dt = cache_dtype_of(cfg)
+    return {
+        "k": _spec((L, batch, s, kv, hd), dt),
+        "v": _spec((L, batch, s, kv, hd), dt),
+        "lengths": _spec((batch,), torch.int32),
+    }
+
+
+def prefill(cfg, params: Transformer, batch, pad_cache_to: int | None = None):
+    """Run the full prompt; returns (cache, last-position logits).
+
+    ``pad_cache_to`` reserves decode headroom: the returned cache's seq dim
+    is padded to that length (ring-buffer SWA caches are fixed-size and
+    ignore it)."""
+    h, positions = embed_input(cfg, params, batch)
+    w = cfg.sliding_window
+    cdt = cache_dtype_of(cfg)
+    ks, vs = [], []
+    for lp in params.layers:
+        a_in = rms_norm(h, lp["attn_norm"], cfg.norm_eps)
+        a_out, (k, v) = attn.attention_train(cfg, a_in, lp, positions,
+                                             window=w)
+        h = h + a_out
+        m_in = rms_norm(h, lp["mlp_norm"], cfg.norm_eps)
+        h = h + swiglu_mlp(m_in, lp["w_gate"], lp["w_up"], lp["w_down"])
+        if w:
+            # ring-buffer layout: slot = position % window
+            s = k.shape[1]
+            keep = min(w, s)
+            shift = s % w if s >= w else 0
+            k = torch.roll(k[:, -keep:], shift, dims=1)
+            v = torch.roll(v[:, -keep:], shift, dims=1)
+        ks.append(k.to(cdt))
+        vs.append(v.to(cdt))
+    h = rms_norm(h, params.final_norm, cfg.norm_eps)
+    logits = lm_logits(h[:, -1:], _head(cfg, params), cfg.vocab_size)[:, 0]
+    b, s = h.shape[0], h.shape[1]
+    ks, vs = torch.stack(ks), torch.stack(vs)
+    if pad_cache_to is not None and not w and pad_cache_to > ks.shape[2]:
+        pad = pad_cache_to - ks.shape[2]
+        ks = torch.nn.functional.pad(ks, (0, 0, 0, 0, 0, pad))
+        vs = torch.nn.functional.pad(vs, (0, 0, 0, 0, 0, pad))
+    cache = {
+        "k": ks,
+        "v": vs,
+        "lengths": torch.full((b,), s, dtype=torch.int32, device=h.device),
+    }
+    return cache, logits
+
+
+def decode_step(cfg, params: Transformer, cache, batch):
+    """One token for every sequence. batch: {"token": (B,) int32}.
+
+    Writes the new token's K/V into ``cache["k"]`` and ``cache["v"]`` in
+    place and returns them with the lengths advanced by one. (The
+    reference's ``mlp_fn`` hook serves the moe family and comes with it.)"""
+    token = batch["token"]
+    h = embed_tokens(token[:, None], params.embed)  # (B, 1, D)
+    lengths = cache["lengths"]
+    w = cfg.sliding_window
+    for lp, ck, cv in zip(params.layers, cache["k"], cache["v"]):
+        a_in = rms_norm(h, lp["attn_norm"], cfg.norm_eps)
+        a_out, _, _ = attn.decode_attention_block(cfg, a_in, lp, ck, cv,
+                                                  lengths, window=w)
+        h = h + a_out
+        m_in = rms_norm(h, lp["mlp_norm"], cfg.norm_eps)
+        h = h + swiglu_mlp(m_in, lp["w_gate"], lp["w_up"], lp["w_down"])
+    h = rms_norm(h, params.final_norm, cfg.norm_eps)
+    logits = lm_logits(h, _head(cfg, params), cfg.vocab_size)[:, 0]
+    new_cache = {"k": cache["k"], "v": cache["v"], "lengths": lengths + 1}
+    return new_cache, logits

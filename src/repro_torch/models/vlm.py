@@ -1,0 +1,20 @@
+"""VLM family (llava-next-34b): dense GQA backbone + stub anyres frontend.
+
+Port of ``repro.models.vlm``. The modality frontend is a STUB: the caller
+supplies precomputed patch embeddings (B, num_patches, 1024) which a
+learned ``vision_proj`` maps into the token stream ahead of the text
+tokens. The backbone is exactly the dense decoder (transformer.py) —
+decode/serving is identical once the prefix is in the KV cache. The
+training and dry-run entries of the reference's list are not ported
+yet, as in transformer.py.
+"""
+from repro_torch.models import transformer as tf
+
+param_shapes = tf.param_shapes
+init_params = tf.init_params
+param_count = tf.param_count
+active_param_count = tf.active_param_count
+forward = tf.forward
+prefill = tf.prefill
+decode_step = tf.decode_step
+cache_shapes = tf.cache_shapes

@@ -49,7 +49,10 @@ def test_port_imports_neither_jax_nor_repro():
     assert "repro_torch.core.executor" in mods
     assert "repro_torch.examples.lost_dog_query" in mods
     for m in ("launch.serve", "kernels.flash_attention",
-              "kernels.decode_attention"):
+              "kernels.decode_attention", "configs", "configs.base",
+              "configs.smollm_135m", "models.layers", "models.attention",
+              "models.transformer", "models.vlm", "models.registry",
+              "convert"):
         assert f"repro_torch.{m}" in mods
     code = (
         "import importlib, sys\n"

@@ -1,8 +1,9 @@
 """The port's serving layer (``repro_torch.launch.serve``) against the JAX
 package's (``repro.launch.serve``).
 
-* the module is the reference's with only its imports rewritten, less
-  ``build_llm_udf`` and ``main`` (they need the language model substrate);
+* the module is the reference's with only its imports rewritten, but for
+  ``build_llm_udf`` and ``main``, written for torch (held to the
+  reference by tests/test_torch_llm_serve.py);
 * the planted-predicate scenarios of tests/test_serve.py run through both
   packages on the same data: exact per-tenant multisets, admission,
   priority order, deadline expiry, cancel, same-name serialisation, live
@@ -75,13 +76,16 @@ def test_serve_is_the_reference_with_imports_rewritten(tmp_path):
     rewritten = tmp_path / "serve.py"
     rewritten.write_text(re.sub(r"^(\s*)(from|import) repro\.",
                                 r"\1\2 repro_torch.", ref, flags=re.M))
-    want = _statements(str(rewritten),
-                       drop=("build_llm_udf", "main", "argparse", "__main__"))
-    got = _statements(os.path.join(SRC, "repro_torch", "launch", "serve.py"))
+    # build_llm_udf and main are written for torch (a decoder forward on
+    # the card); tests/test_torch_llm_serve.py holds them to the reference
+    hand_written = ("build_llm_udf", "main")
+    want = _statements(str(rewritten), drop=hand_written)
+    got = _statements(os.path.join(SRC, "repro_torch", "launch", "serve.py"),
+                      drop=hand_written)
     assert got == want
     doc = ast.get_docstring(ast.parse(open(port_serve.__file__).read()))
     assert "build_llm_udf" in doc and "main" in doc
-    assert not hasattr(port_serve, "build_llm_udf")
+    assert callable(port_serve.build_llm_udf) and callable(port_serve.main)
 
 
 def test_review_source_matches_the_reference():
