@@ -1,7 +1,8 @@
 """Chip smoke test of the PyTorch port: build, check and time its kernels
 on one CUDA card, then drive the UC1 lost-dog query, the review-triage
-text query, the kernel predicates and the multi-tenant query service
-through them.
+text query, the kernel predicates, the multi-tenant query service, the
+LLM predicate and the ssm, hybrid and encdec model families through
+them.
 
     python3 chip_smoke.py
 
@@ -18,7 +19,10 @@ failed phase. Phases, in order:
              wrapper and at its C entry point beside its bound, the launch
              floor (and, for the attention kernels, beside
              scaled_dot_product_attention; for ssd, its P = N = 4 instance
-             beside its generic one);
+             beside its generic one); then ssd, rglru and flash at the
+             shapes the model families of phase 10 give them (mamba2's
+             scan, recurrentgemma's forward and decode step and its local
+             attention, whisper's encoder and cross-attention);
 4. query   — the lost-dog query (5 minutes of 30-fps video) on the card
              under every eddy policy; row ids against the plain version
              on the CPU, launches on the kernel counter and the board;
@@ -47,7 +51,20 @@ failed phase. Phases, in order:
              plain attention, and the call's times: at 10 and 64 rows, its
              device time by kernel (torch.profiler), and the flash kernel at
              its shapes beside its bound and scaled_dot_product_attention;
-10. the ``{"kernels": [...]}`` line, then the device line last.
+10. families — mamba2-370m, recurrentgemma-9b and whisper-small at their
+             configs' full width and depth in bf16 (random weights from a
+             seed), one at a time: a forward through the kernels (48 ssd;
+             26 rglru and 12 flash; 36 flash) against the same forward
+             through their plain versions, beside a control (the plain
+             versions against themselves with every output changed by
+             3e-6), a prefill and decode steps (26 rglru and 12 flash
+             launches a step for the last two) against full forwards,
+             then a forward's and a decode step's times and a
+             torch.profiler split of one forward. The logits are held to
+             TOL_BF16 in bf16 for whisper-small, and in float32 (the same
+             checks on the same model in float32) for the other two,
+             whose bf16 control alone exceeds TOL_BF16;
+11. the ``{"kernels": [...]}`` line, then the device line last.
 """
 from __future__ import annotations
 
@@ -158,14 +175,14 @@ def graph_ms(call, n: int = 100, reps: int = 20) -> float:
     return start.elapsed_time(end) / (n * reps)
 
 
-def paired_ms(fns: dict, rounds: int = 5) -> dict:
+def paired_ms(fns: dict, rounds: int = 5, iters: int = TIME_ITERS) -> dict:
     """Median ``time_ms`` of each call over ``rounds`` rounds that take the
     calls in turn, reversing the order every round, so that host noise
     (these calls are host-bound at small batches) falls on all of them."""
     times = {name: [] for name in fns}
     for r in range(rounds):
         for name in (list(fns) if r % 2 == 0 else list(fns)[::-1]):
-            times[name].append(time_ms(fns[name], TIME_ITERS))
+            times[name].append(time_ms(fns[name], iters))
     return {name: float(np.median(t)) for name, t in times.items()}
 
 
@@ -588,9 +605,9 @@ def attention_bound(nbytes: int, flops: float, dtype: torch.dtype) -> dict:
             "bound_f32_cores_ms": bound_ms(nbytes, flops)[0]}
 
 
-def ssd_view_args(x, dt, A, Bm, Cm, y, h_last) -> bytes:
-    """The ssd entry point's packed arguments for the main path's call:
-    the model's (B, S, H, P) views read through their strides, no h0."""
+def ssd_view_args(x, dt, A, Bm, Cm, y, h_last, chunk: int = SEQ) -> bytes:
+    """The ssd entry point's packed arguments for a main path's call: the
+    model's (B, S, H, P) views read through their strides, no h0."""
     from repro_torch.kernels import ssd
     b, s, h, p = x.shape
     g, n = Bm.shape[2], Bm.shape[3]
@@ -598,7 +615,7 @@ def ssd_view_args(x, dt, A, Bm, Cm, y, h_last) -> bytes:
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
         Cm.data_ptr(), 0, y.data_ptr(), h_last.data_ptr(),
         *(v for t in (x, dt, Bm, Cm, y) for v in t.stride()),
-        b, h, s, p, g, n, SEQ, 0)
+        b, h, s, p, g, n, chunk, 0)
 
 
 SSD_DISPATCH = "  if (k.p == 4 && k.n == 4) return launch<4, 4>(k, warps, bytes, s);\n"
@@ -738,7 +755,8 @@ def time_text(inputs: TextInputs, b: int) -> dict:
     _, s, h, p = x.shape
     g, n = Bm.shape[2], Bm.shape[3]
     h_out = torch.empty_like(h0)
-    main_args = ssd_view_args(x, dt, A, Bm, Cm, torch.empty_like(x), h_out)
+    y_out = torch.empty_like(x)   # held while the packed pointers are used
+    main_args = ssd_view_args(x, dt, A, Bm, Cm, y_out, h_out)
     kx, kdt, kB, kC = (t.transpose(1, 2).contiguous() for t in (x, dt, Bm, Cm))
     ky_out = torch.empty_like(kx)
     strides = tuple(map(ssd.bhsp_strides, (kx, kdt, kB, kC, ky_out)))
@@ -1039,20 +1057,24 @@ def check_attention_kernels(inputs: AttentionInputs) -> dict:
     return err
 
 
-def visible_pairs(s: int, causal: bool, window: int) -> int:
-    """(query, key) pairs a causal or sliding-window mask leaves over S."""
+def visible_pairs(s: int, causal: bool, window: int,
+                  sk: int | None = None) -> int:
+    """(query, key) pairs a causal or sliding-window mask leaves between S
+    queries and ``sk`` keys (default S), both from position 0."""
+    sk = s if sk is None else sk
     i = np.arange(s)
     lo = np.maximum(i - window + 1, 0) if window > 0 else np.zeros_like(i)
-    hi = i + 1 if causal else np.full_like(i, s)
-    return int((hi - lo).sum())
+    hi = np.minimum(i + 1, sk) if causal else np.full_like(i, sk)
+    return int(np.maximum(hi - lo, 0).sum())
 
 
 def time_flash(q, k, v, *, group: int, causal: bool, window: int,
                label: str) -> dict:
     """Times of the flash kernel on (BH, S, D) inputs in its layout, or on
     the model's (B, S, H, D) views (4-d inputs, through
-    ``flash_attention_bshd``): through the wrapper, at its C entry point
-    and of ``scaled_dot_product_attention`` on the same work (in q's
+    ``flash_attention_bshd``; there k and v may hold another length than
+    q, as the cross-attention's do): through the wrapper, at its C entry
+    point and of ``scaled_dot_product_attention`` on the same work (in q's
     dtype), taken in turns (``paired_ms``), and of the plain version,
     beside the bound (each input read once and the output written once; 4
     flops per visible (query, key) pair and dim)."""
@@ -1060,13 +1082,14 @@ def time_flash(q, k, v, *, group: int, causal: bool, window: int,
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream().cuda_stream
     call = _build.load("flash_attention").lib.flash_attention_bshd
+    sk = k.shape[1]
     if q.dim() == 4:
         b, s, h, d = q.shape
         bh = b * h
         args = flash_attention.pack_args(
             q, k, v, out,
             tuple(map(flash_attention.bshd_layout, (q, k, v, out))),
-            batch=b, heads=h, group=group, sq=s, sk=s, causal=causal,
+            batch=b, heads=h, group=group, sq=s, sk=sk, causal=causal,
             window=window, scale=d ** -0.5)
         wrapper = lambda: flash_attention.flash_attention_bshd(  # noqa: E731
             q, k, v, causal=causal, window=window)
@@ -1098,7 +1121,7 @@ def time_flash(q, k, v, *, group: int, causal: bool, window: int,
     else:
         library = lambda: F.scaled_dot_product_attention(  # noqa: E731
             q4, k4, v4, is_causal=causal, enable_gqa=True)
-    big = bh * s > 2 * 4096
+    big = bh * s > 2 * 4096 or s * sk > 2 ** 22
     t = {
         "dtype": str(q.dtype).replace("torch.", ""),
         **paired_ms({
@@ -1108,7 +1131,7 @@ def time_flash(q, k, v, *, group: int, causal: bool, window: int,
         "plain_ms": time_ms(plain, 10 if big else TIME_ITERS),
         **attention_bound(
             (2 * q.numel() + k.numel() + v.numel()) * q.element_size(),
-            4.0 * visible_pairs(s, causal, window) * bh * d, q.dtype),
+            4.0 * visible_pairs(s, causal, window, sk) * bh * d, q.dtype),
     }
     print(f"  flash_attention {label}: kernel {t['ms']!r} ms (entry point "
           f"{t['entry_ms']!r} ms), plain {t['plain_ms']!r} ms, "
@@ -1664,19 +1687,25 @@ def run_service(reviews, expect: dict) -> dict:
 # phase 9: the LLM(...) predicate at SmolLM-135M's full width                 #
 # --------------------------------------------------------------------------- #
 @contextlib.contextmanager
-def plain_attention():
-    """Inside the block the model's attention runs the plain version
-    (``ref.flash_attention_bshd``): the kernel's wrapper is swapped out of
-    ``models.attention``. Only for the main thread's comparisons, while no
+def plain_kernels():
+    """Inside the block the models run the kernels' plain versions
+    (``ref.flash_attention_bshd``, ``ref.ssd``, ``ref.rglru``): the
+    wrappers are swapped out of ``models.attention``, ``models.ssm`` and
+    ``models.hybrid``. Only for the main thread's comparisons, while no
     query runs."""
     from repro_torch.kernels import ref
-    from repro_torch.models import attention
-    kernel = attention.flash_attention_bshd
-    attention.flash_attention_bshd = ref.flash_attention_bshd
+    from repro_torch.models import attention, hybrid, ssm
+    swaps = ((attention, "flash_attention_bshd", ref.flash_attention_bshd),
+             (ssm, "ssd_bshp", ref.ssd), (hybrid, "rglru_bsw", ref.rglru))
+    kernels = [(module, name, getattr(module, name))
+               for module, name, _ in swaps]
+    for module, name, plain in swaps:
+        setattr(module, name, plain)
     try:
         yield
     finally:
-        attention.flash_attention_bshd = kernel
+        for module, name, kernel in kernels:
+            setattr(module, name, kernel)
 
 
 def llm_scores(fn, tokens: np.ndarray, rows: int) -> np.ndarray:
@@ -1694,7 +1723,7 @@ def check_llm_forward(cfg, model, x: torch.Tensor) -> dict:
         before = flash_attention.launches
         logits = tf.forward(cfg, model, {"tokens": x})
         after = flash_attention.launches
-        with plain_attention():
+        with plain_kernels():
             plain = tf.forward(cfg, model, {"tokens": x})
     err, ok = within(logits, plain, **TOL_BF16)
     finite = bool(torch.isfinite(logits).all())
@@ -1764,9 +1793,10 @@ def llm_query(udf, reviews, policy: str) -> tuple:
     return rep, time.perf_counter() - t0
 
 
-def llm_trace(fn, data) -> dict:
-    """Device time of one LLM call by kernel, from a ``torch.profiler``
-    trace: the flash launches, the vocabulary GEMM (the longest GEMM), the
+def device_trace(fn, data) -> dict:
+    """Device time of one call ``fn(data)`` (an LLM call, a model's
+    forward) by kernel, from a ``torch.profiler`` trace: the flash, ssd
+    and rglru launches, the vocabulary GEMM (the longest GEMM), the
     layers' GEMMs, log-softmax, copies and the rest."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1786,6 +1816,8 @@ def llm_trace(fn, data) -> dict:
         name = e.name.lower()
         if "flash" in name:
             key = "flash_attention"
+        elif "ssd_kernel" in name or "rglru_kernel" in name:
+            key = "ssd" if "ssd_kernel" in name else "rglru"
         elif name.startswith(("memcpy", "memset")):
             key = "copies"
         elif "softmax" in name:
@@ -1840,7 +1872,7 @@ def time_llm(cfg, model, udf, toks: np.ndarray) -> dict:
             events.append(start.elapsed_time(end))
         with OpCount() as c:
             udf.fn(data)
-        trace = llm_trace(udf.fn, data)
+        trace = device_trace(udf.fn, data)
         x = torch.from_numpy(data["tokens"]).to(dev)
         qkv = [torch.from_numpy(rng.standard_normal(
             (rows, x.shape[1], n, cfg.head_dim)).astype(np.float32)).to(
@@ -1922,7 +1954,7 @@ def run_llm(reviews, cfg, model, dev: torch.device) -> dict:
     t0 = time.perf_counter()
     s64 = llm_scores(udf.fn, toks, LLM_ORACLE_ROWS)
     s10 = llm_scores(udf.fn, toks, LLM_ROWS)
-    with plain_attention():
+    with plain_kernels():
         p64 = llm_scores(udf.fn, toks, LLM_ORACLE_ROWS)
     oracle_s = time.perf_counter() - t0
     # cuBLAS need not give a row the same bits in a batch of 10 and of 64;
@@ -1999,6 +2031,472 @@ def run_llm(reviews, cfg, model, dev: torch.device) -> dict:
                            (np.abs(s64) <= plain_margin).sum()),
                        "seconds": oracle_s},
             "query": runs, "launches": launches, "udf": udf, "tokens": toks}
+
+
+# --------------------------------------------------------------------------- #
+# phase 3 at the families' shapes, and phase 10: the model families            #
+# --------------------------------------------------------------------------- #
+def ptxas_lines(lib_name: str, instance: str) -> list:
+    """ptxas' lines (registers, shared memory, spills) for the kernel
+    instances whose mangled name holds ``instance``."""
+    from repro_torch.kernels import _build
+    lines, keep = [], False
+    for line in _build.load(lib_name).log.splitlines():
+        if "Compiling entry function" in line:
+            keep = instance in line
+            if keep:
+                lines.append(line.split("'")[1])
+        elif keep and ("spill" in line or ("ptxas" in line and (
+                "registers" in line or "smem" in line))):
+            lines.append(line.strip())
+    return lines
+
+
+def time_ssd_case(x, dt, A, Bm, Cm, label: str) -> dict:
+    """ssd at a model's shape (no h0, chunk min(64, S), as the scan calls
+    it): held against the plain version in float32 (y and h_last within
+    TOL_TIGHT), then timed through ``ssd_bshp`` on the model's bfloat16
+    x, B and C (the wrapper's three float32 copies included) and at the C
+    entry point on the float32 views, in turns, and the plain version on
+    the bfloat16 inputs, beside the bound (x, dt, A, B, C read once, y and
+    h_last written once, in float32; ``rooflines.ssd``'s flops)."""
+    from repro_torch.kernels import _build, ref, ssd
+    from repro_torch.udfs import rooflines
+    b, s, h, p = x.shape
+    g, n = Bm.shape[2], Bm.shape[3]
+    chunk = min(64, s)
+    y, h_last = ssd.ssd_bshp(x, dt, A, Bm, Cm, chunk=chunk)
+    y_p, h_p = ref.ssd(x, dt, A, Bm, Cm, None, chunk=chunk)
+    torch.cuda.synchronize()
+    err_y, ok_y = within(y, y_p, **TOL_TIGHT)
+    err_h, ok_h = within(h_last, h_p, **TOL_TIGHT)
+    print(f"  ssd {label}: B={b} S={s} H={h} P={p} G={g} N={n} chunk={chunk}"
+          f" y max_abs_err {err_y!r}, h_last {err_h!r} (|y| up to "
+          f"{float(y_p.abs().max())!r})", flush=True)
+    if not (ok_y and ok_h):
+        raise AssertionError(f"ssd kernel disagrees on {label}")
+    xb, Bb, Cb = (t.to(torch.bfloat16) for t in (x, Bm, Cm))
+    call = _build.load("ssd").lib.ssd_scan
+    y_out, h_out = torch.empty_like(x), torch.empty_like(h_last)  # kept
+    args = ssd_view_args(x, dt, A, Bm, Cm, y_out, h_out, chunk)
+    stream = torch.cuda.current_stream().cuda_stream
+    if call(args, stream) != 0:
+        raise AssertionError("ssd entry point failed")
+    t = {
+        "dtype": "bfloat16 in, float32 kernel",
+        **paired_ms({   # tens of ms a launch at mamba2's widths: few
+            "ms": lambda: ssd.ssd_bshp(xb, dt, A, Bb, Cb, chunk=chunk),
+            "entry_ms": lambda: call(args, stream)}, iters=3),
+        "plain_ms": time_ms(lambda: ref.ssd(xb, dt, A, Bb, Cb, None,
+                                            chunk=chunk), 10),
+        **dict(zip(("bound_ms", "bound_by"), bound_ms(
+            4 * (2 * b * s * h * p + b * s * h + h + 2 * b * s * g * n
+                 + b * h * p * n),
+            b * rooflines.ssd(s, h, p, n).flops_per_row))),
+        "library_ms": None,   # no single PyTorch call scans SSD
+        "max_abs_err": max(err_y, err_h),
+    }
+    print(f"  ssd {label}: kernel {t['ms']!r} ms through the wrapper on "
+          f"bfloat16 (entry point on float32 {t['entry_ms']!r} ms), plain "
+          f"{t['plain_ms']!r} ms, bound {t['bound_ms']!r} ms "
+          f"({t['bound_by']})", flush=True)
+    return t
+
+
+def time_rglru_case(x, r, i, a_param, h0, label: str) -> dict:
+    """rglru at a model's shape: ``rglru_bsw`` against ``ref.rglru`` bit
+    for bit on float32 and on the model's bfloat16 inputs, then timed
+    through the wrapper on bfloat16 (its float32 copies included) and at
+    the C entry point on float32, in turns, and the plain version, beside
+    the bound (x, r, i, a_param, h0 read, out and h_last written, in
+    float32; ``rooflines.rglru``'s flops)."""
+    from repro_torch.kernels import _build, ref, rglru
+    from repro_torch.udfs import rooflines
+    b, s, w = x.shape
+    bf = [t.to(torch.bfloat16) for t in (x, r, i)]
+    h0b = None if h0 is None else h0.to(torch.bfloat16)
+    err = max(check_rglru(x, r, i, a_param, h0, f"{label} float32"),
+              check_rglru(*bf, a_param, h0b, f"{label} bfloat16"))
+    out, h_last = torch.empty_like(x), torch.empty((b, w), device=x.device)
+    args = rglru.ARGS.pack(
+        x.data_ptr(), r.data_ptr(), i.data_ptr(), a_param.data_ptr(),
+        0 if h0 is None else h0.data_ptr(), out.data_ptr(),
+        h_last.data_ptr(), b, s, w, 8.0)
+    call = _build.load("rglru").lib.rglru_bsw
+    stream = torch.cuda.current_stream().cuda_stream
+    if call(args, stream) != 0:
+        raise AssertionError("rglru entry point failed")
+    t = {
+        "dtype": "bfloat16 in, float32 kernel",
+        **paired_ms({
+            "ms": lambda: rglru.rglru_bsw(*bf, a_param, h0b),
+            "entry_ms": lambda: call(args, stream)}),
+        "plain_ms": time_ms(lambda: ref.rglru(*bf, a_param, h0b),
+                            3 if s > 64 else TIME_ITERS),
+        **dict(zip(("bound_ms", "bound_by"), bound_ms(
+            4 * (3 * b * s * w + w + (0 if h0 is None else b * w)
+                 + b * s * w + b * w),
+            b * rooflines.rglru(s, w).flops_per_row))),
+        "library_ms": None,   # no single PyTorch call scans RG-LRU
+        "max_abs_err": err,
+    }
+    print(f"  rglru {label}: kernel {t['ms']!r} ms through the wrapper on "
+          f"bfloat16 (entry point on float32 {t['entry_ms']!r} ms), plain "
+          f"{t['plain_ms']!r} ms, bound {t['bound_ms']!r} ms "
+          f"({t['bound_by']})", flush=True)
+    return t
+
+
+def family_kernel_cases() -> dict:
+    """Phase 3 at the shapes the model families give the kernels (inputs
+    from a numpy seed): ssd at mamba2-370m's scan, rglru at
+    recurrentgemma-9b's forward and decode step, flash at its local
+    attention and at whisper-small's encoder and cross-attention, each
+    against its plain version, timed (flash beside SDPA) and bounded.
+    Returns {kernel: {label: timings}}."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_bshd
+    rng = np.random.default_rng(21)
+
+    def T(a, dtype=torch.float32):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).cuda(
+        ).to(dtype)
+
+    out = {"ssd": {}, "rglru": {}, "flash_attention": {}}
+    # mamba2-370m: x, B, C as silu outputs, dt softplus(~0) of the scan
+    b, s, h, p, g, n = 4, 512, 32, 64, 1, 128
+    label = f"mamba2-370m B={b} S={s} H={h} P={p} G={g} N={n}"
+    out["ssd"][label] = time_ssd_case(
+        T(rng.standard_normal((b, s, h, p)) * 0.5),
+        T(rng.uniform(0.5, 1.0, (b, s, h))), T(-np.exp(np.full(h, 0.1))),
+        T(rng.standard_normal((b, s, g, n)) * 0.3),
+        T(rng.standard_normal((b, s, g, n)) * 0.3), label)
+    # recurrentgemma-9b: the forward's (1, 2560, 4096), no h0, and a
+    # decode step's (1, 1, 4096) from a state
+    w = 4096
+    for s, h0 in ((2560, None), (1, T(rng.standard_normal((1, w))))):
+        label = f"recurrentgemma-9b B=1 S={s} W={w}"
+        out["rglru"][label] = time_rglru_case(
+            *(T(rng.standard_normal((1, s, w))) for _ in range(3)),
+            T(rng.standard_normal(w)), h0, label)
+    # flash: (B, Sq, Sk, H, Hkv, D, causal, window), the models' own views
+    for name, (b, sq, sk, h, hkv, d, causal, window) in (
+            ("recurrentgemma-9b local attention",
+             (1, 2560, 2560, 16, 1, 256, True, 2048)),
+            ("whisper-small encoder", (4, 1500, 1500, 12, 12, 64, False, 0)),
+            ("whisper-small cross-attention",
+             (4, 64, 1500, 12, 12, 64, False, 0))):
+        q = T(rng.standard_normal((b, sq, h, d)), torch.bfloat16)
+        k, v = (T(rng.standard_normal((b, sk, hkv, d)), torch.bfloat16)
+                for _ in range(2))
+        label = (f"{name} B={b} Sq={sq} Sk={sk} H={h} Hkv={hkv} D={d} "
+                 f"causal={causal} window={window} bf16")
+        err = check_close(
+            "flash_attention", flash_attention_bshd(
+                q, k, v, causal=causal, window=window),
+            ref.flash_attention_bshd(q, k, v, causal=causal, window=window),
+            label, tol=TOL_BF16)
+        out["flash_attention"][label] = {
+            **time_flash(q, k, v, group=h // hkv, causal=causal,
+                         window=window, label=label), "max_abs_err": err}
+    for line in ptxas_lines("flash_attention", "13__nv_bfloat16Li256E"):
+        print(f"  flash bf16 D=256 instance (ptxas): {line}")
+    return out
+
+
+# (arch, forward (B, S), prompt (B, S), decode steps, launches a forward,
+# launches a decode step, the dtype its logits are held in) at each
+# config's full width and depth. mamba2-370m's and recurrentgemma-9b's
+# are held in float32: in bf16 their random-weight layers carry single
+# rounding flips past TOL_BF16 in the logits whatever the kernel (the
+# plain kernels against themselves with every output changed by 3e-6
+# before its cast differ as much: PERF.md, PR 18); the bf16 run's
+# differences are printed beside that control.
+FAMILIES = (
+    ("mamba2-370m", (4, 512), (4, 60), 4, {"ssd": 48}, {}, "float32"),
+    ("recurrentgemma-9b", (1, 2560), (1, 2560), 2,
+     {"rglru": 26, "flash_attention": 12}, {"rglru": 26}, "float32"),
+    ("whisper-small", (4, 64), (4, 64), 2, {"flash_attention": 36},
+     {"flash_attention": 12}, "bfloat16"),
+)
+FAMILY_SEED = 0
+FAMILY_ROUNDS = 5     # timed forwards and decode steps, of which the median
+COUNTED = ("ssd", "rglru", "flash_attention")   # the model kernels' counters
+CONTROL_NOISE = 3e-6  # relative change of the control's ssd output
+
+
+def kernel_launches() -> dict:
+    """Each model kernel's launch counter that moved: {name: count}."""
+    import importlib
+    counts = {name: importlib.import_module(
+        f"repro_torch.kernels.{name}").launches for name in COUNTED}
+    return {k: v for k, v in counts.items() if v}
+
+
+def zero_launches() -> None:
+    import importlib
+    for name in COUNTED:
+        importlib.import_module(f"repro_torch.kernels.{name}").launches = 0
+
+
+def family_ms(fn) -> dict:
+    """One call's milliseconds, the median of FAMILY_ROUNDS after one
+    warm-up: between CUDA events on the stream and on the host clock to
+    the end of a synchronize."""
+    fn()
+    torch.cuda.synchronize()
+    events, host = [], []
+    for _ in range(FAMILY_ROUNDS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3)
+        events.append(start.elapsed_time(end))
+    return {"event_ms": float(np.median(events)),
+            "host_ms": float(np.median(host)), "event_ms_rounds": events}
+
+
+@contextlib.contextmanager
+def perturbed_plain():
+    """Inside the block the models run the kernels' plain versions in
+    float32 with every output changed by a relative CONTROL_NOISE (seeded)
+    before its cast to the model's dtype: a stand-in for kernels that sum
+    in another order, the control beside a bf16 forward's difference."""
+    from repro_torch.kernels import ref
+    from repro_torch.models import attention, hybrid, ssm
+    gens = {}
+
+    def noisy(t: torch.Tensor, dtype) -> torch.Tensor:
+        if t.device not in gens:
+            gens[t.device] = torch.Generator(t.device).manual_seed(1)
+        noise = torch.randn(t.shape, generator=gens[t.device], device=t.device)
+        return (t * (1 + CONTROL_NOISE * noise)).to(dtype)
+
+    def flash(q, k, v, **kw):
+        f32 = torch.float32
+        return noisy(ref.flash_attention_bshd(q.to(f32), k.to(f32),
+                                              v.to(f32), **kw), q.dtype)
+
+    def scan(plain):
+        def run(x, *args, **kw):
+            y, h_last = plain(x.to(torch.float32), *args, **kw)
+            return noisy(y, x.dtype), h_last.to(
+                torch.float32 if plain is ref.ssd else x.dtype)
+        return run
+
+    swaps = ((attention, "flash_attention_bshd", flash),
+             (ssm, "ssd_bshp", scan(ref.ssd)),
+             (hybrid, "rglru_bsw", scan(ref.rglru)))
+    kernels = [(module, name, getattr(module, name))
+               for module, name, _ in swaps]
+    for module, name, fn in swaps:
+        setattr(module, name, fn)
+    try:
+        yield
+    finally:
+        for module, name, kernel in kernels:
+            setattr(module, name, kernel)
+
+
+class FamilyRun:
+    """One family's model at its config's full width and depth in one
+    dtype, weights from ``torch.Generator("cuda").manual_seed(FAMILY_SEED)``
+    (the float32 and bf16 models hold the same draws, rounded once for
+    bf16), with its token ids and frames from a numpy seed."""
+
+    def __init__(self, arch: str, dtype: str, rows: int, seq: int,
+                 device="cuda"):
+        import dataclasses
+        from repro_torch.configs import get_config
+        from repro_torch.models.registry import model_api
+        self.cfg = dataclasses.replace(get_config(arch), dtype=dtype)
+        self.api = model_api(self.cfg)
+        dev = torch.device(device)
+        t0 = time.perf_counter()
+        self.model = self.api.init_params(
+            self.cfg, torch.Generator(dev).manual_seed(FAMILY_SEED),
+            device=dev)
+        torch.cuda.synchronize()
+        self.init_s = time.perf_counter() - t0
+        rng = np.random.default_rng(FAMILY_SEED)
+        self.toks = torch.from_numpy(rng.integers(
+            0, self.cfg.vocab_size, (rows, seq)).astype(np.int32)).to(dev)
+        self.frames = None
+        if self.cfg.family == "encdec":
+            self.frames = torch.from_numpy(rng.standard_normal(
+                (rows, self.cfg.num_frames, self.cfg.d_model)).astype(
+                    np.float32)).to(dev)
+
+    def batch(self, b: int, s: int) -> dict:
+        out = {"tokens": self.toks[:b, :s]}
+        if self.frames is not None:
+            out["frames"] = self.frames[:b]
+        return out
+
+    def forward(self, batch):
+        return self.api.forward(self.cfg, self.model, batch)
+
+    def check_forward(self, fwd: tuple, want: dict, gate: bool) -> dict:
+        """One forward through the kernels, its launches counted from 0,
+        against the same forward through their plain versions; with
+        ``gate``, the logits within TOL_BF16 or the phase fails."""
+        cfg = self.cfg
+        x = self.batch(*fwd)
+        with torch.inference_mode():
+            zero_launches()
+            logits = self.forward(x)
+            torch.cuda.synchronize()
+            counts = kernel_launches()
+            with plain_kernels():
+                plain = self.forward(x)
+            err, ok = within(logits, plain, **TOL_BF16)
+            live = plain[..., :cfg.vocab_size].float().abs()
+            out = {"shape": list(fwd), "dtype": cfg.dtype, "launches": counts,
+                   "max_abs_err": err, "within_tol_bf16": ok,
+                   "abs_logit_range": [float(live.min()), float(live.max())]}
+            finite = bool(torch.isfinite(logits).all())
+            del logits, live
+            if cfg.dtype == "bfloat16":
+                with perturbed_plain():
+                    control = self.forward(x)
+                out["control_max_abs_err"] = within(control, plain,
+                                                    **TOL_BF16)[0]
+                del control
+        control = (f"; control, the plain kernels against themselves with "
+                   f"each output changed by {CONTROL_NOISE!r} before its "
+                   f"cast: {out['control_max_abs_err']!r}"
+                   if "control_max_abs_err" in out else "")
+        print(f"  forward {tuple(fwd)} {cfg.dtype}: max_abs_err against the "
+              f"plain kernels {err!r} (|logit| {out['abs_logit_range'][0]!r}"
+              f"..{out['abs_logit_range'][1]!r}; within TOL_BF16: {ok}"
+              f"{'' if gate else ', not gated'}){control}; finite {finite}; "
+              f"launches {counts} (want {want})", flush=True)
+        if counts != want:
+            raise AssertionError(f"{cfg.name}: a forward launched {counts}, "
+                                 f"not {want}")
+        if not finite or (gate and not ok):
+            raise AssertionError(f"{cfg.name} {cfg.dtype}: the forward "
+                                 "through the kernels disagrees with their "
+                                 "plain versions")
+        return out
+
+    def check_decode(self, prompt: tuple, steps: int, want: dict,
+                     gate: bool) -> dict:
+        """A prefill of the prompt and ``steps`` decode steps (each step's
+        launches counted from 0) against full forwards over the same
+        tokens; with ``gate``, every step's logits within TOL_BF16."""
+        cfg, api = self.cfg, self.api
+        b, s = prompt
+        kw = {"pad_cache_to": s + steps} if cfg.family == "encdec" else {}
+        errs, oks, counts = [], [], []
+        with torch.inference_mode():
+            cache, last = api.prefill(cfg, self.model, self.batch(b, s), **kw)
+            for step in range(steps + 1):
+                if step:
+                    zero_launches()
+                    cache, last = api.decode_step(
+                        cfg, self.model, cache,
+                        {"token": self.toks[:b, s + step - 1]})
+                    torch.cuda.synchronize()
+                    counts.append(kernel_launches())
+                full = self.forward(self.batch(b, s + step))[:, -1]
+                err, ok = within(last, full, **TOL_BF16)
+                errs.append(err)
+                oks.append(ok and bool(torch.isfinite(last).all()))
+        lengths = cache["lengths"].tolist()
+        print(f"  prefill {(b, s)} and {steps} decode steps {cfg.dtype}: "
+              f"max_abs_err against the full forward per step {errs!r} "
+              f"(within TOL_BF16: {oks}{'' if gate else ', not gated'}); "
+              f"launches a step {counts} (want {want}); lengths {lengths}",
+              flush=True)
+        if lengths != [s + steps] * b:
+            raise AssertionError(f"{cfg.name}: decode left the lengths at "
+                                 f"{lengths}")
+        if any(c != want for c in counts):
+            raise AssertionError(f"{cfg.name}: decode steps launched "
+                                 f"{counts}, not {want} each")
+        if gate and not all(oks):
+            raise AssertionError(f"{cfg.name} {cfg.dtype}: decode logits "
+                                 "disagree with the full forward")
+        return {"prompt": [b, s], "steps": steps, "dtype": cfg.dtype,
+                "max_abs_err_by_step": errs, "within_tol_bf16": oks,
+                "launches_a_step": want, "cache": cache,
+                "token": {"token": self.toks[:b, s + steps - 1]}}
+
+    def times(self, fwd: tuple, decode: dict) -> dict:
+        """A forward's and a decode step's times (``family_ms``) and a
+        ``torch.profiler`` split of one forward, with its busy share."""
+        cfg, api, model = self.cfg, self.api, self.model
+        x = self.batch(*fwd)
+        cache, token = decode.pop("cache"), decode.pop("token")
+        with torch.inference_mode():
+            fwd_ms = family_ms(lambda: self.forward(x))
+            step_ms = family_ms(
+                lambda: api.decode_step(cfg, model, cache, token))
+            trace = device_trace(self.forward, x)
+        busy = trace["device_ms"] / fwd_ms["host_ms"]
+        print(f"  forward {fwd_ms['event_ms']!r} ms between CUDA events "
+              f"({fwd_ms['host_ms']!r} on the host clock); decode step "
+              f"{step_ms['event_ms']!r} ms ({step_ms['host_ms']!r}); one "
+              f"traced forward: {trace['device_ms']!r} ms of device time "
+              f"over {trace['kernels']} kernels (busy share {busy!r}), split "
+              f"{trace['split_ms']}, launches {trace['split_launches']}",
+              flush=True)
+        return {"forward_ms": fwd_ms, "decode_step_ms": step_ms,
+                "trace": trace, "busy_share": busy}
+
+
+def run_family(arch: str, fwd: tuple, prompt: tuple, steps: int,
+               want_fwd: dict, want_step: dict, check_dtype: str,
+               device="cuda") -> dict:
+    """One model family in bf16 at its config's full width and depth: a
+    forward through the kernels against their plain versions, a prefill
+    and decode steps against full forwards, then times. The logits are
+    held to TOL_BF16 in ``check_dtype``: in bf16 on this run, or, for
+    float32, on a second run of the same model in float32 (the bf16
+    run's differences are printed beside a control)."""
+    rows = max(fwd[0], prompt[0])
+    seq = max(fwd[1], prompt[1] + steps)
+    torch.cuda.reset_peak_memory_stats()
+    run = FamilyRun(arch, "bfloat16", rows, seq, device)
+    cfg = run.cfg
+    print(f"  {arch} ({cfg.family}): {cfg.num_layers} layers"
+          f"{f' + {cfg.num_encoder_layers} encoder' if cfg.num_encoder_layers else ''}"
+          f", d_model {cfg.d_model}, vocab {cfg.vocab_size} (padded "
+          f"{cfg.vocab_padded}); {run.api.param_count(cfg)} parameters drawn "
+          f"on the card in {run.init_s:.2f}s", flush=True)
+    gate = check_dtype == "bfloat16"
+    res = {"arch": arch, "family": cfg.family,
+           "params": run.api.param_count(cfg), "init_s": run.init_s,
+           "checked_in": check_dtype,
+           "forward": run.check_forward(fwd, want_fwd, gate)}
+    res["decode"] = run.check_decode(prompt, steps, want_step, gate)
+    res.update(run.times(fwd, res["decode"]))
+    res["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del run
+    torch.cuda.empty_cache()
+    if not gate:
+        run = FamilyRun(arch, check_dtype, rows, seq, device)
+        res[f"forward_{check_dtype}"] = run.check_forward(fwd, want_fwd, True)
+        decode = run.check_decode(prompt, steps, want_step, True)
+        del decode["cache"], decode["token"], run
+        res[f"decode_{check_dtype}"] = decode
+        torch.cuda.empty_cache()
+    return res
+
+
+def run_families() -> dict:
+    """Phase 10: every family of FAMILIES, one at a time."""
+    out = {}
+    for arch, *spec in FAMILIES:
+        t0 = time.perf_counter()
+        out[arch] = run_family(arch, *spec)
+        out[arch]["phase_s"] = time.perf_counter() - t0
+    return out
 
 
 def main() -> int:
@@ -2103,6 +2601,11 @@ def main() -> int:
                                                 "decode_attention"))
     att_timings = {b: time_attention(att_inputs, b) for b in (*BUCKETS, BIG)}
     att_bench = time_attention_bench()
+    print()
+    family_cases = family_kernel_cases()
+    for name, cases in family_cases.items():
+        max_errs[name] = max(max_errs[name], *(t["max_abs_err"]
+                                               for t in cases.values()))
 
     # ------------------------------------------------------------- 4 query
     phase(f"4 lost-dog query, SyntheticVideo({QUERY_FRAMES}, seed={QUERY_SEED})")
@@ -2252,9 +2755,16 @@ def main() -> int:
                   torch.device("cuda"))
     llm["timings"] = time_llm(llm_cfg, llm_model, llm.pop("udf"),
                               llm.pop("tokens"))
+    del llm_model
+    torch.cuda.empty_cache()
 
-    # ------------------------------------------------------------- 10 lines
-    phase("10 summary")
+    # ------------------------------------------------------------- 10 families
+    phase("10 the ssm, hybrid and encdec families at full width: "
+          + ", ".join(f[0] for f in FAMILIES))
+    families = run_families()
+
+    # ------------------------------------------------------------- 11 lines
+    phase("11 summary")
     main_sizes_text = {**triage["sizes"],
                        "rglru": registry["runs"]["rglru"]["sizes"]}
     text_main = {name: max(c, key=lambda b: (c[b], -b))
@@ -2288,6 +2798,8 @@ def main() -> int:
         "attention_main_batch": att_main,
         "service": service,
         "llm": llm,
+        "family_kernel_cases": family_cases,
+        "families": families,
         "total_s": time.perf_counter() - t_start,
     }
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
@@ -2311,16 +2823,33 @@ def main() -> int:
         return {k: v for k, v in t.items()
                 if k in ("bound_ms", "bound_by") or "bound" not in k}
 
+    def family_launches(name: str) -> int:
+        """``name``'s launches in phase 10: each family's checked forward
+        and decode steps, counted from 0 (the comparison and timing runs
+        not counted)."""
+        return sum(f["forward"]["launches"].get(name, 0)
+                   + f["decode"]["steps"] * f["decode"][
+                       "launches_a_step"].get(name, 0)
+                   for f in families.values())
+
+    text_path = {"moe_router": "triage", "ssd": "triage",
+                 "rglru": "registry"}
     for name, line in (("moe_router", 43), ("ssd", 92), ("rglru", 59)):
         b = text_main[name]
+        paths = {text_path[name]: launches[name]}
+        if name in COUNTED:
+            paths["families"] = family_launches(name)
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
             "replaces": f"src/repro/kernels/{name}.py:{line}",
-            "launches": launches[name], "max_abs_err": max_errs[name],
+            "launches": sum(paths.values()), "launches_by_path": paths,
+            "max_abs_err": max_errs[name],
             "batch": b, **measured(text_timings[b][name]),
-            "by_batch": {str(bb): measured(t[name])
-                         for bb, t in text_timings.items()},
+            "by_batch": {**{str(bb): measured(t[name])
+                            for bb, t in text_timings.items()},
+                         **{label: measured(t) for label, t in
+                            family_cases.get(name, {}).items()}},
         })
     llm_flash = {t["flash_label"]: {**measured(t["flash_attention"]),
                                     "max_abs_err": t["flash_max_abs_err"]}
@@ -2330,6 +2859,7 @@ def main() -> int:
         paths = {"service": service["launches"][name]}
         if name == "flash_attention":
             paths["llm"] = llm["launches"]
+            paths["families"] = family_launches(name)
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
@@ -2341,7 +2871,9 @@ def main() -> int:
                             for bb, t in att_timings.items()},
                          **{label: measured(t[name])
                             for label, t in att_bench.items() if name in t},
-                         **(llm_flash if name == "flash_attention" else {})},
+                         **(llm_flash if name == "flash_attention" else {}),
+                         **{label: measured(t) for label, t in
+                            family_cases.get(name, {}).items()}},
         })
     print(f"  chip_smoke.py took {summary['total_s']:.1f} s, builds included")
     print(card)

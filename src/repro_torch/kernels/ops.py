@@ -3,7 +3,9 @@
 The device of the input decides the path: a CUDA tensor runs the
 hand-written kernel, a CPU tensor the plain version in ``ref.py``. There is
 no switch that picks by whether a card is present. Every entry point
-launches through ``launch.kernel_call``, so timing hooks see each launch.
+that launches a kernel launches through ``launch.kernel_call``, so timing
+hooks see each launch; ``ssd_decode_step`` is plain torch, as in the JAX
+package.
 Each takes the JAX package's model-natural layout. The attention and SSD
 kernels read it through strides as it is; the others need no transpose.
 """
@@ -168,3 +170,10 @@ def ssd(
     return launch.kernel_call(
         lambda *a: ssd_bshp(*a, chunk=min(chunk, s)), name="ssd", rows=b * s,
     )(x, dt, A, Bm, Cm, h0)
+
+
+def ssd_decode_step(x, dt, A, Bm, Cm, h):
+    """One recurrent SSD step ((B, H, P) token, (B, H, P, N) float32
+    state) -> (y (B, H, P), new state): tiny tensors, plain torch
+    operations (``ref.ssd_decode_step``), as the JAX package runs it."""
+    return ref.ssd_decode_step(x, dt, A, Bm, Cm, h)

@@ -328,6 +328,28 @@ def ssd(
     return y.to(x.dtype), hprev
 
 
+def ssd_decode_step(
+    x: torch.Tensor,    # (B, H, P) one token
+    dt: torch.Tensor,   # (B, H)
+    A: torch.Tensor,    # (H,)
+    Bm: torch.Tensor,   # (B, G, N)
+    Cm: torch.Tensor,   # (B, G, N)
+    h: torch.Tensor,    # (B, H, P, N) float32 state
+):
+    """One recurrent SSD step: h' = exp(dt A) h + dt x B^T, y = h' C.
+    Returns (y in x's dtype, h' float32). The JAX package runs this step
+    outside any kernel too."""
+    rep = x.shape[1] // Bm.shape[1]
+    Bf = torch.repeat_interleave(Bm.to(torch.float32), rep, dim=1)  # (B,H,N)
+    Cf = torch.repeat_interleave(Cm.to(torch.float32), rep, dim=1)
+    dtf = dt.to(torch.float32)
+    dA = torch.exp(dtf * A.to(torch.float32))                      # (B,H)
+    hnew = h * dA[..., None, None] + (
+        (Bf * dtf[..., None])[:, :, None, :] * x.to(torch.float32)[..., None])
+    y = torch.einsum("bhn,bhpn->bhp", Cf, hnew)
+    return y.to(x.dtype), hnew
+
+
 # --------------------------------------------------------------------------- #
 # attention                                                                    #
 # --------------------------------------------------------------------------- #

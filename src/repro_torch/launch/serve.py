@@ -557,6 +557,7 @@ def build_llm_udf(arch: str = "smollm-135m", params=None, cfg=None, *,
     from repro_torch.core.udf import UDF
     from repro_torch.data.text import FOOD_WORDS, SERVICE_WORDS
     from repro_torch.kernels import launch
+    from repro_torch.models import transformer as tf
     from repro_torch.models.registry import model_api
     from repro_torch.udfs.library import token_ids
 
@@ -571,7 +572,9 @@ def build_llm_udf(arch: str = "smollm-135m", params=None, cfg=None, *,
     service = torch.as_tensor(SERVICE_WORDS, device=dev)
 
     def score(tokens):  # (rows, MAX_LEN) int32, 0-padded
-        logits = api.forward(cfg, params, {"tokens": tokens})  # (rows, L, V)
+        # the dense decoder's forward whatever the family, as the JAX
+        # package's score: an ssm or hybrid model's parameters raise here
+        logits = tf.forward(cfg, params, {"tokens": tokens})  # (rows, L, V)
         mask = (tokens > 0)[..., None].to(logits.dtype)
         pooled = (torch.log_softmax(logits.to(torch.float32), -1)
                   * mask).sum(1)

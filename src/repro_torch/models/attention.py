@@ -1,15 +1,19 @@
 """GQA attention: training/prefill through the flash kernel, and decode.
 
 Port of ``repro.models.attention`` at world size 1: the projections, the
-full-sequence attention and the local decode path. The JAX package's
-``shard_map`` branches (a sequence-sharded cache combined with a psum
-rescale) wait for the port of sharding, and ``cross_attention`` for the
-encoder-decoder family.
+full-sequence attention, the encoder-decoder's cross-attention and the
+local decode path. The JAX package's ``shard_map`` branches (a
+sequence-sharded cache combined with a psum rescale) wait for the port of
+sharding.
 
-The full-sequence attention calls the flash kernel's wrapper
-(``kernels.flash_attention.flash_attention_bshd``) on the (B, S, H, D)
-views as they are: a CUDA tensor launches the hand-written kernel and a
-CPU tensor runs its plain version. It does not go through
+The full-sequence attention and the cross-attention call the flash
+kernel's wrapper (``kernels.flash_attention.flash_attention_bshd``) on the
+(B, S, H, D) views as they are: a CUDA tensor launches the hand-written
+kernel and a CPU tensor runs its plain version. The reference pins its
+cross-attention to the XLA path (``impl="xla"``); the port's models ignore
+``attention_impl`` everywhere, so on the card the cross-attention runs
+the kernel, non-causal with Sq != Sk (the same function). It does not go
+through
 ``ops.flash_attention``, whose ``launch.kernel_call`` waits on the stream
 after every launch while timing hooks are connected: the JAX package's
 model forward is jitted, and under jit a ``pallas_call`` records no launch
@@ -55,6 +59,15 @@ def attention_train(cfg, x, lp, positions, *, window: int = 0,
     k = rope(k, positions, cfg.rope_theta)
     o = flash_attention_bshd(q, k, v, causal=causal, window=window)
     return out_proj(o, lp["wo"]), (k, v)
+
+
+def cross_attention(cfg, x, lp, k, v):
+    """Decoder cross-attention over precomputed encoder K/V (no mask).
+    x (B, S, D); k, v (B, F, Hkv, D)."""
+    wq = lp["xwq"].to(x.dtype)   # "bsd,dhk->bshk"
+    q = torch.matmul(x, wq.flatten(1)).unflatten(-1, wq.shape[1:])
+    o = flash_attention_bshd(q, k, v, causal=False)
+    return out_proj(o, lp["xwo"])
 
 
 # --------------------------------------------------------------------------- #

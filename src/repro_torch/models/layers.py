@@ -51,6 +51,17 @@ def embed_tokens(tokens, embed):
     return embed[tokens]
 
 
+def position_ids(b: int, s: int, device) -> torch.Tensor:
+    """(B, S) int32 positions 0..S-1 of every sequence."""
+    return torch.arange(s, dtype=torch.int32, device=device).expand(b, s)
+
+
+def stacked(states: list) -> dict:
+    """Per-layer cache dicts -> one dict of tensors stacked over the
+    layers (the JAX package's scan outputs)."""
+    return {k: torch.stack([st[k] for st in states]) for k in states[0]}
+
+
 def lm_logits(h, out_head, vocab_size: int):
     """Project to (padded) vocab and mask pad logits to -1e9 (exact loss)."""
     logits = torch.matmul(h, out_head.to(h.dtype))

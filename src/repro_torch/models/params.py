@@ -1,0 +1,107 @@
+"""A model family's parameters as an ``nn.Module``.
+
+The JAX package keeps a family's parameters in a nested dict whose
+layers' leaves are stacked over the layers (each family's
+``param_shapes``). The port keeps the same tree in a ``Params`` module:
+each top-level leaf is a parameter, and each top-level dict of stacked
+leaves becomes an ``nn.ModuleList`` with one entry a layer, holding that
+layer's slice of every leaf: an ``nn.ParameterDict``, or an
+``nn.ModuleDict`` of them where the stack nests (the hybrid family's
+groups of (rg1, rg2, attn) layers). A loop over the list takes the place
+of ``lax.scan``, and ``convert.model_params`` is a copy.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict
+
+import torch
+from torch import nn
+
+from repro_torch.models.layers import trunc_normal
+
+
+def spec(shape, dtype) -> torch.Tensor:
+    """A shape and dtype with no storage (the JAX ShapeDtypeStruct)."""
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def param_leaves(tree: Dict, prefix: str = ""):
+    """(dotted name, leaf) pairs of a nested dict, in sorted key order (the
+    order ``jax.tree.flatten`` walks a dict in)."""
+    for key in sorted(tree):
+        value = tree[key]
+        if isinstance(value, dict):
+            yield from param_leaves(value, f"{prefix}{key}.")
+        else:
+            yield prefix + key, value
+
+
+def count(shapes: Dict) -> int:
+    """The number of parameters in a ``param_shapes`` tree."""
+    return sum(math.prod(s.shape) for _, s in param_leaves(shapes))
+
+
+def _param(s: torch.Tensor, device) -> nn.Parameter:
+    return nn.Parameter(torch.empty(s.shape, dtype=s.dtype, device=device),
+                        requires_grad=False)
+
+
+def _depth(tree: Dict) -> int:
+    """The number of layers a stacked subtree holds (its leaves' first
+    dimension)."""
+    return next(iter(param_leaves(tree)))[1].shape[0]
+
+
+def _layer(tree: Dict, device) -> nn.Module:
+    """One layer's slice of a stacked subtree."""
+    if any(isinstance(v, dict) for v in tree.values()):
+        return nn.ModuleDict({k: _layer(v, device) for k, v in tree.items()})
+    return nn.ParameterDict({k: _param(v[0], device) for k, v in tree.items()})
+
+
+class Params(nn.Module):
+    """The parameters of the tree ``shapes``, made empty on ``device``;
+    ``init`` or ``convert.model_params`` fills them."""
+
+    def __init__(self, cfg, shapes: Dict, *, device="cuda"):
+        super().__init__()
+        self.cfg = cfg
+        for name, value in shapes.items():
+            if isinstance(value, dict):
+                setattr(self, name, nn.ModuleList(
+                    _layer(value, device) for _ in range(_depth(value))))
+            else:
+                setattr(self, name, _param(value, device))
+
+
+def set_param(model: Params, name: str, value: torch.Tensor) -> None:
+    """Copy ``value``, in the JAX layout, into the parameter ``name`` (a
+    dotted name of ``param_shapes``; a stacked leaf's value is stacked over
+    the layers, and layer i takes slice i)."""
+    first, *rest = name.split(".")
+    target = getattr(model, first)
+    if not rest:
+        target.copy_(value)
+        return
+    for layer, v in zip(target, value, strict=True):
+        for key in rest[:-1]:
+            layer = layer[key]
+        layer[rest[-1]].copy_(v)
+
+
+def init(model: Params, shapes: Dict, generator: torch.Generator, *,
+         fill: float, device) -> Params:
+    """Fill ``model`` as the JAX package draws its parameters: every leaf
+    of two or more dimensions in the stacked layout (the layers' norms
+    included) from a normal truncated at ±2 with std 0.02, the rest
+    ``fill``. ``generator`` (seeded by the caller) lives on ``device``; the
+    numbers are torch's, not ``jax.random``'s."""
+    with torch.no_grad():
+        for name, s in param_leaves(shapes):
+            if len(s.shape) >= 2:
+                value = trunc_normal(generator, s.shape, 0.02, s.dtype, device)
+            else:
+                value = torch.full(s.shape, fill, dtype=s.dtype, device=device)
+            set_param(model, name, value)
+    return model

@@ -1,18 +1,20 @@
 """Family registry: maps ModelConfig.family -> implementation module.
 
-Port of ``repro.models.registry``. The dense and vlm families are ported;
-the others raise ``NotImplementedError`` naming the ROADMAP item that ports
-them, so no config quietly runs another family's model.
+Port of ``repro.models.registry``. The dense, vlm, ssm, hybrid and encdec
+families are ported; moe raises ``NotImplementedError`` naming the
+ROADMAP item that ports it, so no config quietly runs another family's
+model.
 
 Every ported module offers: param_shapes, init_params, param_count,
-active_param_count, forward, prefill, decode_step, cache_shapes.
+active_param_count, forward, prefill, decode_step, cache_shapes, and
+``Model``, its parameter module (``models/params.py``).
 """
 from __future__ import annotations
 
 from types import ModuleType
 
 FAMILIES = ("dense", "moe", "encdec", "hybrid", "ssm", "vlm")
-UNPORTED = ("moe", "encdec", "hybrid", "ssm")
+UNPORTED = ("moe",)
 
 
 def family_module(family: str) -> ModuleType:
@@ -21,10 +23,11 @@ def family_module(family: str) -> ModuleType:
     if family in UNPORTED:
         raise NotImplementedError(
             f"the {family} family is not ported yet: ROADMAP.md, queue 1, "
-            "item 1 (the moe, ssm, hybrid and encdec families)")
-    from repro_torch.models import transformer, vlm
+            "item 1 (the moe family)")
+    from repro_torch.models import encdec, hybrid, ssm, transformer, vlm
 
-    return {"dense": transformer, "vlm": vlm}[family]
+    return {"dense": transformer, "encdec": encdec, "hybrid": hybrid,
+            "ssm": ssm, "vlm": vlm}[family]
 
 
 def model_api(cfg) -> ModuleType:

@@ -1,11 +1,12 @@
 """Dense GQA decoder LM: parameters, forward, prefill and decode.
 
 Port of ``repro.models.transformer`` at world size 1. The parameters live
-in a ``Transformer`` module whose tensors keep the JAX package's shapes,
-one ``nn.ParameterDict`` a layer (``wq`` (d, H, hd), ``wo`` (H, hd, d),
-...), so that ``convert.transformer_params`` is a copy; a loop over the
-layers takes the place of ``lax.scan``. The functions take the module
-where the reference takes its parameter pytree.
+in a ``Transformer`` module (``models/params.py``) whose tensors keep the
+JAX package's shapes, one ``nn.ParameterDict`` a layer (``wq`` (d, H,
+hd), ``wo`` (H, hd, d), ...), so that ``convert.transformer_params`` is a
+copy; a loop over the layers takes the place of ``lax.scan``. The
+functions take the module where the reference takes its parameter
+pytree.
 
 Not here yet: ``loss_fn`` and ``make_train_step`` (training);
 ``input_specs``, ``roofline_units`` and ``param_logical`` (dry-run and
@@ -13,21 +14,21 @@ sharding); remat, a training-memory knob (``cfg.remat`` is read nowhere).
 """
 from __future__ import annotations
 
-import math
 from typing import Dict
 
 import torch
-from torch import nn
 
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import (
     dtype_of,
     embed_tokens,
     lm_logits,
+    position_ids,
     rms_norm,
     swiglu_mlp,
-    trunc_normal,
 )
+from repro_torch.models.params import Params, count, init
+from repro_torch.models.params import spec as _spec
 
 VISION_FEAT_DIM = 1024  # stub frontend feature width (llava patch embeddings)
 
@@ -35,11 +36,6 @@ VISION_FEAT_DIM = 1024  # stub frontend feature width (llava patch embeddings)
 # --------------------------------------------------------------------------- #
 # parameter schema (dense)                                                     #
 # --------------------------------------------------------------------------- #
-def _spec(shape, dtype) -> torch.Tensor:
-    """A shape and dtype with no storage (the JAX ShapeDtypeStruct)."""
-    return torch.empty(shape, dtype=dtype, device="meta")
-
-
 def layer_param_shapes(cfg) -> Dict[str, torch.Tensor]:
     """Every layer's parameters, stacked over the layers as in the JAX
     package, as tensors on the meta device."""
@@ -75,26 +71,15 @@ def param_shapes(cfg) -> Dict:
     return out
 
 
-def param_leaves(tree: Dict, prefix: str = ""):
-    """(dotted name, leaf) pairs of a nested dict, in sorted key order (the
-    order ``jax.tree.flatten`` walks a dict in)."""
-    for key in sorted(tree):
-        value = tree[key]
-        if isinstance(value, dict):
-            yield from param_leaves(value, f"{prefix}{key}.")
-        else:
-            yield prefix + key, value
-
-
 def param_count(cfg) -> int:
-    return sum(math.prod(s.shape) for _, s in param_leaves(param_shapes(cfg)))
+    return count(param_shapes(cfg))
 
 
 def active_param_count(cfg) -> int:
     return param_count(cfg)
 
 
-class Transformer(nn.Module):
+class Transformer(Params):
     """The dense (and vlm) decoder's parameters: ``embed``, ``final_norm``,
     ``out_head`` unless the embeddings are tied, ``vision_proj`` for a vlm,
     and ``layers``, one ``nn.ParameterDict`` a layer holding one layer's
@@ -102,56 +87,20 @@ class Transformer(nn.Module):
     ``init_params`` and ``convert.transformer_params`` fill it."""
 
     def __init__(self, cfg, *, device="cuda"):
-        super().__init__()
-        self.cfg = cfg
-        shapes = param_shapes(cfg)
-
-        def param(spec):
-            return nn.Parameter(torch.empty(spec.shape, dtype=spec.dtype,
-                                            device=device),
-                                requires_grad=False)
-
-        for name, spec in shapes.items():
-            if name != "layers":
-                setattr(self, name, param(spec))
-        self.layers = nn.ModuleList(
-            nn.ParameterDict({name: param(spec[0])
-                              for name, spec in shapes["layers"].items()})
-            for _ in range(cfg.num_layers))
+        super().__init__(cfg, param_shapes(cfg), device=device)
 
     def forward(self, batch):
         return forward(self.cfg, self, batch)
 
 
+Model = Transformer  # the family's parameter module (convert.model_params)
+
+
 def init_params(cfg, generator: torch.Generator, *, device="cuda") -> Transformer:
-    """A ``Transformer`` drawn as the JAX package draws its parameters:
-    every tensor of two or more dimensions in the stacked layout (the
-    layers' norms included) from a normal truncated at ±2 with std 0.02,
-    the rest zero. ``generator`` (seeded by the caller) lives on
-    ``device``; the numbers are torch's, not ``jax.random``'s."""
-    model = Transformer(cfg, device=device)
-    std = 0.02
-    with torch.no_grad():
-        for name, spec in param_leaves(param_shapes(cfg)):
-            if len(spec.shape) >= 2:
-                value = trunc_normal(generator, spec.shape, std, spec.dtype,
-                                     device)
-            else:
-                value = torch.zeros(spec.shape, dtype=spec.dtype,
-                                    device=device)
-            set_param(model, name, value)
-    return model
-
-
-def set_param(model: Transformer, name: str, value: torch.Tensor) -> None:
-    """Copy ``value``, in the JAX layout, into the parameter ``name`` (a
-    dotted name of ``param_shapes``; ``layers.<p>`` stacked over layers)."""
-    if name.startswith("layers."):
-        key = name[len("layers."):]
-        for lp, v in zip(model.layers, value):
-            lp[key].copy_(v)
-    else:
-        getattr(model, name).copy_(value)
+    """A ``Transformer`` drawn as the JAX package draws its parameters
+    (``params.init``: the 1-d leaves zero)."""
+    return init(Transformer(cfg, device=device), param_shapes(cfg),
+                generator, fill=0.0, device=device)
 
 
 # --------------------------------------------------------------------------- #
@@ -183,9 +132,7 @@ def embed_input(cfg, params: Transformer, batch):
         pe = torch.matmul(patches, params.vision_proj.to(h.dtype))
         h = torch.cat([pe, h], dim=1)
         s = h.shape[1]
-    positions = torch.arange(s, dtype=torch.int32,
-                             device=h.device).expand(b, s)
-    return h, positions
+    return h, position_ids(b, s, h.device)
 
 
 def _head(cfg, params: Transformer) -> torch.Tensor:

@@ -10,6 +10,7 @@ yet, as in transformer.py.
 """
 from repro_torch.models import transformer as tf
 
+Model = tf.Model
 param_shapes = tf.param_shapes
 init_params = tf.init_params
 param_count = tf.param_count

@@ -242,13 +242,14 @@ def test_uint8_crops_match_float_crops():
 
 def test_converted_range_table_gives_the_same_histogram(jx):
     x = _crops("int", 2, 8)
-    table = convert.hsv_ranges(np.asarray(jx.jnp.asarray(jx.ref.COLOR_RANGES)))
+    table = convert.hsv_ranges(np.asarray(jx.jnp.asarray(jx.ref.COLOR_RANGES)),
+                               device="cpu")
     assert table.dtype == torch.float32 and tuple(table.shape) == (9, 6)
     np.testing.assert_array_equal(
         ops.hsv_color_classify(torch.from_numpy(x), table)[0].numpy(),
         np.asarray(jx.ref.hsv_color_classify(jx.jnp.asarray(x))[0]))
     with pytest.raises(ValueError):
-        convert.hsv_ranges(np.zeros((9, 5)))
+        convert.hsv_ranges(np.zeros((9, 5)), device="cpu")
 
 
 def test_cuda_without_a_card_raises(no_card):

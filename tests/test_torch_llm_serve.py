@@ -67,7 +67,8 @@ def llm():
     cfg = jax_get_config("smollm-135m").reduce_for_smoke()
     assert dataclasses.asdict(cfg) == dataclasses.asdict(CFG)
     params = jax_tf.init_params(cfg, jax.random.key(0))
-    model = convert.transformer_params(jax.tree.map(np.asarray, params), CFG)
+    model = convert.transformer_params(jax.tree.map(np.asarray, params), CFG,
+                                       device="cpu")
     return dict(cfg=cfg, params=params, model=model, core=jax_core,
                 serve=jax_serve, reviews=jax_reviews, launch=jax_launch,
                 jax=jax_serve.build_llm_udf(params=params, cfg=cfg),

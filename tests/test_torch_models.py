@@ -13,8 +13,10 @@ its XLA path and on the Pallas flash kernel in interpret mode:
   smoke tests and at its full widths with 2 layers, and h2o-danube reduced
   (a sliding window, so a ring-buffer cache) with prompts longer and
   shorter than the window; the vlm forward with patches;
-* ``param_count`` at full size for every dense and vlm config (analytic);
-  the configs themselves; the registry's refusal of unported families and
+* ``param_count`` and the parameter shapes at full size for every config
+  of a ported family (analytic; the ssm, hybrid and encdec families'
+  forwards are held in tests/test_torch_families.py); the configs
+  themselves; the registry's refusal of the moe family and
   ``transformer_params``' refusals.
 
 Tests marked ``gpu`` run the forward through the hand-written flash kernel
@@ -33,6 +35,7 @@ import torch
 from repro_torch import configs, convert
 from repro_torch.kernels import flash_attention
 from repro_torch.models import layers, transformer as tf
+from repro_torch.models.params import param_leaves
 from repro_torch.models.registry import family_module, model_api
 
 # small tensors: one intra-op thread, so these tests do not crowd the
@@ -43,10 +46,8 @@ TOL_TIGHT = dict(rtol=1e-4, atol=1e-5)   # tests/test_kernels.py::TOL_TIGHT
 TOL_BF16 = dict(rtol=8e-2, atol=8e-2)    # tests/test_kernels.py, bfloat16
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 IMPLS = ("xla", "pallas")   # the JAX model's attention: XLA or Pallas (interpret)
-DENSE = sorted(a for a, c in configs.ARCHS.items()
-               if c.family in ("dense", "vlm"))
-UNPORTED = sorted(a for a, c in configs.ARCHS.items()
-                  if c.family not in ("dense", "vlm"))
+PORTED = sorted(a for a, c in configs.ARCHS.items() if c.family != "moe")
+UNPORTED = sorted(a for a, c in configs.ARCHS.items() if c.family == "moe")
 
 
 def smollm_full_2_layers(arch="smollm-135m"):
@@ -98,7 +99,7 @@ def models(jx):
             cfg = MODELS[name]()
             params = jx.tf.init_params(jx.cfg(cfg), jx.jax.random.key(0))
             cache[name] = (params, convert.transformer_params(
-                jx.jax.tree.map(np.asarray, params), cfg))
+                jx.jax.tree.map(np.asarray, params), cfg, device="cpu"))
         return cache[name]
 
     return get
@@ -162,7 +163,7 @@ def test_configs_equal_the_reference(jx, arch):
     assert got.vocab_padded == want.vocab_padded
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", PORTED)
 def test_param_count_matches_the_reference_at_full_size(jx, arch):
     want = jx.configs.get_config(arch)
     got = configs.get_config(arch)
@@ -170,10 +171,10 @@ def test_param_count_matches_the_reference_at_full_size(jx, arch):
     assert api.param_count(got) == jx.model_api(want).param_count(want)
     assert got.param_count() == want.param_count()
     assert got.active_param_count() == want.active_param_count()
-    shapes = {k: tuple(v.shape) for k, v in tf.param_leaves(
-        api.param_shapes(got))}
-    want_shapes = {k: v.shape for k, v in tf.param_leaves(
-        jx.tf.param_shapes(want))}
+    shapes = {k: (tuple(v.shape), str(v.dtype).replace("torch.", ""))
+              for k, v in param_leaves(api.param_shapes(got))}
+    want_shapes = {k: (v.shape, str(v.dtype)) for k, v in param_leaves(
+        jx.model_api(want).param_shapes(want))}
     assert shapes == want_shapes
 
 
@@ -185,7 +186,9 @@ def test_registry_raises_for_unported_families(arch):
     with pytest.raises(NotImplementedError, match=cfg.family):
         cfg.param_count()
     with pytest.raises(NotImplementedError):
-        convert.transformer_params({}, cfg.reduce_for_smoke())
+        convert.transformer_params({}, cfg.reduce_for_smoke(), device="cpu")
+    with pytest.raises(NotImplementedError):
+        convert.model_params({}, cfg.reduce_for_smoke(), device="cpu")
     with pytest.raises(KeyError):
         family_module("rnn")
 
@@ -196,13 +199,14 @@ def test_transformer_params_refuses_missing_extra_and_misshapen_leaves(
     params = jx.jax.tree.map(np.asarray, models("smollm-reduced")[0])
     missing = {k: v for k, v in params.items() if k != "final_norm"}
     with pytest.raises(ValueError, match="missing.*final_norm"):
-        convert.transformer_params(missing, cfg)
+        convert.transformer_params(missing, cfg, device="cpu")
     extra = {**params, "out_head": np.zeros((64, 512), np.float32)}
     with pytest.raises(ValueError, match="extra.*out_head"):
-        convert.transformer_params(extra, cfg)
+        convert.transformer_params(extra, cfg, device="cpu")
     layers_ = dict(params["layers"], wq=params["layers"]["wq"][:, :, :2])
     with pytest.raises(ValueError, match="layers.wq"):
-        convert.transformer_params({**params, "layers": layers_}, cfg)
+        convert.transformer_params({**params, "layers": layers_}, cfg,
+                                   device="cpu")
 
 
 def test_transformer_params_is_a_copy(models):
@@ -351,7 +355,7 @@ def test_vlm_forward_with_patches_matches_the_reference(jx):
     cfg = reduced("llava-next-34b")
     params = jx.tf.init_params(jx.cfg(cfg), jx.jax.random.key(2))
     model = convert.transformer_params(jx.jax.tree.map(np.asarray, params),
-                                       cfg)
+                                       cfg, device="cpu")
     rng = np.random.default_rng(5)
     toks = _tokens(2, 24, cfg.vocab_size, seed=5)
     patches = rng.standard_normal((2, cfg.num_patches, 1024)).astype(

@@ -273,7 +273,7 @@ def test_embedding_tables_are_bit_equal(jx, kernel):
         w = np.asarray(jx.jnp.asarray(w))
         assert w.dtype == np.float32 and g.dtype == torch.float32
         if w.ndim == 2 and not w[0].any():
-            w = convert.embedding_table(w)
+            w = convert.embedding_table(w, device="cpu")
             assert torch.equal(w, g)
         else:
             np.testing.assert_array_equal(g.numpy(), w)
@@ -282,11 +282,11 @@ def test_embedding_tables_are_bit_equal(jx, kernel):
 def test_embedding_table_conversion_checks_the_padding_row():
     table = np.ones((4, 3), np.float32)
     with pytest.raises(ValueError, match="row 0"):
-        convert.embedding_table(table)
+        convert.embedding_table(table, device="cpu")
     with pytest.raises(ValueError, match="vocab, dim"):
-        convert.embedding_table(np.zeros(4))
+        convert.embedding_table(np.zeros(4), device="cpu")
     table[0] = 0.0
-    t = convert.embedding_table(table.astype(np.float64))
+    t = convert.embedding_table(table.astype(np.float64), device="cpu")
     assert t.dtype == torch.float32 and tuple(t.shape) == (4, 3)
 
 
