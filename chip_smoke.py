@@ -1,7 +1,7 @@
 """Chip smoke test of the PyTorch port: build, check and time its kernels
 on one CUDA card, then drive the UC1 lost-dog query, the review-triage
 text query, the kernel predicates, the multi-tenant query service, the
-LLM predicate and the ssm, hybrid and encdec model families through
+LLM predicate and the ssm, hybrid, encdec and moe model families through
 them.
 
     python3 chip_smoke.py
@@ -11,7 +11,8 @@ failed phase. Phases, in order:
 
 1. setup   — card name and power limit, torch/CUDA/nvcc versions;
 2. build   — compile every kernel from the sources in the checkout (and
-             an empty kernel, the launch floor), one nvcc per source, all
+             an empty kernel, the launch floor, and two broken copies of
+             the flash source, FLASH_MUTANTS), one nvcc per source, all
              at once;
 3. kernels — each kernel against its plain PyTorch version on the card
              (rglru and the router's logits bit for bit, through both entry
@@ -19,10 +20,15 @@ failed phase. Phases, in order:
              wrapper and at its C entry point beside its bound, the launch
              floor (and, for the attention kernels, beside
              scaled_dot_product_attention; for ssd, its P = N = 4 instance
-             beside its generic one); then ssd, rglru and flash at the
-             shapes the model families of phase 10 give them (mamba2's
-             scan, recurrentgemma's forward and decode step and its local
-             attention, whisper's encoder and cross-attention);
+             beside its generic one); then ssd, rglru, flash and the router
+             at the shapes the model families of phases 10 and 11 give
+             them (mamba2's scan, recurrentgemma's forward and decode step
+             and its local attention, whisper's encoder and
+             cross-attention, grok-1's and arctic's attention in bf16 and
+             grok-1's in float32, the router at (T, E, k) = (1024, 8, 2)
+             and (1024, 128, 2) with tied rows, indices exact); bf16
+             flash is held to flash_bf16_limit, a limit of a few bf16
+             ulps, which must refuse both flash mutants;
 4. query   — the lost-dog query (5 minutes of 30-fps video) on the card
              under every eddy policy; row ids against the plain version
              on the CPU, launches on the kernel counter and the board;
@@ -64,7 +70,20 @@ failed phase. Phases, in order:
              TOL_BF16 in bf16 for whisper-small, and in float32 (the same
              checks on the same model in float32) for the other two,
              whose bf16 control alone exceeds TOL_BF16;
-11. the ``{"kernels": [...]}`` line, then the device line last.
+11. moe    — grok-1-314b and arctic-480b at their configs' full width,
+             cut in depth to what one card's 80 GB holds (6 of 64 and 2 of
+             35 layers), in bf16 (random weights from a seed), one at a
+             time: a forward at (2, 512) through the flash and router
+             kernels (6 + 6; 2 + 2 launches) against the same forward
+             through their plain versions, beside the control, with the
+             share of routing assignments that agree and the drops by
+             capacity; a prefill (2, 64) and decode steps (6; 2 router
+             launches a step) against the same through the plain
+             versions; times and a torch.profiler split of one forward.
+             The logits are held to TOL_BF16 in float32, on the same
+             draws cut to 2 and 1 layers: in bf16 a flipped expert choice
+             moves a token's logits past it;
+12. the ``{"kernels": [...]}`` line, then the device line last.
 """
 from __future__ import annotations
 
@@ -75,6 +94,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -621,27 +641,35 @@ def ssd_view_args(x, dt, A, Bm, Cm, y, h_last, chunk: int = SEQ) -> bytes:
 SSD_DISPATCH = "  if (k.p == 4 && k.n == 4) return launch<4, 4>(k, warps, bytes, s);\n"
 
 
+def build_variant(name: str, line: str, new: str, path: str, entry: str):
+    """``entry`` of a copy of ``csrc/<name>.cu`` with its one ``line``
+    replaced by ``new``, written to ``path`` (a .cu) and built beside it
+    with the library's own flags."""
+    from repro_torch.kernels import _build
+    src = (_build.CSRC / f"{name}.cu").read_text()
+    if src.count(line) != 1:
+        raise AssertionError(f"{name}.cu: the line {line!r} is gone")
+    with open(path, "w") as f:
+        f.write(src.replace(line, new))
+    lib_path = path[:-len(".cu")] + ".so"
+    proc = subprocess.run([_build.nvcc_path(), *_build.flags(name), "-o",
+                           lib_path, path], capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {path}:\n"
+                           f"{proc.stdout}{proc.stderr}")
+    fn = getattr(ctypes.CDLL(lib_path), entry)
+    fn.argtypes, fn.restype = _build.SIGNATURES[name][entry]
+    return fn
+
+
 def build_ssd_generic():
     """The ssd entry point of a copy of ``csrc/ssd.cu`` whose dispatch
     leaves out the P = N = 4 instance, so every shape runs the generic
-    one; built with the library's own flags, for ``ssd_instances``."""
+    one, for ``ssd_instances``."""
     from repro_torch.kernels import _build
-    src = (_build.CSRC / "ssd.cu").read_text()
-    if SSD_DISPATCH not in src:
-        raise AssertionError("ssd.cu: the P = N = 4 dispatch line is gone")
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    variant = _build.BUILD_DIR / "ssd_generic.cu"
-    variant.write_text(src.replace(SSD_DISPATCH, ""))
-    lib_path = variant.with_suffix(".so")
-    proc = subprocess.run([_build.nvcc_path(), *_build.flags("ssd"), "-o",
-                           str(lib_path), str(variant)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {variant.name}:\n"
-                           f"{proc.stdout}{proc.stderr}")
-    fn = ctypes.CDLL(str(lib_path)).ssd_scan
-    fn.argtypes, fn.restype = _build.SIGNATURES["ssd"]["ssd_scan"]
-    return fn
+    return build_variant("ssd", SSD_DISPATCH, "",
+                         str(_build.BUILD_DIR / "ssd_generic.cu"), "ssd_scan")
 
 
 def ssd_instances(inputs: TextInputs, generic) -> dict:
@@ -863,11 +891,17 @@ def score_of(out_bhsd: torch.Tensor, heads: int) -> torch.Tensor:
 def check_close(name: str, got, want, label: str, tol=TOL_TIGHT,
                 zero_rows=None, score=None) -> float:
     """Hold one kernel result against its plain version: every element
-    within tol, no NaN, the given rows exactly 0, and the predicate scores
-    (``score``: (got, want)) within ATT_SCORE_ATOL."""
-    err, ok = within(got, want, **tol)
-    ok = ok and not bool(torch.isnan(got).any())
+    within tol (rtol and atol, or a tensor of per-element limits), no NaN,
+    the given rows exactly 0, and the predicate scores (``score``: (got,
+    want)) within ATT_SCORE_ATOL."""
     extra = ""
+    if isinstance(tol, torch.Tensor):
+        err, share = limit_share(got, want, tol)
+        ok = share <= 1.0
+        extra = f", largest share of its limit {share!r}"
+    else:
+        err, ok = within(got, want, **tol)
+    ok = ok and not bool(torch.isnan(got).any())
     if zero_rows is not None:
         zero = bool((got[zero_rows] == 0).all())
         ok, extra = ok and zero, f", masked rows exactly 0: {zero}"
@@ -879,6 +913,24 @@ def check_close(name: str, got, want, label: str, tol=TOL_TIGHT,
     if not ok:
         raise AssertionError(f"{name} kernel disagrees on {label}")
     return err
+
+
+def limit_share(got, want, limit: torch.Tensor) -> tuple:
+    """(max abs error, the largest share of its per-element limit)."""
+    diff = (got.float() - want.float()).abs()
+    return float(diff.max()), float((diff / limit).max())
+
+
+def flash_bf16_limit(q, k, v, want, **kw) -> torch.Tensor:
+    """Per-element limits for bf16 flash against its plain version
+    ``want``: 2 bf16 ulps of the output (2^-6 |want|; each side rounds its
+    output once) plus 4 times the most that the kernel's rounding of P to
+    bf16 for P.V can move it (2^-9 P.|V|: the row sums add the unrounded
+    P), with P.|V| from the plain version on |V| in float32. A kernel that
+    drops or mis-scales a key tile leaves it (``flash_limit_mutants``)."""
+    from repro_torch.kernels import ref
+    pv = ref.flash_attention_bshd(q.float(), k.float(), v.float().abs(), **kw)
+    return 2.0 ** -6 * want.float().abs() + 2.0 ** -7 * pv
 
 
 class AttentionInputs:
@@ -1689,14 +1741,16 @@ def run_service(reviews, expect: dict) -> dict:
 @contextlib.contextmanager
 def plain_kernels():
     """Inside the block the models run the kernels' plain versions
-    (``ref.flash_attention_bshd``, ``ref.ssd``, ``ref.rglru``): the
-    wrappers are swapped out of ``models.attention``, ``models.ssm`` and
-    ``models.hybrid``. Only for the main thread's comparisons, while no
+    (``ref.flash_attention_bshd``, ``ref.ssd``, ``ref.rglru``,
+    ``ref.moe_topk_router``): the wrappers are swapped out of
+    ``models.attention``, ``models.ssm``, ``models.hybrid`` and
+    ``models.moe``. Only for the main thread's comparisons, while no
     query runs."""
     from repro_torch.kernels import ref
-    from repro_torch.models import attention, hybrid, ssm
+    from repro_torch.models import attention, hybrid, moe, ssm
     swaps = ((attention, "flash_attention_bshd", ref.flash_attention_bshd),
-             (ssm, "ssd_bshp", ref.ssd), (hybrid, "rglru_bsw", ref.rglru))
+             (ssm, "ssd_bshp", ref.ssd), (hybrid, "rglru_bsw", ref.rglru),
+             (moe, "moe_router_tk", ref.moe_topk_router))
     kernels = [(module, name, getattr(module, name))
                for module, name, _ in swaps]
     for module, name, plain in swaps:
@@ -1795,9 +1849,10 @@ def llm_query(udf, reviews, policy: str) -> tuple:
 
 def device_trace(fn, data) -> dict:
     """Device time of one call ``fn(data)`` (an LLM call, a model's
-    forward) by kernel, from a ``torch.profiler`` trace: the flash, ssd
-    and rglru launches, the vocabulary GEMM (the longest GEMM), the
-    layers' GEMMs, log-softmax, copies and the rest."""
+    forward) by kernel, from a ``torch.profiler`` trace: the flash, ssd,
+    rglru and router launches, the vocabulary GEMM (the call's last GEMM:
+    the head's product), the layers' GEMMs, log-softmax, copies and the
+    rest."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn(data)
@@ -1818,6 +1873,8 @@ def device_trace(fn, data) -> dict:
             key = "flash_attention"
         elif "ssd_kernel" in name or "rglru_kernel" in name:
             key = "ssd" if "ssd_kernel" in name else "rglru"
+        elif "moe_router" in name:
+            key = "moe_router"
         elif name.startswith(("memcpy", "memset")):
             key = "copies"
         elif "softmax" in name:
@@ -1825,16 +1882,17 @@ def device_trace(fn, data) -> dict:
         elif any(w in name for w in ("gemm", "gemv", "cutlass", "xmma",
                                      "nvjet")):
             key = "layer_gemms"
-            gemms.append(ms)
+            gemms.append((e.time_range.start, ms))
         else:
             key = "other"
         split[key] += ms
         count[key] += 1
         by_name[e.name[:100]] += ms
     if gemms:
-        split["layer_gemms"] -= max(gemms)
+        last = max(gemms)[1]
+        split["layer_gemms"] -= last
         count["layer_gemms"] -= 1
-        split["vocab_gemm"], count["vocab_gemm"] = max(gemms), 1
+        split["vocab_gemm"], count["vocab_gemm"] = last, 1
     return {"device_ms": sum(split.values()), "kernels": sum(count.values()),
             "split_ms": dict(split), "split_launches": dict(count),
             "top_kernels_ms": dict(by_name.most_common(12))}
@@ -1882,9 +1940,10 @@ def time_llm(cfg, model, udf, toks: np.ndarray) -> dict:
         label = (f"llm B={rows} S={x.shape[1]} H={cfg.num_heads} "
                  f"Hkv={cfg.num_kv_heads} D={cfg.head_dim} bf16")
         group = cfg.num_heads // cfg.num_kv_heads
+        want = ref.flash_attention_bshd(*qkv)
         flash_err = check_close(
-            "flash_attention", flash_attention_bshd(*qkv),
-            ref.flash_attention_bshd(*qkv), label, tol=TOL_BF16)
+            "flash_attention", flash_attention_bshd(*qkv), want, label,
+            tol=flash_bf16_limit(*qkv, want))
         flash = time_flash(*qkv, group=group, causal=True, window=0,
                            label=label)
         with torch.inference_mode():
@@ -2147,13 +2206,130 @@ def time_rglru_case(x, r, i, a_param, h0, label: str) -> dict:
     return t
 
 
-def family_kernel_cases() -> dict:
+def time_router_case(logits: torch.Tensor, k: int, label: str,
+                     floor: dict) -> dict:
+    """moe_router_tk at a model's shape: its first rows tied (row 0 all
+    equal, row 1 two equal maxima at experts 3 and E - 2), the indices
+    equal to the plain version's exactly and the weights within
+    TOL_TIGHT, then timed through the wrapper and at the C entry point,
+    in turns, in a CUDA graph, and the plain version, beside the bound
+    (the logits read once, weights and indices written once;
+    ``rooflines.moe_router``'s flops) and the launch floor."""
+    from repro_torch.kernels import _build, moe_router, ref
+    from repro_torch.udfs import rooflines
+    t, e = logits.shape
+    logits[0] = 0.5
+    logits[1, [3, e - 2]] = float(logits[1].max()) + 1.0
+    err = check_router(logits, k, label)
+    idx = moe_router.moe_router_tk(logits, k)[1][:2, :2].tolist()
+    if idx != [[0, 1], [3, e - 2]]:
+        raise AssertionError(f"moe_router {label}: tied rows routed to {idx}")
+    w_out = torch.empty((t, k), device=logits.device)
+    i_out = torch.empty((t, k), dtype=torch.int32, device=logits.device)
+    args = moe_router.ARGS.pack(logits.data_ptr(), w_out.data_ptr(),
+                                i_out.data_ptr(), t, e, k, 0)
+    call = _build.load("moe_router").lib.moe_router_tk
+    stream = torch.cuda.current_stream().cuda_stream
+    if call(args, stream) != 0:
+        raise AssertionError("moe_router entry point failed")
+    out = {
+        **paired_ms({"ms": lambda: moe_router.moe_router_tk(logits, k),
+                     "entry_ms": lambda: call(args, stream)}),
+        "graph_ms": graph_ms(lambda st: call(args, st)),
+        "plain_ms": time_ms(lambda: ref.moe_topk_router(logits, k),
+                            TIME_ITERS),
+        **dict(zip(("bound_ms", "bound_by"), bound_ms(
+            t * e * 4 + t * k * 8,
+            t * rooflines.moe_router(e, k).flops_per_row))),
+        "library_ms": None,   # no single PyTorch call routes top-k
+        "max_abs_err": err,
+    }
+    print(f"  moe_router {label}: kernel {out['ms']!r} ms through the "
+          f"wrapper (entry point {out['entry_ms']!r}, in a graph "
+          f"{out['graph_ms']!r}), plain {out['plain_ms']!r} ms, bound "
+          f"{out['bound_ms']!r} ms ({out['bound_by']}); launch floor "
+          f"{floor['entry_ms']!r} / {floor['graph_ms']!r} ms", flush=True)
+    return out
+
+
+# flash_bf16_limit's own check: copies of csrc/flash_attention.cu, each
+# broken in one line (what it breaks, the line, its replacement), which
+# the limit must refuse at grok-1-314b's bf16 attention
+FLASH_MUTANTS = (
+    ("drops the last query block's last key tile",
+     "  const int n_tiles = k_end > k_begin ? (k_end - k_begin + BK - 1) / BK"
+     " : 0;\n",
+     "  const int n_tiles = (k_end > k_begin ? (k_end - k_begin + BK - 1) / "
+     "BK : 0) -\n      (q_start + kBlockQ >= p.sq && k_end - k_begin > BK);"
+     "\n"),
+    ("scales every later query block's last key tile's P.V by 1 + 2^-5",
+     "    pv_tile<DP, BK>(o, s, cur_v, g, t, corr);\n",
+     "    if (tile > 0 && tile == n_tiles - 1)\n"
+     "      for (int j = 0; j < BK / 8; ++j)\n"
+     "        for (int e = 0; e < 4; ++e) s[j][e] *= 1.03125f;\n"
+     "    pv_tile<DP, BK>(o, s, cur_v, g, t, corr);\n"),
+)
+
+
+def build_flash_mutants() -> list:
+    """The entry points of FLASH_MUTANTS, built side by side in a
+    temporary directory (removed once they are loaded)."""
+    with tempfile.TemporaryDirectory() as tmp, \
+            ThreadPoolExecutor(len(FLASH_MUTANTS)) as pool:
+        return list(pool.map(
+            lambda i: build_variant(
+                "flash_attention", *FLASH_MUTANTS[i][1:],
+                os.path.join(tmp, f"flash_mutant{i}.cu"),
+                "flash_attention_bshd"), range(len(FLASH_MUTANTS))))
+
+
+def flash_limit_mutants(mutants: list) -> dict:
+    """At grok-1-314b's bf16 attention (inputs from a numpy seed), the
+    kernel through its wrapper and each of FLASH_MUTANTS at its entry
+    point against the plain version: the kernel within
+    ``flash_bf16_limit``, every mutant past it (within TOL_BF16 or not,
+    as it happens)."""
+    from repro_torch.kernels import flash_attention, ref
+    rng = np.random.default_rng(23)
+    b, s, h, hkv, d = 2, 512, 48, 8, 128
+    q, k, v = (torch.from_numpy(rng.standard_normal((b, s, n, d)).astype(
+        np.float32)).cuda().to(torch.bfloat16) for n in (h, hkv, hkv))
+    want = ref.flash_attention_bshd(q, k, v)
+    limit = flash_bf16_limit(q, k, v, want)
+    stream = torch.cuda.current_stream().cuda_stream
+    outs = {"sound kernel": flash_attention.flash_attention_bshd(q, k, v)}
+    for (what, _, _), call in zip(FLASH_MUTANTS, mutants):
+        got = outs[what] = torch.empty_like(q)
+        args = flash_attention.pack_args(
+            q, k, v, got, tuple(map(flash_attention.bshd_layout,
+                                    (q, k, v, got))),
+            batch=b, heads=h, group=h // hkv, sq=s, sk=s, causal=True,
+            window=0, scale=d ** -0.5)
+        if call(args, stream) != 0:
+            raise AssertionError(f"the flash mutant that {what} failed")
+    torch.cuda.synchronize()
+    res = {}
+    for what, got in outs.items():
+        err, share = limit_share(got, want, limit)
+        res[what] = {"max_abs_err": err, "largest_share_of_limit": share,
+                     "within_tol_bf16": within(got, want, **TOL_BF16)[1]}
+        print(f"  flash_bf16_limit at grok-1-314b B={b} S={s} H={h} "
+              f"Hkv={hkv} D={d} bf16, {what}: max_abs_err {err!r}, largest "
+              f"share of the limit {share!r}, within TOL_BF16: "
+              f"{res[what]['within_tol_bf16']}", flush=True)
+        if (what == "sound kernel") != (share <= 1.0):
+            raise AssertionError(f"flash_bf16_limit misjudges the {what}")
+    return res
+
+
+def family_kernel_cases(floor: dict) -> dict:
     """Phase 3 at the shapes the model families give the kernels (inputs
     from a numpy seed): ssd at mamba2-370m's scan, rglru at
     recurrentgemma-9b's forward and decode step, flash at its local
-    attention and at whisper-small's encoder and cross-attention, each
-    against its plain version, timed (flash beside SDPA) and bounded.
-    Returns {kernel: {label: timings}}."""
+    attention, at whisper-small's encoder and cross-attention and at
+    grok-1-314b's and arctic-480b's attention, and the router at the moe
+    forwards' (T, E, k), each against its plain version, timed (flash
+    beside SDPA) and bounded. Returns {kernel: {label: timings}}."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention_bshd
     rng = np.random.default_rng(21)
@@ -2162,7 +2338,7 @@ def family_kernel_cases() -> dict:
         return torch.from_numpy(np.ascontiguousarray(a, np.float32)).cuda(
         ).to(dtype)
 
-    out = {"ssd": {}, "rglru": {}, "flash_attention": {}}
+    out = {"ssd": {}, "rglru": {}, "flash_attention": {}, "moe_router": {}}
     # mamba2-370m: x, B, C as silu outputs, dt softplus(~0) of the scan
     b, s, h, p, g, n = 4, 512, 32, 64, 1, 128
     label = f"mamba2-370m B={b} S={s} H={h} P={p} G={g} N={n}"
@@ -2179,28 +2355,48 @@ def family_kernel_cases() -> dict:
         out["rglru"][label] = time_rglru_case(
             *(T(rng.standard_normal((1, s, w))) for _ in range(3)),
             T(rng.standard_normal(w)), h0, label)
-    # flash: (B, Sq, Sk, H, Hkv, D, causal, window), the models' own views
-    for name, (b, sq, sk, h, hkv, d, causal, window) in (
+    # flash: (B, Sq, Sk, H, Hkv, D, causal, window, dtype), the models' own
+    # views; bf16 held to flash_bf16_limit, float32 (3xTF32) to TOL_TIGHT
+    bf16, f32 = torch.bfloat16, torch.float32
+    for name, (b, sq, sk, h, hkv, d, causal, window, dt) in (
             ("recurrentgemma-9b local attention",
-             (1, 2560, 2560, 16, 1, 256, True, 2048)),
-            ("whisper-small encoder", (4, 1500, 1500, 12, 12, 64, False, 0)),
+             (1, 2560, 2560, 16, 1, 256, True, 2048, bf16)),
+            ("whisper-small encoder",
+             (4, 1500, 1500, 12, 12, 64, False, 0, bf16)),
             ("whisper-small cross-attention",
-             (4, 64, 1500, 12, 12, 64, False, 0))):
-        q = T(rng.standard_normal((b, sq, h, d)), torch.bfloat16)
-        k, v = (T(rng.standard_normal((b, sk, hkv, d)), torch.bfloat16)
+             (4, 64, 1500, 12, 12, 64, False, 0, bf16)),
+            ("grok-1-314b attention", (2, 512, 512, 48, 8, 128, True, 0, bf16)),
+            ("grok-1-314b attention", (2, 512, 512, 48, 8, 128, True, 0, f32)),
+            ("arctic-480b attention",
+             (2, 512, 512, 56, 8, 128, True, 0, bf16))):
+        q = T(rng.standard_normal((b, sq, h, d)), dt)
+        k, v = (T(rng.standard_normal((b, sk, hkv, d)), dt)
                 for _ in range(2))
         label = (f"{name} B={b} Sq={sq} Sk={sk} H={h} Hkv={hkv} D={d} "
-                 f"causal={causal} window={window} bf16")
-        err = check_close(
-            "flash_attention", flash_attention_bshd(
-                q, k, v, causal=causal, window=window),
-            ref.flash_attention_bshd(q, k, v, causal=causal, window=window),
-            label, tol=TOL_BF16)
+                 f"causal={causal} window={window} "
+                 f"{'bf16' if dt == bf16 else 'f32'}")
+        kw = {"causal": causal, "window": window}
+        got = flash_attention_bshd(q, k, v, **kw)
+        want = ref.flash_attention_bshd(q, k, v, **kw)
+        tol = flash_bf16_limit(q, k, v, want, **kw) if dt == bf16 else TOL_TIGHT
+        err = check_close("flash_attention", got, want, label, tol=tol)
+        share = {"largest_share_of_limit": limit_share(got, want, tol)[1]
+                 } if dt == bf16 else {}
         out["flash_attention"][label] = {
             **time_flash(q, k, v, group=h // hkv, causal=causal,
-                         window=window, label=label), "max_abs_err": err}
+                         window=window, label=label), "max_abs_err": err,
+            **share}
     for line in ptxas_lines("flash_attention", "13__nv_bfloat16Li256E"):
         print(f"  flash bf16 D=256 instance (ptxas): {line}")
+    # the router at a moe forward's tokens (B * S = 1024): grok-1's 8
+    # experts (a thread a row) and arctic's 128 (a warp a row); logits
+    # spread as a bf16 layer's router gives them (std 1.6)
+    for e in (8, 128):
+        label = f"T=1024 E={e} k=2"
+        out["moe_router"][label] = time_router_case(
+            T(rng.standard_normal((1024, e)) * 1.6), 2, label, floor)
+    for line in ptxas_lines("moe_router", "warp"):
+        print(f"  moe_router warp-a-row instance (ptxas): {line}")
     return out
 
 
@@ -2221,7 +2417,8 @@ FAMILIES = (
 )
 FAMILY_SEED = 0
 FAMILY_ROUNDS = 5     # timed forwards and decode steps, of which the median
-COUNTED = ("ssd", "rglru", "flash_attention")   # the model kernels' counters
+COUNTED = ("ssd", "rglru", "flash_attention", "moe_router")  # the model
+                                                            # kernels' counters
 CONTROL_NOISE = 3e-6  # relative change of the control's ssd output
 
 
@@ -2264,10 +2461,12 @@ def family_ms(fn) -> dict:
 def perturbed_plain():
     """Inside the block the models run the kernels' plain versions in
     float32 with every output changed by a relative CONTROL_NOISE (seeded)
-    before its cast to the model's dtype: a stand-in for kernels that sum
-    in another order, the control beside a bf16 forward's difference."""
+    before its cast to the model's dtype (the router's plain version as it
+    is: its outputs are float32 and its indices exact): a stand-in for
+    kernels that sum in another order, the control beside a bf16
+    forward's difference."""
     from repro_torch.kernels import ref
-    from repro_torch.models import attention, hybrid, ssm
+    from repro_torch.models import attention, hybrid, moe, ssm
     gens = {}
 
     def noisy(t: torch.Tensor, dtype) -> torch.Tensor:
@@ -2290,7 +2489,8 @@ def perturbed_plain():
 
     swaps = ((attention, "flash_attention_bshd", flash),
              (ssm, "ssd_bshp", scan(ref.ssd)),
-             (hybrid, "rglru_bsw", scan(ref.rglru)))
+             (hybrid, "rglru_bsw", scan(ref.rglru)),
+             (moe, "moe_router_tk", ref.moe_topk_router))
     kernels = [(module, name, getattr(module, name))
                for module, name, _ in swaps]
     for module, name, fn in swaps:
@@ -2306,14 +2506,16 @@ class FamilyRun:
     """One family's model at its config's full width and depth in one
     dtype, weights from ``torch.Generator("cuda").manual_seed(FAMILY_SEED)``
     (the float32 and bf16 models hold the same draws, rounded once for
-    bf16), with its token ids and frames from a numpy seed."""
+    bf16), with its token ids and frames from a numpy seed. ``changes``
+    replace config fields (a moe model's cut depth)."""
 
     def __init__(self, arch: str, dtype: str, rows: int, seq: int,
-                 device="cuda"):
+                 device="cuda", **changes):
         import dataclasses
         from repro_torch.configs import get_config
         from repro_torch.models.registry import model_api
-        self.cfg = dataclasses.replace(get_config(arch), dtype=dtype)
+        self.cfg = dataclasses.replace(get_config(arch), dtype=dtype,
+                                       **changes)
         self.api = model_api(self.cfg)
         dev = torch.device(device)
         t0 = time.perf_counter()
@@ -2499,6 +2701,202 @@ def run_families() -> dict:
     return out
 
 
+# --------------------------------------------------------------------------- #
+# phase 11: the moe family                                                    #
+# --------------------------------------------------------------------------- #
+# (arch, layers in bf16, layers of the float32 gate, forward (B, S), prompt
+# (B, S), decode steps) at each config's full width, its depth cut to what
+# one H100's 80 GB holds: grok-1-314b's layers take 9.84 GB each in bf16
+# beside 3.22 GB of embedding and head (6 of 64: 62.3 GB), arctic-480b's
+# 27.2 GB (2 of 35: 55.4 GB). A bf16 ulp in the attention moves tokens
+# across a top-2 boundary and the flipped tokens' logits then differ far
+# past TOL_BF16 (PERF.md, PR 19), so the logits are gated in float32 on a
+# shallower cut of the same draws (grok 2 layers, 45.8 GB; arctic 1,
+# 56.3 GB) and the bf16 run prints its differences beside the control,
+# the share of routing assignments that agree and the drops.
+MOE = (
+    ("grok-1-314b", 6, 2, (2, 512), (2, 64), 4),
+    ("arctic-480b", 2, 1, (2, 512), (2, 64), 2),
+)
+
+
+@contextlib.contextmanager
+def recorded_routes():
+    """Inside the block every ``models.moe.dispatch`` call appends its
+    (idx (T, k), tok (E, C)) to the list the block gets."""
+    from repro_torch.models import moe
+    routes, dispatch = [], moe.dispatch
+
+    def recorded(idx, weights, num_experts, capacity):
+        tok, w = dispatch(idx, weights, num_experts, capacity)
+        routes.append((idx, tok))
+        return tok, w
+
+    moe.dispatch = recorded
+    try:
+        yield routes
+    finally:
+        moe.dispatch = dispatch
+
+
+def route_stats(kernel: list, plain: list) -> dict:
+    """Each layer's routing through the kernels against the plain run's:
+    the share of (token, slot) assignments with the same expert, and the
+    assignments each run dropped by capacity."""
+    same, drops, drops_plain = [], [], []
+    for (idx, tok), (idx_p, tok_p) in zip(kernel, plain, strict=True):
+        t = idx.shape[0]
+        same.append(float((idx == idx_p).float().mean()))
+        drops.append(idx.numel() - int((tok < t).sum()))
+        drops_plain.append(idx_p.numel() - int((tok_p < t).sum()))
+    return {"assignments_agree": same, "dropped": drops,
+            "dropped_plain": drops_plain}
+
+
+class MoeRun(FamilyRun):
+    """A moe model at its config's full width, cut to ``num_layers``; its
+    forward gives the logits (the aux loss kept in ``aux``)."""
+
+    def forward(self, batch):
+        logits, self.aux = self.api.forward(self.cfg, self.model, batch)
+        return logits
+
+    def check_forward(self, fwd: tuple, want: dict, gate: bool) -> dict:
+        """``FamilyRun.check_forward`` with each layer's routing through
+        the kernels held against the plain run's (``route_stats``)."""
+        layers = self.cfg.num_layers
+        with recorded_routes() as routes:
+            out = super().check_forward(fwd, want, gate)
+            out["routing"] = route_stats(routes[:layers],
+                                         routes[layers:2 * layers])
+        print(f"  routing {self.cfg.dtype}: share of assignments on the "
+              f"same expert by layer {out['routing']['assignments_agree']!r}"
+              f"; dropped by capacity by layer {out['routing']['dropped']} "
+              f"(plain {out['routing']['dropped_plain']}) of "
+              f"{2 * fwd[0] * fwd[1]}; aux {float(self.aux)!r}", flush=True)
+        return out
+
+    def check_decode(self, prompt: tuple, steps: int, want_prefill: dict,
+                     want: dict, gate: bool) -> dict:
+        """A prefill of the prompt and ``steps`` decode steps through the
+        kernels (the prefill's launches and each step's counted from 0,
+        held to ``want_prefill`` and ``want``) against the same
+        prefill and steps through their plain versions, on caches of
+        their own; with ``gate``, every step's logits within TOL_BF16. Not
+        against full forwards: a forward's capacity drops assignments that
+        a step's does not, in the reference too."""
+        cfg, api = self.cfg, self.api
+        b, s = prompt
+        batch, kw = self.batch(b, s), {"pad_cache_to": s + steps}
+        errs, oks, counts, drops = [], [], [], []
+        with torch.inference_mode():
+            zero_launches()
+            cache, last = api.prefill(cfg, self.model, batch, **kw)
+            torch.cuda.synchronize()
+            prefill_launches = kernel_launches()
+            with plain_kernels():
+                cache_p, last_p = api.prefill(cfg, self.model, batch, **kw)
+            for step in range(steps + 1):
+                if step:
+                    token = {"token": self.toks[:b, s + step - 1]}
+                    with recorded_routes() as routes:
+                        zero_launches()
+                        cache, last = api.decode_step(cfg, self.model, cache,
+                                                      token)
+                        torch.cuda.synchronize()
+                        counts.append(kernel_launches())
+                        with plain_kernels():
+                            cache_p, last_p = api.decode_step(
+                                cfg, self.model, cache_p, token)
+                    drops.append(sum(idx.numel() - int((tok < b).sum())
+                                     for idx, tok in routes[:cfg.num_layers]))
+                err, ok = within(last, last_p, **TOL_BF16)
+                errs.append(err)
+                oks.append(ok and bool(torch.isfinite(last).all()))
+        lengths = cache["lengths"].tolist()
+        print(f"  prefill {(b, s)} (launches {prefill_launches}) and {steps} "
+              f"decode steps {cfg.dtype}: max_abs_err against the same "
+              f"through the plain kernels per step {errs!r} (within "
+              f"TOL_BF16: {oks}{'' if gate else ', not gated'}); launches a "
+              f"step {counts} (want {want}); dropped a step {drops}; lengths "
+              f"{lengths}", flush=True)
+        if lengths != [s + steps] * b:
+            raise AssertionError(f"{cfg.name}: decode left the lengths at "
+                                 f"{lengths}")
+        if prefill_launches != want_prefill:
+            raise AssertionError(f"{cfg.name}: the prefill launched "
+                                 f"{prefill_launches}, not {want_prefill}")
+        if any(c != want for c in counts):
+            raise AssertionError(f"{cfg.name}: decode steps launched "
+                                 f"{counts}, not {want} each")
+        if gate and not all(oks):
+            raise AssertionError(f"{cfg.name} {cfg.dtype}: decode logits "
+                                 "disagree with the plain kernels'")
+        return {"prompt": [b, s], "steps": steps, "dtype": cfg.dtype,
+                "prefill_launches": prefill_launches,
+                "max_abs_err_by_step": errs, "within_tol_bf16": oks,
+                "dropped_by_step": drops, "launches_a_step": want,
+                "cache": cache, "token": {"token": self.toks[:b, s + steps - 1]}}
+
+
+def run_moe(arch: str, layers: int, gate_layers: int, fwd: tuple,
+            prompt: tuple, steps: int, device="cuda") -> dict:
+    """One moe config at full width cut to ``layers`` in bf16: a forward
+    through the kernels against their plain versions (not gated: routing
+    flips), a prefill and decode steps against the same through the plain
+    versions, times; then the same checks gated at TOL_BF16 on the model
+    cut to ``gate_layers`` in float32."""
+    from repro_torch.configs import get_config
+    rows = max(fwd[0], prompt[0])
+    seq = max(fwd[1], prompt[1] + steps)
+    full = get_config(arch)
+    res = {"arch": arch, "family": full.family,
+           "reduced": {"num_layers": [full.num_layers, layers],
+                       "float32_gate_num_layers": [full.num_layers,
+                                                   gate_layers],
+                       "why": "one H100's 80 GB; widths as published"}}
+    for dtype, depth in (("bfloat16", layers), ("float32", gate_layers)):
+        torch.cuda.reset_peak_memory_stats()
+        run = MoeRun(arch, dtype, rows, seq, device, num_layers=depth)
+        cfg = run.cfg
+        params = run.api.param_count(cfg)
+        print(f"  {arch} ({cfg.family}) {dtype}: {depth} of "
+              f"{full.num_layers} layers (reduced: one H100's 80 GB), d_model "
+              f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads of "
+              f"{cfg.head_dim}, {cfg.num_experts} experts of d_ff {cfg.d_ff}"
+              f", top-{cfg.num_experts_per_tok}, vocab {cfg.vocab_size}; "
+              f"{params} parameters drawn on the card in {run.init_s:.2f}s",
+              flush=True)
+        want_fwd = {"flash_attention": depth, "moe_router": depth}
+        want_step = {"moe_router": depth}
+        gate = dtype == "float32"
+        sfx = "" if dtype == "bfloat16" else f"_{dtype}"
+        res[f"params{sfx}"], res[f"init_s{sfx}"] = params, run.init_s
+        res[f"forward{sfx}"] = run.check_forward(fwd, want_fwd, gate)
+        decode = run.check_decode(prompt, steps, want_fwd, want_step, gate)
+        if gate:
+            del decode["cache"], decode["token"]
+        else:
+            res.update(run.times(fwd, decode))
+        res[f"decode{sfx}"] = decode
+        res[f"peak_memory_gb{sfx}"] = torch.cuda.max_memory_allocated() / 1e9
+        print(f"  peak memory {res[f'peak_memory_gb{sfx}']!r} GB", flush=True)
+        del run
+        torch.cuda.empty_cache()
+    res["checked_in"] = "float32"
+    return res
+
+
+def run_moe_family() -> dict:
+    """Phase 11: every config of MOE, one at a time."""
+    out = {}
+    for arch, *spec in MOE:
+        t0 = time.perf_counter()
+        out[arch] = run_moe(arch, *spec)
+        out[arch]["phase_s"] = time.perf_counter() - t0
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -2534,10 +2932,11 @@ def main() -> int:
     # ------------------------------------------------------------- 2 build
     phase("2 build")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(LIBRARIES) + 1) as pool:  # one nvcc a source
+    with ThreadPoolExecutor(len(LIBRARIES) + 2) as pool:  # one nvcc a source
         generic = pool.submit(build_ssd_generic)
+        mutants = pool.submit(build_flash_mutants)
         libs = dict(zip(LIBRARIES, pool.map(_build.load, LIBRARIES)))
-        ssd_generic = generic.result()
+        ssd_generic, flash_mutants = generic.result(), mutants.result()
     print(f"  {len(libs)} libraries in {time.perf_counter() - t0:.2f}s")
     for name, lib in libs.items():
         print(f"  {name}: {lib.path.name} built in {lib.seconds:.2f}s")
@@ -2602,10 +3001,11 @@ def main() -> int:
     att_timings = {b: time_attention(att_inputs, b) for b in (*BUCKETS, BIG)}
     att_bench = time_attention_bench()
     print()
-    family_cases = family_kernel_cases()
+    family_cases = family_kernel_cases(floor_ms)
     for name, cases in family_cases.items():
         max_errs[name] = max(max_errs[name], *(t["max_abs_err"]
                                                for t in cases.values()))
+    limit_mutants = flash_limit_mutants(flash_mutants)
 
     # ------------------------------------------------------------- 4 query
     phase(f"4 lost-dog query, SyntheticVideo({QUERY_FRAMES}, seed={QUERY_SEED})")
@@ -2763,8 +3163,13 @@ def main() -> int:
           + ", ".join(f[0] for f in FAMILIES))
     families = run_families()
 
-    # ------------------------------------------------------------- 11 lines
-    phase("11 summary")
+    # ------------------------------------------------------------- 11 moe
+    phase("11 the moe family at full width, cut in depth: "
+          + ", ".join(f"{m[0]} ({m[1]} layers)" for m in MOE))
+    moe_runs = run_moe_family()
+
+    # ------------------------------------------------------------- 12 lines
+    phase("12 summary")
     main_sizes_text = {**triage["sizes"],
                        "rglru": registry["runs"]["rglru"]["sizes"]}
     text_main = {name: max(c, key=lambda b: (c[b], -b))
@@ -2799,7 +3204,9 @@ def main() -> int:
         "service": service,
         "llm": llm,
         "family_kernel_cases": family_cases,
+        "flash_limit_mutants": limit_mutants,
         "families": families,
+        "moe": moe_runs,
         "total_s": time.perf_counter() - t_start,
     }
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
@@ -2824,13 +3231,13 @@ def main() -> int:
                 if k in ("bound_ms", "bound_by") or "bound" not in k}
 
     def family_launches(name: str) -> int:
-        """``name``'s launches in phase 10: each family's checked forward
-        and decode steps, counted from 0 (the comparison and timing runs
-        not counted)."""
+        """``name``'s launches in phases 10 and 11: each family's (bf16)
+        checked forward and decode steps, counted from 0 (the comparison,
+        prefill, float32 and timing runs not counted)."""
         return sum(f["forward"]["launches"].get(name, 0)
                    + f["decode"]["steps"] * f["decode"][
                        "launches_a_step"].get(name, 0)
-                   for f in families.values())
+                   for f in (*families.values(), *moe_runs.values()))
 
     text_path = {"moe_router": "triage", "ssd": "triage",
                  "rglru": "registry"}

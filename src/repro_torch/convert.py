@@ -4,10 +4,9 @@ The port cannot import the JAX package, so state crosses as numpy arrays
 and files: a caller hands in ``np.asarray`` of a JAX array, or the path of
 a file the JAX package flushed. This module carries the HSV range table,
 the text predicates' embedding tables, the ``ReuseCache`` snapshot and
-the models' parameters (``model_params``: the dense, vlm, ssm, hybrid and
-encdec families). Like every entry point of the port, the converters put
-their tensors on the card unless the caller asks for the CPU, and raise
-at once without a card.
+the models' parameters (``model_params``: every family). Like every
+entry point of the port, the converters put their tensors on the card
+unless the caller asks for the CPU, and raise at once without a card.
 """
 from __future__ import annotations
 
@@ -76,9 +75,9 @@ def reuse_cache(path: str) -> ReuseCache:
 
 def model_params(params, cfg, device="cuda"):
     """The JAX package's parameter pytree of ``cfg``'s family -> the port's
-    parameter module (the family's ``Model``: ``Transformer``, ``SSM``,
-    ``Hybrid`` or ``EncDec``) holding the same values in ``cfg.dtype`` on
-    ``device``.
+    parameter module (the family's ``Model``: ``Transformer``, ``MoE``,
+    ``SSM``, ``Hybrid`` or ``EncDec``) holding the same values in
+    ``cfg.dtype`` on ``device``.
 
     ``params`` is the nested dict of the family's ``init_params``, each
     leaf a numpy array (``jax.tree.map(np.asarray, params)`` on the
@@ -86,11 +85,11 @@ def model_params(params, cfg, device="cuda"):
     (the hybrid family's ``groups`` and ``rest`` stacks, the
     encoder-decoder's ``enc_layers`` and ``dec_layers``). Raises
     ValueError on a missing or extra leaf and on a shape that differs, and
-    NotImplementedError for a family the port does not have yet."""
+    KeyError for an unknown family."""
     from repro_torch.models.params import param_leaves, set_param
     from repro_torch.models.registry import family_module
 
-    api = family_module(cfg.family)  # raises for a family with no port
+    api = family_module(cfg.family)
     dev = require_device(device)
     want = dict(param_leaves(api.param_shapes(cfg)))
     got = dict(param_leaves(params))
@@ -116,7 +115,7 @@ def transformer_params(params, cfg, device="cuda"):
     """``model_params`` for the dense (and vlm) decoder: the JAX package's
     parameter pytree -> the port's ``Transformer``. Raises ValueError for
     a config of another ported family."""
-    if cfg.family in ("ssm", "hybrid", "encdec"):
+    if cfg.family in ("moe", "ssm", "hybrid", "encdec"):
         raise ValueError(f"transformer_params takes a dense or vlm config, "
                          f"not the {cfg.family} family's: use model_params")
     return model_params(params, cfg, device)

@@ -23,9 +23,21 @@
 // rows) are the time.
 //
 // Design.
-//   * moe_router_tk: one thread per row, E small (at most kMaxExperts): the
-//     row's probabilities live in a thread-local array, the k rounds are
-//     plain loops, and nothing is shared between threads.
+//   * moe_router_tk, E <= kMaxExperts (64): one thread per row. The row's
+//     probabilities live in a thread-local array, the k rounds are plain
+//     loops, and nothing is shared between threads.
+//   * moe_router_tk, kMaxExperts < E <= kMaxExpertsWarp (128; arctic's
+//     128 experts): one warp per row, four rows to a CTA, since a
+//     thread-local array of 128 floats would spill. Lane l holds experts
+//     l, l + 32, l + 64 and l + 96 (absent ones at -inf). The maximum and
+//     the sum are xor-butterfly shuffles, so every lane holds the same
+//     bits; the division is IEEE. Each of the k rounds takes a lane's
+//     best (value, index) in index order with a strict '>', then a
+//     butterfly that keeps the larger value and, on equal values, the
+//     lower index: the lowest index wins a tie, as in the one-thread body.
+//     The winner's lane writes -1e30 over it. The sum runs in another
+//     order than the one-thread body's, so the weights may differ from it
+//     (and from the plain version) by an ulp; the indices do not.
 //   * moe_router_tokens: one warp per row, four rows to a CTA (fewer when a
 //     row's tiles outgrow shared memory), so B = 4096 rows make 1,024 CTAs.
 //     The lanes load the row's ids and count the live ones (an integer
@@ -75,7 +87,9 @@ namespace {
 
 constexpr int kThreads = 128;
 constexpr int kWarps = 4;  // rows a CTA of the token entry, at most
-constexpr int kMaxExperts = 64;
+constexpr int kMaxExperts = 64;       // one thread a row
+constexpr int kMaxExpertsWarp = 128;  // one warp a row
+constexpr int kPerLane = kMaxExpertsWarp / 32;
 constexpr int kSmemLimit = 227 * 1024;
 constexpr float kMasked = -1e30f;
 constexpr unsigned kFull = 0xffffffffu;
@@ -121,6 +135,76 @@ moe_router_kernel(const float* __restrict__ logits, float* __restrict__ w,
   if (row >= t) return;
   route(logits + (size_t)row * e, e, k, w + (size_t)row * k,
         idx + (size_t)row * k);
+}
+
+// (value, index) of the larger value across the warp, the lower index on
+// equal values; every lane ends with the same pair
+__device__ __forceinline__ void warp_argmax(float& v, int& i) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const float ov = __shfl_xor_sync(kFull, v, off);
+    const int oi = __shfl_xor_sync(kFull, i, off);
+    if (ov > v || (ov == v && oi < i)) {
+      v = ov;
+      i = oi;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+moe_router_warp_kernel(const float* __restrict__ logits, float* __restrict__ w,
+                       int32_t* __restrict__ idx, int t, int e, int k) {
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
+  if (row >= t) return;  // the whole warp
+  const float* x = logits + (size_t)row * e;
+  float p[kPerLane];
+  float mx = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < kPerLane; ++j) {
+    const int c = lane + 32 * j;
+    p[j] = c < e ? x[c] : -INFINITY;
+    mx = fmaxf(mx, p[j]);
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, off));
+  float sum = 0.f;
+#pragma unroll
+  for (int j = 0; j < kPerLane; ++j) {
+    p[j] = lane + 32 * j < e ? expf(p[j] - mx) : 0.f;
+    sum += p[j];
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(kFull, sum, off);
+#pragma unroll
+  for (int j = 0; j < kPerLane; ++j)
+    p[j] = lane + 32 * j < e ? p[j] / sum : -INFINITY;
+
+  float* wr = w + (size_t)row * k;
+  int32_t* ir = idx + (size_t)row * k;
+  float wsum = 0.f;
+  for (int r = 0; r < k; ++r) {
+    float bv = p[0];
+    int bi = lane;
+#pragma unroll
+    for (int j = 1; j < kPerLane; ++j) {
+      if (p[j] > bv) {  // strict: the lane's lowest index keeps a tie
+        bv = p[j];
+        bi = lane + 32 * j;
+      }
+    }
+    warp_argmax(bv, bi);
+#pragma unroll
+    for (int j = 0; j < kPerLane; ++j)
+      if (lane + 32 * j == bi) p[j] = kMasked;
+    if (lane == 0) {
+      wr[r] = bv;
+      ir[r] = bi;
+    }
+    wsum += bv;
+  }
+  if (lane == 0)
+    for (int r = 0; r < k; ++r) wr[r] = wr[r] / wsum;
 }
 
 __host__ __device__ __forceinline__ int round4(int v) { return (v + 3) & ~3; }
@@ -202,14 +286,23 @@ moe_router_tokens_kernel(const RouterTokensArgs a, int rows_per_cta, bool vec) {
 }  // namespace
 
 // logits: (T, E) float32, w: (T, k) float32, idx: (T, k) int32, all
-// contiguous on the card; 1 <= k <= E <= 64. Returns cudaGetLastError()
-// after the launch; the caller raises if it is not cudaSuccess.
+// contiguous on the card; 1 <= k <= E <= 128 (a thread a row up to 64, a
+// warp a row above). Returns cudaGetLastError() after the launch; the
+// caller raises if it is not cudaSuccess.
 extern "C" int moe_router_tk(const RouterArgs* a, void* stream) {
-  if (a->t <= 0 || a->e <= 0 || a->e > kMaxExperts || a->k <= 0 || a->k > a->e)
+  if (a->t <= 0 || a->e <= 0 || a->e > kMaxExpertsWarp || a->k <= 0 || a->k > a->e)
     return (int)cudaErrorInvalidValue;
-  const int blocks = (a->t + kThreads - 1) / kThreads;
-  moe_router_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      a->logits, a->w, a->idx, a->t, a->e, a->k);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (a->e <= kMaxExperts) {
+    const int blocks = (a->t + kThreads - 1) / kThreads;
+    moe_router_kernel<<<blocks, kThreads, 0, s>>>(a->logits, a->w, a->idx, a->t,
+                                                  a->e, a->k);
+  } else {
+    const int rows = kThreads / 32;
+    const int blocks = (a->t + rows - 1) / rows;
+    moe_router_warp_kernel<<<blocks, kThreads, 0, s>>>(a->logits, a->w, a->idx,
+                                                       a->t, a->e, a->k);
+  }
   return (int)cudaGetLastError();
 }
 

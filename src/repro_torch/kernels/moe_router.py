@@ -2,11 +2,12 @@
 
 Port of ``repro.kernels.moe_router``. For a CUDA tensor ``moe_router_tk``
 launches the hand-written kernel in ``csrc/moe_router.cu`` (one thread per
-row, see the source's note) or raises, and ``moe_router_tokens`` launches
-its token-fed entry (a warp per row that forms the row's logits from its
-token ids first); for a CPU tensor each runs its plain version in
-``ref.py``. ``launches`` counts kernel launches of both entries, so a run
-can show that it went through the kernel.
+row up to 64 experts, one warp per row up to 128, see the source's note)
+or raises, and ``moe_router_tokens`` launches its token-fed entry (a warp
+per row that forms the row's logits from its token ids first); for a CPU
+tensor each runs its plain version in ``ref.py``. ``launches`` counts
+kernel launches of both entries, so a run can show that it went through
+the kernel.
 """
 from __future__ import annotations
 
@@ -17,7 +18,11 @@ import torch
 
 from repro_torch.kernels import _build, ref
 
-MAX_EXPERTS = 64  # the kernel keeps a row's probabilities in registers
+# the kernels keep a row's probabilities in registers: moe_router_tk in a
+# thread (E <= 64) or spread over a warp (E <= 128); the token entry in a
+# thread after its warp has formed the logits
+MAX_EXPERTS = 128
+MAX_TOKEN_EXPERTS = 64
 
 launches = 0
 _COUNT_LOCK = threading.Lock()
@@ -57,7 +62,8 @@ def moe_router_tk(
 ):
     """(weights (T, k) in the logits' dtype, idx (T, k) int32): softmax
     over E, k rounds of argmax (lowest index on ties) and mask, then the k
-    weights renormalised. Each row has its own thread, so T is free."""
+    weights renormalised. Each row has its own thread (its own warp above
+    64 experts), so T is free; E is at most MAX_EXPERTS on the card."""
     if logits.dim() != 2:
         raise ValueError(f"logits must be (T, E), got {tuple(logits.shape)}")
     t, e = logits.shape
@@ -118,8 +124,8 @@ def moe_router_tokens(
         if toks.device.type != "cpu":
             raise _not_cuda(toks, "moe_router_tokens")
         return ref.moe_router_tokens(toks, emb, w_gate, k, logits_out)
-    if e > MAX_EXPERTS:
-        raise ValueError(f"at most {MAX_EXPERTS} experts, got {e}")
+    if e > MAX_TOKEN_EXPERTS:
+        raise ValueError(f"at most {MAX_TOKEN_EXPERTS} experts, got {e}")
     dev = toks.get_device()
     ids = toks if toks.dtype == torch.int32 and toks.is_contiguous() else \
         toks.to(torch.int32).contiguous()

@@ -92,4 +92,4 @@ def trunc_normal(generator: torch.Generator, shape, std: float, dtype,
     not its numbers)."""
     out = torch.empty(shape, dtype=torch.float32, device=device)
     torch.nn.init.trunc_normal_(out, 0.0, 1.0, -2.0, 2.0, generator=generator)
-    return (out * std).to(dtype)
+    return out.mul_(std).to(dtype)

@@ -5,10 +5,11 @@ layers' leaves are stacked over the layers (each family's
 ``param_shapes``). The port keeps the same tree in a ``Params`` module:
 each top-level leaf is a parameter, and each top-level dict of stacked
 leaves becomes an ``nn.ModuleList`` with one entry a layer, holding that
-layer's slice of every leaf: an ``nn.ParameterDict``, or an
-``nn.ModuleDict`` of them where the stack nests (the hybrid family's
-groups of (rg1, rg2, attn) layers). A loop over the list takes the place
-of ``lax.scan``, and ``convert.model_params`` is a copy.
+layer's slice of every leaf: a ``LayerParams`` (an
+``nn.ParameterDict``), or an ``nn.ModuleDict`` of them where the stack
+nests (the hybrid family's groups of (rg1, rg2, attn) layers). A loop
+over the list takes the place of ``lax.scan``, and
+``convert.model_params`` is a copy.
 """
 from __future__ import annotations
 
@@ -53,11 +54,23 @@ def _depth(tree: Dict) -> int:
     return next(iter(param_leaves(tree)))[1].shape[0]
 
 
+class LayerParams(nn.ParameterDict):
+    """One layer's parameters. A name the layer lacks raises KeyError, as
+    the reference's dict of leaves does (``nn.ParameterDict`` raises
+    AttributeError): a grok-1 layer asked for the dense MLP's ``w_gate``
+    fails as the reference's does."""
+
+    def __getitem__(self, key: str):
+        if key not in self:
+            raise KeyError(key)
+        return super().__getitem__(key)
+
+
 def _layer(tree: Dict, device) -> nn.Module:
     """One layer's slice of a stacked subtree."""
     if any(isinstance(v, dict) for v in tree.values()):
         return nn.ModuleDict({k: _layer(v, device) for k, v in tree.items()})
-    return nn.ParameterDict({k: _param(v[0], device) for k, v in tree.items()})
+    return LayerParams({k: _param(v[0], device) for k, v in tree.items()})
 
 
 class Params(nn.Module):

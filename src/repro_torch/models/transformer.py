@@ -135,7 +135,7 @@ def embed_input(cfg, params: Transformer, batch):
     return h, position_ids(b, s, h.device)
 
 
-def _head(cfg, params: Transformer) -> torch.Tensor:
+def head(cfg, params: Transformer) -> torch.Tensor:
     return params.embed.T if cfg.tie_embeddings else params.out_head
 
 
@@ -143,7 +143,7 @@ def forward(cfg, params: Transformer, batch, block_fn=dense_block):
     h, positions = embed_input(cfg, params, batch)
     h = stack_forward(cfg, params, h, positions, block_fn)
     h = rms_norm(h, params.final_norm, cfg.norm_eps)
-    return lm_logits(h, _head(cfg, params), cfg.vocab_size)
+    return lm_logits(h, head(cfg, params), cfg.vocab_size)
 
 
 # --------------------------------------------------------------------------- #
@@ -175,12 +175,13 @@ def cache_shapes(cfg, batch: int, seq_len: int) -> Dict[str, torch.Tensor]:
     }
 
 
-def prefill(cfg, params: Transformer, batch, pad_cache_to: int | None = None):
+def prefill(cfg, params: Transformer, batch, pad_cache_to: int | None = None,
+            mlp_fn=None):
     """Run the full prompt; returns (cache, last-position logits).
 
     ``pad_cache_to`` reserves decode headroom: the returned cache's seq dim
     is padded to that length (ring-buffer SWA caches are fixed-size and
-    ignore it)."""
+    ignore it). ``mlp_fn`` as in ``decode_step``."""
     h, positions = embed_input(cfg, params, batch)
     w = cfg.sliding_window
     cdt = cache_dtype_of(cfg)
@@ -191,7 +192,10 @@ def prefill(cfg, params: Transformer, batch, pad_cache_to: int | None = None):
                                              window=w)
         h = h + a_out
         m_in = rms_norm(h, lp["mlp_norm"], cfg.norm_eps)
-        h = h + swiglu_mlp(m_in, lp["w_gate"], lp["w_up"], lp["w_down"])
+        if mlp_fn is None:
+            h = h + swiglu_mlp(m_in, lp["w_gate"], lp["w_up"], lp["w_down"])
+        else:
+            h = h + mlp_fn(cfg, lp, m_in)
         if w:
             # ring-buffer layout: slot = position % window
             s = k.shape[1]
@@ -202,7 +206,7 @@ def prefill(cfg, params: Transformer, batch, pad_cache_to: int | None = None):
         ks.append(k.to(cdt))
         vs.append(v.to(cdt))
     h = rms_norm(h, params.final_norm, cfg.norm_eps)
-    logits = lm_logits(h[:, -1:], _head(cfg, params), cfg.vocab_size)[:, 0]
+    logits = lm_logits(h[:, -1:], head(cfg, params), cfg.vocab_size)[:, 0]
     b, s = h.shape[0], h.shape[1]
     ks, vs = torch.stack(ks), torch.stack(vs)
     if pad_cache_to is not None and not w and pad_cache_to > ks.shape[2]:
@@ -217,12 +221,13 @@ def prefill(cfg, params: Transformer, batch, pad_cache_to: int | None = None):
     return cache, logits
 
 
-def decode_step(cfg, params: Transformer, cache, batch):
+def decode_step(cfg, params: Transformer, cache, batch, mlp_fn=None):
     """One token for every sequence. batch: {"token": (B,) int32}.
 
     Writes the new token's K/V into ``cache["k"]`` and ``cache["v"]`` in
-    place and returns them with the lengths advanced by one. (The
-    reference's ``mlp_fn`` hook serves the moe family and comes with it.)"""
+    place and returns them with the lengths advanced by one. ``mlp_fn(cfg,
+    lp, m_in)``, if given, takes the SwiGLU MLP's place (the moe
+    family's FFN)."""
     token = batch["token"]
     h = embed_tokens(token[:, None], params.embed)  # (B, 1, D)
     lengths = cache["lengths"]
@@ -233,8 +238,11 @@ def decode_step(cfg, params: Transformer, cache, batch):
                                                   lengths, window=w)
         h = h + a_out
         m_in = rms_norm(h, lp["mlp_norm"], cfg.norm_eps)
-        h = h + swiglu_mlp(m_in, lp["w_gate"], lp["w_up"], lp["w_down"])
+        if mlp_fn is None:
+            h = h + swiglu_mlp(m_in, lp["w_gate"], lp["w_up"], lp["w_down"])
+        else:
+            h = h + mlp_fn(cfg, lp, m_in)
     h = rms_norm(h, params.final_norm, cfg.norm_eps)
-    logits = lm_logits(h, _head(cfg, params), cfg.vocab_size)[:, 0]
+    logits = lm_logits(h, head(cfg, params), cfg.vocab_size)[:, 0]
     new_cache = {"k": cache["k"], "v": cache["v"], "lengths": lengths + 1}
     return new_cache, logits

@@ -14,10 +14,10 @@ its XLA path and on the Pallas flash kernel in interpret mode:
   (a sliding window, so a ring-buffer cache) with prompts longer and
   shorter than the window; the vlm forward with patches;
 * ``param_count`` and the parameter shapes at full size for every config
-  of a ported family (analytic; the ssm, hybrid and encdec families'
-  forwards are held in tests/test_torch_families.py); the configs
-  themselves; the registry's refusal of the moe family and
-  ``transformer_params``' refusals.
+  (analytic; the ssm, hybrid and encdec families' forwards are held in
+  tests/test_torch_families.py, the moe family's in
+  tests/test_torch_moe.py); the configs themselves; the registry's
+  refusal of an unknown family and ``transformer_params``' refusals.
 
 Tests marked ``gpu`` run the forward through the hand-written flash kernel
 on the card and skip without one.
@@ -46,8 +46,7 @@ TOL_TIGHT = dict(rtol=1e-4, atol=1e-5)   # tests/test_kernels.py::TOL_TIGHT
 TOL_BF16 = dict(rtol=8e-2, atol=8e-2)    # tests/test_kernels.py, bfloat16
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 IMPLS = ("xla", "pallas")   # the JAX model's attention: XLA or Pallas (interpret)
-PORTED = sorted(a for a, c in configs.ARCHS.items() if c.family != "moe")
-UNPORTED = sorted(a for a, c in configs.ARCHS.items() if c.family == "moe")
+PORTED = sorted(configs.ARCHS)
 
 
 def smollm_full_2_layers(arch="smollm-135m"):
@@ -178,19 +177,14 @@ def test_param_count_matches_the_reference_at_full_size(jx, arch):
     assert shapes == want_shapes
 
 
-@pytest.mark.parametrize("arch", UNPORTED)
-def test_registry_raises_for_unported_families(arch):
-    cfg = configs.get_config(arch)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model_api(cfg)
-    with pytest.raises(NotImplementedError, match=cfg.family):
-        cfg.param_count()
-    with pytest.raises(NotImplementedError):
-        convert.transformer_params({}, cfg.reduce_for_smoke(), device="cpu")
-    with pytest.raises(NotImplementedError):
-        convert.model_params({}, cfg.reduce_for_smoke(), device="cpu")
-    with pytest.raises(KeyError):
+def test_registry_raises_for_an_unknown_family():
+    with pytest.raises(KeyError, match="rnn"):
         family_module("rnn")
+    cfg = dataclasses.replace(reduced("smollm-135m"), family="rnn")
+    with pytest.raises(KeyError):
+        model_api(cfg)
+    with pytest.raises(KeyError):
+        convert.model_params({}, cfg, device="cpu")
 
 
 def test_transformer_params_refuses_missing_extra_and_misshapen_leaves(
