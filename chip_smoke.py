@@ -1,8 +1,8 @@
 """Chip smoke test of the PyTorch port: build, check and time its kernels
 on one CUDA card, then drive the UC1 lost-dog query, the review-triage
 text query, the kernel predicates, the multi-tenant query service, the
-LLM predicate and the ssm, hybrid, encdec and moe model families through
-them.
+LLM predicate, the ssm, hybrid, encdec and moe model families and the
+dense decoder's training (with UC4's fine-tuned probe) through them.
 
     python3 chip_smoke.py
 
@@ -11,9 +11,9 @@ failed phase. Phases, in order:
 
 1. setup   — card name and power limit, torch/CUDA/nvcc versions;
 2. build   — compile every kernel from the sources in the checkout (and
-             an empty kernel, the launch floor, and two broken copies of
-             the flash source, FLASH_MUTANTS), one nvcc per source, all
-             at once;
+             an empty kernel, the launch floor, two broken copies of the
+             flash source, FLASH_MUTANTS, and two of the flash gradient's,
+             FLASH_BWD_MUTANTS), one nvcc per source, all at once;
 3. kernels — each kernel against its plain PyTorch version on the card
              (rglru and the router's logits bit for bit, through both entry
              points of each), then timed with CUDA events through its
@@ -28,7 +28,16 @@ failed phase. Phases, in order:
              grok-1's in float32, the router at (T, E, k) = (1024, 8, 2)
              and (1024, 128, 2) with tied rows, indices exact); bf16
              flash is held to flash_bf16_limit, a limit of a few bf16
-             ulps, which must refuse both flash mutants;
+             ulps, which must refuse both flash mutants; then the flash
+             gradient kernel through the autograd function against
+             ref.flash_attention_bwd (FLASH_BWD_CASES, bf16 and float32:
+             SmolLM-135M's training attention, a 4096-long windowed one,
+             GQA groups 1 and 4, non-causal Sq != Sk, ragged S; the same
+             bits on a rerun), bf16 held to ref.flash_bwd_bf16_limits,
+             which must refuse both gradient mutants, float32 to
+             BWD_F32_RTOL and BWD_F32_ATOL; the gradient timed through
+             its wrapper and entry point beside its bound and SDPA's
+             backward, and the forward with and without its LSE;
 4. query   — the lost-dog query (5 minutes of 30-fps video) on the card
              under every eddy policy; row ids against the plain version
              on the CPU, launches on the kernel counter and the board;
@@ -83,7 +92,19 @@ failed phase. Phases, in order:
              The logits are held to TOL_BF16 in float32, on the same
              draws cut to 2 and 1 layers: in bf16 a flipped expert choice
              moves a token's logits past it;
-12. the ``{"kernels": [...]}`` line, then the device line last.
+12. train  — launch.train.train_loop on smollm-135m at full width and
+             depth (30 layers, bf16, remat=True, random weights from a
+             seed), 40 steps of batch 8 x 512 with AdamW as build makes
+             it: the loss falls, each step launches the flash forward 30
+             times, its recompute 30 and its gradient 30 (exact); a
+             float32 gate (the same draws cut to 2 layers: gradients and a
+             step through the kernels against the plain versions); a crash
+             at step 25 with checkpoints every 10, resumed to the same
+             final loss; a step's time, tokens/s, peak memory and
+             torch.profiler split; then UC4 (examples.review_analytics) at
+             its defaults, its rows against its whole-table oracle under
+             every eddy policy;
+13. the ``{"kernels": [...]}`` line, then the device line last.
 """
 from __future__ import annotations
 
@@ -122,7 +143,7 @@ ATT_SEQ = 32          # the attention predicates' token window
 BUCKETS = (1, 2, 4, 8, 16, 32)  # the executor's bucketed batch sizes
 BIG = 4096            # rows for the throughput case
 KERNELS = ("hsv_color", "moe_router", "ssd", "rglru", "flash_attention",
-           "decode_attention")
+           "flash_attention_bwd", "decode_attention")
 LIBRARIES = (*KERNELS, "empty")   # empty: the launch floor, not a TPU kernel
 # bench_kernels' shapes: flash (B, S, H, Hkv, D, window), causal; decode
 # (B, S, H, Hkv, D) with full lengths
@@ -2897,6 +2918,590 @@ def run_moe_family() -> dict:
     return out
 
 
+# --------------------------------------------------------------------------- #
+# phase 3: the flash gradient kernel against its plain version                #
+# --------------------------------------------------------------------------- #
+# ref.flash_bwd_bf16_limits' own check: copies of csrc/flash_attention_bwd.cu,
+# each broken in one line (what it breaks, the line, its replacement),
+# which the limit must refuse at SmolLM-135M's bf16 training attention
+FLASH_BWD_MUTANTS = (
+    ("drops the second key tile from dK and dV",
+     "      pv_tile<DP, BQ>(dv, st, s_do, g, t, one);\n"
+     "      pv_tile<DP, BQ>(dk, dpt, s_q, g, t, one);\n",
+     "      if (k_start != kBlock) {\n"
+     "        pv_tile<DP, BQ>(dv, st, s_do, g, t, one);\n"
+     "        pv_tile<DP, BQ>(dk, dpt, s_q, g, t, one);\n"
+     "      }\n"),
+    ("leaves D out of the first key tile's dS for dQ",
+     "        s[j][e] = pr * (dp[j][e] - dl[r]);  // dS\n",
+     "        s[j][e] = pr * (dp[j][e] - (kt == 0 ? 0.f : dl[r]));  // dS\n"),
+)
+BWD_F32_RTOL = 1e-4   # float32 (3xTF32) gradient: |err| <= rtol |want| + ...
+BWD_F32_ATOL = 1e-5   # ... atol max|want| of the tensor
+# (B, Sq, Sk, H, Hkv, D, causal, window): SmolLM-135M's training attention
+# first (the main path's shape), then a long windowed sequence, GQA groups
+# 1 and 4, non-causal Sq != Sk and a ragged S
+FLASH_BWD_CASES = (
+    ("smollm-135m train", (8, 512, 512, 9, 3, 64, True, 0)),
+    ("long windowed", (1, 4096, 4096, 4, 1, 64, True, 512)),
+    ("group 1", (2, 512, 512, 4, 4, 64, True, 0)),
+    ("group 4", (2, 512, 512, 8, 2, 64, True, 0)),
+    ("non-causal Sq != Sk", (2, 384, 512, 8, 2, 64, False, 0)),
+    ("ragged S", (2, 300, 300, 9, 3, 64, True, 0)),
+)
+
+
+def build_bwd_mutants() -> list:
+    """The entry points of FLASH_BWD_MUTANTS, built side by side in a
+    temporary directory (removed once they are loaded)."""
+    with tempfile.TemporaryDirectory() as tmp, \
+            ThreadPoolExecutor(len(FLASH_BWD_MUTANTS)) as pool:
+        return list(pool.map(
+            lambda i: build_variant(
+                "flash_attention_bwd", *FLASH_BWD_MUTANTS[i][1:],
+                os.path.join(tmp, f"flash_bwd_mutant{i}.cu"),
+                "flash_attention_bwd"), range(len(FLASH_BWD_MUTANTS))))
+
+
+def share_of(got, want, limit: torch.Tensor) -> float:
+    """The largest share of its limit that an element's error takes (0
+    where both are 0)."""
+    diff = (got.float() - want.float()).abs()
+    return float(torch.where(diff == 0, torch.zeros_like(diff),
+                             diff / limit).max())
+
+
+class BwdCase:
+    """One flash gradient case on the card, inputs from a numpy seed in
+    the model's (B, S, H, D) layout: the forward through the kernel (with
+    its LSE), a cotangent dO, and the plain version's (dQ, dK, dV) in the
+    kernels' (BH, S, D) layout with its per-element bf16 limits."""
+
+    def __init__(self, shape: tuple, dtype, seed: int = 31):
+        from repro_torch.kernels import flash_attention, ref
+        b, sq, sk, h, hkv, d, causal, window = shape
+        rng = np.random.default_rng(seed)
+
+        def T(*dims):
+            return torch.from_numpy(rng.standard_normal(dims).astype(
+                np.float32)).cuda().to(dtype)
+
+        self.shape, self.dtype = shape, dtype
+        self.q, self.k, self.v = T(b, sq, h, d), T(b, sk, hkv, d), T(b, sk, hkv, d)
+        self.dout = T(b, sq, h, d)
+        self.kw = {"causal": causal, "window": window}
+        self.group = h // hkv
+        self.out, self.lse = flash_attention._forward(
+            self.q, self.k, self.v, "bshd", self.group, causal, window,
+            d ** -0.5, with_lse=True)
+        self.args = [bhsd(t) for t in (self.q, self.k, self.v, self.out,
+                                       self.dout)]
+        self.want = ref.flash_attention_bwd(*self.args, group=self.group,
+                                            **self.kw)
+        self.limits = (ref.flash_bwd_bf16_limits(
+            *self.args, self.want, group=self.group, **self.kw)
+            if dtype == torch.bfloat16 else None)
+
+    def grads(self):
+        """(dQ, dK, dV) through the autograd function (one backward
+        launch), in the (BH, S, D) layout."""
+        from repro_torch.kernels import flash_attention
+        leaves = [t.clone().requires_grad_() for t in (self.q, self.k, self.v)]
+        out = flash_attention.flash_attention_bshd(*leaves, **self.kw)
+        return [bhsd(g) for g in torch.autograd.grad(out, leaves, self.dout)]
+
+    def entry_args(self, outs) -> bytes:
+        """The gradient entry point's packed arguments, writing ``outs``
+        ((B, S, H, D) dQ, dK, dV) and a scratch D."""
+        from repro_torch.kernels import flash_attention
+        b, sq, sk, h, hkv, d, causal, window = self.shape
+        self.delta = torch.empty_like(self.lse)
+        ts = (self.q, self.k, self.v, self.out, self.dout, *outs)
+        return flash_attention.pack_bwd_args(
+            self.q, self.k, self.v, self.out, self.dout, self.lse,
+            self.delta, *outs,
+            [flash_attention.bshd_layout(t) for t in ts], b, h, self.group,
+            sq, sk, causal, window, d ** -0.5)
+
+    def check(self, got) -> dict:
+        """Each of (dQ, dK, dV) against the plain version: float32 within
+        BWD_F32_RTOL |want| + BWD_F32_ATOL max|want|, bf16 within its
+        limits; no NaN. Returns the largest error and share."""
+        err, share, ok = 0.0, 0.0, True
+        for g, w, i in zip(got, self.want, range(3)):
+            diff = (g.float() - w.float()).abs()
+            err = max(err, float(diff.max()))
+            ok = ok and not bool(torch.isnan(g).any())
+            if self.limits is None:
+                lim = BWD_F32_RTOL * w.abs() + BWD_F32_ATOL * w.abs().max()
+            else:
+                lim = self.limits[i]
+            share = max(share, share_of(g, w, lim))
+        ok = ok and share <= 1.0
+        return {"max_abs_err": err, "largest_share_of_limit": share,
+                "within": ok}
+
+
+def time_flash_bwd(case: BwdCase, label: str) -> dict:
+    """Times of the gradient kernel at ``case``'s shapes: through its
+    wrapper (``_launch_bwd``: allocation, checks, one entry call of three
+    launches), at its C entry point on preallocated outputs, and of
+    scaled_dot_product_attention's backward on the same work (the library
+    time: autograd.grad of one SDPA forward, taken in turns by
+    ``paired_ms``), and of the plain version, beside the bound: each input
+    (q, k, v, o, dO, LSE) read once and dQ, dK, dV written once; 10 flops
+    per visible (query, key) pair and dim (five products: s, dP, dV, dQ,
+    dK)."""
+    from repro_torch.kernels import _build, flash_attention, ref
+    b, sq, sk, h, hkv, d, causal, window = case.shape
+    lay = lambda t, kv: flash_attention.bshd_layout(t)  # noqa: E731
+    wrapper = lambda: flash_attention._launch_bwd(  # noqa: E731
+        case.q, case.k, case.v, case.out, case.dout, case.lse, lay, b, h,
+        case.group, sq, sk, causal, window, d ** -0.5)
+    outs = [torch.empty_like(t) for t in (case.q, case.k, case.v)]
+    args = case.entry_args(outs)
+    stream = torch.cuda.current_stream().cuda_stream
+    call = _build.load("flash_attention_bwd").lib.flash_attention_bwd
+    if call(args, stream) != 0:
+        raise AssertionError("flash_attention_bwd entry point failed")
+    leaves = [t.transpose(1, 2).detach().requires_grad_()
+              for t in (case.q, case.k, case.v)]
+    if window > 0:
+        i = torch.arange(sq, device="cuda")
+        mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
+        sdpa = F.scaled_dot_product_attention(*leaves, attn_mask=mask,
+                                              enable_gqa=True)
+    else:
+        sdpa = F.scaled_dot_product_attention(*leaves, is_causal=causal,
+                                              enable_gqa=True)
+    dout4 = case.dout.transpose(1, 2)
+    library = lambda: torch.autograd.grad(  # noqa: E731
+        sdpa, leaves, dout4, retain_graph=True)
+    before = flash_attention.backward_launches
+    t = {"dtype": str(case.dtype).replace("torch.", ""),
+         **paired_ms({"ms": wrapper,
+                      "entry_ms": lambda: call(args, stream),
+                      "library_ms": library}, iters=20)}
+    flash_attention.backward_launches = before   # timing calls do not count
+    t["plain_ms"] = time_ms(lambda: ref.flash_attention_bwd(
+        *case.args, group=case.group, **case.kw), 3, warmup=1)
+    elt = case.q.element_size()
+    nbytes = (4 * case.q.numel() + 4 * case.k.numel()) * elt \
+        + case.lse.numel() * 4
+    pairs = visible_pairs(sq, causal, window, sk) * b * h
+    t.update(attention_bound(nbytes, 10.0 * pairs * d, case.dtype))
+    print(f"  flash_attention_bwd {label}: kernel {t['ms']!r} ms (entry "
+          f"point {t['entry_ms']!r} ms), plain {t['plain_ms']!r} ms, "
+          f"scaled_dot_product_attention backward {t['library_ms']!r} ms, "
+          f"bound {t['bound_ms']!r} ms ({t['bound_by']}; float32 CUDA cores "
+          f"{t['bound_f32_cores_ms']!r} ms)", flush=True)
+    return t
+
+
+def time_flash_lse(case: BwdCase, label: str) -> dict:
+    """The forward kernel at ``case``'s shapes with and without its LSE
+    output, in turns (``paired_ms``)."""
+    from repro_torch.kernels import flash_attention
+    b, sq, sk, h, hkv, d, causal, window = case.shape
+    before = flash_attention.launches
+    t = paired_ms({
+        "no_lse_ms": lambda: flash_attention._forward(
+            case.q, case.k, case.v, "bshd", case.group, causal, window,
+            d ** -0.5, with_lse=False),
+        "lse_ms": lambda: flash_attention._forward(
+            case.q, case.k, case.v, "bshd", case.group, causal, window,
+            d ** -0.5, with_lse=True)}, iters=50)
+    flash_attention.launches = before   # timing calls do not count
+    print(f"  flash_attention forward {label}: {t['no_lse_ms']!r} ms "
+          f"without the LSE, {t['lse_ms']!r} ms with it", flush=True)
+    return t
+
+
+def flash_bwd_cases(mutants: list) -> dict:
+    """Phase 3 for the gradient kernel: FLASH_BWD_CASES in bf16 and
+    float32 through the autograd function against ref.flash_attention_bwd,
+    the kernel bit-equal on a second run (no atomics), both
+    FLASH_BWD_MUTANTS refused by the bf16 limit at the main path's shape,
+    and the kernel and the forward's LSE timed there and at the windowed
+    case. Returns {"cases", "mutants", "timings", "lse"}."""
+    from repro_torch.kernels import flash_attention
+    out = {"cases": {}, "mutants": {}, "timings": {}, "lse": {}}
+    bf16, f32 = torch.bfloat16, torch.float32
+    stream = torch.cuda.current_stream().cuda_stream
+    for name, shape in FLASH_BWD_CASES:
+        for dt in (bf16, f32):
+            b, sq, sk, h, hkv, d, causal, window = shape
+            label = (f"{name} B={b} Sq={sq} Sk={sk} H={h} Hkv={hkv} D={d} "
+                     f"causal={causal} window={window} "
+                     f"{'bf16' if dt == bf16 else 'f32'}")
+            case = BwdCase(shape, dt)
+            got = case.grads()
+            again = case.grads()
+            res = case.check(got)
+            res["bit_equal_rerun"] = all(torch.equal(a, c)
+                                         for a, c in zip(got, again))
+            print(f"  flash_attention_bwd {label}: max_abs_err "
+                  f"{res['max_abs_err']!r}, largest share of its limit "
+                  f"{res['largest_share_of_limit']!r}, bit-equal on a rerun "
+                  f"{res['bit_equal_rerun']}", flush=True)
+            if not (res["within"] and res["bit_equal_rerun"]):
+                raise AssertionError(f"the flash gradient kernel disagrees "
+                                     f"on {label}")
+            if name == "smollm-135m train" and dt == bf16:
+                for (what, _, _), call in zip(FLASH_BWD_MUTANTS, mutants):
+                    outs = [torch.empty_like(t) for t in (case.q, case.k,
+                                                          case.v)]
+                    if call(case.entry_args(outs), stream) != 0:
+                        raise AssertionError(f"the gradient mutant that "
+                                             f"{what} failed")
+                    torch.cuda.synchronize()
+                    m = case.check([bhsd(t) for t in outs])
+                    out["mutants"][what] = m
+                    print(f"  flash_bwd limit at {label}, the mutant that "
+                          f"{what}: max_abs_err {m['max_abs_err']!r}, "
+                          f"largest share of the limit "
+                          f"{m['largest_share_of_limit']!r}", flush=True)
+                    if m["within"]:
+                        raise AssertionError(f"the bf16 gradient limit "
+                                             f"accepts the mutant that {what}")
+            if name in ("smollm-135m train", "long windowed"):
+                out["timings"][label] = {**time_flash_bwd(case, label),
+                                         "max_abs_err": res["max_abs_err"]}
+                out["lse"][label] = time_flash_lse(case, label)
+            out["cases"][label] = res
+            del case
+    print(f"  backward launches so far {flash_attention.backward_launches}")
+    return out
+
+
+# --------------------------------------------------------------------------- #
+# phase 12: training                                                          #
+# --------------------------------------------------------------------------- #
+TRAIN_ARCH = "smollm-135m"   # unreduced: 30 layers, bf16, remat=True
+TRAIN_STEPS = 40
+TRAIN_BATCH, TRAIN_SEQ = 8, 512
+TRAIN_CKPT_EVERY, TRAIN_FAIL_AT = 10, 25
+TRAIN_SEED = 0
+GATE_LAYERS = 2              # the float32 gate's cut of the same draws
+GATE_GRAD_RTOL = 1e-3        # float32 gradients, kernels against plain:
+GATE_GRAD_ATOL = 1e-3        # ... and this times the leaf's largest
+
+
+class _Annotated:
+    """An optimizer whose update runs inside a profiler range named
+    "optimizer", so that a trace can tell its kernels apart."""
+
+    def __init__(self, inner):
+        self.inner = inner
+
+    def init(self, params):
+        return self.inner.init(params)
+
+    def global_norm(self, tree):
+        return self.inner.global_norm(tree)
+
+    def update(self, grads, state, params):
+        with torch.profiler.record_function("optimizer"):
+            return self.inner.update(grads, state, params)
+
+
+def _kernels_under(ev) -> float:
+    """Device milliseconds of the kernels a profiler CPU event and its
+    children launched."""
+    return (sum(k.duration for k in ev.kernels) / 1e3
+            + sum(_kernels_under(c) for c in ev.cpu_children))
+
+
+def train_trace(step, params, state, batch) -> dict:
+    """One train step under torch.profiler: device time by flash forward
+    (flash_kernel), flash backward (delta, dq and dkv kernels), GEMMs,
+    the optimizer (kernels launched inside ``_Annotated.update``) and the
+    other elementwise and copy kernels, with the busy share of the step's
+    wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(params, state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    split, count = collections.Counter(), collections.Counter()
+    for e in prof.events():
+        # the optimizer's range shows on the device too, as an annotation
+        if e.device_type != DeviceType.CUDA or e.name == "optimizer":
+            continue
+        name = e.name
+        if any(k in name for k in ("dq_kernel", "dkv_kernel", "delta_kernel")):
+            key = "flash_backward"
+        elif "flash_kernel" in name:
+            key = "flash_forward"
+        elif any(w in name.lower() for w in ("gemm", "gemv", "cutlass",
+                                             "xmma", "nvjet")):
+            key = "gemms"
+        else:
+            key = "elementwise_and_copies"
+        split[key] += e.time_range.elapsed_us() / 1e3
+        count[key] += 1
+    opt_ms = sum(_kernels_under(e) for e in prof.events()
+                 if e.name == "optimizer" and e.device_type == DeviceType.CPU)
+    split["elementwise_and_copies"] -= opt_ms
+    split["optimizer"] = opt_ms
+    device_ms = sum(split.values())
+    return {"wall_ms": wall_ms, "device_ms": device_ms,
+            "busy_share": device_ms / wall_ms, "split_ms": dict(split),
+            "split_launches": dict(count)}
+
+
+def train_gate(cfg) -> dict:
+    """The float32 gate: the unreduced config's draws (seed TRAIN_SEED) in
+    float32, cut to GATE_LAYERS layers, one batch of TokenSource's; the
+    loss's gradients and one make_train_step through the kernels against
+    the same through the plain versions (``plain_kernels``). Gradients
+    within GATE_GRAD_RTOL |plain| + GATE_GRAD_ATOL max|plain| of each leaf
+    (3xTF32 keeps ~1e-6 of each product); the stepped parameters within
+    twice the first step's learning rate (AdamW's first update is
+    -lr g / (|g| + eps): a gradient near 0 may take either sign)."""
+    import dataclasses
+    from repro_torch.data.pipeline import TokenSource, shard_batch
+    from repro_torch.launch.train import build
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.params import get_param, param_leaves, set_param, stacked
+    full = dataclasses.replace(cfg, dtype="float32")
+    cut = dataclasses.replace(full, num_layers=GATE_LAYERS)
+    draws = stacked(tf.init_params(full, torch.Generator("cuda").manual_seed(
+        TRAIN_SEED), device="cuda"), tf.param_shapes(full))
+    shapes = tf.param_shapes(cut)
+    batch = shard_batch(TokenSource(cfg.vocab_size, TRAIN_SEQ,
+                                    seed=TRAIN_SEED).next(TRAIN_BATCH),
+                        device="cuda")
+
+    def model():
+        m = tf.Transformer(cut, device="cuda")
+        with torch.no_grad():
+            for name, _ in param_leaves(shapes):
+                value = draws[name]
+                set_param(m, name, value[:GATE_LAYERS] if "." in name else value)
+        return m
+
+    def grads(m):
+        m.requires_grad_(True)
+        loss, _ = tf.loss_fn(cut, m, batch)
+        names = [n for n, _ in param_leaves(shapes)]
+        leaves = [get_param(m, n) for n in names]
+        flat = [t for v in leaves for t in (v if isinstance(v, list) else [v])]
+        gs = iter(torch.autograd.grad(loss, flat))
+        m.requires_grad_(False)
+        return float(loss.detach()), {n: (torch.stack([next(gs) for _ in v])
+                                 if isinstance(v, list) else next(gs))
+                             for n, v in zip(names, leaves)}
+
+    def stepped(m):
+        _, opt, step = build(cut)
+        state = opt.init(stacked(m, shapes))
+        step(m, state, batch)
+        return stacked(m, shapes), float(opt.schedule(torch.tensor(1)))
+
+    from repro_torch.kernels import flash_attention
+    zero = (flash_attention.launches, flash_attention.backward_launches)
+    k_loss, k_grads = grads(model())
+    k_params, lr1 = stepped(model())
+    gate_launches = (flash_attention.launches - zero[0],
+                     flash_attention.backward_launches - zero[1])
+    with plain_kernels():
+        p_loss, p_grads = grads(model())
+        p_params, _ = stepped(model())
+    # two passes (the gradients, then the step), each a forward and its
+    # recompute (remat) and a backward a layer
+    if gate_launches != (4 * GATE_LAYERS, 2 * GATE_LAYERS):
+        raise AssertionError(f"the float32 gate launched {gate_launches} "
+                             "(forward, backward), not the kernels")
+    worst, worst_p = 0.0, 0.0
+    for name in k_grads:
+        g, w = k_grads[name], p_grads[name]
+        lim = GATE_GRAD_RTOL * w.abs() + GATE_GRAD_ATOL * w.abs().max()
+        worst = max(worst, share_of(g, w, lim))
+        worst_p = max(worst_p, float((k_params[name] - p_params[name]).abs().max()))
+    res = {"layers": GATE_LAYERS, "loss": k_loss, "plain_loss": p_loss,
+           "largest_grad_share_of_limit": worst,
+           "params_max_abs_err": worst_p, "params_limit": 2 * lr1}
+    print(f"  float32 gate ({GATE_LAYERS} of {cfg.num_layers} layers): loss "
+          f"{k_loss!r} through the kernels, {p_loss!r} through the plain "
+          f"versions; gradients' largest share of their limit {worst!r}; "
+          f"stepped parameters' max_abs_err {worst_p!r} (limit 2 lr = "
+          f"{2 * lr1!r})", flush=True)
+    if not (worst <= 1.0 and worst_p <= 2 * lr1
+            and abs(k_loss - p_loss) <= 1e-4 * abs(p_loss)):
+        raise AssertionError("the float32 train step through the kernels "
+                             "disagrees with the plain versions")
+    return res
+
+
+def run_uc4() -> dict:
+    """UC4 at its defaults on the card (200 reviews, a 30-step probe):
+    the probe's train steps through the flash kernels, then the query
+    under every eddy policy against the whole-table oracle. cuBLAS need
+    not give a row the same bits in batches of other sizes, so a row
+    whose |score| lies within LLM_MARGIN times the largest difference
+    between the oracle's batches of 64, 10 and 1 rows may flip."""
+    from repro_torch.core.policies import EDDY_POLICIES
+    from repro_torch.examples import review_analytics as uc4
+    from repro_torch.kernels import flash_attention
+    before = (flash_attention.launches, flash_attention.backward_launches)
+    t0 = time.perf_counter()
+    res = uc4.main(["--device", "cuda"])
+    probe_s = time.perf_counter() - t0
+    launched = (flash_attention.launches - before[0],
+                flash_attention.backward_launches - before[1])
+    llm, reviews = res["llm"], res["reviews"]
+    kept = [r for r in reviews if r.rating <= 1]
+    toks = uc4.pad([r.tokens for r in kept])
+    ids = np.array([r.rid for r in kept])
+    s64 = llm_scores(llm.fn, toks, 64)
+    batch_diff = max(float(np.abs(llm_scores(llm.fn, toks, n) - s64).max())
+                     for n in (10, 1))
+    margin = LLM_MARGIN * batch_diff
+    expect = set(ids[s64 > 0].tolist())
+    decided = set(ids[np.abs(s64) > margin].tolist())
+    if expect != uc4.oracle(llm, reviews):
+        raise AssertionError("UC4's oracle is not the example's")
+    runs = {}
+    for name in sorted(EDDY_POLICIES):
+        rows, _, wall = uc4.run_query(llm, reviews, EDDY_POLICIES[name]())
+        got = set(rows)
+        wrong = (got ^ expect) & decided
+        print(f"  UC4 {name}: {len(got)} rows in {wall!r} s; differing from "
+              f"the oracle {len(got ^ expect)}, outside the margin "
+              f"{len(wrong)}", flush=True)
+        if wrong:
+            raise AssertionError(f"UC4, policy {name}: rows outside the "
+                                 f"margin differ from the oracle: "
+                                 f"{sorted(wrong)[:10]}")
+        runs[name] = {"rows": len(got), "wall_s": wall,
+                      "differ_inside_margin": len(got ^ expect)}
+    print(f"  UC4: probe accuracy {res['accuracy']!r}, {len(expect)} of "
+          f"{len(ids)} rows score > 0, batch difference {batch_diff!r}, "
+          f"margin {margin!r} with {len(ids) - len(decided)} rows inside "
+          f"it; {launched[0]} flash forward and {launched[1]} backward "
+          f"launches in the probe and the example's own query "
+          f"({probe_s!r} s)", flush=True)
+    layers = res["cfg"].num_layers
+    if launched[1] != 30 * layers or launched[0] < 30 * layers:
+        raise AssertionError(f"UC4's probe launched {launched} (forward, "
+                             "backward), not its 30 train steps' kernels")
+    return {"accuracy": res["accuracy"], "rows_true": len(expect),
+            "batch_diff": batch_diff, "margin": margin, "queries": runs,
+            "launches": launched, "probe_and_query_s": probe_s}
+
+
+def run_train() -> dict:
+    """Phase 12: the port's train_loop on TRAIN_ARCH unreduced (30 layers,
+    bf16, remat=True) as ``launch.train.build`` makes it (AdamW,
+    cosine_schedule(3e-4, 20, 1000)), TRAIN_STEPS steps of TokenSource
+    batches; the launches of every step exact; the loss falling; the
+    float32 gate; a crash at TRAIN_FAIL_AT with checkpoints every
+    TRAIN_CKPT_EVERY, resumed to the same final loss; a step's times,
+    memory and profiler split; then UC4."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import TokenSource, shard_batch
+    from repro_torch.distributed.fault_tolerance import FailureInjector
+    from repro_torch.kernels import flash_attention
+    from repro_torch.launch.train import build, train_loop
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.params import stacked
+    cfg = get_config(TRAIN_ARCH)
+    print(f"  {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"heads {cfg.num_heads}/{cfg.num_kv_heads}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size}, {cfg.dtype}, remat={cfg.remat} "
+          f"({cfg.remat_policy}); {tf.param_count(cfg)} parameters; batch "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ}", flush=True)
+    flash_attention.launches = flash_attention.backward_launches = 0
+    t0 = time.perf_counter()
+    run = train_loop(cfg, steps=TRAIN_STEPS, batch=TRAIN_BATCH,
+                     seq=TRAIN_SEQ, seed=TRAIN_SEED, device="cuda")
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    launches = {"forward": flash_attention.launches,
+                "backward": flash_attention.backward_launches}
+    losses = run["losses"]
+    print(f"  train_loop: {TRAIN_STEPS} steps in {loop_s!r} s; loss "
+          f"{losses[0]!r} -> {losses[-1]!r}; flash launches {launches}",
+          flush=True)
+    want = {"forward": TRAIN_STEPS * 2 * cfg.num_layers,
+            "backward": TRAIN_STEPS * cfg.num_layers}
+    if launches != want:
+        raise AssertionError(f"train_loop launched {launches}, not {want} "
+                             "(forward + recompute and backward, 30 each a "
+                             "step)")
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError("the loss did not fall over the train steps")
+
+    gate = train_gate(cfg)
+
+    # crash at TRAIN_FAIL_AT, then resume from the newest checkpoint
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        t0 = time.perf_counter()
+        try:
+            train_loop(cfg, steps=TRAIN_STEPS, batch=TRAIN_BATCH,
+                       seq=TRAIN_SEQ, seed=TRAIN_SEED, device="cuda",
+                       ckpt_dir=ckpt_dir, ckpt_every=TRAIN_CKPT_EVERY,
+                       injector=FailureInjector([TRAIN_FAIL_AT]))
+            raise AssertionError("the injected failure did not fire")
+        except RuntimeError as e:
+            if "injected failure" not in str(e):
+                raise
+        resumed = train_loop(cfg, steps=TRAIN_STEPS, batch=TRAIN_BATCH,
+                             seq=TRAIN_SEQ, seed=TRAIN_SEED, device="cuda",
+                             ckpt_dir=ckpt_dir, ckpt_every=TRAIN_CKPT_EVERY)
+        resume_s = time.perf_counter() - t0
+    final, again = losses[-1], resumed["final_loss"]
+    bit_equal = final == again and resumed["losses"] == losses[
+        -len(resumed["losses"]):]
+    print(f"  crash at step {TRAIN_FAIL_AT}, resumed from step "
+          f"{TRAIN_STEPS - len(resumed['losses'])}: final loss {again!r} "
+          f"against {final!r} uninterrupted (bit-equal {bit_equal}; "
+          f"{resume_s!r} s)", flush=True)
+    if abs(again - final) > 1e-4 * abs(final) + 1e-5:
+        raise AssertionError("the resumed run's final loss differs")
+
+    # one step's times, memory and device split, on the trained params
+    _, opt, _ = build(cfg)
+    step = tf.make_train_step(cfg, _Annotated(opt))
+    params = run["params"]
+    state = opt.init(stacked(params, tf.param_shapes(cfg)))
+    batch = shard_batch(TokenSource(cfg.vocab_size, TRAIN_SEQ,
+                                    seed=TRAIN_SEED + 1).next(TRAIN_BATCH),
+                        device="cuda")
+    step(params, state, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = (flash_attention.launches, flash_attention.backward_launches)
+    times = family_ms(lambda: step(params, state, batch))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    trace = train_trace(step, params, state, batch)
+    flash_attention.launches, flash_attention.backward_launches = before
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    timing = {**times, "tokens_per_s": tokens / (times["event_ms"] / 1e3),
+              "peak_memory_gb": peak_gb, "trace": trace}
+    print(f"  a train step: {times['event_ms']!r} ms between CUDA events "
+          f"({times['host_ms']!r} ms on the host clock), "
+          f"{timing['tokens_per_s']!r} tokens/s, peak memory {peak_gb!r} GB; "
+          f"one traced step: {trace['device_ms']!r} ms of device time in "
+          f"{trace['wall_ms']!r} ms (busy share {trace['busy_share']!r}), "
+          f"split {trace['split_ms']}, launches {trace['split_launches']}",
+          flush=True)
+    del params, state, run
+    torch.cuda.empty_cache()
+    uc4 = run_uc4()
+    return {"arch": cfg.name, "steps": TRAIN_STEPS, "batch": TRAIN_BATCH,
+            "seq": TRAIN_SEQ, "losses": losses, "loop_s": loop_s,
+            "launches": launches, "gate": gate,
+            "resume": {"final_loss": again, "uninterrupted": final,
+                       "bit_equal": bit_equal, "seconds": resume_s},
+            "step": timing, "uc4": uc4}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -2932,11 +3537,13 @@ def main() -> int:
     # ------------------------------------------------------------- 2 build
     phase("2 build")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(LIBRARIES) + 2) as pool:  # one nvcc a source
+    with ThreadPoolExecutor(len(LIBRARIES) + 3) as pool:  # one nvcc a source
         generic = pool.submit(build_ssd_generic)
         mutants = pool.submit(build_flash_mutants)
+        grad_mutants = pool.submit(build_bwd_mutants)
         libs = dict(zip(LIBRARIES, pool.map(_build.load, LIBRARIES)))
         ssd_generic, flash_mutants = generic.result(), mutants.result()
+        bwd_mutants = grad_mutants.result()
     print(f"  {len(libs)} libraries in {time.perf_counter() - t0:.2f}s")
     for name, lib in libs.items():
         print(f"  {name}: {lib.path.name} built in {lib.seconds:.2f}s")
@@ -3006,6 +3613,10 @@ def main() -> int:
         max_errs[name] = max(max_errs[name], *(t["max_abs_err"]
                                                for t in cases.values()))
     limit_mutants = flash_limit_mutants(flash_mutants)
+    print()
+    flash_bwd = flash_bwd_cases(bwd_mutants)
+    max_errs["flash_attention_bwd"] = max(
+        c["max_abs_err"] for c in flash_bwd["cases"].values())
 
     # ------------------------------------------------------------- 4 query
     phase(f"4 lost-dog query, SyntheticVideo({QUERY_FRAMES}, seed={QUERY_SEED})")
@@ -3168,8 +3779,13 @@ def main() -> int:
           + ", ".join(f"{m[0]} ({m[1]} layers)" for m in MOE))
     moe_runs = run_moe_family()
 
-    # ------------------------------------------------------------- 12 lines
-    phase("12 summary")
+    # ------------------------------------------------------------- 12 train
+    phase(f"12 training: {TRAIN_ARCH} at full width and depth, "
+          f"{TRAIN_STEPS} steps of batch {TRAIN_BATCH} x {TRAIN_SEQ}, then UC4")
+    train = run_train()
+
+    # ------------------------------------------------------------- 13 lines
+    phase("13 summary")
     main_sizes_text = {**triage["sizes"],
                        "rglru": registry["runs"]["rglru"]["sizes"]}
     text_main = {name: max(c, key=lambda b: (c[b], -b))
@@ -3205,6 +3821,8 @@ def main() -> int:
         "llm": llm,
         "family_kernel_cases": family_cases,
         "flash_limit_mutants": limit_mutants,
+        "flash_bwd": flash_bwd,
+        "train": train,
         "families": families,
         "moe": moe_runs,
         "total_s": time.perf_counter() - t_start,
@@ -3267,6 +3885,7 @@ def main() -> int:
         if name == "flash_attention":
             paths["llm"] = llm["launches"]
             paths["families"] = family_launches(name)
+            paths["train"] = train["launches"]["forward"]
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
@@ -3282,6 +3901,18 @@ def main() -> int:
                          **{label: measured(t) for label, t in
                             family_cases.get(name, {}).items()}},
         })
+    bwd_main = next(iter(flash_bwd["timings"]))   # SmolLM's bf16 training
+    kernels.append({
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:91",
+        "launches": train["launches"]["backward"],
+        "launches_by_path": {"train": train["launches"]["backward"]},
+        "shape": bwd_main, **measured(flash_bwd["timings"][bwd_main]),
+        "max_abs_err": max_errs["flash_attention_bwd"],
+        "by_shape": {label: measured(t)
+                     for label, t in flash_bwd["timings"].items()},
+    })
     print(f"  chip_smoke.py took {summary['total_s']:.1f} s, builds included")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -8,9 +8,10 @@ tiny same-family config for CPU smoke tests.
 Port of ``repro.configs.base`` with only its imports rewritten (the
 architecture files and ``__init__`` likewise): the configs are plain
 dataclasses. ``param_count`` goes through the port's model registry. The
-port's models read ``attention_impl``, ``attention_chunk_q``,
-``attention_unroll``, ``remat`` and ``remat_policy`` nowhere: the device
-of the tensors picks the attention path, and nothing is rematerialised.
+port's models read ``attention_impl``, ``attention_chunk_q`` and
+``attention_unroll`` nowhere: the device of the tensors picks the
+attention path. ``remat`` and ``remat_policy`` are read where a gradient
+is taken (``models.transformer._remat``).
 """
 from __future__ import annotations
 

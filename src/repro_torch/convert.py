@@ -3,8 +3,9 @@
 The port cannot import the JAX package, so state crosses as numpy arrays
 and files: a caller hands in ``np.asarray`` of a JAX array, or the path of
 a file the JAX package flushed. This module carries the HSV range table,
-the text predicates' embedding tables, the ``ReuseCache`` snapshot and
-the models' parameters (``model_params``: every family). Like every
+the text predicates' embedding tables, the ``ReuseCache`` snapshot, the
+models' parameters (``model_params``: every family) and the optimizers'
+state (``optimizer_state``). Like every
 entry point of the port, the converters put their tensors on the card
 unless the caller asks for the CPU, and raise at once without a card.
 """
@@ -119,3 +120,66 @@ def transformer_params(params, cfg, device="cuda"):
         raise ValueError(f"transformer_params takes a dense or vlm config, "
                          f"not the {cfg.family} family's: use model_params")
     return model_params(params, cfg, device)
+
+
+def _tensor(array, dev) -> torch.Tensor:
+    """A numpy leaf (bfloat16 included, through float32, which holds it
+    exactly) as a tensor of the same dtype on ``dev``."""
+    arr = np.asarray(array)
+    if str(arr.dtype) == "bfloat16":
+        return torch.from_numpy(arr.astype(np.float32)).to(
+            dev, torch.bfloat16)
+    return torch.from_numpy(np.array(arr)).to(dev)
+
+
+def optimizer_state(state, cfg, device="cuda"):
+    """The JAX package's optimizer state for ``cfg``'s parameters -> the
+    port's (``optim``): ``AdamW``'s {"m", "v", "count"}, ``Adafactor``'s
+    {"f", "count"} or ``Int8ErrorFeedback``'s {"err", "inner"} around
+    either, each leaf a numpy array (``jax.tree.map(np.asarray, state)``).
+    A parameter-shaped tree becomes a dict keyed by the dotted names of
+    ``param_shapes`` in ``param_leaves`` order, its leaves stacked over the
+    layers as in the JAX package; Adafactor's per-parameter {"row", "col"}
+    or {"v"} dicts stay dicts. Dtypes are kept (bfloat16 moments
+    included). Raises ValueError on a state of another shape."""
+    from repro_torch.models.params import param_leaves
+    from repro_torch.models.registry import family_module
+
+    dev = require_device(device)
+    want = dict(param_leaves(family_module(cfg.family).param_shapes(cfg)))
+
+    def params_tree(tree, factored=False):
+        got = dict(param_leaves(tree))
+        out = {}
+        for name, s in want.items():
+            if factored:
+                parts = {k: got.pop(f"{name}.{k}") for k in ("row", "col", "v")
+                         if f"{name}.{k}" in got}
+                if not parts:
+                    raise ValueError(f"optimizer state: no factors of {name}")
+                out[name] = {k: _tensor(a, dev) for k, a in parts.items()}
+                continue
+            if name not in got:
+                raise ValueError(f"optimizer state: no leaf {name}")
+            a = got.pop(name)
+            if tuple(np.shape(a)) != tuple(s.shape):
+                raise ValueError(f"optimizer state {name}: shape "
+                                 f"{np.shape(a)}, {cfg.name} needs "
+                                 f"{tuple(s.shape)}")
+            out[name] = _tensor(a, dev)
+        if got:
+            raise ValueError(f"optimizer state: extra leaves {sorted(got)}")
+        return out
+
+    def convert(st):
+        if set(st) == {"err", "inner"}:
+            return {"err": params_tree(st["err"]), "inner": convert(st["inner"])}
+        if set(st) == {"m", "v", "count"}:
+            return {"m": params_tree(st["m"]), "v": params_tree(st["v"]),
+                    "count": _tensor(st["count"], dev)}
+        if set(st) == {"f", "count"}:
+            return {"f": params_tree(st["f"], factored=True),
+                    "count": _tensor(st["count"], dev)}
+        raise ValueError(f"unknown optimizer state with keys {sorted(st)}")
+
+    return convert(state)

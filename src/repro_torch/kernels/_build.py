@@ -39,6 +39,7 @@ LIBRARY_FLAGS = {
     "decode_attention": (),
     "empty": (),
     "flash_attention": (),
+    "flash_attention_bwd": (),
     "hsv_color": NO_FMA,
     "moe_router": NO_FMA,
     "rglru": NO_FMA,
@@ -56,6 +57,7 @@ SIGNATURES = {
     "decode_attention": {"decode_attention_bshd": _PACKED},
     "empty": {"empty_launch": ([_VOIDP], _INT)},
     "flash_attention": {"flash_attention_bshd": _PACKED},
+    "flash_attention_bwd": {"flash_attention_bwd": _PACKED},
     "hsv_color": {"hsv_color_hist": _PACKED},
     "moe_router": {"moe_router_tk": _PACKED, "moe_router_tokens": _PACKED},
     "rglru": {"rglru_bsw": _PACKED, "rglru_tokens": _PACKED},
@@ -91,8 +93,9 @@ def nvcc_path() -> str:
 
 
 def flags(name: str) -> tuple:
-    """nvcc's flags for ``csrc/<name>.cu``."""
-    return NVCC_FLAGS + LIBRARY_FLAGS[name]
+    """nvcc's flags for ``csrc/<name>.cu``: ``csrc/`` is on the include
+    path, so a copy of a source built elsewhere finds its headers."""
+    return NVCC_FLAGS + ("-I", str(CSRC)) + LIBRARY_FLAGS[name]
 
 
 def _compile(name: str) -> Built:

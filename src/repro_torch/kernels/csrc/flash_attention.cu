@@ -65,6 +65,12 @@
 // - Work order: tiles wholly outside the causal or window band are
 //   skipped per CTA (and per warp); the late (heavy) query tiles of every
 //   program launch first.
+// - The log-sum-exp: given an lse buffer (training asks for one), each
+//   row's ln sum_j exp(s_ij) is written beside o, one float a row, for the
+//   gradient kernel (flash_attention_bwd.cu) to rebuild P from; serving
+//   passes none and the kernel writes nothing more.
+// - The tile helpers (copies, the 3xTF32 split, the QK^T and P.V tiles)
+//   live in flash_tiles.cuh, shared with the gradient kernel.
 // - FMA contraction is allowed in this library.
 
 #include <climits>
@@ -73,7 +79,11 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "flash_tiles.cuh"
+
 namespace {
+
+using namespace flash_tiles;
 
 constexpr int kRowWarps = 4;              // 16 query rows each
 constexpr int kMaxGroups = 2;             // key groups: even, odd tiles
@@ -81,282 +91,19 @@ constexpr int kGroupThreads = kRowWarps * 32;
 constexpr int kBlockQ = kRowWarps * 16;   // query rows per CTA
 constexpr int kMaxHeadDim = 256;
 constexpr float kNegInf = -1e30f;
-
-// element strides of one operand: between sequences, heads and positions
-struct Layout {
-  long long batch, head, seq;
-};
+constexpr float kLn2 = 0.6931471805599453f;
 
 struct Params {
   const void* q;
   const void* k;
   const void* v;
   void* o;
+  float* lse;  // (programs, Sq) log-sum-exp of each row, or null
   Layout lq, lk, lv, lo;
   int heads, group, sq, sk, d, causal, window, programs, q_tiles, vec;
   int groups;        // key groups of a CTA: 2, or 1 where Sk fits a tile
   float scale_log2;  // scale * log2(e): the softmax runs in base 2
 };
-
-template <typename T>
-__device__ __forceinline__ T zero();
-template <>
-__device__ __forceinline__ float zero<float>() { return 0.f; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 zero<__nv_bfloat16>() {
-  return __float2bfloat16(0.f);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);  // round to nearest even, as torch's cast
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           int src_bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(src_bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// rows [pos0, pos0 + R) of one program's (positions, D) operand into a
-// (R, RS) tile by `threads` threads, zero past position n and column d
-template <typename T, int DP, int R>
-__device__ __forceinline__ void load_tile(T* dst, const T* src,
-                                          long long stride, int pos0, int n,
-                                          int d, bool vec, int tid,
-                                          int threads) {
-  constexpr int RS = DP + 16 / (int)sizeof(T);
-  if (vec) {
-    constexpr int kVec = 16 / (int)sizeof(T);
-    constexpr int kChunks = DP / kVec;
-    for (int i = tid; i < R * kChunks; i += threads) {
-      const int r = i / kChunks;
-      const int col = (i - r * kChunks) * kVec;
-      const int pos = pos0 + r;
-      const bool in = pos < n && col < d;
-      cp_async16(dst + r * RS + col, in ? src + pos * stride + col : src,
-                 in ? 16 : 0);
-    }
-  } else {
-    for (int i = tid; i < R * DP; i += threads) {
-      const int r = i / DP;
-      const int col = i - r * DP;
-      const int pos = pos0 + r;
-      dst[r * RS + col] =
-          pos < n && col < d ? src[pos * stride + col] : zero<T>();
-    }
-  }
-}
-
-// x rounded to TF32 (10 stored mantissa bits), to nearest with ties away
-// from zero: cvt.rna.tf32.f32's result, in two full-rate integer
-// operations (cvt runs on the conversion unit at a fraction of the rate)
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
-                                           uint32_t& lo) {
-  hi = to_tf32(x);
-  lo = to_tf32(x - __uint_as_float(hi));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo,
-                                              __nv_bfloat16 hi) {
-  const __nv_bfloat162 v = __halves2bfloat162(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// Fragment coordinates below: lane = 4 * g + t; a C fragment c[0..3]
-// holds rows (g, g, g + 8, g + 8) and columns (2t, 2t + 1, 2t, 2t + 1).
-
-// s[j] = Q(16, DP) . K(keys 8j .. 8j + 7, DP)^T. The tensor cores add
-// into their accumulator rounding toward zero, so the hi.hi terms and the
-// small lo terms are summed apart and added once, rounding to nearest.
-template <int DP, int BK>
-__device__ __forceinline__ void qk_tile(float (&s)[BK / 8][4],
-                                        const float* sq, const float* sk,
-                                        int g, int t) {
-  constexpr int RS = DP + 4;
-  float small[BK / 8][4];
-#pragma unroll
-  for (int j = 0; j < BK / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) small[j][e] = s[j][e] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < DP; kk += 8) {
-    uint32_t a_hi[4], a_lo[4];
-    split_tf32(sq[g * RS + kk + t], a_hi[0], a_lo[0]);
-    split_tf32(sq[(g + 8) * RS + kk + t], a_hi[1], a_lo[1]);
-    split_tf32(sq[g * RS + kk + t + 4], a_hi[2], a_lo[2]);
-    split_tf32(sq[(g + 8) * RS + kk + t + 4], a_hi[3], a_lo[3]);
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j) {
-      const float* kr = sk + (j * 8 + g) * RS + kk;
-      uint32_t b_hi[2], b_lo[2];
-      split_tf32(kr[t], b_hi[0], b_lo[0]);
-      split_tf32(kr[t + 4], b_hi[1], b_lo[1]);
-      mma_tf32(small[j], a_lo, b_hi);
-      mma_tf32(small[j], a_hi, b_lo);
-      mma_tf32(s[j], a_hi, b_hi);
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < BK / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[j][e] += small[j][e];
-}
-template <int DP, int BK>
-__device__ __forceinline__ void qk_tile(float (&s)[BK / 8][4],
-                                        const __nv_bfloat16* sq,
-                                        const __nv_bfloat16* sk, int g,
-                                        int t) {
-  constexpr int RS = DP + 8;
-#pragma unroll
-  for (int j = 0; j < BK / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < DP; kk += 16) {
-    uint32_t a[4];
-    a[0] = ld32(sq + g * RS + kk + 2 * t);
-    a[1] = ld32(sq + (g + 8) * RS + kk + 2 * t);
-    a[2] = ld32(sq + g * RS + kk + 2 * t + 8);
-    a[3] = ld32(sq + (g + 8) * RS + kk + 2 * t + 8);
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j) {
-      const __nv_bfloat16* kr = sk + (j * 8 + g) * RS + kk;
-      const uint32_t b[2] = {ld32(kr + 2 * t), ld32(kr + 2 * t + 8)};
-      mma_bf16(s[j], a, b);
-    }
-  }
-}
-
-// dim blocks of 8 whose P.V sums one pass keeps in registers
-template <int DP>
-constexpr int kDimBlocks = DP / 8 < 4 ? DP / 8 : 4;
-
-// o[n] = o[n] * corr + P(16, BK) . V(BK, dims 8n .. 8n + 7); p holds the
-// softmax weights in the QK^T C-fragment layout, corr each row's rescale.
-// Each tile's products are summed from zero on the tensor cores (the lo
-// terms apart) and added to o in float32 with one rounding to nearest,
-// so the running sum never sees the tensor cores' truncation.
-template <int DP, int BK>
-__device__ __forceinline__ void pv_tile(float (&o)[DP / 8][4],
-                                        const float (&p)[BK / 8][4],
-                                        const float* sv, int g, int t,
-                                        const float (&corr)[2]) {
-  constexpr int RS = DP + 4;
-  // A column t is key 8j + 2t, column t + 4 is key 8j + 2t + 1
-  uint32_t a_hi[BK / 8][4], a_lo[BK / 8][4];
-#pragma unroll
-  for (int j = 0; j < BK / 8; ++j) {
-    split_tf32(p[j][0], a_hi[j][0], a_lo[j][0]);
-    split_tf32(p[j][2], a_hi[j][1], a_lo[j][1]);
-    split_tf32(p[j][1], a_hi[j][2], a_lo[j][2]);
-    split_tf32(p[j][3], a_hi[j][3], a_lo[j][3]);
-  }
-  // NB dim blocks at a time, keys outermost: 2 NB independent chains of
-  // products in flight instead of two
-#pragma unroll
-  for (int n0 = 0; n0 < DP / 8; n0 += kDimBlocks<DP>) {
-    constexpr int NB = kDimBlocks<DP>;
-    float big[NB][4], small[NB][4];
-#pragma unroll
-    for (int nn = 0; nn < NB; ++nn)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) big[nn][e] = small[nn][e] = 0.f;
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j) {
-      const float* v0 = sv + (j * 8 + 2 * t) * RS + n0 * 8 + g;
-#pragma unroll
-      for (int nn = 0; nn < NB; ++nn) {
-        uint32_t b_hi[2], b_lo[2];
-        split_tf32(v0[nn * 8], b_hi[0], b_lo[0]);
-        split_tf32(v0[RS + nn * 8], b_hi[1], b_lo[1]);
-        mma_tf32(small[nn], a_lo[j], b_hi);
-        mma_tf32(small[nn], a_hi[j], b_lo);
-        mma_tf32(big[nn], a_hi[j], b_hi);
-      }
-    }
-#pragma unroll
-    for (int nn = 0; nn < NB; ++nn)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        o[n0 + nn][e] = fmaf(o[n0 + nn][e], corr[e >> 1],
-                             big[nn][e] + small[nn][e]);
-  }
-}
-template <int DP, int BK>
-__device__ __forceinline__ void pv_tile(float (&o)[DP / 8][4],
-                                        const float (&p)[BK / 8][4],
-                                        const __nv_bfloat16* sv, int g,
-                                        int t, const float (&corr)[2]) {
-  constexpr int RS = DP + 8;
-  uint32_t a[BK / 16][4];
-#pragma unroll
-  for (int c = 0; c < BK / 16; ++c) {
-    a[c][0] = pack_bf16(p[2 * c][0], p[2 * c][1]);
-    a[c][1] = pack_bf16(p[2 * c][2], p[2 * c][3]);
-    a[c][2] = pack_bf16(p[2 * c + 1][0], p[2 * c + 1][1]);
-    a[c][3] = pack_bf16(p[2 * c + 1][2], p[2 * c + 1][3]);
-  }
-#pragma unroll
-  for (int n0 = 0; n0 < DP / 8; n0 += kDimBlocks<DP>) {
-    constexpr int NB = kDimBlocks<DP>;
-    float acc[NB][4];
-#pragma unroll
-    for (int nn = 0; nn < NB; ++nn)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[nn][e] = 0.f;
-#pragma unroll
-    for (int c = 0; c < BK / 16; ++c) {
-      const __nv_bfloat16* v0 = sv + (c * 16 + 2 * t) * RS + n0 * 8 + g;
-#pragma unroll
-      for (int nn = 0; nn < NB; ++nn) {
-        const __nv_bfloat16* vn = v0 + nn * 8;
-        const uint32_t b[2] = {pack_bf16(vn[0], vn[RS]),
-                               pack_bf16(vn[8 * RS], vn[9 * RS])};
-        mma_bf16(acc[nn], a[c], b);
-      }
-    }
-#pragma unroll
-    for (int nn = 0; nn < NB; ++nn)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        o[n0 + nn][e] = fmaf(o[n0 + nn][e], corr[e >> 1], acc[nn][e]);
-  }
-}
 
 template <typename T, int DP, int BK>
 __global__ void __launch_bounds__(kMaxGroups * kGroupThreads)
@@ -534,6 +281,7 @@ flash_kernel(const Params p) {
       f_mine[r] = exp2f(m[r] - m_new);
       f_other[r] = exp2f(m_other - m_new);
       l[r] = l[r] * f_mine[r] + mine[DP / 2 + 2 + r] * f_other[r];
+      m[r] = m_new;  // l is now relative to it (the log-sum-exp reads m)
     }
 #pragma unroll
     for (int n = 0; n < DP / 8; ++n)
@@ -546,6 +294,16 @@ flash_kernel(const Params p) {
   for (int r = 0; r < 2; ++r) {
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+  if (p.lse != nullptr && t == 0) {
+    // the row's log-sum-exp of the scaled logits, ln 2 (m + log2 l) with m
+    // and the logits in base 2; a row that sees no key gets +inf, so that
+    // exp(s - lse) weighs its (masked) keys 0
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      if (qpos[r] < p.sq)
+        p.lse[(long long)prog * p.sq + qpos[r]] =
+            l[r] == 0.f ? INFINITY : (m[r] + log2f(l[r])) * kLn2;
   }
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -585,33 +343,32 @@ int launch(Params p, int blocks, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-bool aligned16(const void* ptr, const Layout& l, size_t elem) {
-  const size_t a = 16 / elem;  // elements in 16 bytes
-  return reinterpret_cast<uintptr_t>(ptr) % 16 == 0 && l.batch % a == 0 &&
-         l.head % a == 0 && l.seq % a == 0;
-}
-
 }  // namespace
 
 // The entry point's arguments, packed by the caller (Python's struct
-// format "<4Q12q9if", no padding): the four pointers; the element strides
-// (between sequences, heads and positions) of q, k, v and o; the sizes,
-// flags and the scale.
+// format "<5Q12q9if", no padding): the five pointers (lse may be null);
+// the element strides (between sequences, heads and positions) of q, k, v
+// and o; the sizes, flags and the scale.
 struct FlashArgs {
   const void* q;
   const void* k;
   const void* v;
   void* o;
+  void* lse;
   Layout lq, lk, lv, lo;
   int batch, heads, group, sq, sk, d, causal, window, bf16;
   float scale;
 };
-static_assert(sizeof(FlashArgs) == 168, "FlashArgs must match <4Q12q9if");
+static_assert(sizeof(FlashArgs) == 176, "FlashArgs must match <5Q12q9if");
 
 // q, o: (batch, heads, Sq, D) and k, v: (batch, heads / group, Sk, D),
 // each addressed by its own strides with the last dimension contiguous;
 // float32 (bf16 == 0) or bfloat16 (bf16 == 1), o in q's type. Program p =
-// b * heads + h reads kv head h / group of sequence b. 1 <= D <= 256,
+// b * heads + h reads kv head h / group of sequence b. A non-null lse is
+// a contiguous float32 (batch * heads, Sq): row i of program p gets
+// ln sum_j exp(s_ij) over its visible keys (+inf where it sees none), the
+// statistic the gradient kernel (flash_attention_bwd.cu) needs; without
+// it the kernel writes only o. 1 <= D <= 256,
 // group divides heads, Sk >= 0. Returns cudaGetLastError() after the
 // launch; the caller raises if it is not cudaSuccess.
 extern "C" int flash_attention_bshd(const FlashArgs* a, void* stream) {
@@ -622,7 +379,8 @@ extern "C" int flash_attention_bshd(const FlashArgs* a, void* stream) {
   const long long programs = (long long)a->batch * a->heads;
   const long long q_tiles = (a->sq + kBlockQ - 1) / kBlockQ;
   if (programs * q_tiles > INT_MAX) return (int)cudaErrorInvalidValue;
-  Params p{a->q,      a->k,      a->v,         a->o,          a->lq,
+  Params p{a->q,      a->k,      a->v,         a->o,
+           static_cast<float*>(a->lse),                         a->lq,
            a->lk,     a->lv,     a->lo,        a->heads,      a->group,
            a->sq,     a->sk,     a->d,         a->causal,     a->window,
            (int)programs, (int)q_tiles, 0, 1,

@@ -18,6 +18,7 @@ import threading
 import torch
 
 from repro_torch.kernels import _build, ref
+from repro_torch.kernels.launch import refuse_grad
 from repro_torch.kernels.flash_attention import bhsd_layout
 
 MAX_HEAD_DIM = 256  # the kernel's widest tile
@@ -135,6 +136,7 @@ def decode_attention_bkgd(
     Program b attends the first lengths[b // num_kv_heads] entries of its
     cache (a length past S attends all of them; length 0 gives 0).
     ``scale`` defaults to D ** -0.5. Inputs may be strided views."""
+    refuse_grad("decode_attention", q, k_cache, v_cache)
     if q.dim() != 3 or k_cache.dim() != 3:
         raise ValueError(f"q and k_cache must be 3-d, got {tuple(q.shape)} "
                          f"and {tuple(k_cache.shape)}")
@@ -177,6 +179,7 @@ def decode_attention_bshd(
     """(B, H, D) in the model's layout, on views as they are: the function
     of ``decode_attention_bkgd`` with query head h reading kv head h // G,
     G = H // Hkv. On the card no operand is copied."""
+    refuse_grad("decode_attention", q, k_cache, v_cache)
     if q.dim() != 3 or k_cache.dim() != 4:
         raise ValueError(f"need q (B, H, D) and caches (B, S, Hkv, D), got "
                          f"{tuple(q.shape)} and {tuple(k_cache.shape)}")

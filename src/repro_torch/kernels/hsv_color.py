@@ -17,6 +17,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import _build, ref
+from repro_torch.kernels.launch import refuse_grad
 
 MAX_RANGES = 31      # the kernel's shared-memory range table
 MAX_PIXELS = 1 << 24  # counts convert to float32 exactly below this
@@ -82,6 +83,7 @@ def hsv_color_hist(
 
     ``block_rows`` is accepted so callers match the JAX package; the
     kernel splits crops by pixels, so H need not be a multiple of it."""
+    refuse_grad("hsv_color", crops, ranges)
     global _entry, launches
     if crops.dim() != 4 or crops.shape[-1] != 3:
         raise ValueError(f"crops must be (B, H, W, 3), got {tuple(crops.shape)}")

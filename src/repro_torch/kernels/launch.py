@@ -38,7 +38,7 @@ __all__ = [
     "LaunchEvent", "add_launch_hook", "clear_launch_context",
     "connect_stats_board", "current_launch_context",
     "current_launch_watchdog", "kernel_call", "launch_context",
-    "launch_hooks", "remove_launch_hook", "require_device",
+    "launch_hooks", "refuse_grad", "remove_launch_hook", "require_device",
     "set_launch_context", "set_launch_watchdog", "stats_board_hook",
     "thread_stream",
 ]
@@ -62,6 +62,23 @@ def require_device(device) -> torch.device:
 
 
 _STREAMS = threading.local()  # per thread: {device index -> torch.cuda.Stream}
+
+
+def refuse_grad(kernel: str, *tensors) -> None:
+    """Raise if autograd would need a gradient through ``kernel``, a
+    kernel with no backward yet: grad mode is on and a floating input
+    requires a gradient. It raises on the card and on the CPU alike, so
+    that the CPU (whose plain versions would carry autograd) cannot train
+    what the card cannot; the JAX package's ``pallas_call`` has no VJP
+    either. Serving runs in inference mode on parameters that need no
+    gradient, and is never refused."""
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.is_floating_point()
+            and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"the {kernel} kernel has no backward yet: its inputs must not "
+            "require a gradient (run it under torch.no_grad() or "
+            "torch.inference_mode(), or detach them)")
 
 
 def _stream_for(dev: torch.device) -> "torch.cuda.Stream":

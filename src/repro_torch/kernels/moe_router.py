@@ -17,6 +17,7 @@ import threading
 import torch
 
 from repro_torch.kernels import _build, ref
+from repro_torch.kernels.launch import refuse_grad
 
 # the kernels keep a row's probabilities in registers: moe_router_tk in a
 # thread (E <= 64) or spread over a warp (E <= 128); the token entry in a
@@ -64,6 +65,7 @@ def moe_router_tk(
     over E, k rounds of argmax (lowest index on ties) and mask, then the k
     weights renormalised. Each row has its own thread (its own warp above
     64 experts), so T is free; E is at most MAX_EXPERTS on the card."""
+    refuse_grad("moe_router", logits)
     if logits.dim() != 2:
         raise ValueError(f"logits must be (T, E), got {tuple(logits.shape)}")
     t, e = logits.shape
@@ -102,6 +104,7 @@ def moe_router_tokens(
     The caller keeps the ids in [0, V): on the card an id outside is taken
     as the JAX package's gather takes it (the predicate refuses such ids on
     the host); the plain version's indexing raises or wraps."""
+    refuse_grad("moe_router", emb, w_gate)
     if toks.dim() != 2 or emb.dim() != 2 or w_gate.dim() != 2:
         raise ValueError(f"need toks (B, S), emb (V, D) and w_gate (D, E), "
                          f"got {tuple(toks.shape)}, {tuple(emb.shape)} and "

@@ -515,6 +515,108 @@ def flash_attention_bshd(
     return out.reshape(b, h, sq, d).transpose(1, 2)
 
 
+def flash_attention_terms(q, k, v, out, dout, *, group: int,
+                          causal: bool = True, window: int = 0,
+                          scale: float | None = None):
+    """(P, dS), the flash gradient's two (BH, Sq, Sk) float32 terms in the
+    kernel's layout: P the softmax weights over the visible keys (0 for a
+    masked key and for a row with no visible key), dS = P (dO V^T - D)
+    with D = rowsum(dO * out), the gradient of the scaled logits. ``out``
+    is the forward's result as it was returned (rounded to its dtype)."""
+    _require_float32_products(q, "flash_attention_terms")
+    sq, d = q.shape[1], q.shape[2]
+    sk = k.shape[1]
+    scale = d ** -0.5 if scale is None else scale
+    kx = torch.repeat_interleave(k, group, dim=0).to(torch.float32)
+    vx = torch.repeat_interleave(v, group, dim=0).to(torch.float32)
+    logits = torch.matmul(q.to(torch.float32), kx.transpose(1, 2)) * scale
+    mask = _visible(sq, sk, causal=causal, window=window, device=q.device)
+    probs = softmax(logits.masked_fill(~mask, MASKED))
+    probs = probs.masked_fill(~mask.any(-1, keepdim=True), 0.0)
+    do = dout.to(torch.float32)
+    dp = torch.matmul(do, vx.transpose(1, 2))
+    delta = (do * out.to(torch.float32)).sum(-1, keepdim=True)
+    return probs, probs * (dp - delta)
+
+
+def flash_attention_bwd(q, k, v, out, dout, *, group: int,
+                        causal: bool = True, window: int = 0,
+                        scale: float | None = None):
+    """The flash gradient kernel's plain version in its layout, by the
+    explicit formulas (no autograd): (dQ, dK, dV) for q (BH, Sq, D), k, v
+    (BH / group, Sk, D), the forward's ``out`` and its cotangent ``dout``
+    (BH, Sq, D). dQ = scale dS K, dK = scale dS^T Q summed over each kv
+    head's ``group`` query heads, dV = P^T dO likewise; float32 math, each
+    result in its input's dtype. A row with no visible key adds nothing
+    and gets dQ = 0."""
+    bh, sq, d = q.shape
+    sk = k.shape[1]
+    scale = d ** -0.5 if scale is None else scale
+    probs, ds = flash_attention_terms(q, k, v, out, dout, group=group,
+                                      causal=causal, window=window,
+                                      scale=scale)
+    kx = torch.repeat_interleave(k, group, dim=0).to(torch.float32)
+    dq = torch.matmul(ds, kx) * scale
+    dkx = torch.matmul(ds.transpose(1, 2), q.to(torch.float32)) * scale
+    dvx = torch.matmul(probs.transpose(1, 2), dout.to(torch.float32))
+    dk = dkx.reshape(bh // group, group, sk, d).sum(1)
+    dv = dvx.reshape(bh // group, group, sk, d).sum(1)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_bwd_bf16_limits(q, k, v, out, dout, want, *, group: int,
+                          causal: bool = True, window: int = 0):
+    """Per-element limits on how far the bf16 gradient kernel's (dQ, dK,
+    dV) may lie from ``want``, this plain version's on the same bf16
+    inputs in the (BH, S, D) layout: 2 bf16 ulps of each result (2^-6
+    |want|: each side rounds it once), plus twice the most that rounding
+    P or dS to bf16 (2^-8 relative) for its product can move it (2^-7
+    P^T |dO| for dV, 2^-7 scale |dS| |K| for dQ, 2^-7 scale |dS|^T |Q|
+    for dK), plus float32 rounding in dS = P (dP - D), where dP and D are
+    sums whose terms cancel: 2^-16 P (|dO| |V|^T + rowsum |dO| |O|)
+    carried through the dQ and dK products. The magnitudes come from this
+    plain version in float32."""
+    d = q.shape[-1]
+    scale = d ** -0.5
+    probs, ds = flash_attention_terms(q, k, v, out, dout, group=group,
+                                      causal=causal, window=window)
+    aq, ak, av, ao, ado = (t.to(torch.float32).abs()
+                           for t in (q, k, v, out, dout))
+    kx = torch.repeat_interleave(ak, group, dim=0)
+    vx = torch.repeat_interleave(av, group, dim=0)
+    noise = 2.0 ** -16 * probs * (torch.matmul(ado, vx.transpose(1, 2))
+                                  + (ado * ao).sum(-1, keepdim=True))
+    ds_term = 2.0 ** -7 * ds.abs() + noise
+    bhk, sk = k.shape[0], k.shape[1]
+
+    def per_kv_head(x):
+        return x.reshape(bhk, group, sk, d).sum(1)
+
+    terms = (scale * torch.matmul(ds_term, kx),
+             scale * per_kv_head(torch.matmul(ds_term.transpose(1, 2), aq)),
+             2.0 ** -7 * per_kv_head(torch.matmul(probs.transpose(1, 2), ado)))
+    return [2.0 ** -6 * w.to(torch.float32).abs() + t
+            for w, t in zip(want, terms)]
+
+
+def flash_attention_bwd_bshd(q, k, v, out, dout, *, causal: bool = True,
+                             window: int = 0, scale: float | None = None):
+    """``flash_attention_bwd`` in the model's layout: q, out, dout (B, Sq,
+    H, D), k, v (B, Sk, Hkv, D); returns (dQ, dK, dV) in those shapes."""
+    b, sq, h, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+
+    def bhsd(t):
+        return t.transpose(1, 2).reshape(-1, t.shape[1], d)
+
+    dq, dk, dv = flash_attention_bwd(
+        bhsd(q), bhsd(k), bhsd(v), bhsd(out), bhsd(dout), group=h // hkv,
+        causal=causal, window=window, scale=scale)
+    return (dq.reshape(b, h, sq, d).transpose(1, 2),
+            dk.reshape(b, hkv, sk, d).transpose(1, 2),
+            dv.reshape(b, hkv, sk, d).transpose(1, 2))
+
+
 def decode_attention_bkgd(
     q: torch.Tensor,        # (B * Hkv, G, D)
     k_cache: torch.Tensor,  # (B * Hkv, S, D)

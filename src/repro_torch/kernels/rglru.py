@@ -17,6 +17,7 @@ import threading
 import torch
 
 from repro_torch.kernels import _build, ref
+from repro_torch.kernels.launch import refuse_grad
 
 launches = 0
 _COUNT_LOCK = threading.Lock()
@@ -75,6 +76,7 @@ def rglru_bsw(
 ):
     """(out (B, S, W), h_last (B, W)), both in x's dtype. S and W are
     free."""
+    refuse_grad("rglru", x, r, i, a_param, h0)
     if x.dim() != 3:
         raise ValueError(f"x must be (B, S, W), got {tuple(x.shape)}")
     b, s, w = x.shape
@@ -115,6 +117,7 @@ def rglru_tokens(
     id. The caller keeps the ids in [0, V): on the card an id outside is
     taken as the JAX package's gather takes it (the predicate refuses such
     ids on the host); the plain version's indexing raises or wraps."""
+    refuse_grad("rglru", emb_x, emb_r, emb_i, a_param, h0)
     if toks.dim() != 2 or emb_x.dim() != 2:
         raise ValueError(f"need toks (B, S) and tables (V, W), got "
                          f"{tuple(toks.shape)} and {tuple(emb_x.shape)}")

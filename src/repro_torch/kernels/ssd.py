@@ -18,6 +18,7 @@ import threading
 import torch
 
 from repro_torch.kernels import _build, ref
+from repro_torch.kernels.launch import refuse_grad
 
 MAX_CHUNK = 64  # the kernel's lanes own two rows of a chunk each
 
@@ -111,6 +112,7 @@ def ssd_bshp(
     (float32 inputs; others are converted), a None h0 is a zero state
     inside the kernel, and the kernel writes the (B, S, H, P) result
     itself."""
+    refuse_grad("ssd", x, dt, A, Bm, Cm, h0)
     if x.dim() != 4 or Bm.dim() != 4:
         raise ValueError(f"x and Bm must be 4-d, got {tuple(x.shape)} and "
                          f"{tuple(Bm.shape)}")
@@ -147,6 +149,7 @@ def ssd_bhcp(
     """(y (B, H, S, P) in x's dtype, h_last (B, H, P, N) float32) in the
     JAX package's layout: the function of ``ssd_bshp``, read and written
     through the (B, H, S, P) strides."""
+    refuse_grad("ssd", x, dt, A, Bm, Cm, h0)
     if x.dim() != 4 or Bm.dim() != 4:
         raise ValueError(f"x and Bm must be 4-d, got {tuple(x.shape)} and "
                          f"{tuple(Bm.shape)}")

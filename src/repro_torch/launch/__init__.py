@@ -1,1 +1,2 @@
-"""repro_torch.launch — the serving layer of the port (``serve``)."""
+"""repro_torch.launch — the serving layer of the port (``serve``) and
+the training driver (``train``)."""

@@ -103,6 +103,34 @@ def set_param(model: Params, name: str, value: torch.Tensor) -> None:
         layer[rest[-1]].copy_(v)
 
 
+def get_param(model: Params, name: str):
+    """The parameter ``name`` (a dotted name of ``param_shapes``): the
+    tensor itself for a top-level leaf, else the list of each layer's
+    slice, in layer order."""
+    first, *rest = name.split(".")
+    target = getattr(model, first)
+    if not rest:
+        return target
+    out = []
+    for layer in target:
+        for key in rest[:-1]:
+            layer = layer[key]
+        out.append(layer[rest[-1]])
+    return out
+
+
+def stacked(model: Params, shapes: Dict) -> Dict[str, torch.Tensor]:
+    """Every leaf of ``shapes`` in the JAX layout, keyed by its dotted
+    name in ``param_leaves`` order: a layer stack as one tensor stacked
+    over the layers (a copy), a top-level leaf as it is (detached)."""
+    out = {}
+    for name, _ in param_leaves(shapes):
+        value = get_param(model, name)
+        out[name] = (value.detach() if isinstance(value, torch.Tensor)
+                     else torch.stack([t.detach() for t in value]))
+    return out
+
+
 def init(model: Params, shapes: Dict, generator: torch.Generator, *,
          fill: float, device) -> Params:
     """Fill ``model`` as the JAX package draws its parameters: every leaf

@@ -8,15 +8,20 @@ copy; a loop over the layers takes the place of ``lax.scan``. The
 functions take the module where the reference takes its parameter
 pytree.
 
-Not here yet: ``loss_fn`` and ``make_train_step`` (training);
-``input_specs``, ``roofline_units`` and ``param_logical`` (dry-run and
-sharding); remat, a training-memory knob (``cfg.remat`` is read nowhere).
+Training: ``loss_fn`` and ``make_train_step`` as the reference's, with
+``torch.autograd`` over the trainable leaves (the flash kernel's gradient
+is a kernel too: ``kernels.flash_attention.FlashAttention``) and
+``cfg.remat`` as ``torch.utils.checkpoint`` around each block
+(``_remat``). Not here yet: ``input_specs``, ``roofline_units`` and
+``param_logical`` (dry-run and sharding).
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict
 
 import torch
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import (
@@ -25,10 +30,12 @@ from repro_torch.models.layers import (
     lm_logits,
     position_ids,
     rms_norm,
+    softmax_xent,
     swiglu_mlp,
 )
-from repro_torch.models.params import Params, count, init
+from repro_torch.models.params import Params, count, get_param, init, param_leaves
 from repro_torch.models.params import spec as _spec
+from repro_torch.models.params import stacked
 
 VISION_FEAT_DIM = 1024  # stub frontend feature width (llava patch embeddings)
 
@@ -115,10 +122,50 @@ def dense_block(cfg, lp, h, positions):
     return h + swiglu_mlp(m_in, lp["w_gate"], lp["w_up"], lp["w_down"])
 
 
+# the matrix products remat's "dots" policies keep: with and without batch
+# dimensions (torch.matmul reaches mm for a product it can fold to 2-d, as
+# the layers' projections; bmm keeps its batch dimension)
+_DOTS_NO_BATCH = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+_DOTS = _DOTS_NO_BATCH + (torch.ops.aten.bmm.default,
+                          torch.ops.aten.baddbmm.default)
+
+
+def _save_dots(dots: tuple):
+    def policy(ctx, op, *args, **kwargs):
+        if op in dots:
+            return ckpt.CheckpointPolicy.MUST_SAVE
+        return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+    return functools.partial(ckpt.create_selective_checkpoint_contexts, policy)
+
+
+def _remat(cfg, fn):
+    """``fn`` recomputed in the backward pass, as the reference's
+    ``jax.checkpoint``: ``cfg.remat_policy`` "nothing" saves nothing,
+    "dots" the matrix products' results and "dots_no_batch" those without a
+    batch dimension. The flash kernel's autograd function is recomputed
+    under every policy."""
+    if not cfg.remat:
+        return fn
+    name = getattr(cfg, "remat_policy", "nothing")
+    kw = {}
+    if name == "dots":
+        kw["context_fn"] = _save_dots(_DOTS)
+    elif name == "dots_no_batch":
+        kw["context_fn"] = _save_dots(_DOTS_NO_BATCH)
+    return functools.partial(ckpt.checkpoint, fn, use_reentrant=False, **kw)
+
+
 def stack_forward(cfg, params: Transformer, h, positions,
                   block_fn=dense_block):
+    block = functools.partial(block_fn, cfg)
+    # remat only where a gradient is taken: serving runs the blocks as they
+    # are (its parameters need none, and inference mode takes none)
+    if torch.is_grad_enabled() and (h.requires_grad or any(
+            p.requires_grad for p in params.layers.parameters())):
+        block = _remat(cfg, block)
     for lp in params.layers:
-        h = block_fn(cfg, lp, h, positions)
+        h = block(lp, h, positions)
     return h
 
 
@@ -144,6 +191,99 @@ def forward(cfg, params: Transformer, batch, block_fn=dense_block):
     h = stack_forward(cfg, params, h, positions, block_fn)
     h = rms_norm(h, params.final_norm, cfg.norm_eps)
     return lm_logits(h, head(cfg, params), cfg.vocab_size)
+
+
+def loss_fn(cfg, params: Transformer, batch, block_fn=dense_block):
+    logits = forward(cfg, params, batch, block_fn)
+    labels = batch["labels"]
+    mask = batch.get("loss_mask")
+    if cfg.family == "vlm":
+        # image patch positions carry no next-token loss
+        logits = logits[:, cfg.num_patches:]
+    loss = softmax_xent(logits, labels, mask)
+    return loss, {"loss": loss}
+
+
+def make_train_step(cfg, optimizer, block_fn=dense_block, loss=None):
+    """Returns train_step(params, opt_state, batch) -> (params, opt_state,
+    metrics), the reference's step: ``params`` is the family's parameter
+    module, updated in place (the reference donates its buffers) and
+    returned; ``opt_state`` is ``optimizer.init`` of ``stacked(params)``;
+    ``batch`` a dict of tensors on the parameters' device. Gradients come
+    from ``torch.autograd`` over every leaf, with requires_grad turned on
+    for the step only (serving keeps it off). ``cfg.grad_accum > 1``
+    splits the batch on its leading dim into that many microbatches, sums
+    their gradients in ``cfg.grad_accum_dtype``, divides by the count and
+    averages the loss. The update is ``optimizer.update`` on the stacked
+    leaves, then p <- (p + u) in p's dtype; metrics are ``loss`` and
+    ``grad_norm``."""
+    from repro_torch.models.registry import family_module
+
+    loss = loss or functools.partial(loss_fn, block_fn=block_fn)
+    accum = max(1, getattr(cfg, "grad_accum", 1))
+    acc_dt = getattr(torch, getattr(cfg, "grad_accum_dtype", "float32"))
+    shapes = family_module(cfg.family).param_shapes(cfg)
+    names = [name for name, _ in param_leaves(shapes)]
+
+    def _grad(params, leaves, batch):
+        """(loss, metrics, grads): grads keyed as ``leaves``, a layer
+        stack's stacked over the layers."""
+        with torch.enable_grad():
+            value, metrics = loss(cfg, params, batch)
+            flat = [t for ts in leaves.values() for t in ts]
+            grads = iter(torch.autograd.grad(value, flat))
+        out = {}
+        for name, ts in leaves.items():
+            gs = [next(grads) for _ in ts]
+            out[name] = torch.stack(gs) if "." in name else gs[0]
+        return value.detach(), metrics, out
+
+    def train_step(params, opt_state, batch):
+        # each leaf's tensors: a top-level leaf (no dot in its name) alone,
+        # a layer stack's one a layer
+        leaves = {}
+        for name in names:
+            value = get_param(params, name)
+            leaves[name] = value if "." in name else [value]
+        for ts in leaves.values():
+            for t in ts:
+                t.requires_grad_(True)
+        try:
+            if accum <= 1:
+                _, metrics, grads = _grad(params, leaves, batch)
+            else:
+                micro = {k: v.reshape((accum, v.shape[0] // accum) + v.shape[1:])
+                         for k, v in batch.items()}
+                gsum = lsum = None
+                for i in range(accum):
+                    value, _, g = _grad(params, leaves,
+                                        {k: v[i] for k, v in micro.items()})
+                    if gsum is None:
+                        gsum = {n: torch.zeros(t.shape, dtype=acc_dt,
+                                               device=t.device)
+                                for n, t in g.items()}
+                        lsum = torch.zeros((), dtype=torch.float32,
+                                           device=value.device)
+                    gsum = {n: gsum[n] + g[n].to(acc_dt) for n in gsum}
+                    lsum = lsum + value
+                grads = {n: t / accum for n, t in gsum.items()}
+                metrics = {"loss": lsum / accum}
+        finally:
+            for ts in leaves.values():
+                for t in ts:
+                    t.requires_grad_(False)
+        values = stacked(params, shapes)
+        updates, opt_state = optimizer.update(grads, opt_state, values)
+        with torch.no_grad():
+            for name, ts in leaves.items():
+                new = (values[name] + updates[name]).to(ts[0].dtype)
+                for t, v in zip(ts, new if "." in name else [new]):
+                    t.copy_(v)
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics["grad_norm"] = optimizer.global_norm(grads)
+        return params, opt_state, metrics
+
+    return train_step
 
 
 # --------------------------------------------------------------------------- #

@@ -1,0 +1,179 @@
+"""Optimizers: AdamW (+ dtype-configurable moments) and Adafactor.
+
+Port of ``repro.optim.adamw`` with the reference's functional interface:
+``init(params)``, ``update(grads, state, params) -> (updates, state)`` and
+``global_norm``. Here ``params`` and ``grads`` are dicts of tensors keyed
+by the parameters' dotted names, in ``models.params.param_leaves`` order
+(the order ``jax.tree.flatten`` walks the reference's pytree in), each
+leaf stacked over the layers as in the JAX package: Adafactor factors
+every leaf of two or more dimensions, the stacked norms included, so the
+layout decides its state. Every operation runs in float32 in the
+reference's order: the clip scale, the bias correction by ``count``,
+``eps`` outside the square root, weight decay inside ``lr``; the moments
+are stored in ``moment_dtype``. Updates are returned (not applied) so the
+train step controls the parameter dtype cast. ``state_shapes`` builds on
+the meta device; ``state_logical`` (sharding names) waits for the port of
+sharding (ROADMAP.md, queue 1, item 4).
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass, field
+from typing import Callable, Dict
+
+import torch
+
+Tree = Dict[str, torch.Tensor]
+
+
+def constant_schedule(lr: float) -> Callable:
+    """step (a 0-d tensor) -> lr as a float32 0-d tensor on its device."""
+    return lambda step: torch.full((), lr, dtype=torch.float32,
+                                   device=torch.as_tensor(step).device)
+
+
+def cosine_schedule(peak_lr: float, warmup: int, total: int, floor: float = 0.1):
+    def fn(step):
+        step = torch.as_tensor(step).to(torch.float32)
+        warm = peak_lr * step / max(warmup, 1)
+        t = torch.clamp((step - warmup) / max(total - warmup, 1), 0.0, 1.0)
+        cos = peak_lr * (floor + (1 - floor) * 0.5 * (1 + torch.cos(math.pi * t)))
+        return torch.where(step < warmup, warm, cos)
+
+    return fn
+
+
+def _tree_global_norm(tree: Tree) -> torch.Tensor:
+    leaves = [torch.sum(torch.square(x.to(torch.float32))) for x in tree.values()]
+    return torch.sqrt(sum(leaves))
+
+
+def _clip_scale(clip_norm: float, gnorm: torch.Tensor):
+    if not clip_norm:
+        return 1.0
+    return torch.clamp(clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
+
+
+def _count(state_count: torch.Tensor) -> torch.Tensor:
+    return state_count + 1   # int32 stays int32
+
+
+def _spec(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+@dataclass(frozen=True)
+class AdamW:
+    schedule: Callable = field(default_factory=lambda: constant_schedule(1e-3))
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.0
+    clip_norm: float = 1.0
+    moment_dtype: str = "float32"
+
+    def init(self, params: Tree) -> Dict:
+        mdt = getattr(torch, self.moment_dtype)
+        device = next(iter(params.values())).device
+        return {
+            "m": {k: torch.zeros(p.shape, dtype=mdt, device=p.device)
+                  for k, p in params.items()},
+            "v": {k: torch.zeros(p.shape, dtype=mdt, device=p.device)
+                  for k, p in params.items()},
+            "count": torch.zeros((), dtype=torch.int32, device=device),
+        }
+
+    def state_shapes(self, param_shapes: Tree) -> Dict:
+        """Meta tensors mirroring init() (for a dry run)."""
+        mdt = getattr(torch, self.moment_dtype)
+        return {
+            "m": {k: _spec(s.shape, mdt) for k, s in param_shapes.items()},
+            "v": {k: _spec(s.shape, mdt) for k, s in param_shapes.items()},
+            "count": _spec((), torch.int32),
+        }
+
+    def global_norm(self, tree: Tree) -> torch.Tensor:
+        return _tree_global_norm(tree)
+
+    def update(self, grads: Tree, state: Dict, params: Tree):
+        count = _count(state["count"])
+        scale = _clip_scale(self.clip_norm, _tree_global_norm(grads))
+        lr = self.schedule(count)
+        b1, b2 = self.b1, self.b2
+        mdt = getattr(torch, self.moment_dtype)
+        cf = count.to(torch.float32)
+        c1, c2 = 1 - b1 ** cf, 1 - b2 ** cf
+        updates, new_m, new_v = {}, {}, {}
+        for k, g in grads.items():
+            g = g.to(torch.float32) * scale
+            m32 = b1 * state["m"][k].to(torch.float32) + (1 - b1) * g
+            v32 = b2 * state["v"][k].to(torch.float32) + (1 - b2) * g * g
+            mhat = m32 / c1
+            vhat = v32 / c2
+            updates[k] = -lr * (mhat / (torch.sqrt(vhat) + self.eps)
+                                + self.weight_decay * params[k].to(torch.float32))
+            new_m[k], new_v[k] = m32.to(mdt), v32.to(mdt)
+        return updates, {"m": new_m, "v": new_v, "count": count}
+
+
+@dataclass(frozen=True)
+class Adafactor:
+    """Factored second moments for >=2D params: O(sum dims) optimizer memory."""
+
+    schedule: Callable = field(default_factory=lambda: constant_schedule(1e-3))
+    decay: float = 0.99
+    eps: float = 1e-30
+    clip_norm: float = 1.0
+
+    @staticmethod
+    def _factor_shapes(shape) -> Dict:
+        shape = tuple(shape)
+        if len(shape) >= 2:
+            return {"row": shape[:-1], "col": shape[:-2] + shape[-1:]}
+        return {"v": shape}
+
+    def init(self, params: Tree) -> Dict:
+        device = next(iter(params.values())).device
+        return {
+            "f": {k: {n: torch.zeros(s, dtype=torch.float32, device=p.device)
+                      for n, s in self._factor_shapes(p.shape).items()}
+                  for k, p in params.items()},
+            "count": torch.zeros((), dtype=torch.int32, device=device),
+        }
+
+    def state_shapes(self, param_shapes: Tree) -> Dict:
+        return {
+            "f": {k: {n: _spec(s, torch.float32)
+                      for n, s in self._factor_shapes(p.shape).items()}
+                  for k, p in param_shapes.items()},
+            "count": _spec((), torch.int32),
+        }
+
+    def global_norm(self, tree: Tree) -> torch.Tensor:
+        return _tree_global_norm(tree)
+
+    def update(self, grads: Tree, state: Dict, params: Tree):
+        count = _count(state["count"])
+        scale = _clip_scale(self.clip_norm, _tree_global_norm(grads))
+        lr = self.schedule(count)
+        d = self.decay
+        updates, new_f = {}, {}
+        for k, g in grads.items():
+            f = state["f"][k]
+            g = g.to(torch.float32) * scale
+            g2 = g * g + self.eps
+            if "row" in f:
+                row = d * f["row"] + (1 - d) * torch.mean(g2, dim=-1)
+                col = d * f["col"] + (1 - d) * torch.mean(g2, dim=-2)
+                rms = torch.sqrt(
+                    row[..., :, None] * col[..., None, :]
+                    / torch.clamp(torch.mean(row, dim=-1, keepdim=True)[..., None],
+                                  min=self.eps)
+                )
+                updates[k] = -lr * g / torch.clamp(rms, min=1e-12)
+                new_f[k] = {"row": row, "col": col}
+            else:
+                v = d * f["v"] + (1 - d) * g2
+                updates[k] = -lr * g / torch.sqrt(torch.clamp(v, min=1e-12))
+                new_f[k] = {"v": v}
+        return updates, {"f": new_f, "count": count}

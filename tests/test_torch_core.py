@@ -52,7 +52,10 @@ def test_port_imports_neither_jax_nor_repro():
               "kernels.decode_attention", "configs", "configs.base",
               "configs.smollm_135m", "models.layers", "models.attention",
               "models.transformer", "models.vlm", "models.registry",
-              "convert"):
+              "convert", "launch.train", "optim", "optim.adamw",
+              "optim.compression", "checkpoint", "checkpoint.checkpointer",
+              "data.pipeline", "distributed", "distributed.fault_tolerance",
+              "examples.train_lm", "examples.review_analytics"):
         assert f"repro_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
