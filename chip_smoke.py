@@ -1,8 +1,9 @@
 """Chip smoke test of the PyTorch port: build, check and time its kernels
 on one CUDA card, then drive the UC1 lost-dog query, the review-triage
 text query, the kernel predicates, the multi-tenant query service, the
-LLM predicate, the ssm, hybrid, encdec and moe model families and the
-dense decoder's training (with UC4's fine-tuned probe) through them.
+LLM predicate, the ssm, hybrid, encdec and moe model families, the dense
+decoder's training (with UC4's fine-tuned probe) and the encdec and
+hybrid families' training through them.
 
     python3 chip_smoke.py
 
@@ -32,12 +33,22 @@ failed phase. Phases, in order:
              gradient kernel through the autograd function against
              ref.flash_attention_bwd (FLASH_BWD_CASES, bf16 and float32:
              SmolLM-135M's training attention, a 4096-long windowed one,
-             GQA groups 1 and 4, non-causal Sq != Sk, ragged S; the same
-             bits on a rerun), bf16 held to ref.flash_bwd_bf16_limits,
-             which must refuse both gradient mutants, float32 to
-             BWD_F32_RTOL and BWD_F32_ATOL; the gradient timed through
-             its wrapper and entry point beside its bound and SDPA's
-             backward, and the forward with and without its LSE;
+             GQA groups 1 and 4, non-causal Sq != Sk, ragged S,
+             whisper-small's encoder, decoder and cross attention as
+             phase 13 trains them, and D = 256: recurrentgemma-9b's local
+             attention at (2, 2560) and a non-causal case; the same bits
+             on a rerun), bf16 held to
+             ref.flash_bwd_bf16_limits, which must refuse both gradient
+             mutants, float32 to BWD_F32_RTOL and BWD_F32_ATOL; the
+             gradient timed through its wrapper and entry point beside
+             its bound and SDPA's backward (the window as a boolean mask),
+             and the forward with and without its LSE; then the RG-LRU
+             gradient kernel at recurrentgemma-9b's training shape (2,
+             2560, 4096), with and without h0 and a cotangent of h_last,
+             against ref.rglru_bwd within TOL_TIGHT, the same bits on a
+             rerun, timed as the main path calls it (bf16 in and out)
+             and at its float32 entry point, each beside its bound, and
+             the plain version;
 4. query   — the lost-dog query (5 minutes of 30-fps video) on the card
              under every eddy policy; row ids against the plain version
              on the CPU, launches on the kernel counter and the board;
@@ -92,19 +103,31 @@ failed phase. Phases, in order:
              The logits are held to TOL_BF16 in float32, on the same
              draws cut to 2 and 1 layers: in bf16 a flipped expert choice
              moves a token's logits past it;
-12. train  — launch.train.train_loop on smollm-135m at full width and
-             depth (30 layers, bf16, remat=True, random weights from a
-             seed), 40 steps of batch 8 x 512 with AdamW as build makes
-             it: the loss falls, each step launches the flash forward 30
-             times, its recompute 30 and its gradient 30 (exact); a
-             float32 gate (the same draws cut to 2 layers: gradients and a
-             step through the kernels against the plain versions); a crash
-             at step 25 with checkpoints every 10, resumed to the same
-             final loss; a step's time, tokens/s, peak memory and
-             torch.profiler split; then UC4 (examples.review_analytics) at
-             its defaults, its rows against its whole-table oracle under
-             every eddy policy;
-13. the ``{"kernels": [...]}`` line, then the device line last.
+12. train  — TRAIN_FAMILIES' first: launch.train.train_loop on
+             smollm-135m at full width and depth (30 layers, random
+             weights from a seed), 40 steps of 8 x 512, as phase 13 runs
+             each family (each step launches the flash forward 30 times,
+             its recompute 30 and its gradient 30; the float32 gate on 2
+             layers); then a crash at step 25 with checkpoints every 10,
+             resumed to the same final loss; then UC4
+             (examples.review_analytics) at its defaults, its rows against
+             its whole-table oracle under every eddy policy;
+13. train families — the others of TRAIN_FAMILIES, each as phase 12's:
+             whisper-small at full width and depth (12 + 12 layers, 1,500
+             frames; 40 steps of 4 x 448 through build's step, frames
+             from a seeded torch.Generator) and recurrentgemma-9b at full
+             width cut to 4 of 38 layers (a group and a remainder block;
+             20 steps of 2 x 2560 through train_loop), bf16, remat=True,
+             AdamW as build makes it: the loss falls, each step's
+             launches exact (whisper 72 flash forward and 36 gradient
+             calls; recurrentgemma 6 rglru forward, 3 rglru gradient, 2
+             flash forward and 1 flash gradient calls), the peak memory; a
+             float32 gate on the same draws cut (2 + 2 layers; one group
+             at (1, 2560)): gradients and a step through the kernels
+             against the plain versions; two steps run twice to the same
+             parameter bits; a step's time, tokens/s and torch.profiler
+             split;
+14. the ``{"kernels": [...]}`` line, then the device line last.
 """
 from __future__ import annotations
 
@@ -142,8 +165,8 @@ VOCAB = 256           # the text predicates' embedding tables' rows
 ATT_SEQ = 32          # the attention predicates' token window
 BUCKETS = (1, 2, 4, 8, 16, 32)  # the executor's bucketed batch sizes
 BIG = 4096            # rows for the throughput case
-KERNELS = ("hsv_color", "moe_router", "ssd", "rglru", "flash_attention",
-           "flash_attention_bwd", "decode_attention")
+KERNELS = ("hsv_color", "moe_router", "ssd", "rglru", "rglru_bwd",
+           "flash_attention", "flash_attention_bwd", "decode_attention")
 LIBRARIES = (*KERNELS, "empty")   # empty: the launch floor, not a TPU kernel
 # bench_kernels' shapes: flash (B, S, H, Hkv, D, window), causal; decode
 # (B, S, H, Hkv, D) with full lengths
@@ -2227,6 +2250,105 @@ def time_rglru_case(x, r, i, a_param, h0, label: str) -> dict:
     return t
 
 
+# the RG-LRU gradient at recurrentgemma-9b's training shape (B, S, W), and
+# the floating-point operations a (t, w) element takes in csrc/rglru_bwd.cu
+# (two sigmoids, a's exp, the terms of dx, di, da, dr and dL, the walk)
+RGLRU_BWD_SHAPE = (2, 2560, 4096)
+RGLRU_BWD_FLOPS = 35
+
+
+def rglru_bwd_cases() -> dict:
+    """Phase 3 for the RG-LRU gradient kernel at RGLRU_BWD_SHAPE (inputs
+    from a numpy seed; channel 1's clamp of 1 - a^2 binds): without h0
+    and a cotangent of h_last, then with both, ``rglru.rglru_bwd`` against
+    ``ref.rglru_bwd`` on the card (dx, dr, di, da_param, dh0 within
+    TOL_TIGHT) and bit-equal on a rerun (no atomics); then timed as the
+    main path calls it (``Rglru.backward``: the wrapper on the model's
+    bfloat16 x, r, i and dout and the float32 h, its float32 copies
+    included, and dx, dr, di cast back to bfloat16) and at the C entry
+    point on float32, in turns, the entry point in a CUDA graph, and the
+    plain version. Two bounds, each with a_param, h0, dh_last, dh0 and dL
+    and RGLRU_BWD_FLOPS a (t, w): the main path's (``bound_ms``: x, r, i
+    and dout read once in bfloat16, h in float32, dx, dr, di written once
+    in bfloat16) and the float32 entry point's (``entry_bound_ms``: the
+    eight arrays in float32). Returns {label: timings}."""
+    from repro_torch.kernels import _build, ref, rglru
+    b, s, w = RGLRU_BWD_SHAPE
+    rng = np.random.default_rng(23)
+
+    def T(*dims):
+        return torch.from_numpy(rng.standard_normal(dims).astype(
+            np.float32)).cuda()
+
+    x, r, i, dout = T(b, s, w), T(b, s, w), T(b, s, w), T(b, s, w)
+    a_param = T(w)
+    a_param[1] = -40.0
+    out = {}
+    for h0, dh_last in ((None, None), (T(b, w), T(b, w))):
+        label = (f"recurrentgemma-9b train B={b} S={s} W={w} h0 and h_last "
+                 f"cotangent {'given' if h0 is not None else 'None'}")
+        hs, _ = rglru.rglru_bsw(x, r, i, a_param, h0)
+        got = rglru.rglru_bwd(x, r, i, a_param, h0, hs, dout, dh_last)
+        again = rglru.rglru_bwd(x, r, i, a_param, h0, hs, dout, dh_last)
+        want = ref.rglru_bwd(x, r, i, a_param, h0, hs, dout, dh_last)
+        torch.cuda.synchronize()
+        err, ok, same, exact = 0.0, True, True, {}
+        for name, g, a, wt in zip(("dx", "dr", "di", "da_param", "dh0"),
+                                  got, again, want):
+            if wt is None:
+                ok = ok and g is None
+                continue
+            e, o = within(g, wt, **TOL_TIGHT)
+            err, ok, same = max(err, e), ok and o, same and torch.equal(g, a)
+            exact[name] = torch.equal(g, wt)
+        print(f"  rglru_bwd {label}: max_abs_err {err!r} within TOL_TIGHT "
+              f"{ok}, bit-equal to the plain version {exact}, bit-equal on "
+              f"a rerun {same}", flush=True)
+        if not (ok and same):
+            raise AssertionError(f"the RG-LRU gradient kernel disagrees on "
+                                 f"{label}")
+        outs = [torch.empty_like(x) for _ in range(3)]
+        dh0 = None if h0 is None else torch.empty_like(h0)
+        part, dl = torch.empty((b, w), device="cuda"), torch.empty(
+            w, device="cuda")
+        ptrs = (x, r, i, a_param, h0, hs, dout, dh_last, *outs, dh0, part, dl)
+        args = rglru.BWD_ARGS.pack(*(0 if t is None else t.data_ptr()
+                                     for t in ptrs), b, s, w, 8.0)
+        call = _build.load("rglru_bwd").lib.rglru_bwd
+        stream = torch.cuda.current_stream().cuda_stream
+        if call(args, stream) != 0:
+            raise AssertionError("rglru_bwd entry point failed")
+        bf = [t.to(torch.bfloat16) for t in (x, r, i, dout)]
+        before = rglru.backward_launches
+        t = {"dtype": "bfloat16 in and out, float32 kernel",
+             **paired_ms({
+                 "ms": lambda: [g.to(torch.bfloat16) for g in rglru.rglru_bwd(
+                     *bf[:3], a_param, h0, hs, bf[3], dh_last)[:3]],
+                 "entry_ms": lambda: call(args, stream)}, iters=20),
+             "graph_ms": graph_ms(lambda st: call(args, st), n=20, reps=5),
+             "plain_ms": time_ms(lambda: ref.rglru_bwd(
+                 x, r, i, a_param, h0, hs, dout, dh_last), 2, warmup=1),
+             "library_ms": None,   # no single PyTorch call differentiates it
+             "max_abs_err": err, "bit_equal_to_plain": exact}
+        rglru.backward_launches = before   # timing calls do not count
+        small = 4 * (2 * w + (0 if h0 is None else 3 * b * w))
+        flops = RGLRU_BWD_FLOPS * b * s * w
+        t.update(zip(("bound_ms", "bound_by"), bound_ms(
+            (2 * 7 + 4) * b * s * w + small, flops)))
+        t.update(zip(("entry_bound_ms", "entry_bound_by"), bound_ms(
+            4 * 8 * b * s * w + small, flops)))
+        print(f"  rglru_bwd {label}: {t['ms']!r} ms as the main path calls "
+              f"it, bfloat16 in and out (bound {t['bound_ms']!r} ms, "
+              f"{t['bound_by']}); entry point on float32 {t['entry_ms']!r} "
+              f"ms, in a CUDA graph {t['graph_ms']!r} (bound "
+              f"{t['entry_bound_ms']!r} ms, {t['entry_bound_by']}); plain "
+              f"{t['plain_ms']!r} ms", flush=True)
+        out[label] = t
+    for line in ptxas_lines("rglru_bwd", "rglru_bwd"):
+        print(f"  rglru_bwd (ptxas): {line}")
+    return out
+
+
 def time_router_case(logits: torch.Tensor, k: int, label: str,
                      floor: dict) -> dict:
     """moe_router_tk at a model's shape: its first rows tied (row 0 all
@@ -2926,11 +3048,11 @@ def run_moe_family() -> dict:
 # which the limit must refuse at SmolLM-135M's bf16 training attention
 FLASH_BWD_MUTANTS = (
     ("drops the second key tile from dK and dV",
-     "      pv_tile<DP, BQ>(dv, st, s_do, g, t, one);\n"
-     "      pv_tile<DP, BQ>(dk, dpt, s_q, g, t, one);\n",
+     "      pv_tile<DP, BQ, NO>(dv, st, s_do + c0, g, t, one);\n"
+     "      pv_tile<DP, BQ, NO>(dk, dpt, s_q + c0, g, t, one);\n",
      "      if (k_start != kBlock) {\n"
-     "        pv_tile<DP, BQ>(dv, st, s_do, g, t, one);\n"
-     "        pv_tile<DP, BQ>(dk, dpt, s_q, g, t, one);\n"
+     "        pv_tile<DP, BQ, NO>(dv, st, s_do + c0, g, t, one);\n"
+     "        pv_tile<DP, BQ, NO>(dk, dpt, s_q + c0, g, t, one);\n"
      "      }\n"),
     ("leaves D out of the first key tile's dS for dQ",
      "        s[j][e] = pr * (dp[j][e] - dl[r]);  // dS\n",
@@ -2940,7 +3062,11 @@ BWD_F32_RTOL = 1e-4   # float32 (3xTF32) gradient: |err| <= rtol |want| + ...
 BWD_F32_ATOL = 1e-5   # ... atol max|want| of the tensor
 # (B, Sq, Sk, H, Hkv, D, causal, window): SmolLM-135M's training attention
 # first (the main path's shape), then a long windowed sequence, GQA groups
-# 1 and 4, non-causal Sq != Sk and a ragged S
+# 1 and 4, non-causal Sq != Sk, a ragged S, whisper-small's three
+# attentions as phase 13 trains them (the encoder's 1,500 frames leave a
+# partial key tile; the cross attention has Sq != Sk), and D = 256:
+# recurrentgemma-9b's local attention as phase 13 trains it (16 heads on
+# one kv head, window 2048) and a non-causal case
 FLASH_BWD_CASES = (
     ("smollm-135m train", (8, 512, 512, 9, 3, 64, True, 0)),
     ("long windowed", (1, 4096, 4096, 4, 1, 64, True, 512)),
@@ -2948,7 +3074,16 @@ FLASH_BWD_CASES = (
     ("group 4", (2, 512, 512, 8, 2, 64, True, 0)),
     ("non-causal Sq != Sk", (2, 384, 512, 8, 2, 64, False, 0)),
     ("ragged S", (2, 300, 300, 9, 3, 64, True, 0)),
+    ("whisper encoder", (4, 1500, 1500, 12, 12, 64, False, 0)),
+    ("whisper decoder", (4, 448, 448, 12, 12, 64, True, 0)),
+    ("whisper cross", (4, 448, 1500, 12, 12, 64, False, 0)),
+    ("recurrentgemma local", (2, 2560, 2560, 16, 1, 256, True, 2048)),
+    ("non-causal D=256", (2, 384, 512, 8, 2, 256, False, 0)),
 )
+# the cases timed (and, for the first two, the forward's LSE beside)
+FLASH_BWD_TIMED = ("smollm-135m train", "long windowed", "whisper encoder",
+                   "whisper decoder", "whisper cross", "recurrentgemma local",
+                   "non-causal D=256")
 
 
 def build_bwd_mutants() -> list:
@@ -3081,7 +3216,7 @@ def time_flash_bwd(case: BwdCase, label: str) -> dict:
     t = {"dtype": str(case.dtype).replace("torch.", ""),
          **paired_ms({"ms": wrapper,
                       "entry_ms": lambda: call(args, stream),
-                      "library_ms": library}, iters=20)}
+                      "library_ms": library}, iters=20 if d <= 128 else 4)}
     flash_attention.backward_launches = before   # timing calls do not count
     t["plain_ms"] = time_ms(lambda: ref.flash_attention_bwd(
         *case.args, group=case.group, **case.kw), 3, warmup=1)
@@ -3164,27 +3299,58 @@ def flash_bwd_cases(mutants: list) -> dict:
                     if m["within"]:
                         raise AssertionError(f"the bf16 gradient limit "
                                              f"accepts the mutant that {what}")
-            if name in ("smollm-135m train", "long windowed"):
+            if name in FLASH_BWD_TIMED:
                 out["timings"][label] = {**time_flash_bwd(case, label),
                                          "max_abs_err": res["max_abs_err"]}
+            if name in FLASH_BWD_TIMED[:2]:
                 out["lse"][label] = time_flash_lse(case, label)
             out["cases"][label] = res
             del case
     print(f"  backward launches so far {flash_attention.backward_launches}")
+    for line in ptxas_lines("flash_attention_bwd", "Li256E"):
+        print(f"  flash_attention_bwd D=256 instances (ptxas): {line}")
     return out
 
 
 # --------------------------------------------------------------------------- #
-# phase 12: training                                                          #
+# phases 12 and 13: training                                                  #
 # --------------------------------------------------------------------------- #
-TRAIN_ARCH = "smollm-135m"   # unreduced: 30 layers, bf16, remat=True
-TRAIN_STEPS = 40
-TRAIN_BATCH, TRAIN_SEQ = 8, 512
-TRAIN_CKPT_EVERY, TRAIN_FAIL_AT = 10, 25
 TRAIN_SEED = 0
-GATE_LAYERS = 2              # the float32 gate's cut of the same draws
+TRAIN_CKPT_EVERY, TRAIN_FAIL_AT = 10, 25   # phase 12's crash and resume
 GATE_GRAD_RTOL = 1e-3        # float32 gradients, kernels against plain:
 GATE_GRAD_ATOL = 1e-3        # ... and this times the leaf's largest
+# Each family trains in bf16 with remat, AdamW as build makes it. Phase 12
+# trains the first: smollm-135m unreduced (30 layers) at 8 x 512 (the JAX
+# example's --full-config) through train_loop. Phase 13 the others:
+# whisper-small unreduced (12 + 12 layers, 1,500 frames) at its decoder's
+# context of 448, driven through build's step (train_loop feeds tokens
+# only, as the reference's does); recurrentgemma-9b at full width cut to 4
+# of its 38 layers (a (rglru, rglru, local) group and a remainder RG-LRU
+# block, so both loops train: the whole model's AdamW state alone would
+# not fit one card) at 2 x 2560 (its window of 2048 binds), driven
+# through train_loop. Launches a step under remat: each attention or
+# RG-LRU layer's forward, its recompute and its gradient. The float32
+# gate cuts the same draws (smollm to 2 layers, whisper to 2 + 2,
+# recurrentgemma to its group at one row); its launches a pass (gradients,
+# then a step) as a step's.
+TRAIN_FAMILIES = (
+    {"arch": "smollm-135m", "changes": {}, "shape": (8, 512), "steps": 40,
+     "a_step": {"flash_attention": 60, "flash_attention_bwd": 30},
+     "gate": {"num_layers": 2}, "gate_shape": (8, 512),
+     "gate_a_pass": {"flash_attention": 4, "flash_attention_bwd": 2}},
+    {"arch": "whisper-small", "changes": {}, "shape": (4, 448), "steps": 40,
+     "a_step": {"flash_attention": 72, "flash_attention_bwd": 36},
+     "gate": {"num_layers": 2, "num_encoder_layers": 2},
+     "gate_shape": (4, 448),
+     "gate_a_pass": {"flash_attention": 12, "flash_attention_bwd": 6}},
+    {"arch": "recurrentgemma-9b", "changes": {"num_layers": 4},
+     "shape": (2, 2560), "steps": 20,
+     "a_step": {"flash_attention": 2, "flash_attention_bwd": 1, "rglru": 6,
+                "rglru_bwd": 3},
+     "gate": {"num_layers": 3}, "gate_shape": (1, 2560),
+     "gate_a_pass": {"flash_attention": 2, "flash_attention_bwd": 1,
+                     "rglru": 4, "rglru_bwd": 2}},
+)
 
 
 class _Annotated:
@@ -3205,17 +3371,12 @@ class _Annotated:
             return self.inner.update(grads, state, params)
 
 
-def _kernels_under(ev) -> float:
-    """Device milliseconds of the kernels a profiler CPU event and its
-    children launched."""
-    return (sum(k.duration for k in ev.kernels) / 1e3
-            + sum(_kernels_under(c) for c in ev.cpu_children))
-
-
 def train_trace(step, params, state, batch) -> dict:
     """One train step under torch.profiler: device time by flash forward
-    (flash_kernel), flash backward (delta, dq and dkv kernels), GEMMs,
-    the optimizer (kernels launched inside ``_Annotated.update``) and the
+    (flash_kernel), flash backward (delta, dq and dkv kernels), RG-LRU
+    forward (rglru_kernel) and backward (rglru_bwd kernels), GEMMs, the
+    optimizer (the kernels inside the device's span of
+    ``_Annotated.update``'s range: one stream runs them in order) and the
     other elementwise and copy kernels, with the busy share of the step's
     wall time."""
     from torch.autograd import DeviceType
@@ -3228,114 +3389,298 @@ def train_trace(step, params, state, batch) -> dict:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     split, count = collections.Counter(), collections.Counter()
+    # the optimizer's range shows on the device too, as an annotation
+    spans = [e.time_range for e in prof.events()
+             if e.name == "optimizer" and e.device_type == DeviceType.CUDA]
+    if not spans:
+        raise AssertionError("the trace holds no device span of the "
+                             "optimizer's range")
     for e in prof.events():
-        # the optimizer's range shows on the device too, as an annotation
         if e.device_type != DeviceType.CUDA or e.name == "optimizer":
             continue
         name = e.name
-        if any(k in name for k in ("dq_kernel", "dkv_kernel", "delta_kernel")):
+        r = e.time_range
+        if any(o.start <= r.start and r.end <= o.end for o in spans):
+            key = "optimizer"
+        elif any(k in name for k in ("dq_kernel", "dkv_kernel",
+                                     "delta_kernel")):
             key = "flash_backward"
         elif "flash_kernel" in name:
             key = "flash_forward"
+        elif "rglru_bwd" in name:
+            key = "rglru_backward"
+        elif "rglru_kernel" in name:
+            key = "rglru_forward"
         elif any(w in name.lower() for w in ("gemm", "gemv", "cutlass",
                                              "xmma", "nvjet")):
             key = "gemms"
         else:
             key = "elementwise_and_copies"
-        split[key] += e.time_range.elapsed_us() / 1e3
+        split[key] += r.elapsed_us() / 1e3
         count[key] += 1
-    opt_ms = sum(_kernels_under(e) for e in prof.events()
-                 if e.name == "optimizer" and e.device_type == DeviceType.CPU)
-    split["elementwise_and_copies"] -= opt_ms
-    split["optimizer"] = opt_ms
     device_ms = sum(split.values())
     return {"wall_ms": wall_ms, "device_ms": device_ms,
             "busy_share": device_ms / wall_ms, "split_ms": dict(split),
             "split_launches": dict(count)}
 
 
-def train_gate(cfg) -> dict:
-    """The float32 gate: the unreduced config's draws (seed TRAIN_SEED) in
-    float32, cut to GATE_LAYERS layers, one batch of TokenSource's; the
-    loss's gradients and one make_train_step through the kernels against
-    the same through the plain versions (``plain_kernels``). Gradients
-    within GATE_GRAD_RTOL |plain| + GATE_GRAD_ATOL max|plain| of each leaf
-    (3xTF32 keeps ~1e-6 of each product); the stepped parameters within
-    twice the first step's learning rate (AdamW's first update is
-    -lr g / (|g| + eps): a gradient near 0 may take either sign)."""
-    import dataclasses
+def train_counts() -> dict:
+    """The training kernels' launch counters: flash forward and gradient,
+    RG-LRU forward and gradient."""
+    from repro_torch.kernels import flash_attention, rglru
+    return {"flash_attention": flash_attention.launches,
+            "flash_attention_bwd": flash_attention.backward_launches,
+            "rglru": rglru.launches, "rglru_bwd": rglru.backward_launches}
+
+
+def zero_train_counts() -> None:
+    from repro_torch.kernels import flash_attention, rglru
+    flash_attention.launches = flash_attention.backward_launches = 0
+    rglru.launches = rglru.backward_launches = 0
+
+
+def family_batches(cfg, b: int, s: int, seed: int):
+    """A maker of train batches: TokenSource's tokens and labels (seed
+    ``seed``) and, for an encdec model, frames drawn from
+    ``torch.Generator("cuda").manual_seed(seed)``, all on the card."""
     from repro_torch.data.pipeline import TokenSource, shard_batch
+    src = TokenSource(cfg.vocab_size, s, seed=seed)
+    gen = torch.Generator("cuda").manual_seed(seed)
+
+    def batch() -> dict:
+        out = shard_batch(src.next(b), device="cuda")
+        if cfg.family == "encdec":
+            out["frames"] = torch.randn((b, cfg.num_frames, cfg.d_model),
+                                        generator=gen, device="cuda")
+        return out
+
+    return batch
+
+
+def step_loop(cfg, b: int, s: int, steps: int):
+    """``steps`` steps of ``build(cfg)``'s train step from weights drawn
+    from ``torch.Generator("cuda").manual_seed(TRAIN_SEED)``, on
+    ``family_batches``. Returns (losses, params)."""
     from repro_torch.launch.train import build
-    from repro_torch.models import transformer as tf
-    from repro_torch.models.params import get_param, param_leaves, set_param, stacked
+    from repro_torch.models.params import stacked
+    api, opt, step = build(cfg)
+    params = api.init_params(cfg, torch.Generator("cuda").manual_seed(
+        TRAIN_SEED), device="cuda")
+    state = opt.init(stacked(params, api.param_shapes(cfg)))
+    batch = family_batches(cfg, b, s, TRAIN_SEED)
+    losses = []
+    for _ in range(steps):
+        params, state, metrics = step(params, state, batch())
+        losses.append(float(metrics["loss"]))
+    return losses, params
+
+
+def family_grads(api, cfg, model, batch) -> tuple:
+    """(loss, {name: gradient stacked over the layers}) of ``api.loss_fn``
+    under torch.autograd."""
+    from repro_torch.models.params import get_param, param_leaves, stack_layers
+    shapes = list(param_leaves(api.param_shapes(cfg)))
+    values = [get_param(model, n) for n, _ in shapes]
+    flat = [t for v in values for t in (v if isinstance(v, list) else [v])]
+    model.requires_grad_(True)
+    loss, _ = api.loss_fn(cfg, model, batch)
+    gs = iter(torch.autograd.grad(loss, flat))
+    model.requires_grad_(False)
+    return float(loss.detach()), {
+        n: (stack_layers([next(gs) for _ in v], spec, "cuda")
+            if isinstance(v, list) else next(gs))
+        for (n, spec), v in zip(shapes, values)}
+
+
+def family_gate(cfg, fam: dict) -> dict:
+    """A family's float32 gate: the unreduced draws (seed TRAIN_SEED)
+    in float32, cut by ``fam["gate"]``, one batch at ``fam["gate_shape"]``;
+    the loss's gradients and one step of ``build``'s step through the
+    kernels against the same through the plain versions
+    (``plain_kernels``). Gradients within GATE_GRAD_RTOL |plain| +
+    GATE_GRAD_ATOL max|plain| of each leaf (3xTF32 keeps ~1e-6 of each
+    product); the stepped parameters within twice the first step's
+    learning rate (AdamW's first update is -lr g / (|g| + eps): a gradient
+    near 0 may take either sign). The draws wait on the host and each pass
+    frees its model, so that a 4 GB float32 embedding of recurrentgemma's
+    fits beside its copies."""
+    import dataclasses
+    from repro_torch.launch.train import build
+    from repro_torch.models.params import param_leaves, set_param, stacked
+    from repro_torch.models.registry import model_api
     full = dataclasses.replace(cfg, dtype="float32")
-    cut = dataclasses.replace(full, num_layers=GATE_LAYERS)
-    draws = stacked(tf.init_params(full, torch.Generator("cuda").manual_seed(
-        TRAIN_SEED), device="cuda"), tf.param_shapes(full))
-    shapes = tf.param_shapes(cut)
-    batch = shard_batch(TokenSource(cfg.vocab_size, TRAIN_SEQ,
-                                    seed=TRAIN_SEED).next(TRAIN_BATCH),
-                        device="cuda")
+    cut = dataclasses.replace(full, **fam["gate"])
+    api = model_api(cut)
+    drawn = api.init_params(full, torch.Generator("cuda").manual_seed(
+        TRAIN_SEED), device="cuda")
+    draws = {n: t.cpu() for n, t in stacked(drawn, api.param_shapes(full)
+                                            ).items()}
+    del drawn
+    torch.cuda.empty_cache()
+    shapes = api.param_shapes(cut)
+    batch = family_batches(cut, *fam["gate_shape"], TRAIN_SEED)()
 
     def model():
-        m = tf.Transformer(cut, device="cuda")
+        m = api.Model(cut, device="cuda")
         with torch.no_grad():
-            for name, _ in param_leaves(shapes):
+            for name, spec in param_leaves(shapes):
                 value = draws[name]
-                set_param(m, name, value[:GATE_LAYERS] if "." in name else value)
+                set_param(m, name, value[:spec.shape[0]] if "." in name
+                          else value)
         return m
 
-    def grads(m):
-        m.requires_grad_(True)
-        loss, _ = tf.loss_fn(cut, m, batch)
-        names = [n for n, _ in param_leaves(shapes)]
-        leaves = [get_param(m, n) for n in names]
-        flat = [t for v in leaves for t in (v if isinstance(v, list) else [v])]
-        gs = iter(torch.autograd.grad(loss, flat))
-        m.requires_grad_(False)
-        return float(loss.detach()), {n: (torch.stack([next(gs) for _ in v])
-                                 if isinstance(v, list) else next(gs))
-                             for n, v in zip(names, leaves)}
-
-    def stepped(m):
+    def stepped():
+        m = model()
         _, opt, step = build(cut)
-        state = opt.init(stacked(m, shapes))
-        step(m, state, batch)
+        step(m, opt.init(stacked(m, shapes)), batch)
         return stacked(m, shapes), float(opt.schedule(torch.tensor(1)))
 
-    from repro_torch.kernels import flash_attention
-    zero = (flash_attention.launches, flash_attention.backward_launches)
-    k_loss, k_grads = grads(model())
-    k_params, lr1 = stepped(model())
-    gate_launches = (flash_attention.launches - zero[0],
-                     flash_attention.backward_launches - zero[1])
+    marks = [train_counts()]   # around each pass
+    k_loss, k_grads = family_grads(api, cut, model(), batch)
+    marks.append(train_counts())
     with plain_kernels():
-        p_loss, p_grads = grads(model())
-        p_params, _ = stepped(model())
-    # two passes (the gradients, then the step), each a forward and its
-    # recompute (remat) and a backward a layer
-    if gate_launches != (4 * GATE_LAYERS, 2 * GATE_LAYERS):
-        raise AssertionError(f"the float32 gate launched {gate_launches} "
-                             "(forward, backward), not the kernels")
-    worst, worst_p = 0.0, 0.0
-    for name in k_grads:
-        g, w = k_grads[name], p_grads[name]
-        lim = GATE_GRAD_RTOL * w.abs() + GATE_GRAD_ATOL * w.abs().max()
-        worst = max(worst, share_of(g, w, lim))
-        worst_p = max(worst_p, float((k_params[name] - p_params[name]).abs().max()))
-    res = {"layers": GATE_LAYERS, "loss": k_loss, "plain_loss": p_loss,
+        p_loss, p_grads = family_grads(api, cut, model(), batch)
+    marks.append(train_counts())
+    worst = 0.0
+    for name, w in p_grads.items():
+        if w.numel():   # the cut's empty remainder stack has none
+            lim = GATE_GRAD_RTOL * w.abs() + GATE_GRAD_ATOL * w.abs().max()
+            worst = max(worst, share_of(k_grads[name], w, lim))
+    del k_grads, p_grads
+    k_params, lr1 = stepped()
+    k_params = {n: t.cpu() for n, t in k_params.items()}
+    marks.append(train_counts())
+    with plain_kernels():
+        p_params, _ = stepped()
+    marks.append(train_counts())
+
+    def passes(first: int) -> dict:
+        """Launches in passes ``first`` and ``first + 2`` (the kernels' or
+        the plain versions')."""
+        out = {k: sum(marks[i + 1][k] - marks[i][k] for i in (first,
+                                                              first + 2))
+               for k in marks[0]}
+        return {k: v for k, v in out.items() if v}
+
+    launched, plain_launched = passes(0), passes(1)
+    worst_p = max(float((k_params[n] - p_params[n].cpu()).abs().max())
+                  for n in k_params if p_params[n].numel())
+    del k_params, p_params, draws
+    torch.cuda.empty_cache()
+    want = {k: 2 * v for k, v in fam["gate_a_pass"].items()}
+    res = {"changes": fam["gate"], "shape": list(fam["gate_shape"]),
+           "loss": k_loss, "plain_loss": p_loss, "launches": launched,
            "largest_grad_share_of_limit": worst,
            "params_max_abs_err": worst_p, "params_limit": 2 * lr1}
-    print(f"  float32 gate ({GATE_LAYERS} of {cfg.num_layers} layers): loss "
+    print(f"  float32 gate ({fam['gate']} at {fam['gate_shape']}): loss "
           f"{k_loss!r} through the kernels, {p_loss!r} through the plain "
           f"versions; gradients' largest share of their limit {worst!r}; "
           f"stepped parameters' max_abs_err {worst_p!r} (limit 2 lr = "
-          f"{2 * lr1!r})", flush=True)
+          f"{2 * lr1!r}); launches {launched} (want {want})", flush=True)
+    if launched != want or plain_launched:
+        raise AssertionError(f"the float32 gate launched {launched} through "
+                             f"the kernels and {plain_launched} through the "
+                             f"plain versions, not {want} and none")
     if not (worst <= 1.0 and worst_p <= 2 * lr1
             and abs(k_loss - p_loss) <= 1e-4 * abs(p_loss)):
-        raise AssertionError("the float32 train step through the kernels "
-                             "disagrees with the plain versions")
+        raise AssertionError(f"{cfg.name}: the float32 train step through "
+                             "the kernels disagrees with the plain versions")
     return res
+
+
+def two_step_bits(cfg, b: int, s: int) -> dict:
+    """The parameters after two steps of ``step_loop``, on the host."""
+    from repro_torch.models.params import stacked
+    from repro_torch.models.registry import model_api
+    _, params = step_loop(cfg, b, s, 2)
+    out = {n: t.cpu() for n, t in stacked(
+        params, model_api(cfg).param_shapes(cfg)).items()}
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_train_family(fam: dict) -> dict:
+    """One family of phase 13 in bf16 with remat, AdamW as ``build`` makes
+    it: ``fam["steps"]`` steps with the training counters set to 0 just
+    before and read just after (each step's launches exact), a falling
+    loss, the step's peak memory; the float32 gate; two steps run twice
+    from the same draws to the same parameter bits; a step's times,
+    tokens/s and torch.profiler split on the trained parameters."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import build, train_loop
+    from repro_torch.models.params import stacked
+    from repro_torch.models.registry import model_api
+    cfg = dataclasses.replace(get_config(fam["arch"]), **fam["changes"])
+    api = model_api(cfg)
+    b, s = fam["shape"]
+    steps = fam["steps"]
+    enc = (f" + {cfg.num_encoder_layers} encoder, {cfg.num_frames} frames"
+           if cfg.num_encoder_layers else "")
+    print(f"  {cfg.name} ({cfg.family}): {cfg.num_layers} layers{enc}, "
+          f"d_model {cfg.d_model}, heads {cfg.num_heads}/{cfg.num_kv_heads} "
+          f"of {cfg.head_dim}, vocab {cfg.vocab_size}, {cfg.dtype}, "
+          f"remat={cfg.remat}; {api.param_count(cfg)} parameters; batch "
+          f"{b} x {s}", flush=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_train_counts()
+    t0 = time.perf_counter()
+    if cfg.family == "encdec":
+        losses, params = step_loop(cfg, b, s, steps)
+    else:
+        run = train_loop(cfg, steps=steps, batch=b, seq=s, seed=TRAIN_SEED,
+                         log_every=steps, device="cuda")
+        losses, params = run["losses"], run.pop("params")
+        del run
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    launches = {k: v for k, v in train_counts().items() if v}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want = {k: steps * v for k, v in fam["a_step"].items()}
+    print(f"  {steps} steps in {loop_s!r} s; loss {losses[0]!r} -> "
+          f"{losses[-1]!r}; launches {launches} (want {want}); peak memory "
+          f"{peak_gb!r} GB", flush=True)
+    if launches != want:
+        raise AssertionError(f"{cfg.name}: the steps launched {launches}, "
+                             f"not {want}")
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"{cfg.name}: the loss did not fall")
+
+    # a step's times, memory and device split, on the trained params
+    _, opt, _ = build(cfg)
+    step = api.make_train_step(cfg, _Annotated(opt))
+    state = opt.init(stacked(params, api.param_shapes(cfg)))
+    batch = family_batches(cfg, b, s, TRAIN_SEED + 1)()
+    times = family_ms(lambda: step(params, state, batch))
+    trace = train_trace(step, params, state, batch)
+    timing = {**times, "tokens_per_s": b * s / (times["event_ms"] / 1e3),
+              "trace": trace}
+    print(f"  a train step: {times['event_ms']!r} ms between CUDA events "
+          f"({times['host_ms']!r} ms on the host clock), "
+          f"{timing['tokens_per_s']!r} tokens/s; one traced step: "
+          f"{trace['device_ms']!r} ms of device time in {trace['wall_ms']!r}"
+          f" ms (busy share {trace['busy_share']!r}), split "
+          f"{trace['split_ms']}, launches {trace['split_launches']}",
+          flush=True)
+    del params, state, batch, step, opt
+    torch.cuda.empty_cache()
+
+    gate = family_gate(cfg, fam)
+    t0 = time.perf_counter()
+    first, second = two_step_bits(cfg, b, s), two_step_bits(cfg, b, s)
+    same = all(torch.equal(first[n], second[n]) for n in first)
+    print(f"  two steps from the same draws, run twice: the same parameter "
+          f"bits {same} ({time.perf_counter() - t0!r} s)", flush=True)
+    if not same:
+        raise AssertionError(f"{cfg.name}: two runs of the same steps "
+                             "differ")
+    return {"arch": cfg.name, "changes": fam["changes"],
+            "params": api.param_count(cfg), "steps": steps, "batch": b,
+            "seq": s, "losses": losses, "loop_s": loop_s,
+            "launches": launches, "peak_memory_gb": peak_gb, "gate": gate,
+            "deterministic": same, "step": timing}
 
 
 def run_uc4() -> dict:
@@ -3396,110 +3741,58 @@ def run_uc4() -> dict:
 
 
 def run_train() -> dict:
-    """Phase 12: the port's train_loop on TRAIN_ARCH unreduced (30 layers,
-    bf16, remat=True) as ``launch.train.build`` makes it (AdamW,
-    cosine_schedule(3e-4, 20, 1000)), TRAIN_STEPS steps of TokenSource
-    batches; the launches of every step exact; the loss falling; the
-    float32 gate; a crash at TRAIN_FAIL_AT with checkpoints every
-    TRAIN_CKPT_EVERY, resumed to the same final loss; a step's times,
-    memory and profiler split; then UC4."""
+    """Phase 12: TRAIN_FAMILIES' first (``run_train_family``); then the
+    same train_loop crashed at TRAIN_FAIL_AT with checkpoints every
+    TRAIN_CKPT_EVERY and resumed to the same final loss; then UC4."""
     from repro_torch.configs import get_config
-    from repro_torch.data.pipeline import TokenSource, shard_batch
     from repro_torch.distributed.fault_tolerance import FailureInjector
-    from repro_torch.kernels import flash_attention
-    from repro_torch.launch.train import build, train_loop
-    from repro_torch.models import transformer as tf
-    from repro_torch.models.params import stacked
-    cfg = get_config(TRAIN_ARCH)
-    print(f"  {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
-          f"heads {cfg.num_heads}/{cfg.num_kv_heads}, d_ff {cfg.d_ff}, vocab "
-          f"{cfg.vocab_size}, {cfg.dtype}, remat={cfg.remat} "
-          f"({cfg.remat_policy}); {tf.param_count(cfg)} parameters; batch "
-          f"{TRAIN_BATCH} x {TRAIN_SEQ}", flush=True)
-    flash_attention.launches = flash_attention.backward_launches = 0
-    t0 = time.perf_counter()
-    run = train_loop(cfg, steps=TRAIN_STEPS, batch=TRAIN_BATCH,
-                     seq=TRAIN_SEQ, seed=TRAIN_SEED, device="cuda")
-    torch.cuda.synchronize()
-    loop_s = time.perf_counter() - t0
-    launches = {"forward": flash_attention.launches,
-                "backward": flash_attention.backward_launches}
-    losses = run["losses"]
-    print(f"  train_loop: {TRAIN_STEPS} steps in {loop_s!r} s; loss "
-          f"{losses[0]!r} -> {losses[-1]!r}; flash launches {launches}",
-          flush=True)
-    want = {"forward": TRAIN_STEPS * 2 * cfg.num_layers,
-            "backward": TRAIN_STEPS * cfg.num_layers}
-    if launches != want:
-        raise AssertionError(f"train_loop launched {launches}, not {want} "
-                             "(forward + recompute and backward, 30 each a "
-                             "step)")
-    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
-        raise AssertionError("the loss did not fall over the train steps")
-
-    gate = train_gate(cfg)
+    from repro_torch.launch.train import train_loop
+    fam = TRAIN_FAMILIES[0]
+    res = run_train_family(fam)
+    cfg = get_config(fam["arch"])
+    (b, s), steps, losses = fam["shape"], fam["steps"], res["losses"]
 
     # crash at TRAIN_FAIL_AT, then resume from the newest checkpoint
     with tempfile.TemporaryDirectory() as ckpt_dir:
         t0 = time.perf_counter()
         try:
-            train_loop(cfg, steps=TRAIN_STEPS, batch=TRAIN_BATCH,
-                       seq=TRAIN_SEQ, seed=TRAIN_SEED, device="cuda",
+            train_loop(cfg, steps=steps, batch=b, seq=s,
+                       seed=TRAIN_SEED, device="cuda",
                        ckpt_dir=ckpt_dir, ckpt_every=TRAIN_CKPT_EVERY,
                        injector=FailureInjector([TRAIN_FAIL_AT]))
             raise AssertionError("the injected failure did not fire")
         except RuntimeError as e:
             if "injected failure" not in str(e):
                 raise
-        resumed = train_loop(cfg, steps=TRAIN_STEPS, batch=TRAIN_BATCH,
-                             seq=TRAIN_SEQ, seed=TRAIN_SEED, device="cuda",
+        resumed = train_loop(cfg, steps=steps, batch=b, seq=s,
+                             seed=TRAIN_SEED, device="cuda",
                              ckpt_dir=ckpt_dir, ckpt_every=TRAIN_CKPT_EVERY)
         resume_s = time.perf_counter() - t0
     final, again = losses[-1], resumed["final_loss"]
     bit_equal = final == again and resumed["losses"] == losses[
         -len(resumed["losses"]):]
     print(f"  crash at step {TRAIN_FAIL_AT}, resumed from step "
-          f"{TRAIN_STEPS - len(resumed['losses'])}: final loss {again!r} "
+          f"{steps - len(resumed['losses'])}: final loss {again!r} "
           f"against {final!r} uninterrupted (bit-equal {bit_equal}; "
           f"{resume_s!r} s)", flush=True)
     if abs(again - final) > 1e-4 * abs(final) + 1e-5:
         raise AssertionError("the resumed run's final loss differs")
 
-    # one step's times, memory and device split, on the trained params
-    _, opt, _ = build(cfg)
-    step = tf.make_train_step(cfg, _Annotated(opt))
-    params = run["params"]
-    state = opt.init(stacked(params, tf.param_shapes(cfg)))
-    batch = shard_batch(TokenSource(cfg.vocab_size, TRAIN_SEQ,
-                                    seed=TRAIN_SEED + 1).next(TRAIN_BATCH),
-                        device="cuda")
-    step(params, state, batch)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    before = (flash_attention.launches, flash_attention.backward_launches)
-    times = family_ms(lambda: step(params, state, batch))
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    trace = train_trace(step, params, state, batch)
-    flash_attention.launches, flash_attention.backward_launches = before
-    tokens = TRAIN_BATCH * TRAIN_SEQ
-    timing = {**times, "tokens_per_s": tokens / (times["event_ms"] / 1e3),
-              "peak_memory_gb": peak_gb, "trace": trace}
-    print(f"  a train step: {times['event_ms']!r} ms between CUDA events "
-          f"({times['host_ms']!r} ms on the host clock), "
-          f"{timing['tokens_per_s']!r} tokens/s, peak memory {peak_gb!r} GB; "
-          f"one traced step: {trace['device_ms']!r} ms of device time in "
-          f"{trace['wall_ms']!r} ms (busy share {trace['busy_share']!r}), "
-          f"split {trace['split_ms']}, launches {trace['split_launches']}",
-          flush=True)
-    del params, state, run
     torch.cuda.empty_cache()
     uc4 = run_uc4()
-    return {"arch": cfg.name, "steps": TRAIN_STEPS, "batch": TRAIN_BATCH,
-            "seq": TRAIN_SEQ, "losses": losses, "loop_s": loop_s,
-            "launches": launches, "gate": gate,
-            "resume": {"final_loss": again, "uninterrupted": final,
-                       "bit_equal": bit_equal, "seconds": resume_s},
-            "step": timing, "uc4": uc4}
+    return {**res, "resume": {"final_loss": again, "uninterrupted": final,
+                              "bit_equal": bit_equal, "seconds": resume_s},
+            "uc4": uc4}
+
+
+def run_train_families() -> dict:
+    """Phase 13: each of TRAIN_FAMILIES but the first, one at a time."""
+    out = {}
+    for fam in TRAIN_FAMILIES[1:]:
+        t0 = time.perf_counter()
+        out[fam["arch"]] = run_train_family(fam)
+        out[fam["arch"]]["phase_s"] = time.perf_counter() - t0
+    return out
 
 
 def main() -> int:
@@ -3617,6 +3910,9 @@ def main() -> int:
     flash_bwd = flash_bwd_cases(bwd_mutants)
     max_errs["flash_attention_bwd"] = max(
         c["max_abs_err"] for c in flash_bwd["cases"].values())
+    print()
+    rglru_bwd = rglru_bwd_cases()
+    max_errs["rglru_bwd"] = max(t["max_abs_err"] for t in rglru_bwd.values())
 
     # ------------------------------------------------------------- 4 query
     phase(f"4 lost-dog query, SyntheticVideo({QUERY_FRAMES}, seed={QUERY_SEED})")
@@ -3780,12 +4076,21 @@ def main() -> int:
     moe_runs = run_moe_family()
 
     # ------------------------------------------------------------- 12 train
-    phase(f"12 training: {TRAIN_ARCH} at full width and depth, "
-          f"{TRAIN_STEPS} steps of batch {TRAIN_BATCH} x {TRAIN_SEQ}, then UC4")
+    dense = TRAIN_FAMILIES[0]
+    phase(f"12 training: {dense['arch']} at full width and depth, "
+          f"{dense['steps']} steps of {dense['shape'][0]} x "
+          f"{dense['shape'][1]}, a crash resumed, then UC4")
     train = run_train()
 
-    # ------------------------------------------------------------- 13 lines
-    phase("13 summary")
+    # ------------------------------------------------------------- 13 train
+    phase("13 train families: "
+          + ", ".join(f"{f['arch']} {f['changes'] or 'unreduced'}, "
+                      f"{f['steps']} steps of {f['shape'][0]} x "
+                      f"{f['shape'][1]}" for f in TRAIN_FAMILIES[1:]))
+    train_families = run_train_families()
+
+    # ------------------------------------------------------------- 14 lines
+    phase("14 summary")
     main_sizes_text = {**triage["sizes"],
                        "rglru": registry["runs"]["rglru"]["sizes"]}
     text_main = {name: max(c, key=lambda b: (c[b], -b))
@@ -3823,6 +4128,8 @@ def main() -> int:
         "flash_limit_mutants": limit_mutants,
         "flash_bwd": flash_bwd,
         "train": train,
+        "train_families": train_families,
+        "rglru_bwd": rglru_bwd,
         "families": families,
         "moe": moe_runs,
         "total_s": time.perf_counter() - t_start,
@@ -3857,6 +4164,12 @@ def main() -> int:
                        "launches_a_step"].get(name, 0)
                    for f in (*families.values(), *moe_runs.values()))
 
+    def trained(name: str) -> int:
+        """``name``'s launches in the counted training steps of phases 12
+        and 13."""
+        return sum(f["launches"].get(name, 0)
+                   for f in (train, *train_families.values()))
+
     text_path = {"moe_router": "triage", "ssd": "triage",
                  "rglru": "registry"}
     for name, line in (("moe_router", 43), ("ssd", 92), ("rglru", 59)):
@@ -3864,6 +4177,8 @@ def main() -> int:
         paths = {text_path[name]: launches[name]}
         if name in COUNTED:
             paths["families"] = family_launches(name)
+        if name == "rglru":
+            paths["train"] = trained(name)
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
@@ -3885,7 +4200,7 @@ def main() -> int:
         if name == "flash_attention":
             paths["llm"] = llm["launches"]
             paths["families"] = family_launches(name)
-            paths["train"] = train["launches"]["forward"]
+            paths["train"] = trained(name)
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
@@ -3902,16 +4217,28 @@ def main() -> int:
                             family_cases.get(name, {}).items()}},
         })
     bwd_main = next(iter(flash_bwd["timings"]))   # SmolLM's bf16 training
+    paths = {"train": trained("flash_attention_bwd")}
     kernels.append({
         "name": "flash_attention_bwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
         "replaces": "src/repro/kernels/flash_attention.py:91",
-        "launches": train["launches"]["backward"],
-        "launches_by_path": {"train": train["launches"]["backward"]},
+        "launches": sum(paths.values()), "launches_by_path": paths,
         "shape": bwd_main, **measured(flash_bwd["timings"][bwd_main]),
         "max_abs_err": max_errs["flash_attention_bwd"],
         "by_shape": {label: measured(t)
                      for label, t in flash_bwd["timings"].items()},
+    })
+    rglru_main = next(iter(rglru_bwd))   # no h0: as the model trains
+    kernels.append({
+        "name": "rglru_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/rglru_bwd.cu",
+        "replaces": "src/repro/kernels/rglru.py:59",
+        "launches": trained("rglru_bwd"),
+        "launches_by_path": {"train": trained("rglru_bwd")},
+        "shape": rglru_main, **measured(rglru_bwd[rglru_main]),
+        "entry_bound_ms": rglru_bwd[rglru_main]["entry_bound_ms"],
+        "max_abs_err": max_errs["rglru_bwd"],
+        "by_shape": {label: measured(t) for label, t in rglru_bwd.items()},
     })
     print(f"  chip_smoke.py took {summary['total_s']:.1f} s, builds included")
     print(card)

@@ -31,9 +31,10 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
 )
-# hsv_color, moe_router, ssd and rglru equal their plain versions bit for
-# bit (or within a few ulps) only without FMA contraction; the attention
-# kernels are held to a tolerance and contract freely.
+# hsv_color, moe_router, ssd and rglru (and its gradient) equal their
+# plain versions bit for bit (or within a few ulps) only without FMA
+# contraction; the attention kernels are held to a tolerance and contract
+# freely.
 NO_FMA = ("--fmad=false",)
 LIBRARY_FLAGS = {
     "decode_attention": (),
@@ -43,6 +44,7 @@ LIBRARY_FLAGS = {
     "hsv_color": NO_FMA,
     "moe_router": NO_FMA,
     "rglru": NO_FMA,
+    "rglru_bwd": NO_FMA,
     "ssd": NO_FMA,
 }
 
@@ -61,6 +63,7 @@ SIGNATURES = {
     "hsv_color": {"hsv_color_hist": _PACKED},
     "moe_router": {"moe_router_tk": _PACKED, "moe_router_tokens": _PACKED},
     "rglru": {"rglru_bsw": _PACKED, "rglru_tokens": _PACKED},
+    "rglru_bwd": {"rglru_bwd": _PACKED},
     "ssd": {"ssd_scan": _PACKED},
 }
 

@@ -33,6 +33,13 @@
 //   tiles that can see its keys, and keeps dK and dV in registers. The
 //   sum over the group's heads happens inside the CTA: no floating-point
 //   atomics, so the same inputs give the same bits.
+// - At D = 256 the accumulators would not fit: dK and dV for 16 keys a
+//   warp are 256 floats a thread, the whole register file. So two CTAs
+//   share each tile (blockIdx.y), each keeping half of dQ's, dK's and
+//   dV's columns (128, as the D = 128 instances keep) and recomputing s
+//   and dP over the full D: four products of the pair's seven run twice.
+//   The float32 tiles at D = 256 take 16 rows a step, so that the dq
+//   CTA's 2 (64 + 16) rows of 260 floats fit in 227 KB.
 // - Products are the forward's tiles (flash_tiles.cuh): with the key and
 //   query roles swapped, qk_tile forms s^T and dP^T with 16 keys a warp,
 //   and pv_tile takes P^T or dS^T from the same registers as its A
@@ -60,7 +67,7 @@ using namespace flash_tiles;
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kBlock = kWarps * 16;  // query rows (dQ) or keys (dK, dV) a CTA
-constexpr int kMaxHeadDim = 128;
+constexpr int kMaxHeadDim = 256;
 constexpr float kLog2e = 1.4426950408889634f;
 
 struct Params {
@@ -120,8 +127,9 @@ __global__ void __launch_bounds__(256) delta_kernel(const Params p,
   if (lane == 0) p.delta[row] = acc;
 }
 
-// dQ for 64 query rows of one program; BK keys a step
-template <typename T, int DP, int BK>
+// dQ for 64 query rows of one program, its columns c0 .. c0 + NO - 1
+// (c0 = NO blockIdx.y); BK keys a step
+template <typename T, int DP, int BK, int NO>
 __global__ void __launch_bounds__(kThreads)
 dq_kernel(const Params p, int programs, int q_tiles) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -140,6 +148,7 @@ dq_kernel(const Params p, int programs, int q_tiles) {
   const int rank = blockIdx.x / programs;
   const int prog = blockIdx.x - rank * programs;
   const int q_start = (q_tiles - 1 - rank) * kBlock;
+  const int c0 = blockIdx.y * NO;
   const int b = prog / p.heads;
   const int h = prog - b * p.heads;
   const int kh = h / p.group;
@@ -167,9 +176,9 @@ dq_kernel(const Params p, int programs, int q_tiles) {
     lse2[r] = in ? p.lse[at] * kLog2e : 0.f;
     dl[r] = in ? p.delta[at] : 0.f;
   }
-  float dq[DP / 8][4];
+  float dq[NO / 8][4];
 #pragma unroll
-  for (int n = 0; n < DP / 8; ++n)
+  for (int n = 0; n < NO / 8; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dq[n][e] = 0.f;
   const float one[2] = {1.f, 1.f};
@@ -202,7 +211,7 @@ dq_kernel(const Params p, int programs, int q_tiles) {
                 : 0.f;
         s[j][e] = pr * (dp[j][e] - dl[r]);  // dS
       }
-    pv_tile<DP, BK>(dq, s, s_k, g, t, one);
+    pv_tile<DP, BK, NO>(dq, s, s_k + c0, g, t, one);
   }
   cp_async_wait_all();  // nothing in flight at exit
 
@@ -211,17 +220,18 @@ dq_kernel(const Params p, int programs, int q_tiles) {
     if (qpos[r] >= p.sq) continue;
     T* row = dqb + qpos[r] * p.ldq.seq;
 #pragma unroll
-    for (int n = 0; n < DP / 8; ++n) {
-      const int col = n * 8 + 2 * t;
+    for (int n = 0; n < NO / 8; ++n) {
+      const int col = c0 + n * 8 + 2 * t;
       if (col < p.d) store(row + col, dq[n][2 * r] * p.scale);
       if (col + 1 < p.d) store(row + col + 1, dq[n][2 * r + 1] * p.scale);
     }
   }
 }
 
-// dK and dV for 64 keys of one (sequence, kv head); BQ query rows a step,
-// over every query head of the group
-template <typename T, int DP, int BQ>
+// dK and dV for 64 keys of one (sequence, kv head), their columns c0 ..
+// c0 + NO - 1 (c0 = NO blockIdx.y); BQ query rows a step, over every query
+// head of the group
+template <typename T, int DP, int BQ, int NO>
 __global__ void __launch_bounds__(kThreads)
 dkv_kernel(const Params p, int kv_programs) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -244,6 +254,7 @@ dkv_kernel(const Params p, int kv_programs) {
   const int rank = blockIdx.x / kv_programs;
   const int kvp = blockIdx.x - rank * kv_programs;
   const int k_start = rank * kBlock;
+  const int c0 = blockIdx.y * NO;
   const int b = kvp / kv_heads;
   const int kh = kvp - b * kv_heads;
   const T* kb = static_cast<const T*>(p.k) + b * p.lk.batch + kh * p.lk.head;
@@ -260,9 +271,9 @@ dkv_kernel(const Params p, int kv_programs) {
 
   const int key0 = k_start + warp * 16;  // this warp's keys
   const int kpos[2] = {key0 + g, key0 + g + 8};
-  float dk[DP / 8][4], dv[DP / 8][4];
+  float dk[NO / 8][4], dv[NO / 8][4];
 #pragma unroll
-  for (int n = 0; n < DP / 8; ++n)
+  for (int n = 0; n < NO / 8; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
   const float one[2] = {1.f, 1.f};
@@ -308,8 +319,8 @@ dkv_kernel(const Params p, int kv_programs) {
           st[j][e] = pr;
           dpt[j][e] = pr * (dpt[j][e] - s_delta[c]);  // dS^T
         }
-      pv_tile<DP, BQ>(dv, st, s_do, g, t, one);
-      pv_tile<DP, BQ>(dk, dpt, s_q, g, t, one);
+      pv_tile<DP, BQ, NO>(dv, st, s_do + c0, g, t, one);
+      pv_tile<DP, BQ, NO>(dk, dpt, s_q + c0, g, t, one);
     }
   }
   cp_async_wait_all();  // nothing in flight at exit
@@ -320,8 +331,8 @@ dkv_kernel(const Params p, int kv_programs) {
     T* krow = dkb + kpos[r] * p.ldk.seq;
     T* vrow = dvb + kpos[r] * p.ldv.seq;
 #pragma unroll
-    for (int n = 0; n < DP / 8; ++n) {
-      const int col = n * 8 + 2 * t;
+    for (int n = 0; n < NO / 8; ++n) {
+      const int col = c0 + n * 8 + 2 * t;
       if (col < p.d) {
         store(krow + col, dk[n][2 * r] * p.scale);
         store(vrow + col, dv[n][2 * r]);
@@ -341,9 +352,12 @@ int allow_smem(K kernel, size_t bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-// N: keys a dq_kernel step and query rows a dkv_kernel step
-template <typename T, int DP, int N>
+// N: keys a dq_kernel step and query rows a dkv_kernel step; NO: the
+// output columns a CTA keeps (DP / NO CTAs share each tile's columns)
+template <typename T, int DP, int N, int NO = DP>
 int launch(const Params& p, int batch, cudaStream_t stream) {
+  static_assert(DP % NO == 0, "NO must divide DP");
+  constexpr int kSplits = DP / NO;
   constexpr int RS = DP + 16 / (int)sizeof(T);
   constexpr size_t kDqSmem = (size_t)2 * (kBlock + N) * RS * sizeof(T);
   constexpr size_t kDkvSmem =
@@ -363,17 +377,20 @@ int launch(const Params& p, int batch, cudaStream_t stream) {
   int err = (int)cudaGetLastError();
   if (err != 0) return err;
 
-  static const int dq_attr = allow_smem(dq_kernel<T, DP, N>, kDqSmem);
+  static const int dq_attr = allow_smem(dq_kernel<T, DP, N, NO>, kDqSmem);
   if (dq_attr != 0) return dq_attr;
-  dq_kernel<T, DP, N><<<(int)(programs * q_tiles), kThreads, kDqSmem,
-                        stream>>>(p, (int)programs, (int)q_tiles);
+  dq_kernel<T, DP, N, NO>
+      <<<dim3((unsigned)(programs * q_tiles), kSplits), kThreads, kDqSmem,
+         stream>>>(p, (int)programs, (int)q_tiles);
   err = (int)cudaGetLastError();
   if (err != 0 || k_tiles == 0) return err;
 
-  static const int dkv_attr = allow_smem(dkv_kernel<T, DP, N>, kDkvSmem);
+  static const int dkv_attr =
+      allow_smem(dkv_kernel<T, DP, N, NO>, kDkvSmem);
   if (dkv_attr != 0) return dkv_attr;
-  dkv_kernel<T, DP, N><<<(int)(kv_programs * k_tiles), kThreads, kDkvSmem,
-                         stream>>>(p, (int)kv_programs);
+  dkv_kernel<T, DP, N, NO>
+      <<<dim3((unsigned)(kv_programs * k_tiles), kSplits), kThreads,
+         kDkvSmem, stream>>>(p, (int)kv_programs);
   return (int)cudaGetLastError();
 }
 
@@ -407,7 +424,7 @@ static_assert(sizeof(FlashBwdArgs) == 312,
 // (from the forward) and delta (scratch) contiguous float32 (batch *
 // heads, Sq). Program p = b * heads + h reads kv head h / group of
 // sequence b, as in the forward, with the same mask and scale. 1 <= D <=
-// 128, group divides heads, Sk >= 0 (Sk = 0 writes dQ = 0 and no dK,
+// 256, group divides heads, Sk >= 0 (Sk = 0 writes dQ = 0 and no dK,
 // dV). Returns cudaGetLastError() after the launches; the caller raises if
 // it is not cudaSuccess.
 extern "C" int flash_attention_bwd(const FlashBwdArgs* a, void* stream) {
@@ -432,11 +449,13 @@ extern "C" int flash_attention_bwd(const FlashBwdArgs* a, void* stream) {
     if (d <= 16) return launch<__nv_bfloat16, 16, 64>(p, batch, s);
     if (d <= 32) return launch<__nv_bfloat16, 32, 64>(p, batch, s);
     if (d <= 64) return launch<__nv_bfloat16, 64, 64>(p, batch, s);
-    return launch<__nv_bfloat16, 128, 32>(p, batch, s);
+    if (d <= 128) return launch<__nv_bfloat16, 128, 32>(p, batch, s);
+    return launch<__nv_bfloat16, 256, 32, 128>(p, batch, s);
   }
   if (d <= 8) return launch<float, 8, 64>(p, batch, s);
   if (d <= 16) return launch<float, 16, 64>(p, batch, s);
   if (d <= 32) return launch<float, 32, 64>(p, batch, s);
   if (d <= 64) return launch<float, 64, 32>(p, batch, s);
-  return launch<float, 128, 16>(p, batch, s);
+  if (d <= 128) return launch<float, 128, 16>(p, batch, s);
+  return launch<float, 256, 16, 128>(p, batch, s);
 }

@@ -194,9 +194,12 @@ constexpr int kDimBlocks = DP / 8 < 4 ? DP / 8 : 4;
 // softmax weights in the QK^T C-fragment layout, corr each row's rescale.
 // Each tile's products are summed from zero on the tensor cores (the lo
 // terms apart) and added to o in float32 with one rounding to nearest,
-// so the running sum never sees the tensor cores' truncation.
-template <int DP, int BK>
-__device__ __forceinline__ void pv_tile(float (&o)[DP / 8][4],
+// so the running sum never sees the tensor cores' truncation. NO (DP by
+// default) is the number of V's columns that o holds: sv may point at
+// column c0 of a (BK, DP)-wide tile, and o then gets columns c0 .. c0 +
+// NO - 1 (the gradient at D = 256 splits its outputs so).
+template <int DP, int BK, int NO = DP>
+__device__ __forceinline__ void pv_tile(float (&o)[NO / 8][4],
                                         const float (&p)[BK / 8][4],
                                         const float* sv, int g, int t,
                                         const float (&corr)[2]) {
@@ -213,8 +216,8 @@ __device__ __forceinline__ void pv_tile(float (&o)[DP / 8][4],
   // NB dim blocks at a time, keys outermost: 2 NB independent chains of
   // products in flight instead of two
 #pragma unroll
-  for (int n0 = 0; n0 < DP / 8; n0 += kDimBlocks<DP>) {
-    constexpr int NB = kDimBlocks<DP>;
+  for (int n0 = 0; n0 < NO / 8; n0 += kDimBlocks<NO>) {
+    constexpr int NB = kDimBlocks<NO>;
     float big[NB][4], small[NB][4];
 #pragma unroll
     for (int nn = 0; nn < NB; ++nn)
@@ -241,8 +244,8 @@ __device__ __forceinline__ void pv_tile(float (&o)[DP / 8][4],
                              big[nn][e] + small[nn][e]);
   }
 }
-template <int DP, int BK>
-__device__ __forceinline__ void pv_tile(float (&o)[DP / 8][4],
+template <int DP, int BK, int NO = DP>
+__device__ __forceinline__ void pv_tile(float (&o)[NO / 8][4],
                                         const float (&p)[BK / 8][4],
                                         const __nv_bfloat16* sv, int g,
                                         int t, const float (&corr)[2]) {
@@ -256,8 +259,8 @@ __device__ __forceinline__ void pv_tile(float (&o)[DP / 8][4],
     a[c][3] = pack_bf16(p[2 * c + 1][2], p[2 * c + 1][3]);
   }
 #pragma unroll
-  for (int n0 = 0; n0 < DP / 8; n0 += kDimBlocks<DP>) {
-    constexpr int NB = kDimBlocks<DP>;
+  for (int n0 = 0; n0 < NO / 8; n0 += kDimBlocks<NO>) {
+    constexpr int NB = kDimBlocks<NO>;
     float acc[NB][4];
 #pragma unroll
     for (int nn = 0; nn < NB; ++nn)

@@ -37,7 +37,10 @@ from repro_torch.kernels import _build, ref
 MAX_HEAD_DIM = 256  # the kernel's widest tile
 DTYPES = (torch.float32, torch.bfloat16)
 
-MAX_BWD_HEAD_DIM = 128  # the gradient kernel's widest tile
+# the gradient kernel's widest head: the forward's, so that every head the
+# card runs forward it can also train (at D = 256 its CTAs split the
+# output columns, see the source's note)
+MAX_BWD_HEAD_DIM = MAX_HEAD_DIM
 
 launches = 0          # forward kernel launches
 backward_launches = 0  # gradient kernel calls (three launches each)

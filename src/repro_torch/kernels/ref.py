@@ -233,6 +233,53 @@ def rglru(
     return out.to(x.dtype), h.to(x.dtype)
 
 
+def rglru_bwd(x, r, i, a_param, h0, hs, dout, dh_last, *, c: float = 8.0):
+    """The RG-LRU gradient kernel's plain version, by the explicit formulas
+    (no autograd), in float32: (dx, dr, di, da_param, dh0) of ``rglru(x,
+    r, i, a_param, h0)`` for the cotangents ``dout`` (B, S, W) of its h
+    sequence and ``dh_last`` (B, W) of its last state (None: zero). ``hs``
+    is the forward's h sequence in float32 (a bf16 model's output is
+    rounded, so h_{t-1} is not rebuilt from it); dh0 is None when h0 is.
+    With sr = sigmoid(r), a = exp(-c softplus(a_param) sr), g =
+    sigmoid(i) x and m = sqrt(max(1 - a^2, 1e-12)), walking t down from
+    S - 1:
+        dh_t = dout_t + a_{t+1} dh_{t+1}      (dh_last at t = S - 1)
+        da_t = dh_t h_{t-1} - dh_t g_t a_t / m_t   (0 where the clamp binds)
+    then dx = dh m sigmoid(i), di = dh m x sigmoid'(i), dr = da a (-c
+    softplus(a_param)) sigmoid'(r), da_param = sum over B and S of da a
+    (-c sr), times sigmoid(a_param), and dh0 = a_0 dh_0."""
+    f32 = torch.float32
+    b, s, w = x.shape
+    xf = x.to(f32)
+    nsp = -c * softplus(a_param.to(f32))
+    sr = sigmoid(r.to(f32))
+    si = sigmoid(i.to(f32))
+    a = torch.exp(nsp * sr)
+    g = si * xf
+    one_m = 1.0 - a * a
+    m = torch.sqrt(torch.clamp_min(one_m, 1e-12))
+    first = (torch.zeros((b, 1, w), dtype=f32, device=x.device) if h0 is None
+             else h0.to(f32)[:, None])
+    hprev = torch.cat([first, hs.to(f32)[:, :-1]], dim=1)
+    carry = (torch.zeros((b, w), dtype=f32, device=x.device)
+             if dh_last is None else dh_last.to(f32))
+    do = dout.to(f32)
+    dh = torch.empty((b, s, w), dtype=f32, device=x.device)
+    for t in range(s - 1, -1, -1):
+        cur = do[:, t] + carry
+        dh[:, t] = cur
+        carry = a[:, t] * cur
+    dg = dh * m
+    dx = dg * si
+    di = dg * xf * (si * (1.0 - si))
+    da = dh * hprev - torch.where(one_m > 1e-12, dh * g * a / m,
+                                  torch.zeros_like(a))
+    dlog = da * a
+    dr = dlog * nsp * (sr * (1.0 - sr))
+    da_param = (dlog * (-c * sr)).sum((0, 1)) * sigmoid(a_param.to(f32))
+    return dx, dr, di, da_param, None if h0 is None else carry
+
+
 def rglru_tokens(
     toks: torch.Tensor,     # (B, S) token ids
     emb_x: torch.Tensor,    # (V, W)

@@ -8,6 +8,16 @@ chain walked in order, see the source's note) or raises, and
 x, r and i from embedding tables by token id); for a CPU tensor each runs
 its plain version in ``ref.py``. ``launches`` counts kernel launches of
 both entries, so a run can show that it went through the kernel.
+
+``rglru_bsw`` is differentiable. When grad mode is on and an input
+requires a gradient, it goes through ``Rglru``, a
+``torch.autograd.Function``: its forward keeps the float32 h sequence the
+kernel writes, and its backward is ``rglru_bwd``, the hand-written
+gradient kernel in ``csrc/rglru_bwd.cu`` on the card
+(``backward_launches`` counts its calls) and ``ref.rglru_bwd`` on the
+CPU. The JAX package differentiates its plain scan instead: its Pallas
+kernel has no backward. ``rglru_tokens`` refuses a gradient: only the
+predicates call it.
 """
 from __future__ import annotations
 
@@ -19,7 +29,8 @@ import torch
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels.launch import refuse_grad
 
-launches = 0
+launches = 0           # forward launches of both entries
+backward_launches = 0  # gradient kernel calls (two launches each)
 _COUNT_LOCK = threading.Lock()
 
 # the C entry points' packed arguments: RglruArgs (x, r, i, a_param, h0 or
@@ -28,6 +39,10 @@ _COUNT_LOCK = threading.Lock()
 # source
 ARGS = struct.Struct("<7Q3if")
 TOKENS_ARGS = struct.Struct("<8Q4ifi")
+# the gradient entry point's (RglruBwdArgs): x, r, i, a_param, h0 or 0, hs,
+# dout, dh_last or 0, dx, dr, di, dh0 or 0, the dL scratch, dL; B, S, W
+# and c
+BWD_ARGS = struct.Struct("<14Q3if")
 _entries: dict = {}  # the library's C functions, looked up once
 
 
@@ -65,6 +80,88 @@ def _launch(fn: str, pack, ins: list, h0, out_shape: tuple, dev: int,
     return out, h_last
 
 
+def _forward_f32(x, r, i, a_param, h0, c: float):
+    """(out, h_last) in float32: the kernel's on the card, the plain
+    version's on float32 copies on the CPU."""
+    b, s, w = x.shape
+    if not x.is_cuda:
+        if x.device.type != "cpu":
+            raise ValueError(f"rglru_bsw runs on cpu or cuda, not {x.device}")
+        f32 = torch.float32
+        return ref.rglru(x.to(f32), r.to(f32), i.to(f32), a_param, h0, c=c)
+    return _launch(
+        "rglru_bsw",
+        lambda p, o, hl: ARGS.pack(*p, o, hl, b, s, w, float(c)),
+        [_build.f32_contiguous(t) for t in (x, r, i, a_param)], h0,
+        (b, s, w), x.get_device(), x.device)
+
+
+def rglru_bwd(x, r, i, a_param, h0, hs, dout, dh_last, *, c: float = 8.0):
+    """(dx, dr, di, da_param, dh0) in float32, the gradient of
+    ``rglru_bsw`` (formulas in ``ref.rglru_bwd``) for the cotangents
+    ``dout`` (B, S, W) and ``dh_last`` (B, W) or None, given the forward's
+    float32 h sequence ``hs``; dh0 is None when h0 is. On the card one
+    call of the gradient kernel (two launches: the walk, then dL summed
+    over the rows in order); on the CPU the plain version."""
+    global backward_launches
+    if not x.is_cuda:
+        return ref.rglru_bwd(x, r, i, a_param, h0, hs, dout, dh_last, c=c)
+    b, s, w = x.shape
+    dev = x.get_device()
+    ins = [_build.f32_contiguous(t) for t in (x, r, i, a_param)]
+    h0f = None if h0 is None else _build.f32_contiguous(h0)
+    hs, dout = _build.f32_contiguous(hs), _build.f32_contiguous(dout)
+    dhl = None if dh_last is None else _build.f32_contiguous(dh_last)
+    if any(t is not None and t.get_device() != dev
+           for t in (*ins, h0f, hs, dout, dhl)):
+        raise ValueError(f"all inputs must lie on {x.device}")
+    dx, dr, di = (torch.empty_like(hs) for _ in range(3))
+    dh0 = None if h0 is None else torch.empty_like(h0f)
+    part = torch.empty((b, w), dtype=torch.float32, device=x.device)
+    da = torch.empty((w,), dtype=torch.float32, device=x.device)
+
+    def ptr(t):
+        return 0 if t is None else t.data_ptr()
+
+    entry = _entries.get("rglru_bwd")
+    if entry is None:
+        entry = _entries["rglru_bwd"] = _build.load("rglru_bwd").lib.rglru_bwd
+    err = entry(BWD_ARGS.pack(*(ptr(t) for t in (
+        *ins, h0f, hs, dout, dhl, dx, dr, di, dh0, part, da)), b, s, w,
+        float(c)), _build.raw_stream(dev))
+    if err != 0:
+        raise RuntimeError(f"rglru_bwd kernel launch failed: CUDA error {err}")
+    with _COUNT_LOCK:
+        backward_launches += 1
+    return dx, dr, di, da, dh0
+
+
+class Rglru(torch.autograd.Function):
+    """``rglru_bsw`` with its gradient: ``apply(x, r, i, a_param, h0, c)``
+    -> (out, h_last) in x's dtype. The forward keeps the float32 h
+    sequence for the backward, ``rglru_bwd``; the gradients come back in
+    the inputs' dtypes, and a cotangent autograd leaves out (None) is
+    zero. Under remat the forward runs again in the backward pass (and
+    counts again in ``launches``)."""
+
+    @staticmethod
+    def forward(ctx, x, r, i, a_param, h0, c):
+        ctx.set_materialize_grads(False)
+        out, h_last = _forward_f32(x, r, i, a_param, h0, c)
+        ctx.save_for_backward(x, r, i, a_param, h0, out)
+        ctx.c = c
+        return out.to(x.dtype), h_last.to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, dout, dh_last):
+        x, r, i, a_param, h0, hs = ctx.saved_tensors
+        if dout is None:
+            dout = torch.zeros_like(hs)
+        grads = rglru_bwd(x, r, i, a_param, h0, hs, dout, dh_last, c=ctx.c)
+        return (*(None if g is None else g.to(t.dtype)
+                  for g, t in zip(grads, (x, r, i, a_param, h0))), None)
+
+
 def rglru_bsw(
     x: torch.Tensor,        # (B, S, W)
     r: torch.Tensor,        # (B, S, W)
@@ -75,8 +172,7 @@ def rglru_bsw(
     c: float = 8.0,
 ):
     """(out (B, S, W), h_last (B, W)), both in x's dtype. S and W are
-    free."""
-    refuse_grad("rglru", x, r, i, a_param, h0)
+    free. Differentiable (``Rglru``)."""
     if x.dim() != 3:
         raise ValueError(f"x must be (B, S, W), got {tuple(x.shape)}")
     b, s, w = x.shape
@@ -87,15 +183,14 @@ def rglru_bsw(
     if b == 0 or w == 0:
         return torch.zeros_like(x), torch.zeros((b, w), dtype=x.dtype,
                                                 device=x.device)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, r, i, a_param, h0)):
+        return Rglru.apply(x, r, i, a_param, h0, c)
     if not x.is_cuda:
         if x.device.type != "cpu":
             raise ValueError(f"rglru_bsw runs on cpu or cuda, not {x.device}")
         return ref.rglru(x, r, i, a_param, h0, c=c)
-    out, h_last = _launch(
-        "rglru_bsw",
-        lambda p, o, hl: ARGS.pack(*p, o, hl, b, s, w, float(c)),
-        [_build.f32_contiguous(t) for t in (x, r, i, a_param)], h0,
-        (b, s, w), x.get_device(), x.device)
+    out, h_last = _forward_f32(x, r, i, a_param, h0, c)
     if x.dtype != torch.float32:
         out, h_last = out.to(x.dtype), h_last.to(x.dtype)
     return out, h_last

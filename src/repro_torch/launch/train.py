@@ -3,16 +3,19 @@
 Port of ``repro.launch.train`` at world size 1: params and optimizer
 state on one device -> the family's ``make_train_step`` -> step loop with
 async checkpoints, auto-resume, watchdog, heartbeat, and deterministic
-failure injection for tests. Attention's forward and its gradient run the
-hand-written flash kernels on the card (``kernels.flash_attention``).
+failure injection for tests. Attention's and the RG-LRU's forward and
+gradient run the hand-written kernels on the card
+(``kernels.flash_attention``, ``kernels.rglru``).
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \\
       --steps 50 --batch 8 --seq 128 --smoke --ckpt-dir /tmp/ckpt
 
 --smoke uses the reduced config; --device cpu runs the plain versions of
 the kernels (the default, cuda, raises at once without a card). --mesh
-raises: sharding is not ported yet (ROADMAP.md, queue 1, item 4). Only
-the dense and vlm families train; the others raise at ``build``.
+raises: sharding is not ported yet (ROADMAP.md, queue 1, item 4). The
+dense, vlm, encdec and hybrid families train; ssm and moe raise at
+``build``. ``train_loop`` feeds tokens only, as the reference's does: an
+encdec model's frames come through ``build``'s step directly.
 """
 from __future__ import annotations
 
@@ -36,12 +39,11 @@ from repro_torch.optim import AdamW, cosine_schedule
 
 # what training a family without make_train_step waits for
 _WAITS = {
-    "ssm": "the ssd kernel's backward (ROADMAP.md, queue 1, item 2a)",
-    "hybrid": "the rglru kernel's backward (ROADMAP.md, queue 1, item 2a)",
-    "encdec": "its loss_fn and make_train_step (ROADMAP.md, queue 1, "
-              "item 2a)",
-    "moe": "the router weights' backward and its loss_fn (ROADMAP.md, "
-           "queue 1, item 2b)",
+    "ssm": "the ssd kernel's gradient, designed with the rebuild of its "
+           "forward (ROADMAP.md, queue 1, item 2a)",
+    "moe": "sharding (one layer at published width, with the step's copies "
+           "of weights, gradients and AdamW state, outgrows a card) and "
+           "the router weights' gradient (ROADMAP.md, queue 1, item 2b)",
 }
 
 

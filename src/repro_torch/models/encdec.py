@@ -14,12 +14,17 @@ cross-attention (``attention.cross_attention``, Sq tokens against F
 frames). Prefill computes each decoder layer's cross K/V once and keeps
 them in the cache; decode writes the self-attention K/V in place.
 
-Not here yet, as in transformer.py: ``loss_fn``, ``make_train_step``,
+Training: ``loss_fn`` (``softmax_xent`` of ``forward``) and
+``make_train_step`` (``transformer.make_train_step`` with that loss), as
+the reference's; where a gradient is taken each encoder layer and each
+decoder layer (its cross K/V included) runs under ``cfg.remat``, as the
+reference's scanned bodies do. Not here yet, as in transformer.py:
 ``input_specs``, ``roofline_units`` and ``param_logical``.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict
 
 import torch
@@ -33,6 +38,7 @@ from repro_torch.models.layers import (
     lm_logits,
     position_ids,
     rms_norm,
+    softmax_xent,
     swiglu_mlp,
 )
 from repro_torch.models.params import Params, count, init, spec
@@ -107,16 +113,22 @@ def init_params(cfg, generator: torch.Generator, *, device="cuda") -> EncDec:
 # --------------------------------------------------------------------------- #
 # forward                                                                      #
 # --------------------------------------------------------------------------- #
+def _enc_block(cfg, lp, h, pos):
+    a_in = rms_norm(h, lp["attn_norm"], cfg.norm_eps)
+    a_out, _ = attn.attention_train(cfg, a_in, lp, pos, causal=False)
+    h = h + a_out
+    m_in = rms_norm(h, lp["mlp_norm"], cfg.norm_eps)
+    return h + swiglu_mlp(m_in, lp["w_gate"], lp["w_up"], lp["w_down"])
+
+
 def encode(cfg, params: EncDec, frames):
     """frames: (B, F, D) stub embeddings -> encoder output (B, F, D)."""
     h = frames
     pos = position_ids(h.shape[0], h.shape[1], h.device)
+    block = tf.remat_where_grad(cfg, functools.partial(_enc_block, cfg), h,
+                                params)
     for lp in params.enc_layers:
-        a_in = rms_norm(h, lp["attn_norm"], cfg.norm_eps)
-        a_out, _ = attn.attention_train(cfg, a_in, lp, pos, causal=False)
-        h = h + a_out
-        m_in = rms_norm(h, lp["mlp_norm"], cfg.norm_eps)
-        h = h + swiglu_mlp(m_in, lp["w_gate"], lp["w_up"], lp["w_down"])
+        h = block(lp, h, pos)
     return rms_norm(h, params.enc_final_norm, cfg.norm_eps)
 
 
@@ -150,12 +162,28 @@ def _decoder_input(cfg, params: EncDec, batch):
     return enc_out, h, position_ids(*tokens.shape, tokens.device)
 
 
+def _dec_layer(cfg, lp, h, pos, enc_out):
+    return _dec_block(cfg, lp, h, pos, _cross_kv(lp, enc_out))[0]
+
+
 def forward(cfg, params: EncDec, batch):
     enc_out, h, pos = _decoder_input(cfg, params, batch)
+    layer = tf.remat_where_grad(cfg, functools.partial(_dec_layer, cfg), h,
+                                params)
     for lp in params.dec_layers:
-        h, _ = _dec_block(cfg, lp, h, pos, _cross_kv(lp, enc_out))
+        h = layer(lp, h, pos, enc_out)
     h = rms_norm(h, params.final_norm, cfg.norm_eps)
     return lm_logits(h, params.out_head, cfg.vocab_size)
+
+
+def loss_fn(cfg, params: EncDec, batch):
+    logits = forward(cfg, params, batch)
+    loss = softmax_xent(logits, batch["labels"], batch.get("loss_mask"))
+    return loss, {"loss": loss}
+
+
+def make_train_step(cfg, optimizer):
+    return tf.make_train_step(cfg, optimizer, loss=loss_fn)
 
 
 # --------------------------------------------------------------------------- #

@@ -18,12 +18,18 @@ inputs) + LRU hidden state + a local-attention ring buffer, the ring as
 long as the window or, for a shorter prompt, the prompt (the reference's
 rule, reproduced).
 
-Not here yet, as in transformer.py: ``loss_fn``, ``make_train_step``,
-``input_specs``, ``roofline_units`` and ``param_logical``.
+Training: ``loss_fn`` and ``make_train_step`` as the reference's. The
+RG-LRU wrapper and the flash wrapper are differentiable (their backward
+passes are the hand-written gradient kernels on the card), and where a
+gradient is taken each (rglru, rglru, local) group and each remainder
+layer runs under ``cfg.remat``, as the reference's scanned bodies do. Not
+here yet, as in transformer.py: ``input_specs``, ``roofline_units`` and
+``param_logical``.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict
 
 import torch
@@ -38,6 +44,7 @@ from repro_torch.models.layers import (
     lm_logits,
     position_ids,
     rms_norm,
+    softmax_xent,
     stacked,
     swiglu_mlp,
 )
@@ -206,13 +213,24 @@ def attn_block(cfg, lp, h, positions):
 # --------------------------------------------------------------------------- #
 # forward                                                                      #
 # --------------------------------------------------------------------------- #
+def _group(cfg, gp, h, pos):
+    h, _ = rg_block(cfg, gp["rg1"], h)
+    h, _ = rg_block(cfg, gp["rg2"], h)
+    return attn_block(cfg, gp["attn"], h, pos)[0]
+
+
+def _rest(cfg, lp, h):
+    return rg_block(cfg, lp, h)[0]
+
+
 def _stack(cfg, params: Hybrid, h, pos):
+    group = tf.remat_where_grad(cfg, functools.partial(_group, cfg), h,
+                                params)
+    rest = tf.remat_where_grad(cfg, functools.partial(_rest, cfg), h, params)
     for gp in params.groups:
-        h, _ = rg_block(cfg, gp["rg1"], h)
-        h, _ = rg_block(cfg, gp["rg2"], h)
-        h, _ = attn_block(cfg, gp["attn"], h, pos)
+        h = group(gp, h, pos)
     for lp in params.rest:
-        h, _ = rg_block(cfg, lp, h)
+        h = rest(lp, h)
     return h
 
 
@@ -222,6 +240,16 @@ def forward(cfg, params: Hybrid, batch):
     h = _stack(cfg, params, h, position_ids(*tokens.shape, tokens.device))
     h = rms_norm(h, params.final_norm, cfg.norm_eps)
     return lm_logits(h, params.out_head, cfg.vocab_size)
+
+
+def loss_fn(cfg, params: Hybrid, batch):
+    logits = forward(cfg, params, batch)
+    loss = softmax_xent(logits, batch["labels"], batch.get("loss_mask"))
+    return loss, {"loss": loss}
+
+
+def make_train_step(cfg, optimizer):
+    return tf.make_train_step(cfg, optimizer, loss=loss_fn)
 
 
 # --------------------------------------------------------------------------- #

@@ -119,15 +119,26 @@ def get_param(model: Params, name: str):
     return out
 
 
+def stack_layers(tensors: list, s: torch.Tensor, device) -> torch.Tensor:
+    """Each layer's tensor stacked over the layers; for a stack of no
+    layers (the hybrid's remainder at a multiple of 3 layers), an empty
+    tensor of ``s``'s shape (0, ...) and dtype on ``device``."""
+    if not tensors:
+        return torch.empty(s.shape, dtype=s.dtype, device=device)
+    return torch.stack(tensors)
+
+
 def stacked(model: Params, shapes: Dict) -> Dict[str, torch.Tensor]:
     """Every leaf of ``shapes`` in the JAX layout, keyed by its dotted
     name in ``param_leaves`` order: a layer stack as one tensor stacked
     over the layers (a copy), a top-level leaf as it is (detached)."""
     out = {}
-    for name, _ in param_leaves(shapes):
+    device = next(model.parameters()).device
+    for name, s in param_leaves(shapes):
         value = get_param(model, name)
         out[name] = (value.detach() if isinstance(value, torch.Tensor)
-                     else torch.stack([t.detach() for t in value]))
+                     else stack_layers([t.detach() for t in value], s,
+                                       device))
     return out
 
 

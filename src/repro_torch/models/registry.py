@@ -5,9 +5,9 @@ family raises ``KeyError``.
 
 Every ported module offers: param_shapes, init_params, param_count,
 active_param_count, forward, prefill, decode_step, cache_shapes, and
-``Model``, its parameter module (``models/params.py``). The dense and vlm
-families also offer loss_fn and make_train_step; training the others
-waits for their kernels' gradients (ROADMAP.md, queue 1).
+``Model``, its parameter module (``models/params.py``). The dense, vlm,
+encdec and hybrid families also offer loss_fn and make_train_step;
+training the ssm and moe families waits (ROADMAP.md, queue 1, item 2).
 """
 from __future__ import annotations
 

@@ -35,7 +35,7 @@ from repro_torch.models.layers import (
 )
 from repro_torch.models.params import Params, count, get_param, init, param_leaves
 from repro_torch.models.params import spec as _spec
-from repro_torch.models.params import stacked
+from repro_torch.models.params import stack_layers, stacked
 
 VISION_FEAT_DIM = 1024  # stub frontend feature width (llava patch embeddings)
 
@@ -156,14 +156,21 @@ def _remat(cfg, fn):
     return functools.partial(ckpt.checkpoint, fn, use_reentrant=False, **kw)
 
 
+def remat_where_grad(cfg, fn, h, params: torch.nn.Module):
+    """``fn`` under ``_remat`` where a gradient is taken (grad mode on and
+    ``h`` or a parameter of ``params`` requiring one), else as it is:
+    serving runs the blocks as they are (its parameters need none, and
+    inference mode takes none)."""
+    if torch.is_grad_enabled() and (h.requires_grad or any(
+            p.requires_grad for p in params.parameters())):
+        return _remat(cfg, fn)
+    return fn
+
+
 def stack_forward(cfg, params: Transformer, h, positions,
                   block_fn=dense_block):
-    block = functools.partial(block_fn, cfg)
-    # remat only where a gradient is taken: serving runs the blocks as they
-    # are (its parameters need none, and inference mode takes none)
-    if torch.is_grad_enabled() and (h.requires_grad or any(
-            p.requires_grad for p in params.layers.parameters())):
-        block = _remat(cfg, block)
+    block = remat_where_grad(cfg, functools.partial(block_fn, cfg), h,
+                             params.layers)
     for lp in params.layers:
         h = block(lp, h, positions)
     return h
@@ -223,7 +230,7 @@ def make_train_step(cfg, optimizer, block_fn=dense_block, loss=None):
     accum = max(1, getattr(cfg, "grad_accum", 1))
     acc_dt = getattr(torch, getattr(cfg, "grad_accum_dtype", "float32"))
     shapes = family_module(cfg.family).param_shapes(cfg)
-    names = [name for name, _ in param_leaves(shapes)]
+    specs = dict(param_leaves(shapes))
 
     def _grad(params, leaves, batch):
         """(loss, metrics, grads): grads keyed as ``leaves``, a layer
@@ -235,14 +242,15 @@ def make_train_step(cfg, optimizer, block_fn=dense_block, loss=None):
         out = {}
         for name, ts in leaves.items():
             gs = [next(grads) for _ in ts]
-            out[name] = torch.stack(gs) if "." in name else gs[0]
+            out[name] = (stack_layers(gs, specs[name], value.device)
+                         if "." in name else gs[0])
         return value.detach(), metrics, out
 
     def train_step(params, opt_state, batch):
         # each leaf's tensors: a top-level leaf (no dot in its name) alone,
         # a layer stack's one a layer
         leaves = {}
-        for name in names:
+        for name in specs:
             value = get_param(params, name)
             leaves[name] = value if "." in name else [value]
         for ts in leaves.values():
@@ -276,7 +284,7 @@ def make_train_step(cfg, optimizer, block_fn=dense_block, loss=None):
         updates, opt_state = optimizer.update(grads, opt_state, values)
         with torch.no_grad():
             for name, ts in leaves.items():
-                new = (values[name] + updates[name]).to(ts[0].dtype)
+                new = (values[name] + updates[name]).to(values[name].dtype)
                 for t, v in zip(ts, new if "." in name else [new]):
                     t.copy_(v)
         metrics = {k: v.detach() for k, v in metrics.items()}

@@ -16,8 +16,12 @@ float32 from numpy draws:
 * ``ref.flash_attention_bwd`` against torch's autograd through
   ``ref.flash_attention_bshd``, and the (BH, S, D) entry against the
   (B, S, H, D) one;
-* every other kernel wrapper refuses a gradient, on the CPU as on the
-  card, and still serves under ``no_grad`` and ``inference_mode``.
+* recurrentgemma's heads at D = 256 (GQA 16 on one kv head, a window),
+  which the gradient kernel takes as the forward does
+  (``MAX_BWD_HEAD_DIM``);
+* every other kernel wrapper but the RG-LRU's (whose gradient is in
+  tests/test_torch_train_families.py) refuses a gradient, on the CPU as
+  on the card, and still serves under ``no_grad`` and ``inference_mode``.
 
 Tests marked ``gpu`` hold the gradient kernel (``csrc/flash_attention_bwd.cu``)
 and the forward's log-sum-exp to their plain versions on the card, and
@@ -169,6 +173,27 @@ def test_bhsd_entry_gradient_matches_bshd():
         torch.testing.assert_close(g, bhsd(r), rtol=0, atol=0)
 
 
+# recurrentgemma's local attention: 16 query heads of 256 on one kv head,
+# causal with a window, and a non-causal Sq != Sk case at D = 256
+@pytest.mark.parametrize("shape,causal,window", [
+    ((1, 48, 48, 16, 1, 256), True, 16),
+    ((2, 40, 40, 4, 1, 256), True, 0),
+    ((1, 24, 40, 4, 2, 256), False, 0),
+])
+def test_flash_grad_d256_matches_jax(jx, shape, causal, window):
+    q, k, v, w = _draw(13, *shape)
+    want = _jax_grads(jx, q, k, v, w, causal, window)
+    got = _port_grads(q, k, v, w, causal, window)
+    for name, g, r in zip("qkv", got, want):
+        np.testing.assert_allclose(g, r, **TOL_TIGHT, err_msg=f"d{name}")
+
+
+def test_the_gradient_takes_every_head_the_forward_takes():
+    """The CPU and the card train the same heads: the gradient kernel's
+    widest head is the forward's."""
+    assert flash_attention.MAX_BWD_HEAD_DIM == flash_attention.MAX_HEAD_DIM
+
+
 def test_cpu_gradient_launches_nothing():
     q, k, v, w = (torch.from_numpy(a) for a in _draw(1, 1, 20, 20, 4, 2, 8))
     before = (flash_attention.launches, flash_attention.backward_launches)
@@ -204,8 +229,6 @@ def _refusal_cases():
         "ssd_bhcp": (ssd.ssd_bhcp, (t(1, 2, 8, 4), t(1, 2, 8).abs(),
                                     -t(2).abs(), t(1, 1, 8, 4), t(1, 1, 8, 4),
                                     t(1, 2, 4, 4)), {"chunk": 4}, 0),
-        "rglru_bsw": (rglru.rglru_bsw, (t(2, 5, 8), t(2, 5, 8), t(2, 5, 8),
-                                        t(8), None), {}, 0),
         "rglru_tokens": (rglru.rglru_tokens, (toks, t(16, 8), t(16, 8),
                                               t(16, 8), t(8)), {}, 1),
         "decode_attention_bkgd": (decode_attention.decode_attention_bkgd,
@@ -245,6 +268,9 @@ BWD_CASES = [  # (B, H, Hkv, Sq, Sk, D, causal, window)
     (1, 8, 8, 77, 77, 128, True, 0),
     (2, 4, 2, 100, 100, 32, True, 16),
     (1, 8, 2, 160, 160, 80, True, 64),   # h2o-danube's head, padded to 128
+    (1, 16, 1, 300, 300, 256, True, 128),  # recurrentgemma's heads, a window
+    (2, 4, 2, 96, 200, 256, False, 0),
+    (1, 4, 4, 77, 77, 200, True, 0),     # D padded to 256
 ]
 
 
