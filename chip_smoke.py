@@ -5,16 +5,20 @@ LLM predicate, the ssm, hybrid, encdec and moe model families, the dense
 decoder's training (with UC4's fine-tuned probe) and the encdec and
 hybrid families' training through them.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--before DIR]
 
 Needs a CUDA card and nvcc; exits non-zero without them, and on any
-failed phase. Phases, in order:
+failed phase. ``--before DIR`` (a checkout of an earlier commit, e.g. a
+``git archive`` of it unpacked) also builds DIR's two gradient kernels
+(``flash_attention_bwd.cu`` and ``rglru_bwd.cu``) and times them beside
+these in phase 3 (``before_ms``). Phases, in order:
 
 1. setup   — card name and power limit, torch/CUDA/nvcc versions;
 2. build   — compile every kernel from the sources in the checkout (and
              an empty kernel, the launch floor, two broken copies of the
-             flash source, FLASH_MUTANTS, and two of the flash gradient's,
-             FLASH_BWD_MUTANTS), one nvcc per source, all at once;
+             flash source, FLASH_MUTANTS, two of the flash gradient's,
+             FLASH_BWD_MUTANTS, and --before's), one nvcc per source, all
+             at once;
 3. kernels — each kernel against its plain PyTorch version on the card
              (rglru and the router's logits bit for bit, through both entry
              points of each), then timed with CUDA events through its
@@ -37,18 +41,22 @@ failed phase. Phases, in order:
              whisper-small's encoder, decoder and cross attention as
              phase 13 trains them, and D = 256: recurrentgemma-9b's local
              attention at (2, 2560) and a non-causal case; the same bits
-             on a rerun), bf16 held to
+             on a rerun; bf16 on the wgmma instances fed by TMA, float32
+             on the mma.sync ones), bf16 held to
              ref.flash_bwd_bf16_limits, which must refuse both gradient
              mutants, float32 to BWD_F32_RTOL and BWD_F32_ATOL; the
-             gradient timed through its wrapper and entry point beside
-             its bound and SDPA's backward (the window as a boolean mask),
-             and the forward with and without its LSE; then the RG-LRU
-             gradient kernel at recurrentgemma-9b's training shape (2,
-             2560, 4096), with and without h0 and a cotangent of h_last,
-             against ref.rglru_bwd within TOL_TIGHT, the same bits on a
-             rerun, timed as the main path calls it (bf16 in and out)
-             and at its float32 entry point, each beside its bound, and
-             the plain version;
+             gradient timed through its wrapper and entry point (bf16
+             also in a CUDA graph, and beside --before's) beside its bound
+             and SDPA's backward (the window as a boolean mask), and the
+             forward with and without its LSE; then the RG-LRU gradient
+             kernel at recurrentgemma-9b's training shape (2, 2560, 4096),
+             with and without h0 and a cotangent of h_last, against
+             ref.rglru_bwd within TOL_TIGHT, the same bits on a rerun, its
+             bf16 instance bit-equal to the float32 one cast to bf16,
+             timed as the main path calls it (bf16 in and out, straight
+             through the bf16 instance), at its bf16 and float32 entry
+             points (and beside --before's path), each beside its bound,
+             and the plain version;
 4. query   — the lost-dog query (5 minutes of 30-fps video) on the card
              under every eddy policy; row ids against the plain version
              on the CPU, launches on the kernel counter and the board;
@@ -136,6 +144,8 @@ import contextlib
 import ctypes
 import json
 import os
+import shutil
+import struct
 import subprocess
 import sys
 import tempfile
@@ -2257,21 +2267,26 @@ RGLRU_BWD_SHAPE = (2, 2560, 4096)
 RGLRU_BWD_FLOPS = 35
 
 
-def rglru_bwd_cases() -> dict:
+def rglru_bwd_cases(before=None) -> dict:
     """Phase 3 for the RG-LRU gradient kernel at RGLRU_BWD_SHAPE (inputs
     from a numpy seed; channel 1's clamp of 1 - a^2 binds): without h0
     and a cotangent of h_last, then with both, ``rglru.rglru_bwd`` against
     ``ref.rglru_bwd`` on the card (dx, dr, di, da_param, dh0 within
-    TOL_TIGHT) and bit-equal on a rerun (no atomics); then timed as the
-    main path calls it (``Rglru.backward``: the wrapper on the model's
-    bfloat16 x, r, i and dout and the float32 h, its float32 copies
-    included, and dx, dr, di cast back to bfloat16) and at the C entry
-    point on float32, in turns, the entry point in a CUDA graph, and the
-    plain version. Two bounds, each with a_param, h0, dh_last, dh0 and dL
-    and RGLRU_BWD_FLOPS a (t, w): the main path's (``bound_ms``: x, r, i
-    and dout read once in bfloat16, h in float32, dx, dr, di written once
-    in bfloat16) and the float32 entry point's (``entry_bound_ms``: the
-    eight arrays in float32). Returns {label: timings}."""
+    TOL_TIGHT) and bit-equal on a rerun (no atomics); its bf16 instance
+    (bf16 x, r, i, dout in, bf16 dx, dr, di out) bit-equal to the float32
+    instance on the same values with dx, dr, di cast to bf16; then timed
+    as the main path calls it (``Rglru.backward``: the wrapper on the
+    model's bf16 x, r, i and dout and the float32 h, straight through the
+    bf16 instance), at the bf16 and float32 C entry points, in turns, and
+    given ``before`` (``build_before``'s entry points) the earlier path
+    (float32 copies of x, r, i and dout, the earlier float32 kernel, dx,
+    dr, di cast back to bf16: ``before_ms``); the bf16 entry point in a
+    CUDA graph; and the plain version. Two bounds, each with a_param, h0,
+    dh_last, dh0 and dL and RGLRU_BWD_FLOPS a (t, w): the main path's
+    (``bound_ms``: x, r, i and dout read once in bfloat16, h in float32,
+    dx, dr, di written once in bfloat16) and the float32 entry point's
+    (``entry_bound_ms``: the eight arrays in float32). Returns {label:
+    timings}."""
     from repro_torch.kernels import _build, ref, rglru
     b, s, w = RGLRU_BWD_SHAPE
     rng = np.random.default_rng(23)
@@ -2283,6 +2298,9 @@ def rglru_bwd_cases() -> dict:
     x, r, i, dout = T(b, s, w), T(b, s, w), T(b, s, w), T(b, s, w)
     a_param = T(w)
     a_param[1] = -40.0
+    names = ("dx", "dr", "di", "da_param", "dh0")
+    call = _build.load("rglru_bwd").lib.rglru_bwd
+    stream = torch.cuda.current_stream().cuda_stream
     out = {}
     for h0, dh_last in ((None, None), (T(b, w), T(b, w))):
         label = (f"recurrentgemma-9b train B={b} S={s} W={w} h0 and h_last "
@@ -2291,58 +2309,90 @@ def rglru_bwd_cases() -> dict:
         got = rglru.rglru_bwd(x, r, i, a_param, h0, hs, dout, dh_last)
         again = rglru.rglru_bwd(x, r, i, a_param, h0, hs, dout, dh_last)
         want = ref.rglru_bwd(x, r, i, a_param, h0, hs, dout, dh_last)
+        bf = [t.to(torch.bfloat16) for t in (x, r, i, dout)]
+        g16 = rglru.rglru_bwd(*bf[:3], a_param, h0, hs, bf[3], dh_last)
+        g32 = rglru.rglru_bwd(*(t.float() for t in bf[:3]), a_param, h0, hs,
+                              bf[3].float(), dh_last)
         torch.cuda.synchronize()
         err, ok, same, exact = 0.0, True, True, {}
-        for name, g, a, wt in zip(("dx", "dr", "di", "da_param", "dh0"),
-                                  got, again, want):
+        for name, g, a, wt in zip(names, got, again, want):
             if wt is None:
                 ok = ok and g is None
                 continue
             e, o = within(g, wt, **TOL_TIGHT)
             err, ok, same = max(err, e), ok and o, same and torch.equal(g, a)
             exact[name] = torch.equal(g, wt)
+        cast = {name: (g is None and f is None) or (
+            g.dtype == (torch.bfloat16 if name in names[:3] else torch.float32)
+            and torch.equal(g, f.to(g.dtype)))
+            for name, g, f in zip(names, g16, g32)}
         print(f"  rglru_bwd {label}: max_abs_err {err!r} within TOL_TIGHT "
               f"{ok}, bit-equal to the plain version {exact}, bit-equal on "
-              f"a rerun {same}", flush=True)
-        if not (ok and same):
+              f"a rerun {same}; the bf16 instance bit-equal to the float32 "
+              f"one cast {cast}", flush=True)
+        if not (ok and same and all(cast.values())):
             raise AssertionError(f"the RG-LRU gradient kernel disagrees on "
                                  f"{label}")
-        outs = [torch.empty_like(x) for _ in range(3)]
         dh0 = None if h0 is None else torch.empty_like(h0)
         part, dl = torch.empty((b, w), device="cuda"), torch.empty(
             w, device="cuda")
-        ptrs = (x, r, i, a_param, h0, hs, dout, dh_last, *outs, dh0, part, dl)
-        args = rglru.BWD_ARGS.pack(*(0 if t is None else t.data_ptr()
-                                     for t in ptrs), b, s, w, 8.0)
-        call = _build.load("rglru_bwd").lib.rglru_bwd
-        stream = torch.cuda.current_stream().cuda_stream
-        if call(args, stream) != 0:
+
+        def pack(ins, outs, bf16):
+            ptrs = (*ins[:3], a_param, h0, hs, ins[3], dh_last, *outs, dh0,
+                    part, dl)
+            return rglru.BWD_ARGS.pack(*(0 if t is None else t.data_ptr()
+                                         for t in ptrs), b, s, w, 8.0, bf16,
+                                       0)
+
+        f32_outs = [torch.empty_like(x) for _ in range(3)]
+        bf_outs = [torch.empty_like(bf[0]) for _ in range(3)]
+        f32_args = pack((x, r, i, dout), f32_outs, 0)
+        bf_args = pack(bf, bf_outs, 1)
+        if call(f32_args, stream) != 0 or call(bf_args, stream) != 0:
             raise AssertionError("rglru_bwd entry point failed")
-        bf = [t.to(torch.bfloat16) for t in (x, r, i, dout)]
-        before = rglru.backward_launches
-        t = {"dtype": "bfloat16 in and out, float32 kernel",
-             **paired_ms({
-                 "ms": lambda: [g.to(torch.bfloat16) for g in rglru.rglru_bwd(
-                     *bf[:3], a_param, h0, hs, bf[3], dh_last)[:3]],
-                 "entry_ms": lambda: call(args, stream)}, iters=20),
-             "graph_ms": graph_ms(lambda st: call(args, st), n=20, reps=5),
+        fns = {"ms": lambda: rglru.rglru_bwd(*bf[:3], a_param, h0, hs, bf[3],
+                                             dh_last),
+               "entry_ms": lambda: call(bf_args, stream),
+               "f32_entry_ms": lambda: call(f32_args, stream)}
+        if before is not None:
+            old = before["rglru_bwd"]
+
+            def earlier():   # the wrapper and the kernel before the bf16 one
+                ins = [t.to(torch.float32).contiguous() for t in bf]
+                outs = [torch.empty_like(hs) for _ in range(3)]
+                ptrs = (*ins[:3], a_param, h0, hs, ins[3], dh_last, *outs,
+                        dh0, part, dl)
+                old(BEFORE_RGLRU_ARGS.pack(*(0 if t is None else t.data_ptr()
+                                             for t in ptrs), b, s, w, 8.0),
+                    stream)
+                return [g.to(torch.bfloat16) for g in outs]
+
+            fns["before_ms"] = earlier
+        launches_before = rglru.backward_launches
+        t = {"dtype": "bfloat16 in and out (the bf16 instance)",
+             **paired_ms(fns, iters=20),
+             "graph_ms": graph_ms(lambda st: call(bf_args, st), n=20, reps=5),
              "plain_ms": time_ms(lambda: ref.rglru_bwd(
                  x, r, i, a_param, h0, hs, dout, dh_last), 2, warmup=1),
              "library_ms": None,   # no single PyTorch call differentiates it
-             "max_abs_err": err, "bit_equal_to_plain": exact}
-        rglru.backward_launches = before   # timing calls do not count
-        small = 4 * (2 * w + (0 if h0 is None else 3 * b * w))
+             "max_abs_err": err, "bit_equal_to_plain": exact,
+             "bf16_bit_equal_to_f32_cast": cast}
+        rglru.backward_launches = launches_before   # timing calls do not count
+        small_bytes = 4 * (2 * w + (0 if h0 is None else 3 * b * w))
         flops = RGLRU_BWD_FLOPS * b * s * w
         t.update(zip(("bound_ms", "bound_by"), bound_ms(
-            (2 * 7 + 4) * b * s * w + small, flops)))
+            (2 * 7 + 4) * b * s * w + small_bytes, flops)))
         t.update(zip(("entry_bound_ms", "entry_bound_by"), bound_ms(
-            4 * 8 * b * s * w + small, flops)))
+            4 * 8 * b * s * w + small_bytes, flops)))
+        extra = (f"; the earlier path {t['before_ms']!r} ms"
+                 if "before_ms" in t else "")
         print(f"  rglru_bwd {label}: {t['ms']!r} ms as the main path calls "
               f"it, bfloat16 in and out (bound {t['bound_ms']!r} ms, "
-              f"{t['bound_by']}); entry point on float32 {t['entry_ms']!r} "
-              f"ms, in a CUDA graph {t['graph_ms']!r} (bound "
-              f"{t['entry_bound_ms']!r} ms, {t['entry_bound_by']}); plain "
-              f"{t['plain_ms']!r} ms", flush=True)
+              f"{t['bound_by']}); bf16 entry point {t['entry_ms']!r} ms, in "
+              f"a CUDA graph {t['graph_ms']!r}; float32 entry point "
+              f"{t['f32_entry_ms']!r} ms (bound {t['entry_bound_ms']!r} ms, "
+              f"{t['entry_bound_by']}){extra}; plain {t['plain_ms']!r} ms",
+              flush=True)
         out[label] = t
     for line in ptxas_lines("rglru_bwd", "rglru_bwd"):
         print(f"  rglru_bwd (ptxas): {line}")
@@ -3048,15 +3098,13 @@ def run_moe_family() -> dict:
 # which the limit must refuse at SmolLM-135M's bf16 training attention
 FLASH_BWD_MUTANTS = (
     ("drops the second key tile from dK and dV",
-     "      pv_tile<DP, BQ, NO>(dv, st, s_do + c0, g, t, one);\n"
-     "      pv_tile<DP, BQ, NO>(dk, dpt, s_q + c0, g, t, one);\n",
-     "      if (k_start != kBlock) {\n"
-     "        pv_tile<DP, BQ, NO>(dv, st, s_do + c0, g, t, one);\n"
-     "        pv_tile<DP, BQ, NO>(dk, dpt, s_q + c0, g, t, one);\n"
-     "      }\n"),
+     "      wg::to_a_frags(pa, st);\n",
+     "      if (k_start == kRows)\n"
+     "        for (int e = 0; e < 32; ++e) st[e] = 0.f;  // P^T, so dS^T too\n"
+     "      wg::to_a_frags(pa, st);\n"),
     ("leaves D out of the first key tile's dS for dQ",
-     "        s[j][e] = pr * (dp[j][e] - dl[r]);  // dS\n",
-     "        s[j][e] = pr * (dp[j][e] - (kt == 0 ? 0.f : dl[r]));  // dS\n"),
+     "      sacc[e] = pr * (dpacc[e] - dl[r]);  // dS\n",
+     "      sacc[e] = pr * (dpacc[e] - (kt == 0 ? 0.f : dl[r]));  // dS\n"),
 )
 BWD_F32_RTOL = 1e-4   # float32 (3xTF32) gradient: |err| <= rtol |want| + ...
 BWD_F32_ATOL = 1e-5   # ... atol max|want| of the tensor
@@ -3096,6 +3144,42 @@ def build_bwd_mutants() -> list:
                 "flash_attention_bwd", *FLASH_BWD_MUTANTS[i][1:],
                 os.path.join(tmp, f"flash_bwd_mutant{i}.cu"),
                 "flash_attention_bwd"), range(len(FLASH_BWD_MUTANTS))))
+
+
+# the RG-LRU gradient's packed arguments before its bf16 instance (x, r,
+# i, dout, dx, dr, di all float32; no dtype flag), for ``build_before``'s
+BEFORE_RGLRU_ARGS = struct.Struct("<14Q3if")
+
+
+def build_before(root: str) -> dict:
+    """The two gradient entry points of the checkout at ``root`` (``python3
+    chip_smoke.py --before DIR``: the sources these kernels replaced,
+    timed beside them), built side by side with each library's flags and
+    ``root``'s own headers, into a temporary directory removed once they
+    are loaded."""
+    from repro_torch.kernels import _build
+    csrc = os.path.join(root, "src", "repro_torch", "kernels", "csrc")
+    tmp = tempfile.mkdtemp()
+
+    def one(name):
+        out = os.path.join(tmp, f"before_{name}.so")
+        proc = subprocess.run(
+            [_build.nvcc_path(), *_build.NVCC_FLAGS, "-I", csrc,
+             *_build.LIBRARY_FLAGS[name], "-o", out,
+             os.path.join(csrc, f"{name}.cu")], capture_output=True,
+            text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {root}'s {name}.cu:\n"
+                               f"{proc.stdout}{proc.stderr}")
+        fn = getattr(ctypes.CDLL(out), name)
+        fn.argtypes, fn.restype = _build.SIGNATURES[name][name]
+        return name, fn
+
+    try:
+        with ThreadPoolExecutor(2) as pool:
+            return dict(pool.map(one, ("flash_attention_bwd", "rglru_bwd")))
+    finally:
+        shutil.rmtree(tmp)
 
 
 def share_of(got, want, limit: torch.Tensor) -> float:
@@ -3147,10 +3231,12 @@ class BwdCase:
 
     def entry_args(self, outs) -> bytes:
         """The gradient entry point's packed arguments, writing ``outs``
-        ((B, S, H, D) dQ, dK, dV) and a scratch D."""
+        ((B, S, H, D) dQ, dK, dV) and a scratch D of its own, kept as long
+        as the case."""
         from repro_torch.kernels import flash_attention
         b, sq, sk, h, hkv, d, causal, window = self.shape
         self.delta = torch.empty_like(self.lse)
+        self.deltas = getattr(self, "deltas", []) + [self.delta]
         ts = (self.q, self.k, self.v, self.out, self.dout, *outs)
         return flash_attention.pack_bwd_args(
             self.q, self.k, self.v, self.out, self.dout, self.lse,
@@ -3177,18 +3263,21 @@ class BwdCase:
                 "within": ok}
 
 
-def time_flash_bwd(case: BwdCase, label: str) -> dict:
+def time_flash_bwd(case: BwdCase, label: str, before=None) -> dict:
     """Times of the gradient kernel at ``case``'s shapes: through its
     wrapper (``_launch_bwd``: allocation, checks, one entry call of three
     launches), at its C entry point on preallocated outputs, and of
     scaled_dot_product_attention's backward on the same work (the library
-    time: autograd.grad of one SDPA forward, taken in turns by
-    ``paired_ms``), and of the plain version, beside the bound: each input
-    (q, k, v, o, dO, LSE) read once and dQ, dK, dV written once; 10 flops
-    per visible (query, key) pair and dim (five products: s, dP, dV, dQ,
-    dK)."""
+    time: autograd.grad of one SDPA forward), in turns by ``paired_ms``
+    with, in bf16 and given ``before`` (``build_before``'s entry points),
+    the earlier kernel's entry point (``before_ms``); in bf16 also the
+    entry point in a CUDA graph; and the plain version, beside the bound:
+    each input (q, k, v, o, dO, LSE) read once and dQ, dK, dV written
+    once; 10 flops per visible (query, key) pair and dim (five products:
+    s, dP, dV, dQ, dK)."""
     from repro_torch.kernels import _build, flash_attention, ref
     b, sq, sk, h, hkv, d, causal, window = case.shape
+    bf16 = case.dtype == torch.bfloat16
     lay = lambda t, kv: flash_attention.bshd_layout(t)  # noqa: E731
     wrapper = lambda: flash_attention._launch_bwd(  # noqa: E731
         case.q, case.k, case.v, case.out, case.dout, case.lse, lay, b, h,
@@ -3212,12 +3301,18 @@ def time_flash_bwd(case: BwdCase, label: str) -> dict:
     dout4 = case.dout.transpose(1, 2)
     library = lambda: torch.autograd.grad(  # noqa: E731
         sdpa, leaves, dout4, retain_graph=True)
-    before = flash_attention.backward_launches
+    fns = {"ms": wrapper, "entry_ms": lambda: call(args, stream),
+           "library_ms": library}
+    if before is not None and bf16:
+        old_args = case.entry_args([torch.empty_like(t) for t in outs])
+        old = before["flash_attention_bwd"]
+        fns["before_ms"] = lambda: old(old_args, stream)
+    before_launches = flash_attention.backward_launches
     t = {"dtype": str(case.dtype).replace("torch.", ""),
-         **paired_ms({"ms": wrapper,
-                      "entry_ms": lambda: call(args, stream),
-                      "library_ms": library}, iters=20 if d <= 128 else 4)}
-    flash_attention.backward_launches = before   # timing calls do not count
+         **paired_ms(fns, iters=20 if d <= 128 else 4)}
+    if bf16:
+        t["graph_ms"] = graph_ms(lambda st: call(args, st), n=20, reps=5)
+    flash_attention.backward_launches = before_launches  # timing calls do not count
     t["plain_ms"] = time_ms(lambda: ref.flash_attention_bwd(
         *case.args, group=case.group, **case.kw), 3, warmup=1)
     elt = case.q.element_size()
@@ -3225,8 +3320,11 @@ def time_flash_bwd(case: BwdCase, label: str) -> dict:
         + case.lse.numel() * 4
     pairs = visible_pairs(sq, causal, window, sk) * b * h
     t.update(attention_bound(nbytes, 10.0 * pairs * d, case.dtype))
+    extra = (f", in a CUDA graph {t['graph_ms']!r} ms" if bf16 else "") + (
+        f", the earlier kernel's entry point {t['before_ms']!r} ms"
+        if "before_ms" in t else "")
     print(f"  flash_attention_bwd {label}: kernel {t['ms']!r} ms (entry "
-          f"point {t['entry_ms']!r} ms), plain {t['plain_ms']!r} ms, "
+          f"point {t['entry_ms']!r} ms{extra}), plain {t['plain_ms']!r} ms, "
           f"scaled_dot_product_attention backward {t['library_ms']!r} ms, "
           f"bound {t['bound_ms']!r} ms ({t['bound_by']}; float32 CUDA cores "
           f"{t['bound_f32_cores_ms']!r} ms)", flush=True)
@@ -3252,14 +3350,20 @@ def time_flash_lse(case: BwdCase, label: str) -> dict:
     return t
 
 
-def flash_bwd_cases(mutants: list) -> dict:
+def flash_bwd_cases(mutants: list, before=None) -> dict:
     """Phase 3 for the gradient kernel: FLASH_BWD_CASES in bf16 and
     float32 through the autograd function against ref.flash_attention_bwd,
-    the kernel bit-equal on a second run (no atomics), both
-    FLASH_BWD_MUTANTS refused by the bf16 limit at the main path's shape,
-    and the kernel and the forward's LSE timed there and at the windowed
-    case. Returns {"cases", "mutants", "timings", "lse"}."""
-    from repro_torch.kernels import flash_attention
+    the kernel bit-equal on a second run (no atomics) and on the design
+    it should take (``flash_attention_bwd_route``: bf16 the wgmma
+    instances fed by TMA, these operands being aligned; float32 the
+    mma.sync ones), both FLASH_BWD_MUTANTS refused by the bf16 limit at
+    the main path's shape, and the kernel (beside ``before``'s, given) and
+    the forward's LSE timed. Returns {"cases", "mutants", "timings",
+    "lse"}."""
+    from repro_torch.kernels import _build, flash_attention
+    route_of = _build.load("flash_attention_bwd").lib.flash_attention_bwd_route
+    routes = {2: "bf16 wgmma, TMA ring", 1: "bf16 wgmma, producer loads",
+              0: "float32 mma.sync"}
     out = {"cases": {}, "mutants": {}, "timings": {}, "lse": {}}
     bf16, f32 = torch.bfloat16, torch.float32
     stream = torch.cuda.current_stream().cuda_stream
@@ -3275,10 +3379,15 @@ def flash_bwd_cases(mutants: list) -> dict:
             res = case.check(got)
             res["bit_equal_rerun"] = all(torch.equal(a, c)
                                          for a, c in zip(got, again))
+            res["route"] = routes.get(route_of(case.entry_args(
+                [torch.empty_like(t) for t in (case.q, case.k, case.v)])))
             print(f"  flash_attention_bwd {label}: max_abs_err "
                   f"{res['max_abs_err']!r}, largest share of its limit "
                   f"{res['largest_share_of_limit']!r}, bit-equal on a rerun "
-                  f"{res['bit_equal_rerun']}", flush=True)
+                  f"{res['bit_equal_rerun']}, {res['route']}", flush=True)
+            if res["route"] != routes[2 if dt == bf16 else 0]:
+                raise AssertionError(f"the flash gradient took another "
+                                     f"design on {label}: {res['route']}")
             if not (res["within"] and res["bit_equal_rerun"]):
                 raise AssertionError(f"the flash gradient kernel disagrees "
                                      f"on {label}")
@@ -3300,15 +3409,16 @@ def flash_bwd_cases(mutants: list) -> dict:
                         raise AssertionError(f"the bf16 gradient limit "
                                              f"accepts the mutant that {what}")
             if name in FLASH_BWD_TIMED:
-                out["timings"][label] = {**time_flash_bwd(case, label),
+                out["timings"][label] = {**time_flash_bwd(case, label,
+                                                         before),
                                          "max_abs_err": res["max_abs_err"]}
             if name in FLASH_BWD_TIMED[:2]:
                 out["lse"][label] = time_flash_lse(case, label)
             out["cases"][label] = res
             del case
     print(f"  backward launches so far {flash_attention.backward_launches}")
-    for line in ptxas_lines("flash_attention_bwd", "Li256E"):
-        print(f"  flash_attention_bwd D=256 instances (ptxas): {line}")
+    for line in ptxas_lines("flash_attention_bwd", "_kernel"):
+        print(f"  flash_attention_bwd instances (ptxas): {line}")
     return out
 
 
@@ -3373,7 +3483,8 @@ class _Annotated:
 
 def train_trace(step, params, state, batch) -> dict:
     """One train step under torch.profiler: device time by flash forward
-    (flash_kernel), flash backward (delta, dq and dkv kernels), RG-LRU
+    (flash_kernel), flash backward (the D, dq and dkv kernels of both
+    designs), RG-LRU
     forward (rglru_kernel) and backward (rglru_bwd kernels), GEMMs, the
     optimizer (the kernels inside the device's span of
     ``_Annotated.update``'s range: one stream runs them in order) and the
@@ -3403,7 +3514,8 @@ def train_trace(step, params, state, batch) -> dict:
         if any(o.start <= r.start and r.end <= o.end for o in spans):
             key = "optimizer"
         elif any(k in name for k in ("dq_kernel", "dkv_kernel",
-                                     "delta_kernel")):
+                                     "delta_kernel", "dq_wgmma_kernel",
+                                     "dkv_wgmma_kernel", "delta_vec_kernel")):
             key = "flash_backward"
         elif "flash_kernel" in name:
             key = "flash_forward"
@@ -3800,6 +3912,8 @@ def main() -> int:
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 1
     t_start = time.perf_counter()
+    before_root = (sys.argv[sys.argv.index("--before") + 1]
+                   if "--before" in sys.argv else None)
     from repro_torch.core import AQPExecutor, CostDriven, make_batch
     from repro_torch.core.policies import EDDY_POLICIES
     from repro_torch.data.video import BREEDS, SyntheticVideo
@@ -3830,13 +3944,16 @@ def main() -> int:
     # ------------------------------------------------------------- 2 build
     phase("2 build")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(LIBRARIES) + 3) as pool:  # one nvcc a source
+    with ThreadPoolExecutor(len(LIBRARIES) + 4) as pool:  # one nvcc a source
         generic = pool.submit(build_ssd_generic)
         mutants = pool.submit(build_flash_mutants)
         grad_mutants = pool.submit(build_bwd_mutants)
+        earlier = (pool.submit(build_before, before_root) if before_root
+                   else None)
         libs = dict(zip(LIBRARIES, pool.map(_build.load, LIBRARIES)))
         ssd_generic, flash_mutants = generic.result(), mutants.result()
         bwd_mutants = grad_mutants.result()
+        before = earlier.result() if earlier else None
     print(f"  {len(libs)} libraries in {time.perf_counter() - t0:.2f}s")
     for name, lib in libs.items():
         print(f"  {name}: {lib.path.name} built in {lib.seconds:.2f}s")
@@ -3907,11 +4024,11 @@ def main() -> int:
                                                for t in cases.values()))
     limit_mutants = flash_limit_mutants(flash_mutants)
     print()
-    flash_bwd = flash_bwd_cases(bwd_mutants)
+    flash_bwd = flash_bwd_cases(bwd_mutants, before)
     max_errs["flash_attention_bwd"] = max(
         c["max_abs_err"] for c in flash_bwd["cases"].values())
     print()
-    rglru_bwd = rglru_bwd_cases()
+    rglru_bwd = rglru_bwd_cases(before)
     max_errs["rglru_bwd"] = max(t["max_abs_err"] for t in rglru_bwd.values())
 
     # ------------------------------------------------------------- 4 query
@@ -4130,6 +4247,9 @@ def main() -> int:
         "train": train,
         "train_families": train_families,
         "rglru_bwd": rglru_bwd,
+        # registers, shared memory and spills of every gradient instance
+        "gradient_ptxas": {name: ptxas_lines(name, "_kernel")
+                           for name in ("flash_attention_bwd", "rglru_bwd")},
         "families": families,
         "moe": moe_runs,
         "total_s": time.perf_counter() - t_start,

@@ -52,14 +52,18 @@ LIBRARY_FLAGS = {
 # kernel takes its arguments packed into one buffer (a bytes object from
 # the wrapper's struct format) and the stream: ctypes converts two
 # arguments where it would convert up to ~27. ``empty`` launches a kernel
-# that does nothing: the launch floor beside the kernels' times.
+# that does nothing: the launch floor beside the kernels' times;
+# ``flash_attention_bwd_route`` launches nothing and tells which of the
+# gradient's designs a call with those arguments takes.
 _VOIDP, _INT = ctypes.c_void_p, ctypes.c_int
 _PACKED = ([ctypes.c_char_p, _VOIDP], _INT)
 SIGNATURES = {
     "decode_attention": {"decode_attention_bshd": _PACKED},
     "empty": {"empty_launch": ([_VOIDP], _INT)},
     "flash_attention": {"flash_attention_bshd": _PACKED},
-    "flash_attention_bwd": {"flash_attention_bwd": _PACKED},
+    "flash_attention_bwd": {"flash_attention_bwd": _PACKED,
+                            "flash_attention_bwd_route": (
+                                [ctypes.c_char_p], _INT)},
     "hsv_color": {"hsv_color_hist": _PACKED},
     "moe_router": {"moe_router_tk": _PACKED, "moe_router_tokens": _PACKED},
     "rglru": {"rglru_bsw": _PACKED, "rglru_tokens": _PACKED},

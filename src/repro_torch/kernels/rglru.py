@@ -41,8 +41,8 @@ ARGS = struct.Struct("<7Q3if")
 TOKENS_ARGS = struct.Struct("<8Q4ifi")
 # the gradient entry point's (RglruBwdArgs): x, r, i, a_param, h0 or 0, hs,
 # dout, dh_last or 0, dx, dr, di, dh0 or 0, the dL scratch, dL; B, S, W
-# and c
-BWD_ARGS = struct.Struct("<14Q3if")
+# and c; whether x, r, i, dout, dx, dr and di are bfloat16; a pad
+BWD_ARGS = struct.Struct("<14Q3if2i")
 _entries: dict = {}  # the library's C functions, looked up once
 
 
@@ -97,25 +97,36 @@ def _forward_f32(x, r, i, a_param, h0, c: float):
 
 
 def rglru_bwd(x, r, i, a_param, h0, hs, dout, dh_last, *, c: float = 8.0):
-    """(dx, dr, di, da_param, dh0) in float32, the gradient of
-    ``rglru_bsw`` (formulas in ``ref.rglru_bwd``) for the cotangents
-    ``dout`` (B, S, W) and ``dh_last`` (B, W) or None, given the forward's
-    float32 h sequence ``hs``; dh0 is None when h0 is. On the card one
-    call of the gradient kernel (two launches: the walk, then dL summed
-    over the rows in order); on the CPU the plain version."""
+    """(dx, dr, di, da_param, dh0), the gradient of ``rglru_bsw``
+    (formulas in ``ref.rglru_bwd``) for the cotangents ``dout`` (B, S, W)
+    and ``dh_last`` (B, W) or None, given the forward's float32 h sequence
+    ``hs``; dh0 is None when h0 is. dx, dr and di are bfloat16 when x, r,
+    i and dout all are (float32 rounded once, to nearest even), float32
+    otherwise; da_param and dh0 float32. On the card one call of the
+    gradient kernel (two launches: the walk, then dL summed over the rows
+    in order), whose bf16 instance reads and writes the bf16 tensors as
+    they are; on the CPU the plain version."""
     global backward_launches
+    bf16 = all(t.dtype == torch.bfloat16 for t in (x, r, i, dout))
     if not x.is_cuda:
-        return ref.rglru_bwd(x, r, i, a_param, h0, hs, dout, dh_last, c=c)
+        grads = ref.rglru_bwd(x, r, i, a_param, h0, hs, dout, dh_last, c=c)
+        if bf16:
+            grads = (*(g.to(torch.bfloat16) for g in grads[:3]), *grads[3:])
+        return grads
     b, s, w = x.shape
     dev = x.get_device()
-    ins = [_build.f32_contiguous(t) for t in (x, r, i, a_param)]
+    if bf16:
+        big = [t.contiguous() for t in (x, r, i, dout)]
+    else:
+        big = [_build.f32_contiguous(t) for t in (x, r, i, dout)]
+    lam = _build.f32_contiguous(a_param)
     h0f = None if h0 is None else _build.f32_contiguous(h0)
-    hs, dout = _build.f32_contiguous(hs), _build.f32_contiguous(dout)
+    hs = _build.f32_contiguous(hs)
     dhl = None if dh_last is None else _build.f32_contiguous(dh_last)
     if any(t is not None and t.get_device() != dev
-           for t in (*ins, h0f, hs, dout, dhl)):
+           for t in (*big, lam, h0f, hs, dhl)):
         raise ValueError(f"all inputs must lie on {x.device}")
-    dx, dr, di = (torch.empty_like(hs) for _ in range(3))
+    dx, dr, di = (torch.empty_like(big[0]) for _ in range(3))
     dh0 = None if h0 is None else torch.empty_like(h0f)
     part = torch.empty((b, w), dtype=torch.float32, device=x.device)
     da = torch.empty((w,), dtype=torch.float32, device=x.device)
@@ -126,9 +137,10 @@ def rglru_bwd(x, r, i, a_param, h0, hs, dout, dh_last, *, c: float = 8.0):
     entry = _entries.get("rglru_bwd")
     if entry is None:
         entry = _entries["rglru_bwd"] = _build.load("rglru_bwd").lib.rglru_bwd
+    xb, rb, ib, dob = big
     err = entry(BWD_ARGS.pack(*(ptr(t) for t in (
-        *ins, h0f, hs, dout, dhl, dx, dr, di, dh0, part, da)), b, s, w,
-        float(c)), _build.raw_stream(dev))
+        xb, rb, ib, lam, h0f, hs, dob, dhl, dx, dr, di, dh0, part, da)),
+        b, s, w, float(c), bf16, 0), _build.raw_stream(dev))
     if err != 0:
         raise RuntimeError(f"rglru_bwd kernel launch failed: CUDA error {err}")
     with _COUNT_LOCK:
@@ -140,9 +152,10 @@ class Rglru(torch.autograd.Function):
     """``rglru_bsw`` with its gradient: ``apply(x, r, i, a_param, h0, c)``
     -> (out, h_last) in x's dtype. The forward keeps the float32 h
     sequence for the backward, ``rglru_bwd``; the gradients come back in
-    the inputs' dtypes, and a cotangent autograd leaves out (None) is
-    zero. Under remat the forward runs again in the backward pass (and
-    counts again in ``launches``)."""
+    the inputs' dtypes (a bf16 model's dx, dr and di straight from the
+    kernel's bf16 instance, with no cast), and a cotangent autograd leaves
+    out (None) is zero. Under remat the forward runs again in the backward
+    pass (and counts again in ``launches``)."""
 
     @staticmethod
     def forward(ctx, x, r, i, a_param, h0, c):
@@ -156,7 +169,7 @@ class Rglru(torch.autograd.Function):
     def backward(ctx, dout, dh_last):
         x, r, i, a_param, h0, hs = ctx.saved_tensors
         if dout is None:
-            dout = torch.zeros_like(hs)
+            dout = torch.zeros_like(x)
         grads = rglru_bwd(x, r, i, a_param, h0, hs, dout, dh_last, c=ctx.c)
         return (*(None if g is None else g.to(t.dtype)
                   for g, t in zip(grads, (x, r, i, a_param, h0))), None)

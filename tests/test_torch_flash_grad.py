@@ -25,13 +25,17 @@ float32 from numpy draws:
 
 Tests marked ``gpu`` hold the gradient kernel (``csrc/flash_attention_bwd.cu``)
 and the forward's log-sum-exp to their plain versions on the card, and
-skip without one. JAX is imported inside a fixture.
+skip without one: its bf16 instances (wgmma fed by a ring of stages) at
+every padded D with GQA groups 1 and 4 and three masks, on the design
+they should take (TMA for aligned operands, the producer warp's own loads
+for an unaligned view), with Sk = 0 and rows that see no key, the same
+bits on a rerun. JAX is imported inside a fixture.
 """
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import (decode_attention, flash_attention,
+from repro_torch.kernels import (_build, decode_attention, flash_attention,
                                  hsv_color, moe_router, ref, rglru, ssd)
 
 torch.set_num_threads(1)
@@ -333,3 +337,122 @@ def test_forward_lse_and_determinism(card, dtype):
         grads.append(torch.autograd.grad(o, leaves, w))
     for a, c in zip(*grads):
         assert torch.equal(a, c)   # no atomics: the same bits
+
+
+# the bf16 instances (wgmma fed by a ring of stages): every width D pads
+# to (16, 80 and 200 pad up to 64, 128 and 256), GQA groups 1 and 4, and a
+# causal, a windowed and a non-causal Sq != Sk mask
+WGMMA_DIMS = [16, 64, 80, 128, 200, 256]
+WGMMA_MASKS = {"causal": (150, 150, True, 0), "window": (200, 200, True, 48),
+               "non-causal Sq != Sk": (96, 170, False, 0)}
+ROUTES = {2: "wgmma, TMA ring", 1: "wgmma, producer loads",
+          0: "float32 mma.sync"}
+
+
+def _bhsd(t, d):
+    return t.transpose(1, 2).reshape(-1, t.shape[1], d).contiguous()
+
+
+def _route(q, k, v, out, dout, lse, causal, window):
+    """The design flash_attention_bwd takes for these (B, S, H, D) views."""
+    b, sq, h, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    outs = [torch.empty_like(t) for t in (q, k, v)]
+    ts = (q, k, v, out, dout, *outs)
+    args = flash_attention.pack_bwd_args(
+        q, k, v, out, dout, lse, torch.empty_like(lse), *outs,
+        [flash_attention.bshd_layout(t) for t in ts], b, h, h // hkv, sq, sk,
+        causal, window, d ** -0.5)
+    lib = _build.load("flash_attention_bwd").lib
+    return ROUTES[lib.flash_attention_bwd_route(args)]
+
+
+def _card_grads(q, k, v, w, causal, window):
+    """The gradient kernel's (dQ, dK, dV) through the autograd function
+    twice (the same bits expected), the forward's output and LSE."""
+    runs = []
+    for _ in range(2):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = flash_attention.flash_attention_bshd(*leaves, causal=causal,
+                                                   window=window)
+        runs.append(torch.autograd.grad(out, leaves, w))
+    torch.cuda.synchronize()
+    for a, c in zip(*runs):
+        assert torch.equal(a, c)   # no atomics: the same bits
+    group = q.shape[2] // k.shape[2]
+    o, lse = flash_attention._forward(q, k, v, "bshd", group, causal, window,
+                                      q.shape[-1] ** -0.5, with_lse=True)
+    return runs[0], o, lse
+
+
+def _within_bf16_limits(q, k, v, o, w, got, causal, window):
+    d = q.shape[-1]
+    group = q.shape[2] // k.shape[2]
+    args = [_bhsd(t, d) for t in (q, k, v, o, w)]
+    want = ref.flash_attention_bwd(*args, group=group, causal=causal,
+                                   window=window)
+    limits = ref.flash_bwd_bf16_limits(*args, want, group=group,
+                                       causal=causal, window=window)
+    return all(bool(((_bhsd(g, d).float() - r.float()).abs() <= lim).all())
+               for g, r, lim in zip(got, want, limits))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mask", sorted(WGMMA_MASKS))
+@pytest.mark.parametrize("group", [1, 4])
+@pytest.mark.parametrize("d", WGMMA_DIMS)
+def test_bwd_wgmma_instances(card, d, group, mask):
+    sq, sk, causal, window = WGMMA_MASKS[mask]
+    h = 4 if group == 1 else 8
+    q, k, v, w = (torch.from_numpy(a).to(card, torch.bfloat16) for a in _draw(
+        d + group, 2, sq, sk, h, h // group, d))
+    got, o, lse = _card_grads(q, k, v, w, causal, window)
+    assert _route(q, k, v, o, w, lse, causal, window) == "wgmma, TMA ring"
+    assert _within_bf16_limits(q, k, v, o, w, got, causal, window)
+
+
+@pytest.mark.gpu
+def test_bwd_unaligned_views_take_the_producers_loads(card):
+    """Views whose rows start 2 bytes past a 16-byte boundary (no TMA, no
+    cp.async piece fits) go through the producer warp's own loads."""
+    b, s, h, hkv, d = 2, 140, 8, 2, 64
+    q, k, v, w = (torch.from_numpy(a).to(card, torch.bfloat16) for a in _draw(
+        21, b, s, s, h, hkv, d + 1))
+    q, k, v = (t[..., 1:] for t in (q, k, v))
+    w = w[..., 1:].contiguous()
+    got, o, lse = _card_grads(q, k, v, w, True, 32)
+    assert _route(q, k, v, o, w, lse, True, 32) == "wgmma, producer loads"
+    assert _within_bf16_limits(q, k, v, o, w, got, True, 32)
+
+
+@pytest.mark.gpu
+def test_bwd_without_keys_writes_zero_dq(card):
+    """Sk = 0: dQ = 0 and no dK / dV pass."""
+    b, sq, h, hkv, d = 2, 70, 4, 2, 64
+    q, _, _, w = (torch.from_numpy(a).to(card, torch.bfloat16) for a in _draw(
+        22, b, sq, 1, h, hkv, d))
+    k = v = torch.empty((b, 0, hkv, d), dtype=torch.bfloat16, device=card)
+    out = torch.zeros_like(q)
+    lse = torch.zeros((b * h, sq), dtype=torch.float32, device=card)
+    before = flash_attention.backward_launches
+    dq, dk, dv = flash_attention._launch_bwd(
+        q, k, v, out, w, lse, lambda t, kv: flash_attention.bshd_layout(t),
+        b, h, h // hkv, sq, 0, True, 0, d ** -0.5)
+    torch.cuda.synchronize()
+    assert flash_attention.backward_launches == before + 1
+    assert bool((dq == 0).all()) and dk.shape == dv.shape == k.shape
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [64, 256])
+def test_bwd_rows_without_a_visible_key(card, d):
+    """Non-causal with a window and more queries than keys: rows past Sk +
+    window - 1 see no key and get dQ = 0; the rest within the limits."""
+    b, sq, sk, h, hkv, window = 1, 200, 90, 4, 2, 40
+    q, k, v, w = (torch.from_numpy(a).to(card, torch.bfloat16) for a in _draw(
+        23, b, sq, sk, h, hkv, d))
+    seen = torch.from_numpy(_visible_rows(sq, sk, False, window)).to(card)
+    assert not bool(seen.all()) and bool(seen.any())
+    got, o, lse = _card_grads(q, k, v, w, False, window)
+    assert bool((got[0][:, ~seen] == 0).all())
+    assert _within_bf16_limits(q, k, v, o, w, got, False, window)

@@ -38,6 +38,7 @@ import torch
 
 from repro_torch import convert
 from repro_torch.configs import get_config
+from repro_torch.distributed.fault_tolerance import FailureInjector
 from repro_torch.kernels import flash_attention, ref, rglru
 from repro_torch.launch import train as port_train
 from repro_torch.models.params import get_param, param_leaves, stacked
@@ -362,6 +363,56 @@ def test_rglru_autograd_dtypes_and_a_missing_cotangent():
         torch.testing.assert_close(g, w.to(g.dtype), rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("with_h0,with_dh_last", [(False, False),
+                                                  (True, True)])
+def test_rglru_bwd_keeps_bf16_inputs_bf16(with_h0, with_dh_last):
+    """bf16 x, r, i and dout give bf16 dx, dr and di: the plain version's
+    float32 values rounded once (what the card's bf16 instance writes),
+    with da_param and dh0 in float32."""
+    x, r, i, a_param, h0, dout, dh_last = (
+        torch.from_numpy(a) for a in _rglru_draws(8, 2, 45, 12))
+    a_param[1] = -40.0   # the clamp of 1 - a^2 binds on this channel
+    h0 = h0 if with_h0 else None
+    dh_last = dh_last if with_dh_last else None
+    bf = [t.to(torch.bfloat16) for t in (x, r, i, dout)]
+    hs, _ = ref.rglru(*(t.float() for t in bf[:3]), a_param, h0)
+    got = rglru.rglru_bwd(*bf[:3], a_param, h0, hs, bf[3], dh_last)
+    want = ref.rglru_bwd(*(t.float() for t in bf[:3]), a_param, h0, hs,
+                         bf[3].float(), dh_last)
+    assert [None if g is None else g.dtype for g in got] == (
+        [torch.bfloat16] * 3 + [torch.float32]
+        + [torch.float32 if with_h0 else None])
+    for g, w in zip(got, want):
+        if w is None:
+            assert g is None
+            continue
+        assert torch.equal(g, w.to(g.dtype))
+
+
+@pytest.mark.parametrize("with_h0,with_dh_last", [(False, True),
+                                                  (True, False)])
+def test_rglru_autograd_bf16_grads_keep_dtype_and_values(with_h0,
+                                                         with_dh_last):
+    x, r, i, a_param, h0, dout, dh_last = (
+        torch.from_numpy(a) for a in _rglru_draws(9, 3, 33, 10))
+    leaves = [t.to(torch.bfloat16).requires_grad_() for t in (x, r, i)]
+    lam = a_param.clone().requires_grad_()
+    h = h0.to(torch.bfloat16).requires_grad_() if with_h0 else None
+    out, last = rglru.rglru_bsw(*leaves, lam, h)
+    cot = [dout.to(torch.bfloat16), dh_last.to(torch.bfloat16)]
+    outs, cots = ([out, last], cot) if with_dh_last else ([out], cot[:1])
+    wrt = leaves + [lam] + ([h] if with_h0 else [])
+    grads = torch.autograd.grad(outs, wrt, cots)
+    assert [g.dtype for g in grads] == [t.dtype for t in wrt]
+    f32 = [t.detach().float() for t in (*leaves, lam)]
+    h0f = h.detach().float() if with_h0 else None
+    hs, _ = ref.rglru(*f32, h0f)
+    want = ref.rglru_bwd(*f32, h0f, hs, cots[0].float(),
+                         cots[1].float() if with_dh_last else None)
+    for g, w in zip(grads, want):
+        torch.testing.assert_close(g, w.to(g.dtype), rtol=0, atol=0)
+
+
 # --------------------------------------------------------------------------- #
 # on the card                                                                 #
 # --------------------------------------------------------------------------- #
@@ -395,6 +446,38 @@ def test_rglru_bwd_kernel_matches_plain(card, shape, with_h0, with_dh_last):
         torch.testing.assert_close(g, w, **TOL_TIGHT, msg=name)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("with_h0,with_dh_last", [(True, True),
+                                                  (False, False)])
+@pytest.mark.parametrize("shape", RGLRU_CARD_SHAPES + [(2, 256, 4096)])
+def test_rglru_bwd_bf16_instance_is_the_f32_kernel_cast(card, shape,
+                                                        with_h0,
+                                                        with_dh_last):
+    """The bf16 instance (bf16 x, r, i, dout in; bf16 dx, dr, di out) gives
+    the float32 instance's results on the same values, dx, dr and di
+    rounded to bf16, bit for bit; dL and dh0 equal; a clamped channel."""
+    x, r, i, a_param, h0, dout, dh_last = (
+        torch.from_numpy(a).to(card) for a in _rglru_draws(7, *shape))
+    a_param[1 % shape[2]] = -40.0
+    h0 = h0 if with_h0 else None
+    dh_last = dh_last if with_dh_last else None
+    bf = [t.to(torch.bfloat16) for t in (x, r, i, dout)]
+    hs, _ = rglru.rglru_bsw(*(t.float() for t in bf[:3]), a_param, h0)
+    before = rglru.backward_launches
+    got = rglru.rglru_bwd(*bf[:3], a_param, h0, hs, bf[3], dh_last)
+    want = rglru.rglru_bwd(*(t.float() for t in bf[:3]), a_param, h0, hs,
+                           bf[3].float(), dh_last)
+    torch.cuda.synchronize()
+    assert rglru.backward_launches == before + 2
+    for name, g, w in zip(("dx", "dr", "di", "da_param", "dh0"), got, want):
+        if w is None:
+            assert g is None
+            continue
+        assert g.dtype == (torch.bfloat16 if name[1] in "xri"
+                           else torch.float32), name
+        assert torch.equal(g, w.to(g.dtype)), name
+
+
 def _card_model(cfg, seed=0):
     api = model_api(cfg)
     return api.init_params(cfg, torch.Generator("cuda").manual_seed(seed),
@@ -402,8 +485,10 @@ def _card_model(cfg, seed=0):
 
 
 # arch -> (config changes, (B, S), flash forward, flash backward, rglru
-# forward, rglru backward) launches a step under remat
+# forward, rglru backward) launches a step under remat; the dense family's
+# train step is chip_smoke.py phase 12's
 CARD_STEPS = {
+    "smollm-135m": ({}, (2, 48), 4, 2, 0, 0),   # the dense family, 2 layers
     "whisper-small": ({"num_frames": 128}, (2, 48), 12, 6, 0, 0),
     "recurrentgemma-9b": ({"num_layers": 4, "num_heads": 16,
                            "num_kv_heads": 1, "head_dim": 256,
@@ -454,3 +539,40 @@ def test_card_train_step_launches_and_matches_plain(card, arch, monkeypatch):
         assert bool(((k_grads[name] - w).abs() <= lim).all()), name
         assert float((k_params[name] - p_params[name]).abs().max()
                      ) <= 2 * lr1, name
+
+
+@pytest.mark.gpu
+def test_card_dense_train_loop_gates(card, tmp_path):
+    """chip_smoke.py phase 12's gates on the dense family, reduced, in
+    bf16 with remat (so the flash gradient's wgmma instances): each step
+    launches the flash forward twice a layer and its gradient once; the
+    loss falls; a second run gives the same bits; a run crashed at step 7
+    and resumed from its newest checkpoint (step 6) ends on the
+    uninterrupted run's losses and parameters, bit for bit."""
+    cfg = dataclasses.replace(get_config("smollm-135m").reduce_for_smoke(),
+                              dtype="bfloat16", remat=True)
+    steps, b, s = 12, 4, 64
+    kw = dict(steps=steps, batch=b, seq=s, device="cuda")
+    counts = (flash_attention.launches, flash_attention.backward_launches)
+    run = port_train.train_loop(cfg, **kw)
+    assert (flash_attention.launches - counts[0],
+            flash_attention.backward_launches - counts[1]) == (
+        2 * cfg.num_layers * steps, cfg.num_layers * steps)
+    losses = run["losses"]
+    assert np.isfinite(losses).all() and np.mean(losses[-3:]) < losses[0]
+    shapes = model_api(cfg).param_shapes(cfg)
+    want = stacked(run["params"], shapes)
+
+    def same_bits(out):
+        got = stacked(out["params"], shapes)
+        return list(got) == list(want) and all(
+            torch.equal(got[n], want[n]) for n in want)
+
+    again = port_train.train_loop(cfg, **kw)
+    assert again["losses"] == losses and same_bits(again)
+    with pytest.raises(RuntimeError, match="injected failure"):
+        port_train.train_loop(cfg, **kw, ckpt_dir=str(tmp_path),
+                              ckpt_every=3, injector=FailureInjector([7]))
+    resumed = port_train.train_loop(cfg, **kw, ckpt_dir=str(tmp_path),
+                                    ckpt_every=3)
+    assert resumed["losses"] == losses[6:] and same_bits(resumed)
