@@ -2,8 +2,9 @@
 on one CUDA card, then drive the UC1 lost-dog query, the review-triage
 text query, the kernel predicates, the multi-tenant query service, the
 LLM predicate, the ssm, hybrid, encdec and moe model families, the dense
-decoder's training (with UC4's fine-tuned probe) and the encdec and
-hybrid families' training through them.
+decoder's training (with UC4's fine-tuned probe), the encdec, hybrid and
+ssm families' training, the on-device cascade filter and the UC2 + UC3
+warehouse-safety example through them.
 
     python3 chip_smoke.py [--before DIR]
 
@@ -56,7 +57,15 @@ these in phase 3 (``before_ms``). Phases, in order:
              timed as the main path calls it (bf16 in and out, straight
              through the bf16 instance), at its bf16 and float32 entry
              points (and beside --before's path), each beside its bound,
-             and the plain version;
+             and the plain version; then the SSD gradient kernel
+             (SSD_BWD_CASES: mamba2-370m's training shape, the predicate's
+             P = N = 4, and G = 2 with an h0, a cotangent of h_last and
+             strided views) against ref.ssd_bwd, every gradient within
+             1e-4 |want| + 1e-5 max |want| (scaled_share) and no worse
+             against a float64 evaluation than the float32 plain version
+             (twice its share, or 0.1), the same bits on a rerun, timed
+             through its wrapper and entry point beside its bound and the
+             plain versions (autograd through ref.ssd, ref.ssd_bwd);
 4. query   — the lost-dog query (5 minutes of 30-fps video) on the card
              under every eddy policy; row ids against the plain version
              on the CPU, launches on the kernel counter and the board;
@@ -123,19 +132,30 @@ these in phase 3 (``before_ms``). Phases, in order:
 13. train families — the others of TRAIN_FAMILIES, each as phase 12's:
              whisper-small at full width and depth (12 + 12 layers, 1,500
              frames; 40 steps of 4 x 448 through build's step, frames
-             from a seeded torch.Generator) and recurrentgemma-9b at full
+             from a seeded torch.Generator), recurrentgemma-9b at full
              width cut to 4 of 38 layers (a group and a remainder block;
-             20 steps of 2 x 2560 through train_loop), bf16, remat=True,
-             AdamW as build makes it: the loss falls, each step's
-             launches exact (whisper 72 flash forward and 36 gradient
-             calls; recurrentgemma 6 rglru forward, 3 rglru gradient, 2
-             flash forward and 1 flash gradient calls), the peak memory; a
-             float32 gate on the same draws cut (2 + 2 layers; one group
-             at (1, 2560)): gradients and a step through the kernels
-             against the plain versions; two steps run twice to the same
-             parameter bits; a step's time, tokens/s and torch.profiler
-             split;
-14. the ``{"kernels": [...]}`` line, then the device line last.
+             20 steps of 2 x 2560 through train_loop) and mamba2-370m at
+             full width and depth (48 layers; 8 steps of 4 x 512 through
+             train_loop), bf16, remat=True, AdamW as build makes it: the
+             loss falls, each step's launches exact (whisper 72 flash
+             forward and 36 gradient calls; recurrentgemma 6 rglru
+             forward, 3 rglru gradient, 2 flash forward and 1 flash
+             gradient calls; mamba2 96 ssd forward and 48 ssd gradient
+             calls), the peak memory; a float32 gate on the same draws cut
+             (2 + 2 layers; one group at (1, 2560); 2 layers): gradients
+             and a step through the kernels against the plain versions;
+             two steps run twice to the same parameter bits; a step's
+             time, tokens/s and torch.profiler split;
+14. cascade — core.vectorized.cascade_filter over phase 6's kept rows:
+             the router's token entry on the whole table, the SSD scan on
+             compacted buckets of its survivors (the zero sentinel row
+             padding the last); the mask equals phase 6's oracle;
+15. warehouse — UC2 + UC3 (examples.warehouse_safety, 400 frames) on the
+             CPU and on the card: Q3's unsafe frames under the
+             cost-driven and reuse-aware policies equal the ground truth
+             and the CPU run's, hsv_color launches on the board, cache
+             hits under reuse-aware;
+16. the ``{"kernels": [...]}`` line, then the device line last.
 """
 from __future__ import annotations
 
@@ -175,7 +195,7 @@ VOCAB = 256           # the text predicates' embedding tables' rows
 ATT_SEQ = 32          # the attention predicates' token window
 BUCKETS = (1, 2, 4, 8, 16, 32)  # the executor's bucketed batch sizes
 BIG = 4096            # rows for the throughput case
-KERNELS = ("hsv_color", "moe_router", "ssd", "rglru", "rglru_bwd",
+KERNELS = ("hsv_color", "moe_router", "ssd", "ssd_bwd", "rglru", "rglru_bwd",
            "flash_attention", "flash_attention_bwd", "decode_attention")
 LIBRARIES = (*KERNELS, "empty")   # empty: the launch floor, not a TPU kernel
 # bench_kernels' shapes: flash (B, S, H, Hkv, D, window), causal; decode
@@ -2399,6 +2419,175 @@ def rglru_bwd_cases(before=None) -> dict:
     return out
 
 
+# the SSD gradient's cases: label, (B, S, H, P, G, N), an h0 and a cotangent
+# of h_last, x and dy as strided (B, S, H, P) views (every other head-dim
+# block of wider tensors, as the model's x is a slice of the conv output)
+SSD_BWD_CASES = (
+    ("mamba2-370m train (4, 512, 32, 64, G 1, N 128)",
+     (4, 512, 32, 64, 1, 128), False, False),
+    ("predicate P = N = 4 (16, 64, 2, 4, G 1, N 4)", (16, 64, 2, 4, 1, 4),
+     False, False),
+    ("G = 2, h0, h_last cotangent, strided (2, 512, 8, 64, G 2, N 128)",
+     (2, 512, 8, 64, 2, 128), True, True),
+)
+SSD_BWD_SEED = 23
+
+
+def ssd_bwd_flops(b: int, s: int, h: int, p: int, n: int, chunk: int) -> int:
+    """The gradient's floating-point operations (csrc/ssd_bwd.cu's bound
+    note): per (b, h, chunk) 5 L P N multiply-adds and T (3 N + 2 P) on
+    the triangles, T = L (L + 1) / 2, two operations each."""
+    tri = chunk * (chunk + 1) // 2
+    return 2 * b * h * (s // chunk) * (5 * chunk * p * n
+                                       + tri * (3 * n + 2 * p))
+
+
+def scaled_share(got, want) -> tuple:
+    """(max abs error, its largest share of the limit 1e-4 |want| + 1e-5
+    max |want|): the SSD gradient's float32 rule. dt's gradient is a
+    difference of large terms, and at mamba2's widths every gradient sums
+    ~100 terms that cancel: the float32 plain version itself misses
+    TOL_TIGHT against a float64 evaluation on a few hundred elements."""
+    got, want = got.double(), want.double()
+    err = (got - want).abs()
+    lim = 1e-4 * want.abs() + 1e-5 * want.abs().max()
+    return float(err.max()), float((err / lim).max())
+
+
+def tight_misses(got, want) -> int:
+    """Elements of ``got`` outside TOL_TIGHT of ``want``."""
+    got, want = got.double(), want.double()
+    lim = TOL_TIGHT["atol"] + TOL_TIGHT["rtol"] * want.abs()
+    return int(((got - want).abs() > lim).sum())
+
+
+def ssd_bwd_cases() -> dict:
+    """Phase 3 for the SSD gradient kernel at SSD_BWD_CASES (float32
+    inputs from a numpy seed: dt a softplus, A negative): ``ssd.ssd_bwd``
+    against ``ref.ssd_bwd`` on the card, every gradient within the limit
+    of ``scaled_share``, beside both against ``ref.ssd_bwd`` in float64
+    (the kernel's shares must be no worse than twice the plain
+    version's, or under 0.1), the same bits on a rerun (no atomics);
+    then timed through the wrapper and at its C entry point, in
+    turns, beside its bound (x, dt, A, B, C, dy, h0, dh_last read once,
+    the six gradients written once, in float32; ``ssd_bwd_flops``) and
+    the plain versions: torch's autograd through ``ref.ssd`` (the
+    backward pass of a recorded graph) and ``ref.ssd_bwd``, the closed
+    form. No single PyTorch call differentiates the scan. Returns {label:
+    timings}."""
+    from repro_torch.kernels import _build, ref, ssd
+    call = _build.load("ssd_bwd").lib.ssd_bwd
+    stream = torch.cuda.current_stream().cuda_stream
+    names = ("dx", "ddt", "dA", "dB", "dC", "dh0")
+    out = {}
+    for label, (b, s, h, p, g, n), extras, strided in SSD_BWD_CASES:
+        chunk = min(64, s)
+        rng = np.random.default_rng(SSD_BWD_SEED)
+
+        def T(*dims):
+            return torch.from_numpy(rng.standard_normal(dims).astype(
+                np.float32)).cuda()
+
+        def heads(*dims):   # (B, S, H, P), every other block of a wider one
+            return T(*dims[:3], 2 * dims[3])[..., :dims[3]] if strided \
+                else T(*dims)
+
+        x = heads(b, s, h, p)
+        dt = F.softplus(T(b, s, h) - 1.0)
+        A = -torch.exp(T(h))
+        Bm, Cm = T(b, s, g, n), T(b, s, g, n)
+        dy = heads(b, s, h, p)
+        h0 = T(b, h, p, n) if extras else None
+        dh_last = T(b, h, p, n) if extras else None
+        args = (x, dt, A, Bm, Cm, h0, dy, dh_last)
+        launches_before = ssd.backward_launches
+        got = ssd.ssd_bwd(*args, chunk=chunk)
+        again = ssd.ssd_bwd(*args, chunk=chunk)
+        want = ref.ssd_bwd(*args, chunk=chunk)
+        exact = ref.ssd_bwd(*(None if t is None else t.double()
+                              for t in args), chunk=chunk)
+        torch.cuda.synchronize()
+        err, share, f64, ok, same = {}, {}, {}, True, True
+        for name, gt, a, w, w64 in zip(names, got, again, want, exact):
+            if w is None:
+                ok = ok and gt is None and a is None
+                continue
+            err[name], share[name] = scaled_share(gt, w)
+            f64[name] = (scaled_share(gt, w64)[1], scaled_share(w, w64)[1],
+                         tight_misses(gt, w64), tight_misses(w, w64))
+            ok = ok and share[name] <= 1.0 and (
+                f64[name][0] <= max(0.1, 2 * f64[name][1]))
+            same = same and torch.equal(gt, a)
+        del exact
+        print(f"  ssd_bwd {label} chunk {chunk}: max_abs_err {err}, share "
+              f"of the limit {share} (|ddt| up to "
+              f"{float(want[1].abs().max())!r}); against float64 (the "
+              f"kernel's and the plain version's shares, then their "
+              f"elements outside TOL_TIGHT) {f64}; within the limits {ok}, "
+              f"bit-equal on a rerun {same}", flush=True)
+        if not (ok and same):
+            raise AssertionError(f"the SSD gradient kernel disagrees on "
+                                 f"{label}")
+
+        # the entry point on buffers of its own, as ssd_bwd packs them
+        nc = s // chunk
+
+        def empty(*shape):
+            return torch.empty(shape, dtype=torch.float32, device="cuda")
+
+        bufs = (empty(b, s, h, p), empty(b, s, h), empty(h),
+                empty(b, s, g, n), empty(b, s, g, n),
+                None if h0 is None else empty(b, h, p, n),
+                empty(b, h, nc, p, n), empty(b, h, nc, p, n),
+                empty(b, h, nc), empty(b, s, h, n), empty(b, s, h, n),
+                empty(b, h, nc))
+        packed = ssd.BWD_ARGS.pack(
+            *(0 if t is None else t.data_ptr()
+              for t in (x, dt, A, Bm, Cm, h0, dy, dh_last, *bufs)),
+            *x.stride(), *dt.stride(), *Bm.stride(), *Cm.stride(),
+            *dy.stride(), b, h, s, p, g, n, chunk, 0)
+        if call(packed, stream) != 0:
+            raise AssertionError("ssd_bwd entry point failed")
+        torch.cuda.synchronize()
+        if not torch.equal(bufs[0], got[0]):
+            raise AssertionError("the ssd_bwd entry point's dx differs")
+        leaves = [t.detach().clone().requires_grad_()
+                  for t in (x, dt, A, Bm, Cm) + (() if h0 is None else (h0,))]
+        y, last = ref.ssd(*leaves[:5], leaves[5] if extras else None,
+                          chunk=chunk)
+        outs, cots = ([y, last], [dy, dh_last]) if extras else ([y], [dy])
+
+        def autograd_plain():
+            return torch.autograd.grad(outs, leaves, cots, retain_graph=True)
+
+        t = {"dtype": "float32",
+             **paired_ms({
+                 "ms": lambda: ssd.ssd_bwd(*args, chunk=chunk),
+                 "entry_ms": lambda: call(packed, stream)}, iters=10),
+             "plain_ms": time_ms(autograd_plain, 3, warmup=1),
+             "closed_form_ms": time_ms(lambda: ref.ssd_bwd(
+                 *args, chunk=chunk), 3, warmup=1),
+             "library_ms": None,   # no single PyTorch call differentiates it
+             "max_abs_err": max(err.values()), "errors": err,
+             "share_of_limit": share, "float64_shares": f64}
+        del leaves, y, last, outs, bufs
+        ssd.backward_launches = launches_before   # checks and timing
+        # x, dy, dx; dt, ddt; B, C, dB, dC; A, dA; h0, dh_last, dh0
+        nbytes = 4 * (3 * b * s * h * p + 2 * b * s * h + 4 * b * s * g * n
+                      + 2 * h + (3 * b * h * p * n if extras else 0))
+        t.update(zip(("bound_ms", "bound_by"), bound_ms(
+            nbytes, ssd_bwd_flops(b, s, h, p, n, chunk))))
+        print(f"  ssd_bwd {label}: {t['ms']!r} ms through the wrapper, "
+              f"entry point {t['entry_ms']!r} ms, bound {t['bound_ms']!r} "
+              f"ms ({t['bound_by']}); autograd through ref.ssd "
+              f"{t['plain_ms']!r} ms, ref.ssd_bwd {t['closed_form_ms']!r} ms",
+              flush=True)
+        out[label] = t
+    for line in ptxas_lines("ssd_bwd", "ssd_bwd"):
+        print(f"  ssd_bwd (ptxas): {line}")
+    return out
+
+
 def time_router_case(logits: torch.Tensor, k: int, label: str,
                      floor: dict) -> dict:
     """moe_router_tk at a model's shape: its first rows tied (row 0 all
@@ -2629,14 +2818,14 @@ def zero_launches() -> None:
         importlib.import_module(f"repro_torch.kernels.{name}").launches = 0
 
 
-def family_ms(fn) -> dict:
-    """One call's milliseconds, the median of FAMILY_ROUNDS after one
+def family_ms(fn, rounds: int = FAMILY_ROUNDS) -> dict:
+    """One call's milliseconds, the median of ``rounds`` after one
     warm-up: between CUDA events on the stream and on the host clock to
     the end of a synchronize."""
     fn()
     torch.cuda.synchronize()
     events, host = [], []
-    for _ in range(FAMILY_ROUNDS):
+    for _ in range(rounds):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         t0 = time.perf_counter()
@@ -3438,11 +3627,15 @@ GATE_GRAD_ATOL = 1e-3        # ... and this times the leaf's largest
 # of its 38 layers (a (rglru, rglru, local) group and a remainder RG-LRU
 # block, so both loops train: the whole model's AdamW state alone would
 # not fit one card) at 2 x 2560 (its window of 2048 binds), driven
-# through train_loop. Launches a step under remat: each attention or
-# RG-LRU layer's forward, its recompute and its gradient. The float32
-# gate cuts the same draws (smollm to 2 layers, whisper to 2 + 2,
-# recurrentgemma to its group at one row); its launches a pass (gradients,
-# then a step) as a step's.
+# through train_loop; mamba2-370m unreduced (48 layers) at 4 x 512 (the
+# shape phase 10's forward runs) through train_loop, for as few steps as
+# show the loss falling (each step takes its 96 ssd forward launches,
+# ~58 ms each at these widths), its step timed in 2 rounds, not
+# FAMILY_ROUNDS (a step is ~5.8 s, the device busy 99.5% of it). Launches a step under remat: each
+# attention, RG-LRU or SSD layer's forward, its recompute and its
+# gradient. The float32 gate cuts the same draws (smollm and mamba2 to 2
+# layers, whisper to 2 + 2, recurrentgemma to its group at one row); its
+# launches a pass (gradients, then a step) as a step's.
 TRAIN_FAMILIES = (
     {"arch": "smollm-135m", "changes": {}, "shape": (8, 512), "steps": 40,
      "a_step": {"flash_attention": 60, "flash_attention_bwd": 30},
@@ -3460,6 +3653,10 @@ TRAIN_FAMILIES = (
      "gate": {"num_layers": 3}, "gate_shape": (1, 2560),
      "gate_a_pass": {"flash_attention": 2, "flash_attention_bwd": 1,
                      "rglru": 4, "rglru_bwd": 2}},
+    {"arch": "mamba2-370m", "changes": {}, "shape": (4, 512), "steps": 8,
+     "a_step": {"ssd": 96, "ssd_bwd": 48}, "rounds": 2,
+     "gate": {"num_layers": 2}, "gate_shape": (4, 512),
+     "gate_a_pass": {"ssd": 4, "ssd_bwd": 2}},
 )
 
 
@@ -3484,8 +3681,9 @@ class _Annotated:
 def train_trace(step, params, state, batch) -> dict:
     """One train step under torch.profiler: device time by flash forward
     (flash_kernel), flash backward (the D, dq and dkv kernels of both
-    designs), RG-LRU
-    forward (rglru_kernel) and backward (rglru_bwd kernels), GEMMs, the
+    designs), RG-LRU forward (rglru_kernel) and backward (rglru_bwd
+    kernels), SSD forward (ssd_kernel) and backward (the five ssd_bwd
+    kernels), GEMMs, the
     optimizer (the kernels inside the device's span of
     ``_Annotated.update``'s range: one stream runs them in order) and the
     other elementwise and copy kernels, with the busy share of the step's
@@ -3523,6 +3721,10 @@ def train_trace(step, params, state, batch) -> dict:
             key = "rglru_backward"
         elif "rglru_kernel" in name:
             key = "rglru_forward"
+        elif "ssd_bwd" in name:
+            key = "ssd_backward"
+        elif "ssd_kernel" in name:
+            key = "ssd_forward"
         elif any(w in name.lower() for w in ("gemm", "gemv", "cutlass",
                                              "xmma", "nvjet")):
             key = "gemms"
@@ -3537,18 +3739,20 @@ def train_trace(step, params, state, batch) -> dict:
 
 
 def train_counts() -> dict:
-    """The training kernels' launch counters: flash forward and gradient,
-    RG-LRU forward and gradient."""
-    from repro_torch.kernels import flash_attention, rglru
+    """The training kernels' launch counters: flash, RG-LRU and SSD
+    forward and gradient."""
+    from repro_torch.kernels import flash_attention, rglru, ssd
     return {"flash_attention": flash_attention.launches,
             "flash_attention_bwd": flash_attention.backward_launches,
-            "rglru": rglru.launches, "rglru_bwd": rglru.backward_launches}
+            "rglru": rglru.launches, "rglru_bwd": rglru.backward_launches,
+            "ssd": ssd.launches, "ssd_bwd": ssd.backward_launches}
 
 
 def zero_train_counts() -> None:
-    from repro_torch.kernels import flash_attention, rglru
+    from repro_torch.kernels import flash_attention, rglru, ssd
     flash_attention.launches = flash_attention.backward_launches = 0
     rglru.launches = rglru.backward_launches = 0
+    ssd.launches = ssd.backward_launches = 0
 
 
 def family_batches(cfg, b: int, s: int, seed: int):
@@ -3765,7 +3969,8 @@ def run_train_family(fam: dict) -> dict:
     step = api.make_train_step(cfg, _Annotated(opt))
     state = opt.init(stacked(params, api.param_shapes(cfg)))
     batch = family_batches(cfg, b, s, TRAIN_SEED + 1)()
-    times = family_ms(lambda: step(params, state, batch))
+    times = family_ms(lambda: step(params, state, batch),
+                      fam.get("rounds", FAMILY_ROUNDS))
     trace = train_trace(step, params, state, batch)
     timing = {**times, "tokens_per_s": b * s / (times["event_ms"] / 1e3),
               "trace": trace}
@@ -3907,6 +4112,109 @@ def run_train_families() -> dict:
     return out
 
 
+# --------------------------------------------------------------------------- #
+# phases 14 and 15: cascade_filter and UC2 + UC3                              #
+# --------------------------------------------------------------------------- #
+WAREHOUSE_FRAMES = 400   # the example's default
+CASCADE_BUCKET = 0.1     # a bucket a tenth of the rows: a few passes
+
+
+def run_cascade(toks_kept: np.ndarray, ids_kept: np.ndarray,
+                expect: set) -> dict:
+    """Phase 14: ``core.vectorized.cascade_filter`` over the triage query's
+    kept rows on the card, with the counters set to 0 just before and read
+    just after: the router predicate's function (``moe_router_tokens``,
+    top-1 expert 0) over the whole table, then the SSD scorer's
+    (``ssd_bshp``, mean score > 0) on compacted buckets of its survivors
+    (CASCADE_BUCKET of the rows a bucket; the zero sentinel row, whose dt
+    is 0, pads the last). The mask must equal phase 6's whole-table oracle."""
+    from repro_torch.core.vectorized import cascade_filter
+    from repro_torch.kernels import moe_router, ssd
+    from repro_torch.udfs import library as lib
+    dev = torch.device("cuda")
+    toks = lib.token_ids(toks_kept, SEQ, VOCAB, dev)
+    emb, w_gate = lib.router_tables(device=dev)
+    tables = lib.ssd_tables(device=dev)
+    buckets = []
+
+    def routed(t):
+        return moe_router.moe_router_tokens(t, emb, w_gate, 2)[1][:, 0] == 0
+
+    def scored(t):
+        buckets.append(t.shape[0])
+        y, _ = ssd.ssd_bshp(*lib.ssd_inputs(tables, t), chunk=SEQ)
+        return lib.row_mean(y) > 0
+
+    torch.cuda.synchronize()
+    moe_router.launches = ssd.launches = 0
+    t0 = time.perf_counter()
+    mask = cascade_filter([routed, scored], toks,
+                          bucket_fractions=(CASCADE_BUCKET,))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = {"moe_router": moe_router.launches, "ssd": ssd.launches}
+    survivors = int(routed(toks).sum())
+    got = set(ids_kept[mask.cpu().numpy()].tolist())
+    print(f"  cascade_filter over {len(toks_kept)} rows in {wall!r} s: "
+          f"{survivors} routed to expert 0, the SSD scan on {len(buckets)} "
+          f"buckets of {buckets[0] if buckets else 0} rows; {len(got)} rows "
+          f"(the oracle {len(expect)}); launches {launched}", flush=True)
+    if got != expect:
+        raise AssertionError(f"cascade_filter's mask differs from the "
+                             f"whole-table mask: {sorted(got ^ expect)[:10]}")
+    if launched != {"moe_router": 1, "ssd": len(buckets)} or not buckets:
+        raise AssertionError(f"cascade_filter launched {launched} for "
+                             f"{len(buckets)} buckets")
+    return {"rows": len(toks_kept), "survivors": survivors,
+            "buckets": buckets, "matched": len(got), "wall_s": wall,
+            "launches": launched}
+
+
+def run_warehouse() -> dict:
+    """Phase 15: UC2 + UC3 (``examples.warehouse_safety``) at its defaults
+    on the CPU (the kernel's plain version), then on the card with the
+    hsv_color counter set to 0 just before and read just after: Q3's
+    unsafe frames under the cost-driven and reuse-aware policies equal the
+    ground truth and the CPU run's, the board shows hsv_color launches
+    under both, and the reuse-aware run has cache hits."""
+    from repro_torch.examples import warehouse_safety as ws
+    from repro_torch.kernels import hsv_color
+    argv = ["--frames", str(WAREHOUSE_FRAMES)]
+    cpu = ws.main([*argv, "--device", "cpu"])
+    torch.cuda.synchronize()
+    hsv_color.launches = 0
+    t0 = time.perf_counter()
+    card = ws.main([*argv, "--device", "cuda"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = hsv_color.launches
+    runs = {}
+    for label in ("cost-driven", "reuse-aware"):
+        snap = card[label]["stats"]
+        runs[label] = {
+            "rows": len(card[label]["rows"]), "wall_s": card[label]["wall_s"],
+            "board_launches": int(snap.get("hsv_color", {}).get("batches", 0)),
+            "cache_hit_rate": {p: snap[p]["cache_hit_rate"]
+                               for p in ("person", "no_hardhat")}}
+        if not (card[label]["rows"] == card["expect"] == cpu[label]["rows"]):
+            raise AssertionError(f"warehouse Q3, {label}: the card's frames "
+                                 "differ from the ground truth or the CPU's")
+        if runs[label]["board_launches"] <= 0:
+            raise AssertionError(f"warehouse Q3, {label}: no hsv_color "
+                                 "launches on the board")
+    hits = runs["reuse-aware"]["cache_hit_rate"]
+    print(f"  warehouse_safety over {WAREHOUSE_FRAMES} frames on the card "
+          f"in {wall!r} s: {len(card['expect'])} unsafe frames under both "
+          f"policies (= ground truth = the CPU run); hsv_color launches "
+          f"{launched}, on the board {[r['board_launches'] for r in runs.values()]}; "
+          f"reuse-aware cache hit rates {hits}", flush=True)
+    if launched <= 0 or not any(v > 0 for v in hits.values()):
+        raise AssertionError("warehouse_safety: no hsv_color launches or no "
+                             "cache hits under the reuse-aware policy")
+    return {"frames": WAREHOUSE_FRAMES, "unsafe": len(card["expect"]),
+            "launches": launched, "wall_s": wall, "queries": runs}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -4030,6 +4338,9 @@ def main() -> int:
     print()
     rglru_bwd = rglru_bwd_cases(before)
     max_errs["rglru_bwd"] = max(t["max_abs_err"] for t in rglru_bwd.values())
+    print()
+    ssd_bwd = ssd_bwd_cases()
+    max_errs["ssd_bwd"] = max(t["max_abs_err"] for t in ssd_bwd.values())
 
     # ------------------------------------------------------------- 4 query
     phase(f"4 lost-dog query, SyntheticVideo({QUERY_FRAMES}, seed={QUERY_SEED})")
@@ -4206,8 +4517,17 @@ def main() -> int:
                       f"{f['shape'][1]}" for f in TRAIN_FAMILIES[1:]))
     train_families = run_train_families()
 
-    # ------------------------------------------------------------- 14 lines
-    phase("14 summary")
+    # ------------------------------------------------------------- 14 cascade
+    phase(f"14 cascade_filter over the triage rows: MoERouter, then SSDScorer "
+          f"on compacted buckets")
+    cascade = run_cascade(toks_kept, ids_kept, oracle["expect"])
+
+    # ------------------------------------------------------------- 15 UC2+UC3
+    phase(f"15 warehouse safety (UC2 + UC3), {WAREHOUSE_FRAMES} frames")
+    warehouse = run_warehouse()
+
+    # ------------------------------------------------------------- 16 lines
+    phase("16 summary")
     main_sizes_text = {**triage["sizes"],
                        "rglru": registry["runs"]["rglru"]["sizes"]}
     text_main = {name: max(c, key=lambda b: (c[b], -b))
@@ -4247,9 +4567,13 @@ def main() -> int:
         "train": train,
         "train_families": train_families,
         "rglru_bwd": rglru_bwd,
+        "ssd_bwd": ssd_bwd,
+        "cascade": cascade,
+        "warehouse": warehouse,
         # registers, shared memory and spills of every gradient instance
         "gradient_ptxas": {name: ptxas_lines(name, "_kernel")
-                           for name in ("flash_attention_bwd", "rglru_bwd")},
+                           for name in ("flash_attention_bwd", "rglru_bwd",
+                                        "ssd_bwd")},
         "families": families,
         "moe": moe_runs,
         "total_s": time.perf_counter() - t_start,
@@ -4261,7 +4585,10 @@ def main() -> int:
         "name": "hsv_color", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/hsv_color.cu",
         "replaces": "src/repro/kernels/hsv_color.py:64",
-        "launches": main_launches, "max_abs_err": max_err,
+        "launches": main_launches + warehouse["launches"],
+        "launches_by_path": {"query": main_launches,
+                             "warehouse": warehouse["launches"]},
+        "max_abs_err": max_err,
         "batch": main_b, **timings[main_b],
         "by_batch": {str(b): t for b, t in sorted(timings.items())},
     }]
@@ -4297,8 +4624,10 @@ def main() -> int:
         paths = {text_path[name]: launches[name]}
         if name in COUNTED:
             paths["families"] = family_launches(name)
-        if name == "rglru":
+        if name in ("rglru", "ssd"):
             paths["train"] = trained(name)
+        if name in cascade["launches"]:
+            paths["cascade"] = cascade["launches"][name]
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
@@ -4359,6 +4688,17 @@ def main() -> int:
         "entry_bound_ms": rglru_bwd[rglru_main]["entry_bound_ms"],
         "max_abs_err": max_errs["rglru_bwd"],
         "by_shape": {label: measured(t) for label, t in rglru_bwd.items()},
+    })
+    ssd_main = next(iter(ssd_bwd))   # mamba2's training shape
+    kernels.append({
+        "name": "ssd_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_bwd.cu",
+        "replaces": "src/repro/kernels/ssd.py:92",
+        "launches": trained("ssd_bwd"),
+        "launches_by_path": {"train": trained("ssd_bwd")},
+        "shape": ssd_main, **measured(ssd_bwd[ssd_main]),
+        "max_abs_err": max_errs["ssd_bwd"],
+        "by_shape": {label: measured(t) for label, t in ssd_bwd.items()},
     })
     print(f"  chip_smoke.py took {summary['total_s']:.1f} s, builds included")
     print(card)

@@ -33,8 +33,8 @@ NVCC_FLAGS = (
 )
 # hsv_color, moe_router, ssd and rglru (and its gradient) equal their
 # plain versions bit for bit (or within a few ulps) only without FMA
-# contraction; the attention kernels are held to a tolerance and contract
-# freely.
+# contraction; the attention kernels and the ssd gradient are held to a
+# tolerance and contract freely.
 NO_FMA = ("--fmad=false",)
 LIBRARY_FLAGS = {
     "decode_attention": (),
@@ -46,6 +46,7 @@ LIBRARY_FLAGS = {
     "rglru": NO_FMA,
     "rglru_bwd": NO_FMA,
     "ssd": NO_FMA,
+    "ssd_bwd": (),
 }
 
 # C signature of each library's entry point: (argtypes, restype). Each
@@ -69,6 +70,7 @@ SIGNATURES = {
     "rglru": {"rglru_bsw": _PACKED, "rglru_tokens": _PACKED},
     "rglru_bwd": {"rglru_bwd": _PACKED},
     "ssd": {"ssd_scan": _PACKED},
+    "ssd_bwd": {"ssd_bwd": _PACKED},
 }
 
 

@@ -375,6 +375,118 @@ def ssd(
     return y.to(x.dtype), hprev
 
 
+def ssd_bwd(x, dt, A, Bm, Cm, h0, dy, dh_last, *, chunk: int = 64):
+    """(dx, ddt, dA, dB, dC, dh0), float32 (float64 for float64 x): the
+    gradient of ``ssd`` for
+    the cotangents ``dy`` (B, S, H, P) and ``dh_last`` (B, H, P, N), each
+    None for zero; dh0 is None when h0 is. In closed form, in the stages
+    of the gradient kernel (``csrc/ssd_bwd.cu``), with cum the running sum
+    of dt * A within a chunk, cum_L its last value, e_l = exp(cum_l),
+    ex_l = exp(cum_L - cum_l) and w_lm = exp(cum_l - cum_m) for m <= l:
+
+    1. chunk states: S_c = sum_l ex_l dt_l x_l B_l^T and
+       Q_c = sum_l e_l dy_l C_l^T;
+    2. the passes: h_in(c + 1) = exp(cum_L) h_in(c) + S_c from h0, and the
+       gradient dH_c of chunk c's exit state, dH_{c-1} = exp(cum_L) dH_c
+       + Q_c from dh_last (dh0 = dH_{-1});
+    3. per chunk, with s_lm = C_l . B_m and D_lm = dy_l . x_m:
+       dx_m = sum_l s_lm w_lm dt_m dy_l + ex_m dt_m dH B_m,
+       dC_l = sum_m w_lm dt_m D_lm B_m + e_l h_in^T dy_l,
+       dB_m = sum_l w_lm dt_m D_lm C_l + ex_m dt_m dH^T x_m,
+       ddt_m = sum_l s_lm w_lm D_lm + ex_m x_m^T dH B_m + A da_m, where
+       da_k = sum_{l >= k} dcum_l is the gradient through cum, and
+       dA = sum dt da;
+    4. dB and dC summed over the H / G heads of a group.
+
+    ddt is a difference of large terms (dt's own weight against the decay
+    it sets): compare it with a tolerance scaled by its largest value. At
+    mamba2's widths every gradient sums ~100 terms with cancellation, so
+    any two float32 orders differ by more than ``TOL_TIGHT`` on some
+    elements; a float64 evaluation (float64 inputs) is the yardstick."""
+    b, s, h, p = x.shape
+    g, n = Bm.shape[2], Bm.shape[3]
+    if h % g or s % chunk:
+        raise ValueError(f"need G | H and chunk | S, got H={h} G={g} "
+                         f"S={s} chunk={chunk}")
+    nc, rep, L = s // chunk, h // g, chunk
+    work = torch.promote_types(x.dtype, torch.float32)
+
+    def heads_first(t, last):   # (B, S, H, last) -> (B, H, NC, L, last)
+        return t.to(work).reshape(b, nc, L, h, last).permute(0, 3, 1, 2, 4)
+
+    xc = heads_first(x, p)
+    dyc = (torch.zeros_like(xc) if dy is None else heads_first(dy, p))
+    Bc = heads_first(torch.repeat_interleave(Bm.to(work), rep, dim=2), n)
+    Cc = heads_first(torch.repeat_interleave(Cm.to(work), rep, dim=2), n)
+    dtc = dt.to(work).reshape(b, nc, L, h).permute(0, 3, 1, 2)  # (B,H,NC,L)
+    Af = A.to(work)[None, :, None, None]
+    cum = torch.cumsum(dtc * Af, dim=-1)
+    cum_last = cum[..., -1]                                    # (B,H,NC)
+    e = torch.exp(cum)
+    ex = torch.exp(cum_last[..., None] - cum)
+
+    # 1. chunk states
+    S = torch.einsum("bhcl,bhclp,bhcln->bhcpn", ex * dtc, xc, Bc)
+    Q = torch.einsum("bhcl,bhclp,bhcln->bhcpn", e, dyc, Cc)
+
+    # 2. the two passes over the chunks
+    decay = torch.exp(cum_last)[..., None, None]               # (B,H,NC,1,1)
+    state = (torch.zeros((b, h, p, n), dtype=work, device=x.device)
+             if h0 is None else h0.to(work))
+    h_in = []
+    for c in range(nc):
+        h_in.append(state)
+        state = decay[:, :, c] * state + S[:, :, c]
+    h_in = torch.stack(h_in, dim=2)                            # (B,H,NC,P,N)
+    grad = (torch.zeros((b, h, p, n), dtype=work, device=x.device)
+            if dh_last is None else dh_last.to(work))
+    dH = [None] * nc
+    for c in reversed(range(nc)):
+        dH[c] = grad
+        grad = decay[:, :, c] * grad + Q[:, :, c]
+    dH = torch.stack(dH, dim=2)
+    dh0 = None if h0 is None else grad
+
+    # 3. per chunk
+    seg = cum[..., :, None] - cum[..., None, :]                # l, m
+    lower = torch.tril(torch.ones((L, L), dtype=torch.bool, device=x.device))
+    w = torch.exp(seg.masked_fill(~lower, -torch.inf))         # 0 above
+    sc = torch.einsum("bhcln,bhcmn->bhclm", Cc, Bc)
+    D = torch.einsum("bhclp,bhcmp->bhclm", dyc, xc)
+    dt_m = dtc[..., None, :]
+    M = sc * w * dt_m                     # y_l's weight of x_m
+    E = w * dt_m * D
+    row = (M * D).sum(-1)                 # d/dcum_l of the intra terms
+    colp = (sc * w * D).sum(-2)           # d/ddt_m of the intra terms
+    HB = torch.einsum("bhcpn,bhcmn->bhcmp", dH, Bc)            # dH B_m
+    gm = (xc * HB).sum(-1)                                     # x_m . dH B_m
+    dx = (torch.einsum("bhclm,bhclp->bhcmp", M, dyc)
+          + (ex * dtc)[..., None] * HB)
+    hC = torch.einsum("bhcpn,bhcln->bhclp", h_in, Cc)          # h_in C_l
+    u = e * (dyc * hC).sum(-1)
+    dC = (torch.einsum("bhclm,bhcmn->bhcln", E, Bc)
+          + e[..., None] * torch.einsum("bhclp,bhcpn->bhcln", dyc, h_in))
+    dB = (torch.einsum("bhclm,bhcln->bhcmn", E, Cc)
+          + (ex * dtc)[..., None] * torch.einsum("bhcmp,bhcpn->bhcmn", xc,
+                                                 dH))
+    v = torch.exp(cum_last) * (h_in * dH).sum((-2, -1))        # (B,H,NC)
+    r = dtc * ex * gm
+    dcum = row - dtc * colp + u - r
+    dcum[..., -1] += v + r.sum(-1)
+    da = dcum.flip(-1).cumsum(-1).flip(-1)
+    ddt = colp + ex * gm + Af * da
+    dA = (dtc * da).sum((0, 2, 3))
+
+    # 4. back to (B, S, ...), dB and dC summed over each group's heads
+    def seq_first(t):   # (B, H, NC, L, last) -> (B, S, H, last)
+        return t.permute(0, 2, 3, 1, 4).reshape(b, s, h, t.shape[-1])
+
+    dB = seq_first(dB).reshape(b, s, g, rep, n).sum(3)
+    dC = seq_first(dC).reshape(b, s, g, rep, n).sum(3)
+    return (seq_first(dx), ddt.permute(0, 2, 3, 1).reshape(b, s, h), dA, dB,
+            dC, dh0)
+
+
 def ssd_decode_step(
     x: torch.Tensor,    # (B, H, P) one token
     dt: torch.Tensor,   # (B, H)

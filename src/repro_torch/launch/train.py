@@ -3,9 +3,9 @@
 Port of ``repro.launch.train`` at world size 1: params and optimizer
 state on one device -> the family's ``make_train_step`` -> step loop with
 async checkpoints, auto-resume, watchdog, heartbeat, and deterministic
-failure injection for tests. Attention's and the RG-LRU's forward and
-gradient run the hand-written kernels on the card
-(``kernels.flash_attention``, ``kernels.rglru``).
+failure injection for tests. Attention's, the RG-LRU's and the SSD scan's
+forward and gradient run the hand-written kernels on the card
+(``kernels.flash_attention``, ``kernels.rglru``, ``kernels.ssd``).
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \\
       --steps 50 --batch 8 --seq 128 --smoke --ckpt-dir /tmp/ckpt
@@ -13,7 +13,7 @@ gradient run the hand-written kernels on the card
 --smoke uses the reduced config; --device cpu runs the plain versions of
 the kernels (the default, cuda, raises at once without a card). --mesh
 raises: sharding is not ported yet (ROADMAP.md, queue 1, item 4). The
-dense, vlm, encdec and hybrid families train; ssm and moe raise at
+dense, vlm, ssm, encdec and hybrid families train; moe raises at
 ``build``. ``train_loop`` feeds tokens only, as the reference's does: an
 encdec model's frames come through ``build``'s step directly.
 """
@@ -39,8 +39,6 @@ from repro_torch.optim import AdamW, cosine_schedule
 
 # what training a family without make_train_step waits for
 _WAITS = {
-    "ssm": "the ssd kernel's gradient, designed with the rebuild of its "
-           "forward (ROADMAP.md, queue 1, item 2a)",
     "moe": "sharding (one layer at published width, with the step's copies "
            "of weights, gradients and AdamW state, outgrows a card) and "
            "the router weights' gradient (ROADMAP.md, queue 1, item 2b)",

@@ -6,8 +6,8 @@ family raises ``KeyError``.
 Every ported module offers: param_shapes, init_params, param_count,
 active_param_count, forward, prefill, decode_step, cache_shapes, and
 ``Model``, its parameter module (``models/params.py``). The dense, vlm,
-encdec and hybrid families also offer loss_fn and make_train_step;
-training the ssm and moe families waits (ROADMAP.md, queue 1, item 2).
+ssm, encdec and hybrid families also offer loss_fn and make_train_step;
+training the moe family waits (ROADMAP.md, queue 1, item 2b).
 """
 from __future__ import annotations
 

@@ -15,11 +15,18 @@ bfloat16 model's x, B and C are converted first (three copies a layer;
 dt is float32 already). The decode step is the O(1) recurrent form in
 plain torch (``ops.ssd_decode_step``), as in the JAX package.
 
-Not here yet, as in transformer.py: ``loss_fn``, ``make_train_step``,
-``input_specs``, ``roofline_units`` and ``param_logical``.
+Training: ``loss_fn`` and ``make_train_step`` as the reference's; the
+layer loop runs each block under ``tf.remat_where_grad`` (the
+reference's ``jax.lax.scan`` of ``tf._remat``), and the scan's gradient
+is the hand-written kernel's (``kernels.ssd.Ssd``: one gradient call a
+layer, counted by ``ssd.backward_launches``).
+
+Not here yet, as in transformer.py: ``input_specs``, ``roofline_units``
+and ``param_logical``.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict
 
 import torch
@@ -27,12 +34,14 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.ssd import ssd_bshp
+from repro_torch.models import transformer as tf
 from repro_torch.models.hybrid import causal_conv1d
 from repro_torch.models.layers import (
     dtype_of,
     embed_tokens,
     lm_logits,
     rms_norm,
+    softmax_xent,
     stacked,
 )
 from repro_torch.models.params import Params, count, init, spec
@@ -196,14 +205,30 @@ def _ssm_decode_block(cfg, lp, hin, state):
 
 
 # --------------------------------------------------------------------------- #
-# forward / serving                                                            #
+# forward / loss / serving                                                     #
 # --------------------------------------------------------------------------- #
+def _block(cfg, lp, h):
+    return ssm_block(cfg, lp, h)[0]
+
+
 def forward(cfg, params: SSM, batch):
     h = embed_tokens(batch["tokens"], params.embed)
+    block = tf.remat_where_grad(cfg, functools.partial(_block, cfg), h,
+                                params)
     for lp in params.layers:
-        h, _ = ssm_block(cfg, lp, h)
+        h = block(lp, h)
     h = rms_norm(h, params.final_norm, cfg.norm_eps)
     return lm_logits(h, params.out_head, cfg.vocab_size)
+
+
+def loss_fn(cfg, params: SSM, batch):
+    logits = forward(cfg, params, batch)
+    loss = softmax_xent(logits, batch["labels"], batch.get("loss_mask"))
+    return loss, {"loss": loss}
+
+
+def make_train_step(cfg, optimizer):
+    return tf.make_train_step(cfg, optimizer, loss=loss_fn)
 
 
 def cache_shapes(cfg, batch: int, seq_len: int) -> Dict:

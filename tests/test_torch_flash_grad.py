@@ -19,9 +19,10 @@ float32 from numpy draws:
 * recurrentgemma's heads at D = 256 (GQA 16 on one kv head, a window),
   which the gradient kernel takes as the forward does
   (``MAX_BWD_HEAD_DIM``);
-* every other kernel wrapper but the RG-LRU's (whose gradient is in
-  tests/test_torch_train_families.py) refuses a gradient, on the CPU as
-  on the card, and still serves under ``no_grad`` and ``inference_mode``.
+* every other kernel wrapper but the RG-LRU's and the SSD scan's (whose
+  gradients are in tests/test_torch_train_families.py and
+  tests/test_torch_ssd_grad.py) refuses a gradient, on the CPU as on the
+  card, and still serves under ``no_grad`` and ``inference_mode``.
 
 Tests marked ``gpu`` hold the gradient kernel (``csrc/flash_attention_bwd.cu``)
 and the forward's log-sum-exp to their plain versions on the card, and
@@ -36,7 +37,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import (_build, decode_attention, flash_attention,
-                                 hsv_color, moe_router, ref, rglru, ssd)
+                                 hsv_color, moe_router, ref, rglru)
 
 torch.set_num_threads(1)
 
@@ -227,12 +228,6 @@ def _refusal_cases():
         "moe_router_tk": (moe_router.moe_router_tk, (t(5, 8), 2), {}, 0),
         "moe_router_tokens": (moe_router.moe_router_tokens,
                               (toks, t(16, 4), t(4, 8), 2), {}, 2),
-        "ssd_bshp": (ssd.ssd_bshp, (t(1, 8, 2, 4), t(1, 8, 2).abs(),
-                                    -t(2).abs(), t(1, 8, 1, 4), t(1, 8, 1, 4)),
-                     {"chunk": 4}, 0),
-        "ssd_bhcp": (ssd.ssd_bhcp, (t(1, 2, 8, 4), t(1, 2, 8).abs(),
-                                    -t(2).abs(), t(1, 1, 8, 4), t(1, 1, 8, 4),
-                                    t(1, 2, 4, 4)), {"chunk": 4}, 0),
         "rglru_tokens": (rglru.rglru_tokens, (toks, t(16, 8), t(16, 8),
                                               t(16, 8), t(8)), {}, 1),
         "decode_attention_bkgd": (decode_attention.decode_attention_bkgd,

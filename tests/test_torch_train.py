@@ -816,7 +816,7 @@ def test_train_main_refuses_a_mesh_and_defaults_to_the_card():
             port_train.main(["--smoke", "--steps", "1"])
 
 
-@pytest.mark.parametrize("arch", ["mamba2-370m", "grok-1-314b"])
+@pytest.mark.parametrize("arch", ["grok-1-314b"])
 def test_families_without_a_train_step_raise_at_build(arch):
     cfg = get_config(arch).reduce_for_smoke()
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):

@@ -1,22 +1,24 @@
-"""Training the encdec and hybrid families, and the RG-LRU gradient, in the
-port against the JAX package.
+"""Training the encdec, hybrid and ssm families, and the RG-LRU gradient,
+in the port against the JAX package.
 
 The same numpy draws go through ``repro`` (the reference: its attention
 and its RG-LRU on the XLA path, differentiated by JAX) and ``repro_torch``
 on the CPU, where the flash wrapper's gradient is
-``ref.flash_attention_bwd`` and the RG-LRU wrapper's ``ref.rglru_bwd``:
+``ref.flash_attention_bwd``, the RG-LRU wrapper's ``ref.rglru_bwd`` and
+the SSD scan's ``ref.ssd_bwd``:
 
 * ``loss_fn``'s value and every leaf's gradient against
   ``jax.value_and_grad`` of the reference's, on the JAX package's own
   parameters (``convert.model_params``): whisper-small reduced (its
   frames included), recurrentgemma-9b reduced at a length past its window
-  of 32, and recurrentgemma-9b reduced with its published head width of
-  256 (a layer stack of no remainder layers in both);
+  of 32, recurrentgemma-9b reduced with its published head width of
+  256 (a layer stack of no remainder layers in both), and mamba2-370m
+  reduced over two chunks of the scan;
 * three ``make_train_step`` steps under AdamW from the state after one
   JAX step (``convert.optimizer_state``), against the JAX package's
   jitted step; remat on against off, with every layer's kernels run
-  again in the backward pass; ``build`` for both families, reduced and
-  at full width, and ``train_loop`` on the hybrid;
+  again in the backward pass; ``build`` for the three families, reduced
+  and at full width, and ``train_loop`` on the hybrid;
 * ``ref.rglru_bwd`` (the closed form) against ``jax.grad`` of
   ``repro.kernels.ref.rglru``, with and without h0 and a cotangent of the
   last state, with a channel where the clamp of 1 - a^2 binds; the
@@ -25,7 +27,8 @@ on the CPU, where the flash wrapper's gradient is
   autograd leaves out.
 
 The tolerance is ``TOL_TIGHT`` unless a test states another. Tests marked
-``gpu`` run the families' train steps and the RG-LRU gradient kernel
+``gpu`` run the families' train steps (mamba2's through the SSD gradient
+kernel, ``csrc/ssd_bwd.cu``) and the RG-LRU gradient kernel
 (``csrc/rglru_bwd.cu``) on the card, and skip without one. JAX is
 imported inside fixtures.
 """
@@ -39,7 +42,7 @@ import torch
 from repro_torch import convert
 from repro_torch.configs import get_config
 from repro_torch.distributed.fault_tolerance import FailureInjector
-from repro_torch.kernels import flash_attention, ref, rglru
+from repro_torch.kernels import flash_attention, ref, rglru, ssd
 from repro_torch.launch import train as port_train
 from repro_torch.models.params import get_param, param_leaves, stacked
 from repro_torch.models.registry import model_api
@@ -146,6 +149,7 @@ GRAD_CASES = {
         "recurrentgemma-9b", {}, (2, 48)),
     "recurrentgemma-9b reduced, head_dim 256": (
         "recurrentgemma-9b", {"head_dim": 256}, (2, 40)),
+    "mamba2-370m reduced, two chunks": ("mamba2-370m", {}, (2, 128)),
 }
 
 
@@ -167,7 +171,8 @@ def test_loss_and_grads_match_jax(jx, case):
 # --------------------------------------------------------------------------- #
 # train steps                                                                 #
 # --------------------------------------------------------------------------- #
-STEP_CASES = {"whisper-small": (2, 16), "recurrentgemma-9b": (2, 40)}
+STEP_CASES = {"whisper-small": (2, 16), "recurrentgemma-9b": (2, 40),
+              "mamba2-370m": (2, 128)}
 
 
 @pytest.mark.parametrize("arch", sorted(STEP_CASES))
@@ -218,6 +223,7 @@ def _count_calls(monkeypatch, module, name):
 @pytest.mark.parametrize("arch,calls_a_pass", [
     ("whisper-small", {"flash": 6}),          # 2 encoder, 2 self, 2 cross
     ("recurrentgemma-9b", {"flash": 1, "rglru": 3}),   # 4 layers: a rest
+    ("mamba2-370m", {"ssd": 2}),                       # 2 layers
 ])
 def test_remat_reruns_each_layer_and_keeps_the_gradients(jx, arch,
                                                           calls_a_pass,
@@ -229,7 +235,8 @@ def test_remat_reruns_each_layer_and_keeps_the_gradients(jx, arch,
     batch = _port_batch(_batch(pcfg, 2, 40, seed=9))
     base = _grads(pcfg, convert.model_params(params, pcfg, "cpu"), batch)
     calls = {"flash": _count_calls(monkeypatch, ref, "flash_attention_bshd"),
-             "rglru": _count_calls(monkeypatch, ref, "rglru")}
+             "rglru": _count_calls(monkeypatch, ref, "rglru"),
+             "ssd": _count_calls(monkeypatch, ref, "ssd")}
     rcfg = dataclasses.replace(pcfg, remat=True)
     got = _grads(rcfg, convert.model_params(params, rcfg, "cpu"), batch)
     # the forward and, under remat, its recompute in the backward pass
@@ -241,7 +248,8 @@ def test_remat_reruns_each_layer_and_keeps_the_gradients(jx, arch,
 
 
 @pytest.mark.parametrize("reduced", [True, False])
-@pytest.mark.parametrize("arch", ["whisper-small", "recurrentgemma-9b"])
+@pytest.mark.parametrize("arch", ["whisper-small", "recurrentgemma-9b",
+                                  "mamba2-370m"])
 def test_build_returns_a_train_step(arch, reduced):
     cfg = get_config(arch)
     if reduced:
@@ -484,36 +492,39 @@ def _card_model(cfg, seed=0):
                            device="cuda")
 
 
-# arch -> (config changes, (B, S), flash forward, flash backward, rglru
-# forward, rglru backward) launches a step under remat; the dense family's
-# train step is chip_smoke.py phase 12's
+# arch -> (config changes, (B, S), (flash forward, flash backward, rglru
+# forward, rglru backward, ssd forward, ssd backward) launches a step under
+# remat); the dense family's train step is chip_smoke.py phase 12's
 CARD_STEPS = {
-    "smollm-135m": ({}, (2, 48), 4, 2, 0, 0),   # the dense family, 2 layers
-    "whisper-small": ({"num_frames": 128}, (2, 48), 12, 6, 0, 0),
+    "smollm-135m": ({}, (2, 48), (4, 2, 0, 0, 0, 0)),   # dense, 2 layers
+    "whisper-small": ({"num_frames": 128}, (2, 48), (12, 6, 0, 0, 0, 0)),
     "recurrentgemma-9b": ({"num_layers": 4, "num_heads": 16,
                            "num_kv_heads": 1, "head_dim": 256,
-                           "local_window": 16}, (2, 40), 2, 1, 6, 3),
+                           "local_window": 16}, (2, 40), (2, 1, 6, 3, 0, 0)),
+    "mamba2-370m": ({}, (2, 128), (0, 0, 0, 0, 4, 2)),  # 2 layers, 2 chunks
 }
+
+
+def _card_counts():
+    return (flash_attention.launches, flash_attention.backward_launches,
+            rglru.launches, rglru.backward_launches, ssd.launches,
+            ssd.backward_launches)
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("arch", sorted(CARD_STEPS))
 def test_card_train_step_launches_and_matches_plain(card, arch, monkeypatch):
-    kw, (b, s), ffwd, fbwd, rfwd, rbwd = CARD_STEPS[arch]
+    kw, (b, s), want = CARD_STEPS[arch]
     cfg = dataclasses.replace(get_config(arch).reduce_for_smoke(),
                               remat=True, **kw)
     batch = _port_batch(_batch(cfg, b, s, seed=11), "cuda")
     api, opt, step = port_train.build(cfg)
     model = _card_model(cfg)
     state = opt.init(stacked(model, api.param_shapes(cfg)))
-    counts = (flash_attention.launches, flash_attention.backward_launches,
-              rglru.launches, rglru.backward_launches)
+    counts = _card_counts()
     step(model, state, batch)
     torch.cuda.synchronize()
-    now = (flash_attention.launches, flash_attention.backward_launches,
-           rglru.launches, rglru.backward_launches)
-    assert tuple(n - c for n, c in zip(now, counts)) == (ffwd, fbwd, rfwd,
-                                                         rbwd)
+    assert tuple(n - c for n, c in zip(_card_counts(), counts)) == want
 
     def stepped():
         m = _card_model(cfg)
@@ -526,10 +537,11 @@ def test_card_train_step_launches_and_matches_plain(card, arch, monkeypatch):
     # either sign)
     k_loss, k_grads = _grads(cfg, _card_model(cfg), batch)
     k_params = stepped()
-    from repro_torch.models import attention, hybrid
+    from repro_torch.models import attention, hybrid, ssm
     monkeypatch.setattr(attention, "flash_attention_bshd",
                         ref.flash_attention_bshd)
     monkeypatch.setattr(hybrid, "rglru_bsw", ref.rglru)
+    monkeypatch.setattr(ssm, "ssd_bshp", ref.ssd)
     p_loss, p_grads = _grads(cfg, _card_model(cfg), batch)
     p_params = stepped()
     np.testing.assert_allclose(k_loss, p_loss, rtol=1e-5)
