@@ -10,15 +10,16 @@ warehouse-safety example through them.
 
 Needs a CUDA card and nvcc; exits non-zero without them, and on any
 failed phase. ``--before DIR`` (a checkout of an earlier commit, e.g. a
-``git archive`` of it unpacked) also builds DIR's two gradient kernels
-(``flash_attention_bwd.cu`` and ``rglru_bwd.cu``) and times them beside
-these in phase 3 (``before_ms``). Phases, in order:
+``git archive`` of it unpacked) also builds DIR's three gradient kernels
+(``flash_attention_bwd.cu``, ``rglru_bwd.cu`` and ``ssd_bwd.cu``) and
+times them beside these in phase 3 (``before_ms``). Phases, in order:
 
 1. setup   — card name and power limit, torch/CUDA/nvcc versions;
 2. build   — compile every kernel from the sources in the checkout (and
              an empty kernel, the launch floor, two broken copies of the
              flash source, FLASH_MUTANTS, two of the flash gradient's,
-             FLASH_BWD_MUTANTS, and --before's), one nvcc per source, all
+             FLASH_BWD_MUTANTS, one of the SSD gradient's,
+             SSD_BWD_MUTANTS, and --before's), one nvcc per source, all
              at once;
 3. kernels — each kernel against its plain PyTorch version on the card
              (rglru and the router's logits bit for bit, through both entry
@@ -63,9 +64,15 @@ these in phase 3 (``before_ms``). Phases, in order:
              strided views) against ref.ssd_bwd, every gradient within
              1e-4 |want| + 1e-5 max |want| (scaled_share) and no worse
              against a float64 evaluation than the float32 plain version
-             (twice its share, or 0.1), the same bits on a rerun, timed
-             through its wrapper and entry point beside its bound and the
-             plain versions (autograd through ref.ssd, ref.ssd_bwd);
+             (twice its share, or 0.1), the same bits on a rerun, a copy
+             with one TF32 product instead of three (SSD_BWD_MUTANTS)
+             refused by that rule, timed through its wrapper and entry
+             point (and beside --before's) beside its bound (3xTF32, and
+             the float32 CUDA cores) and the plain versions (autograd
+             through ref.ssd, ref.ssd_bwd), and its library's tensor-core
+             instructions counted by kernel in cuobjdump's SASS (TF32
+             HMMA in the chunk-state and per-chunk kernels, no F32
+             atomics);
 4. query   — the lost-dog query (5 minutes of 30-fps video) on the card
              under every eddy policy; row ids against the plain version
              on the CPU, launches on the kernel counter and the board;
@@ -164,6 +171,7 @@ import contextlib
 import ctypes
 import json
 import os
+import re
 import shutil
 import struct
 import subprocess
@@ -684,12 +692,13 @@ def bound_ms(nbytes: int, flops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def attention_bound(nbytes: int, flops: float, dtype: torch.dtype) -> dict:
-    """The attention kernels' bound: bytes over the memory rate against the
-    products on the tensor cores at the rate the kernel's precision
-    allows (float32 as 3xTF32: three TF32 products each at 495 TFLOP/s;
-    bf16 at 989 TFLOP/s), whichever is larger; beside it the float32
-    CUDA-core time (67 TFLOP/s)."""
+def tensor_core_bound(nbytes: int, flops: float, dtype: torch.dtype) -> dict:
+    """The bound of a kernel whose products run on the tensor cores (the
+    attention kernels, the SSD gradient): bytes over the memory rate
+    against the products at the rate the kernel's precision allows
+    (float32 as 3xTF32: three TF32 products each at 495 TFLOP/s; bf16 at
+    989 TFLOP/s), whichever is larger; beside it the float32 CUDA-core
+    time (67 TFLOP/s)."""
     from repro_torch.roofline import hw
     t_bytes = nbytes / hw.HBM_BW * 1e3
     t_ops = (flops / hw.PEAK_FLOPS_BF16 if dtype == torch.bfloat16
@@ -1255,7 +1264,7 @@ def time_flash(q, k, v, *, group: int, causal: bool, window: int,
             "entry_ms": lambda: call(args, stream),
             "library_ms": library}),
         "plain_ms": time_ms(plain, 10 if big else TIME_ITERS),
-        **attention_bound(
+        **tensor_core_bound(
             (2 * q.numel() + k.numel() + v.numel()) * q.element_size(),
             4.0 * visible_pairs(s, causal, window, sk) * bh * d, q.dtype),
     }
@@ -1306,8 +1315,8 @@ def time_decode(q, kc, vc, lens, *, num_kv_heads: int, label: str) -> dict:
                 q4, k4, v4, attn_mask=mask, enable_gqa=True)}),
         "plain_ms": time_ms(lambda: ref.decode_attention_bkgd(
             q, kc, vc, lens, num_kv_heads=num_kv_heads), TIME_ITERS),
-        **attention_bound((2 * q.numel() + 2 * keys * d) * q.element_size()
-                          + lens.numel() * 4, 4.0 * keys * g * d, q.dtype),
+        **tensor_core_bound((2 * q.numel() + 2 * keys * d) * q.element_size()
+                            + lens.numel() * 4, 4.0 * keys * g * d, q.dtype),
     }
     print(f"  decode_attention {label}: kernel {t['ms']!r} ms (entry point "
           f"{t['entry_ms']!r} ms), plain {t['plain_ms']!r} ms, "
@@ -2461,25 +2470,122 @@ def tight_misses(got, want) -> int:
     return int(((got - want).abs() > lim).sum())
 
 
-def ssd_bwd_cases() -> dict:
+SSD_BWD_NAMES = ("dx", "ddt", "dA", "dB", "dC", "dh0")
+
+
+def ssd_bwd_gate(got, want, exact) -> dict:
+    """Phase 3's rule for the SSD gradient: every gradient in ``got``
+    within ``scaled_share``'s limit of ``want`` (``ref.ssd_bwd``), and its
+    share against ``exact`` (float64) no more than twice the plain
+    version's, or 0.1; None where ``want`` is None. Returns the errors,
+    shares, float64 shares and elements outside TOL_TIGHT of float64 (the
+    kernel's, then the plain version's), and ``ok``."""
+    err, share, f64, ok = {}, {}, {}, True
+    for name, gt, w, w64 in zip(SSD_BWD_NAMES, got, want, exact):
+        if w is None:
+            ok = ok and gt is None
+            continue
+        err[name], share[name] = scaled_share(gt, w)
+        f64[name] = (scaled_share(gt, w64)[1], scaled_share(w, w64)[1],
+                     tight_misses(gt, w64), tight_misses(w, w64))
+        ok = ok and share[name] <= 1.0 and (
+            f64[name][0] <= max(0.1, 2 * f64[name][1]))
+    return {"errors": err, "share_of_limit": share, "float64_shares": f64,
+            "ok": ok}
+
+
+# phase 3's check of its own SSD gradient rule: a copy of
+# csrc/ssd_bwd.cu broken in one line (what it breaks, the line, its
+# replacement), which the rule must refuse at mamba2's training shape
+SSD_BWD_MUTANTS = (
+    ("drops the split's two correction products (1xTF32)",
+     "      mma_tf32(small[j], al, bh); mma_tf32(small[j], ah, bl);  "
+     "// the split's corrections\n", ""),
+)
+
+
+def build_ssd_bwd_mutants() -> list:
+    """The entry points of SSD_BWD_MUTANTS, built in a temporary directory
+    (removed once they are loaded)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        return [build_variant("ssd_bwd", line, new,
+                              os.path.join(tmp, f"ssd_bwd_mutant{i}.cu"),
+                              "ssd_bwd")
+                for i, (_, line, new) in enumerate(SSD_BWD_MUTANTS)]
+
+
+def sass_counts(lib_name: str) -> dict:
+    """Per kernel of a built library, from ``cuobjdump -sass``: its
+    tensor-core instructions (``HMMA`` on TF32 operands, and ``HGMMA``) and
+    its floating-point atomics (``RED`` / ``ATOM`` on F32)."""
+    from repro_torch.kernels import _build
+    tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    listing = subprocess.run([tool, "-sass", str(_build.load(lib_name).path)],
+                             capture_output=True, text=True, check=True).stdout
+    counts, fn = {}, None
+    op = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)")
+    for line in listing.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            counts[fn] = {"hmma_tf32": 0, "hgmma": 0, "f32_atomics": 0}
+            continue
+        m = op.search(line)
+        if fn is None or m is None:
+            continue
+        name = m.group(1)
+        c = counts[fn]
+        c["hmma_tf32"] += name.startswith("HMMA") and "TF32" in name
+        c["hgmma"] += name.startswith("HGMMA")
+        c["f32_atomics"] += name.startswith(("RED", "ATOM")) and "F32" in name
+    return counts
+
+
+def ssd_bwd_stages(args, chunk: int, calls: int = 10) -> dict:
+    """Device ms a call of each of the SSD gradient's four kernels (chunk
+    states, passes, per-chunk gradients, sums), from a torch.profiler
+    trace of ``calls`` calls of ``ssd.ssd_bwd`` on ``args``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import ssd
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            ssd.ssd_bwd(*args, chunk=chunk)
+        torch.cuda.synchronize()
+    out = collections.Counter()
+    for e in prof.events():
+        stage = re.search(r"ssd_bwd_(\w+?)_kernel", e.name)
+        if e.device_type == DeviceType.CUDA and stage:
+            out[stage.group(1)] += e.time_range.elapsed_us() / 1e3 / calls
+    return dict(out)
+
+
+def ssd_bwd_cases(mutants: list, before=None) -> dict:
     """Phase 3 for the SSD gradient kernel at SSD_BWD_CASES (float32
     inputs from a numpy seed: dt a softplus, A negative): ``ssd.ssd_bwd``
-    against ``ref.ssd_bwd`` on the card, every gradient within the limit
-    of ``scaled_share``, beside both against ``ref.ssd_bwd`` in float64
-    (the kernel's shares must be no worse than twice the plain
-    version's, or under 0.1), the same bits on a rerun (no atomics);
-    then timed through the wrapper and at its C entry point, in
-    turns, beside its bound (x, dt, A, B, C, dy, h0, dh_last read once,
-    the six gradients written once, in float32; ``ssd_bwd_flops``) and
-    the plain versions: torch's autograd through ``ref.ssd`` (the
-    backward pass of a recorded graph) and ``ref.ssd_bwd``, the closed
-    form. No single PyTorch call differentiates the scan. Returns {label:
-    timings}."""
+    against ``ref.ssd_bwd`` on the card by ``ssd_bwd_gate`` (every
+    gradient within the limit of ``scaled_share``; against ``ref.ssd_bwd``
+    in float64, the kernel's shares no worse than twice the plain
+    version's, or under 0.1), the same bits on a rerun (no atomics); at
+    mamba2's shape each of SSD_BWD_MUTANTS refused by the same rule; then
+    timed through the wrapper and at its C entry point, in turns (and
+    beside ``before``'s entry point, ``build_before``'s, given), and in a
+    CUDA graph, beside
+    its bound (x, dt, A, B, C, dy, h0, dh_last read once, the six
+    gradients written once, in float32; ``ssd_bwd_flops`` as 3xTF32 on
+    the tensor cores, and on the float32 CUDA cores) and the plain
+    versions: torch's autograd through ``ref.ssd`` (the backward pass of
+    a recorded graph) and ``ref.ssd_bwd``, the closed form, and at
+    mamba2's shape each kernel's device time (``ssd_bwd_stages``). No
+    single PyTorch call differentiates the scan. Last, the library's
+    tensor-core instructions and floating-point atomics by kernel
+    (``sass_counts``): the chunk-state and per-chunk kernels must hold
+    TF32 HMMA, and no kernel an F32 atomic. Returns {"cases": {label:
+    timings}, "mutants", "sass"}."""
     from repro_torch.kernels import _build, ref, ssd
     call = _build.load("ssd_bwd").lib.ssd_bwd
     stream = torch.cuda.current_stream().cuda_stream
-    names = ("dx", "ddt", "dA", "dB", "dC", "dh0")
-    out = {}
+    out = {"cases": {}, "mutants": {}}
     for label, (b, s, h, p, g, n), extras, strided in SSD_BWD_CASES:
         chunk = min(64, s)
         rng = np.random.default_rng(SSD_BWD_SEED)
@@ -2507,25 +2613,18 @@ def ssd_bwd_cases() -> dict:
         exact = ref.ssd_bwd(*(None if t is None else t.double()
                               for t in args), chunk=chunk)
         torch.cuda.synchronize()
-        err, share, f64, ok, same = {}, {}, {}, True, True
-        for name, gt, a, w, w64 in zip(names, got, again, want, exact):
-            if w is None:
-                ok = ok and gt is None and a is None
-                continue
-            err[name], share[name] = scaled_share(gt, w)
-            f64[name] = (scaled_share(gt, w64)[1], scaled_share(w, w64)[1],
-                         tight_misses(gt, w64), tight_misses(w, w64))
-            ok = ok and share[name] <= 1.0 and (
-                f64[name][0] <= max(0.1, 2 * f64[name][1]))
-            same = same and torch.equal(gt, a)
-        del exact
-        print(f"  ssd_bwd {label} chunk {chunk}: max_abs_err {err}, share "
-              f"of the limit {share} (|ddt| up to "
+        gate = ssd_bwd_gate(got, want, exact)
+        same = all((gt is None and a is None) or torch.equal(gt, a)
+                   for gt, a in zip(got, again))
+        print(f"  ssd_bwd {label} chunk {chunk}: max_abs_err "
+              f"{gate['errors']}, share of the limit "
+              f"{gate['share_of_limit']} (|ddt| up to "
               f"{float(want[1].abs().max())!r}); against float64 (the "
               f"kernel's and the plain version's shares, then their "
-              f"elements outside TOL_TIGHT) {f64}; within the limits {ok}, "
-              f"bit-equal on a rerun {same}", flush=True)
-        if not (ok and same):
+              f"elements outside TOL_TIGHT) {gate['float64_shares']}; "
+              f"within the limits {gate['ok']}, bit-equal on a rerun "
+              f"{same}", flush=True)
+        if not (gate["ok"] and same):
             raise AssertionError(f"the SSD gradient kernel disagrees on "
                                  f"{label}")
 
@@ -2535,22 +2634,50 @@ def ssd_bwd_cases() -> dict:
         def empty(*shape):
             return torch.empty(shape, dtype=torch.float32, device="cuda")
 
-        bufs = (empty(b, s, h, p), empty(b, s, h), empty(h),
-                empty(b, s, g, n), empty(b, s, g, n),
-                None if h0 is None else empty(b, h, p, n),
-                empty(b, h, nc, p, n), empty(b, h, nc, p, n),
-                empty(b, h, nc), empty(b, s, h, n), empty(b, s, h, n),
-                empty(b, h, nc))
-        packed = ssd.BWD_ARGS.pack(
-            *(0 if t is None else t.data_ptr()
-              for t in (x, dt, A, Bm, Cm, h0, dy, dh_last, *bufs)),
-            *x.stride(), *dt.stride(), *Bm.stride(), *Cm.stride(),
-            *dy.stride(), b, h, s, p, g, n, chunk, 0)
+        def entry_args():
+            bufs = (empty(b, s, h, p), empty(b, s, h), empty(h),
+                    empty(b, s, g, n), empty(b, s, g, n),
+                    None if h0 is None else empty(b, h, p, n),
+                    empty(b, h, nc, p, n), empty(b, h, nc, p, n),
+                    empty(b, h, s), empty(b, s, h, n), empty(b, s, h, n),
+                    empty(b, h, nc))
+            return bufs, ssd.BWD_ARGS.pack(
+                *(0 if t is None else t.data_ptr()
+                  for t in (x, dt, A, Bm, Cm, h0, dy, dh_last, *bufs)),
+                *x.stride(), *dt.stride(), *Bm.stride(), *Cm.stride(),
+                *dy.stride(), b, h, s, p, g, n, chunk, 0)
+
+        bufs, packed = entry_args()
         if call(packed, stream) != 0:
             raise AssertionError("ssd_bwd entry point failed")
         torch.cuda.synchronize()
         if not torch.equal(bufs[0], got[0]):
             raise AssertionError("the ssd_bwd entry point's dx differs")
+        if label == SSD_BWD_CASES[0][0]:   # mamba2's training shape
+            for (what, _, _), fn in zip(SSD_BWD_MUTANTS, mutants):
+                mbufs, margs = entry_args()
+                if fn(margs, stream) != 0:
+                    raise AssertionError(f"the SSD gradient mutant that "
+                                         f"{what} failed")
+                torch.cuda.synchronize()
+                m = ssd_bwd_gate(mbufs[:6], want, exact)
+                out["mutants"][what] = m
+                print(f"  ssd_bwd rule at {label}, the mutant that {what}: "
+                      f"share of the limit {m['share_of_limit']}, against "
+                      f"float64 {m['float64_shares']}; accepted {m['ok']}",
+                      flush=True)
+                if m["ok"]:
+                    raise AssertionError(f"the SSD gradient rule accepts "
+                                         f"the mutant that {what}")
+                del mbufs
+        fns = {"ms": lambda: ssd.ssd_bwd(*args, chunk=chunk),
+               "entry_ms": lambda: call(packed, stream)}
+        if before is not None:
+            old_bufs, old_packed = entry_args()
+            old = before["ssd_bwd"]
+            if old(old_packed, stream) != 0:
+                raise AssertionError("the earlier ssd_bwd entry point failed")
+            fns["before_ms"] = lambda: old(old_packed, stream)
         leaves = [t.detach().clone().requires_grad_()
                   for t in (x, dt, A, Bm, Cm) + (() if h0 is None else (h0,))]
         y, last = ref.ssd(*leaves[:5], leaves[5] if extras else None,
@@ -2560,31 +2687,48 @@ def ssd_bwd_cases() -> dict:
         def autograd_plain():
             return torch.autograd.grad(outs, leaves, cots, retain_graph=True)
 
-        t = {"dtype": "float32",
-             **paired_ms({
-                 "ms": lambda: ssd.ssd_bwd(*args, chunk=chunk),
-                 "entry_ms": lambda: call(packed, stream)}, iters=10),
+        t = {"dtype": "float32", **paired_ms(fns, iters=10),
+             "graph_ms": graph_ms(lambda st: call(packed, st), n=10, reps=5),
              "plain_ms": time_ms(autograd_plain, 3, warmup=1),
              "closed_form_ms": time_ms(lambda: ref.ssd_bwd(
                  *args, chunk=chunk), 3, warmup=1),
              "library_ms": None,   # no single PyTorch call differentiates it
-             "max_abs_err": max(err.values()), "errors": err,
-             "share_of_limit": share, "float64_shares": f64}
-        del leaves, y, last, outs, bufs
+             "max_abs_err": max(gate["errors"].values()),
+             "errors": gate["errors"],
+             "share_of_limit": gate["share_of_limit"],
+             "float64_shares": gate["float64_shares"]}
+        if label == SSD_BWD_CASES[0][0]:
+            t["stage_ms"] = ssd_bwd_stages(args, chunk)
+            print(f"  ssd_bwd {label}: device ms a call by kernel "
+                  f"{t['stage_ms']}", flush=True)
+        del leaves, y, last, outs, bufs, exact
         ssd.backward_launches = launches_before   # checks and timing
         # x, dy, dx; dt, ddt; B, C, dB, dC; A, dA; h0, dh_last, dh0
         nbytes = 4 * (3 * b * s * h * p + 2 * b * s * h + 4 * b * s * g * n
                       + 2 * h + (3 * b * h * p * n if extras else 0))
-        t.update(zip(("bound_ms", "bound_by"), bound_ms(
-            nbytes, ssd_bwd_flops(b, s, h, p, n, chunk))))
+        t.update(tensor_core_bound(nbytes, ssd_bwd_flops(b, s, h, p, n, chunk),
+                                 torch.float32))
+        extra = (f", the earlier kernel's entry point {t['before_ms']!r} ms"
+                 if "before_ms" in t else "")
         print(f"  ssd_bwd {label}: {t['ms']!r} ms through the wrapper, "
-              f"entry point {t['entry_ms']!r} ms, bound {t['bound_ms']!r} "
-              f"ms ({t['bound_by']}); autograd through ref.ssd "
-              f"{t['plain_ms']!r} ms, ref.ssd_bwd {t['closed_form_ms']!r} ms",
-              flush=True)
-        out[label] = t
+              f"entry point {t['entry_ms']!r} ms, in a CUDA graph "
+              f"{t['graph_ms']!r} ms{extra}, bound "
+              f"{t['bound_ms']!r} ms ({t['bound_by']}, 3xTF32; float32 "
+              f"CUDA cores {t['bound_f32_cores_ms']!r} ms); autograd "
+              f"through ref.ssd {t['plain_ms']!r} ms, ref.ssd_bwd "
+              f"{t['closed_form_ms']!r} ms", flush=True)
+        out["cases"][label] = t
     for line in ptxas_lines("ssd_bwd", "ssd_bwd"):
         print(f"  ssd_bwd (ptxas): {line}")
+    out["sass"] = sass_counts("ssd_bwd")
+    for fn, c in out["sass"].items():
+        print(f"  ssd_bwd (SASS) {fn}: {c}")
+    for stage in ("ssd_bwd_states_kernel", "ssd_bwd_grads_kernel"):
+        if not any(stage in fn and c["hmma_tf32"] > 0
+                   for fn, c in out["sass"].items()):
+            raise AssertionError(f"{stage} holds no TF32 HMMA")
+    if any(c["f32_atomics"] for c in out["sass"].values()):
+        raise AssertionError("the SSD gradient library holds F32 atomics")
     return out
 
 
@@ -3341,7 +3485,7 @@ BEFORE_RGLRU_ARGS = struct.Struct("<14Q3if")
 
 
 def build_before(root: str) -> dict:
-    """The two gradient entry points of the checkout at ``root`` (``python3
+    """The three gradient entry points of the checkout at ``root`` (``python3
     chip_smoke.py --before DIR``: the sources these kernels replaced,
     timed beside them), built side by side with each library's flags and
     ``root``'s own headers, into a temporary directory removed once they
@@ -3365,8 +3509,9 @@ def build_before(root: str) -> dict:
         return name, fn
 
     try:
-        with ThreadPoolExecutor(2) as pool:
-            return dict(pool.map(one, ("flash_attention_bwd", "rglru_bwd")))
+        with ThreadPoolExecutor(3) as pool:
+            return dict(pool.map(one, ("flash_attention_bwd", "rglru_bwd",
+                                       "ssd_bwd")))
     finally:
         shutil.rmtree(tmp)
 
@@ -3508,7 +3653,7 @@ def time_flash_bwd(case: BwdCase, label: str, before=None) -> dict:
     nbytes = (4 * case.q.numel() + 4 * case.k.numel()) * elt \
         + case.lse.numel() * 4
     pairs = visible_pairs(sq, causal, window, sk) * b * h
-    t.update(attention_bound(nbytes, 10.0 * pairs * d, case.dtype))
+    t.update(tensor_core_bound(nbytes, 10.0 * pairs * d, case.dtype))
     extra = (f", in a CUDA graph {t['graph_ms']!r} ms" if bf16 else "") + (
         f", the earlier kernel's entry point {t['before_ms']!r} ms"
         if "before_ms" in t else "")
@@ -3682,7 +3827,7 @@ def train_trace(step, params, state, batch) -> dict:
     """One train step under torch.profiler: device time by flash forward
     (flash_kernel), flash backward (the D, dq and dkv kernels of both
     designs), RG-LRU forward (rglru_kernel) and backward (rglru_bwd
-    kernels), SSD forward (ssd_kernel) and backward (the five ssd_bwd
+    kernels), SSD forward (ssd_kernel) and backward (the four ssd_bwd
     kernels), GEMMs, the
     optimizer (the kernels inside the device's span of
     ``_Annotated.update``'s range: one stream runs them in order) and the
@@ -4252,15 +4397,17 @@ def main() -> int:
     # ------------------------------------------------------------- 2 build
     phase("2 build")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(LIBRARIES) + 4) as pool:  # one nvcc a source
+    with ThreadPoolExecutor(len(LIBRARIES) + 5) as pool:  # one nvcc a source
         generic = pool.submit(build_ssd_generic)
         mutants = pool.submit(build_flash_mutants)
         grad_mutants = pool.submit(build_bwd_mutants)
+        ssd_grad_mutants = pool.submit(build_ssd_bwd_mutants)
         earlier = (pool.submit(build_before, before_root) if before_root
                    else None)
         libs = dict(zip(LIBRARIES, pool.map(_build.load, LIBRARIES)))
         ssd_generic, flash_mutants = generic.result(), mutants.result()
         bwd_mutants = grad_mutants.result()
+        ssd_bwd_mutants = ssd_grad_mutants.result()
         before = earlier.result() if earlier else None
     print(f"  {len(libs)} libraries in {time.perf_counter() - t0:.2f}s")
     for name, lib in libs.items():
@@ -4339,8 +4486,9 @@ def main() -> int:
     rglru_bwd = rglru_bwd_cases(before)
     max_errs["rglru_bwd"] = max(t["max_abs_err"] for t in rglru_bwd.values())
     print()
-    ssd_bwd = ssd_bwd_cases()
-    max_errs["ssd_bwd"] = max(t["max_abs_err"] for t in ssd_bwd.values())
+    ssd_bwd = ssd_bwd_cases(ssd_bwd_mutants, before)
+    max_errs["ssd_bwd"] = max(t["max_abs_err"]
+                              for t in ssd_bwd["cases"].values())
 
     # ------------------------------------------------------------- 4 query
     phase(f"4 lost-dog query, SyntheticVideo({QUERY_FRAMES}, seed={QUERY_SEED})")
@@ -4689,16 +4837,17 @@ def main() -> int:
         "max_abs_err": max_errs["rglru_bwd"],
         "by_shape": {label: measured(t) for label, t in rglru_bwd.items()},
     })
-    ssd_main = next(iter(ssd_bwd))   # mamba2's training shape
+    ssd_main = next(iter(ssd_bwd["cases"]))   # mamba2's training shape
     kernels.append({
         "name": "ssd_bwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssd_bwd.cu",
         "replaces": "src/repro/kernels/ssd.py:92",
         "launches": trained("ssd_bwd"),
         "launches_by_path": {"train": trained("ssd_bwd")},
-        "shape": ssd_main, **measured(ssd_bwd[ssd_main]),
+        "shape": ssd_main, **measured(ssd_bwd["cases"][ssd_main]),
         "max_abs_err": max_errs["ssd_bwd"],
-        "by_shape": {label: measured(t) for label, t in ssd_bwd.items()},
+        "by_shape": {label: measured(t)
+                     for label, t in ssd_bwd["cases"].items()},
     })
     print(f"  chip_smoke.py took {summary['total_s']:.1f} s, builds included")
     print(card)

@@ -14,7 +14,7 @@ Both wrappers are differentiable. When grad mode is on and an input
 requires a gradient, they go through ``Ssd``, a
 ``torch.autograd.Function`` whose backward is ``ssd_bwd``: the
 hand-written gradient kernel in ``csrc/ssd_bwd.cu`` on the card
-(``backward_launches`` counts its calls, five launches each) and
+(``backward_launches`` counts its calls, four launches each) and
 ``ref.ssd_bwd`` on the CPU. The JAX package differentiates its plain scan
 instead: its Pallas kernel has no backward. A shape whose gradient tiles
 outgrow a CTA's shared memory (``grad_smem_bytes``) is refused before the
@@ -33,7 +33,7 @@ MAX_CHUNK = 64  # the kernel's lanes own two rows of a chunk each
 SMEM_LIMIT = 227 * 1024  # shared memory one CTA may hold
 
 launches = 0           # forward launches
-backward_launches = 0  # gradient kernel calls (five launches each)
+backward_launches = 0  # gradient kernel calls (four launches each)
 _COUNT_LOCK = threading.Lock()
 
 # the C entry point's packed arguments (SsdArgs in the source): x, dt, A,
@@ -44,9 +44,10 @@ _COUNT_LOCK = threading.Lock()
 ARGS = struct.Struct("<8Q19q8i")
 # the gradient entry point's (SsdBwdArgs): x, dt, A, Bm, Cm, h0 or 0, dy,
 # dh_last or 0, dx, ddt, dA, dB, dC, dh0 or 0, then the scratch (states,
-# grads, cum_last, dB_heads, dC_heads, dA_part); the element strides of x,
+# grads, cum, dB_heads, dC_heads, dA_part); the element strides of x,
 # dt, Bm, Cm and dy in (b, s, h, last) order; batch, heads, seq, P, G, N,
-# chunk and a pad
+# chunk and a word the entry point fills (which operands move in 16-byte
+# pieces)
 BWD_ARGS = struct.Struct("<20Q19q8i")
 
 
@@ -76,13 +77,18 @@ def _check(shapes: tuple, want: tuple, h: int, g: int, s: int,
 
 def grad_smem_bytes(chunk: int, p: int, n: int) -> int:
     """Shared memory the gradient kernel's per-chunk stage takes
-    (``grads_floats`` in ``csrc/ssd_bwd.cu``, in bytes): x and dy (L, P),
-    B and C (L, N), h_in and dH (P, N) and two (L, L) triangles, each row
-    padded to an odd length, eight (L,) vectors and 16 slots."""
-    def odd(d):
-        return d | 1
-    return 4 * (2 * chunk * odd(p) + 2 * chunk * odd(n) + 2 * p * odd(n)
-                + 2 * chunk * odd(chunk) + 8 * chunk + 16)
+    (``grads_floats`` in ``csrc/ssd_bwd.cu``, in bytes): the tiles x and
+    dy (L, P), B and C (L, N), h_in and dH (P, N) and M and E (L, L), L
+    and P rounded up to 16 and N to 32 (the tensor cores' fragments), each
+    row 4 floats longer; four (L,) vectors; the triangle's row and column
+    sums, x_m . dH B_m and e_l dy_l . h_in C_l, an (L,) vector for each
+    tile of their products; and 16 slots."""
+    def up(v, m):
+        return -(-v // m) * m
+    lp, pp, nq = up(chunk, 16), up(p, 16), up(n, 32)
+    return 4 * (2 * lp * (pp + 4) + 2 * lp * (nq + 4) + 2 * pp * (nq + 4)
+                + 2 * lp * (lp + 4) + 4 * lp + 2 * (lp // 16) * lp
+                + (pp // 16) * lp + (nq // 32) * lp + 16)
 
 
 def _check_grad(chunk: int, p: int, n: int) -> None:
@@ -175,8 +181,8 @@ def ssd_bwd(x, dt, A, Bm, Cm, h0, dy, dh_last, *, chunk: int = 64):
     ``ssd_bshp`` (formulas in ``ref.ssd_bwd``) for the cotangents ``dy``
     (B, S, H, P) and ``dh_last`` (B, H, P, N), each None for zero, in the
     (B, S, H, P) layout; dh0 is None when h0 is. On the card one call of
-    the gradient kernel (five launches: chunk states, the passes over the
-    chunks, the per-chunk gradients and two ordered sums), which reads x,
+    the gradient kernel (four launches: chunk states, the passes over the
+    chunks, the per-chunk gradients and the ordered sums), which reads x,
     dt, Bm, Cm and dy through their strides; on the CPU the plain
     version."""
     global _bwd_entry, backward_launches
@@ -206,7 +212,7 @@ def ssd_bwd(x, dt, A, Bm, Cm, h0, dy, dh_last, *, chunk: int = 64):
     dx, ddt, dA = empty(b, s, h, p), empty(b, s, h), empty(h)
     dB, dC = empty(b, s, g, n), empty(b, s, g, n)
     dh0 = None if h0 is None else empty(b, h, p, n)
-    scratch = (empty(b, h, nc, p, n), empty(b, h, nc, p, n), empty(b, h, nc),
+    scratch = (empty(b, h, nc, p, n), empty(b, h, nc, p, n), empty(b, h, s),
                empty(b, s, h, n), empty(b, s, h, n), empty(b, h, nc))
     if _bwd_entry is None:
         _bwd_entry = _build.load("ssd_bwd").lib.ssd_bwd

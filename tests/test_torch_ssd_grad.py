@@ -19,11 +19,14 @@ dt's gradient is a difference of large terms (an element of 0.03 formed
 from terms up to 200), so it is held to 1e-4 |want| + 1e-5 max |want|
 (scaled), as the flash gradient's float32 check is; everything else
 to ``TOL_TIGHT``. Tests marked ``gpu`` hold the gradient kernel
-(``csrc/ssd_bwd.cu``) to the plain version at ragged shapes, every
-gradient to that scaled rule (at mamba2's widths the float32 plain version
-itself misses ``TOL_TIGHT`` against a float64 evaluation on a few
-hundred elements: sums of ~100 terms that cancel), and to its own bits on
-a rerun, and skip without a card. JAX is imported inside a fixture.
+(``csrc/ssd_bwd.cu``, 3xTF32 products on the tensor cores) to the plain
+version at ragged shapes and with one cotangent only, every gradient to
+that scaled rule (at mamba2's widths the float32 plain version itself
+misses ``TOL_TIGHT`` against a float64 evaluation on a few hundred
+elements: sums of ~100 terms that cancel), at mamba2's widths to a
+float64 evaluation no worse than the plain version (``float64_shares``),
+and to its own bits on a rerun, and skip without a card. JAX is imported
+inside a fixture.
 """
 import types
 
@@ -67,6 +70,18 @@ def _draws(seed, b, s, h, p, g, n):
     A = -np.exp(normal(h)).astype(np.float32)
     return (x, dt, A, normal(b, s, g, n), normal(b, s, g, n),
             normal(b, h, p, n), normal(b, s, h, p), normal(b, h, p, n))
+
+
+def float64_shares(got, want, exact):
+    """Phase 3's float64 rule: per gradient, the kernel's largest share of
+    1e-4 |exact| + 1e-5 max |exact| and the float32 plain version's; the
+    kernel's may be no more than twice the plain version's, or 0.1."""
+    def share(a, e):
+        a, e = a.double(), e.double()
+        lim = 1e-4 * e.abs() + 1e-5 * e.abs().max()
+        return float(((a - e).abs() / lim).max())
+    return {name: (share(g, e), share(w, e))
+            for name, g, w, e in zip(NAMES, got, want, exact) if e is not None}
 
 
 def assert_grads_close(got, want, what="", scaled=("ddt",)):
@@ -242,11 +257,15 @@ def test_ssd_bwd_evaluates_float64_inputs_in_float64():
 
 def test_grad_smem_bytes_at_the_model_shapes():
     """mamba2 (chunk 64, P 64, N 128), the reduced configs (16, 16) and
-    the predicates (4, 4) fit a CTA's 227 KB; P = N = 128 does not."""
+    the predicates (4, 4) fit a CTA's 227 KB; P = N = 128 does not. The
+    tiles are rounded up to the fragments' multiples (L and P to 16, N to
+    32) and each row is 4 floats longer."""
     for p, n in ((64, 128), (16, 16), (4, 4), (64, 64)):
         assert ssd.grad_smem_bytes(64, p, n) <= ssd.SMEM_LIMIT
     assert ssd.grad_smem_bytes(64, 64, 128) == 4 * (
-        2 * 64 * 65 + 2 * 64 * 129 + 2 * 64 * 129 + 2 * 64 * 65 + 8 * 64 + 16)
+        2 * 64 * 68 + 2 * 64 * 132 + 2 * 64 * 132 + 2 * 64 * 68 + 4 * 64
+        + 2 * 4 * 64 + 4 * 64 + 4 * 64 + 16)
+    assert ssd.grad_smem_bytes(50, 7, 9) == ssd.grad_smem_bytes(64, 16, 32)
     assert ssd.grad_smem_bytes(64, 128, 128) > ssd.SMEM_LIMIT
 
 
@@ -260,23 +279,32 @@ CARD_SHAPES = [(3, 96, 6, 12, 3, 20, 32), (2, 150, 4, 7, 2, 9, 50),
                (1, 128, 32, 64, 1, 128, 64)]
 
 
+def _on(card, args):
+    return [None if a is None else torch.from_numpy(a).to(card) for a in args]
+
+
+def _twice(args, chunk=64):
+    """Two kernel calls on the same inputs, one launch of the gradient
+    kernel each: their gradients are the same bits (no atomics)."""
+    before = ssd.backward_launches
+    got = ssd.ssd_bwd(*args, chunk=chunk)
+    again = ssd.ssd_bwd(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd.backward_launches == before + 2
+    for name, g, a in zip(NAMES, got, again):
+        assert (g is None and a is None) or torch.equal(g, a), name
+    return got
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("with_h0,with_dh_last", [(True, True),
                                                   (False, False)])
 @pytest.mark.parametrize("shape", CARD_SHAPES)
 def test_ssd_bwd_kernel_matches_plain(card, shape, with_h0, with_dh_last):
     *dims, chunk = shape
-    x, dt, A, Bm, Cm, h0, dy, dh_last = (
-        None if a is None else torch.from_numpy(a).to(card)
-        for a in _case(8, dims, with_h0, with_dh_last))
-    before = ssd.backward_launches
-    got = ssd.ssd_bwd(x, dt, A, Bm, Cm, h0, dy, dh_last, chunk=chunk)
-    again = ssd.ssd_bwd(x, dt, A, Bm, Cm, h0, dy, dh_last, chunk=chunk)
-    torch.cuda.synchronize()
-    assert ssd.backward_launches == before + 2
-    for name, g, a in zip(NAMES, got, again):
-        assert (g is None and a is None) or torch.equal(g, a), name
-    want = ref.ssd_bwd(x, dt, A, Bm, Cm, h0, dy, dh_last, chunk=chunk)
+    args = _on(card, _case(8, dims, with_h0, with_dh_last))
+    got = _twice(args, chunk)
+    want = ref.ssd_bwd(*args, chunk=chunk)
     assert_grads_close(got, want, str(shape), scaled=NAMES)
 
 
@@ -305,3 +333,36 @@ def test_ssd_autograd_on_the_card_through_strided_views(card, layout):
                        chunk=64)
     assert_grads_close(list(grads) + [None],
                        list(want[:5]) + [None], layout, scaled=NAMES)
+
+
+@pytest.mark.gpu
+def test_ssd_bwd_kernel_against_float64_at_mamba2_width(card):
+    """mamba2's widths (P 64, G 1, N 128) cut to 4 heads and 256 steps,
+    with h0 and a cotangent of h_last: every gradient within the scaled
+    rule of the float32 plain version, and against a float64 evaluation
+    no worse than it by phase 3's rule."""
+    args = _on(card, _case(11, (1, 256, 4, 64, 1, 128), True, True))
+    got = _twice(args)
+    want = ref.ssd_bwd(*args, chunk=64)
+    exact = ref.ssd_bwd(*(t.double() for t in args), chunk=64)
+    assert_grads_close(got, want, "mamba2 width", scaled=NAMES)
+    for name, (kernel, plain) in float64_shares(got, want, exact).items():
+        assert kernel <= max(0.1, 2 * plain), (name, kernel, plain)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cotangent", ["y", "h_last"])
+def test_ssd_bwd_kernel_with_one_cotangent(card, cotangent):
+    """Only the y-cotangent (no h_last), or only h_last's (dy None: the
+    wrapper passes a zero with all-zero strides), with an h0: the plain
+    version's gradients, dh0 included, and the same bits on a rerun."""
+    x, dt, A, Bm, Cm, h0, dy, dh_last = _on(
+        card, _draws(12, 2, 192, 4, 64, 2, 128))
+    if cotangent == "y":
+        dh_last = None
+    else:
+        dy = None
+    args = (x, dt, A, Bm, Cm, h0, dy, dh_last)
+    got = _twice(args)
+    assert_grads_close(got, ref.ssd_bwd(*args, chunk=64), cotangent,
+                       scaled=NAMES)
