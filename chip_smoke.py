@@ -162,7 +162,21 @@ times them beside these in phase 3 (``before_ms``). Phases, in order:
              cost-driven and reuse-aware policies equal the ground truth
              and the CPU run's, hsv_color launches on the board, cache
              hits under reuse-aware;
-16. the ``{"kernels": [...]}`` line, then the device line last.
+16. mesh — a world of one NCCL rank started in the process (a HashStore,
+             no environment) and make_host_mesh()'s (1, 1) mesh on it:
+             smollm-135m as phase 12 builds it (bf16, remat, AdamW),
+             MESH_STEPS steps of 8 x 512 off the mesh and the same steps
+             from the same draws and batches through build(cfg, mesh)
+             (TRAIN_RULES, DTensor parameters and state); every loss and
+             every parameter bit-equal, each step's launches exact (60
+             flash forward, 30 gradient), the step's ms on and off
+             (median, CUDA events) and a traced step's busy share each;
+             then one forward of each of MESH_FORWARDS (mamba2-370m,
+             recurrentgemma-9b, whisper-small, grok-1-314b at 6 layers)
+             off the mesh and under SERVE_RULES on it, the same storage
+             wrapped as DTensors (no bytes allocated): logits bit-equal,
+             launches exact; the process group destroyed at the end;
+17. the ``{"kernels": [...]}`` line, then the device line last.
 """
 from __future__ import annotations
 
@@ -4360,6 +4374,222 @@ def run_warehouse() -> dict:
             "launches": launched, "wall_s": wall, "queries": runs}
 
 
+# --------------------------------------------------------------------------- #
+# phase 16: a one-card NCCL mesh                                             #
+# --------------------------------------------------------------------------- #
+MESH_STEPS = 4    # SmolLM-135M train steps on the mesh and off it
+MESH_ROUNDS = 2   # timed forwards on and off the mesh, after a warm-up
+MESH_STEP_ROUNDS = 5  # timed train steps after the counted ones, a warm-up
+                      # first (DTensor's sharding caches fill over the first)
+# (arch, forward (B, S), config changes, each kernel's launches a forward)
+# at phases 10's and 11's shapes, bf16, under SERVE_RULES
+MESH_FORWARDS = (
+    ("mamba2-370m", (4, 512), {}, {"ssd": 48}),
+    ("recurrentgemma-9b", (1, 2560), {}, {"rglru": 26, "flash_attention": 12}),
+    ("whisper-small", (4, 64), {}, {"flash_attention": 36}),
+    ("grok-1-314b", (2, 512), {"num_layers": 6},
+     {"flash_attention": 6, "moe_router": 6}),
+)
+
+
+def timed_steps(step, params, state, batches) -> tuple:
+    """Each step of ``batches`` between CUDA events (and on the host
+    clock), with the training counters set to 0 before each step and read
+    after it. Returns (params, losses, per-step ms, per-step host ms,
+    per-step launches)."""
+    losses, ms, host, launches = [], [], [], []
+    for batch in batches:
+        zero_train_counts()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        params, state, metrics = step(params, state, batch)
+        end.record()
+        end.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3)
+        ms.append(start.elapsed_time(end))
+        launches.append({k: v for k, v in train_counts().items() if v})
+        losses.append(float(metrics["loss"]))
+    return params, state, losses, ms, host, launches
+
+
+def mesh_train(mesh) -> dict:
+    """SmolLM-135M at full width and depth (bf16, remat, AdamW as
+    ``build`` makes it): MESH_STEPS steps of 8 x 512 off the mesh, then the
+    same steps from the same draws and batches through
+    ``build(cfg, mesh)``; every loss and every parameter bit-equal, each
+    step's launches exact; then a step's ms on and off (the median of
+    MESH_STEP_ROUNDS after a warm-up, CUDA events) and one traced step
+    each for the busy share."""
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import place_batch
+    from repro_torch.distributed.sharding import TRAIN_RULES, plain
+    from repro_torch.launch.train import build, place
+    from repro_torch.models.layers import ShardCtx
+    from repro_torch.models.params import stacked
+    fam = TRAIN_FAMILIES[0]
+    cfg = get_config(fam["arch"])
+    b, s = fam["shape"]
+    runs = {}
+    for where, m in (("off", None), ("on", mesh)):
+        api, opt, step = build(cfg, m)
+        params = api.init_params(cfg, torch.Generator("cuda").manual_seed(
+            TRAIN_SEED), device="cuda")
+        state = opt.init(stacked(params, api.param_shapes(cfg)))
+        params, state = place(cfg, opt, m, params, state)
+        make = family_batches(cfg, b, s, TRAIN_SEED)
+        batches = [make() for _ in range(MESH_STEPS)]
+        with CommDebugMode() as comm:
+            params, state, losses, ms, host, launches = timed_steps(
+                step, params, state, batches)
+        bad = [n for n in launches if n != fam["a_step"]]
+        if bad:
+            raise AssertionError(f"mesh {where}: a step launched {bad[0]}, "
+                                 f"not {fam['a_step']}")
+        kept = {k: plain(v).clone() for k, v in
+                stacked(params, api.param_shapes(cfg)).items()}
+        # then more steps, timed, and one traced, through the same step
+        # with its optimizer in a profiler range (train_trace's split
+        # needs it), on one more batch
+        traced = api.make_train_step(
+            cfg, _Annotated(opt),
+            *(() if m is None else (ShardCtx(m, TRAIN_RULES),)))
+        batch = make() if m is None else place_batch(make(), m, TRAIN_RULES)
+        times = family_ms(lambda: traced(params, state, batch),
+                          MESH_STEP_ROUNDS)
+        trace = train_trace(traced, params, state, batch)
+        runs[where] = {
+            "losses": losses, "first_step_ms": ms, "first_host_ms": host,
+            "step_ms": times["event_ms"], "host_ms": times["host_ms"],
+            "step_ms_rounds": times["event_ms_rounds"],
+            "launches": launches,
+            "collectives": comm.get_total_counts(),
+            "busy_share": trace["busy_share"], "trace": trace,
+            "params": kept}
+        print(f"  {cfg.name} {MESH_STEPS} steps of {b} x {s} {where} the "
+              f"mesh: losses {losses!r} ({ms!r} ms between CUDA events); "
+              f"then a step {times['event_ms']!r} ms median of "
+              f"{MESH_STEP_ROUNDS} ({times['host_ms']!r} ms on the host "
+              f"clock), busy share {trace['busy_share']!r} (a traced step, "
+              f"{trace['wall_ms']!r} ms); launches a step {launches[0]}; "
+              f"collectives {comm.get_total_counts()}", flush=True)
+        del api, opt, step, traced, params, state, batches, batch
+        torch.cuda.empty_cache()
+    off, on = runs["off"], runs.pop("on")
+    off_params, on_params = off.pop("params"), on.pop("params")
+    same_params = all(torch.equal(off_params[k], on_params[k])
+                      for k in off_params)
+    same_loss = off["losses"] == on["losses"]
+    diff = on["step_ms"] - off["step_ms"]
+    print(f"  on the mesh against off it: losses bit-equal {same_loss}, "
+          f"every parameter bit-equal {same_params}; a step "
+          f"{diff!r} ms longer on the mesh (DTensor dispatch on the host)",
+          flush=True)
+    if not (same_loss and same_params):
+        raise AssertionError("the mesh's train steps are not bit-equal to "
+                             "the same steps off it")
+    return {"arch": cfg.name, "steps": MESH_STEPS, "batch": b, "seq": s,
+            "off": off, "on": on, "step_ms_difference": diff,
+            "launches": {k: sum(n[k] for n in on["launches"])
+                         for k in fam["a_step"]}}
+
+
+def mesh_forward(mesh, arch: str, shape: tuple, changes: dict,
+                 want: dict) -> dict:
+    """One forward of ``arch`` (bf16, its config's width, ``changes``)
+    off the mesh, then the same parameters' storage wrapped as
+    ``DTensor``s on the one-card mesh (no copy: the card's allocated bytes
+    do not move) and the same forward under SERVE_RULES: bit-equal
+    logits, exact launches both times, and each forward's ms."""
+    from repro_torch.data.pipeline import place_batch
+    from repro_torch.distributed.sharding import SERVE_RULES, plain
+    from repro_torch.models.layers import ShardCtx
+    from repro_torch.models.params import distribute_params
+    b, s = shape
+    run = (MoeRun if changes else FamilyRun)(arch, "bfloat16", b, s,
+                                             **changes)
+    cfg, api = run.cfg, run.api
+    batch = run.batch(b, s)
+    ctx = ShardCtx(mesh, SERVE_RULES)
+    # no_grad, not inference_mode: DTensor cannot make an inference-mode
+    # view of a parameter made outside it (the conv taps' w[:, j])
+    with torch.no_grad():
+        zero_launches()
+        off = run.forward(batch)
+        off_launches = kernel_launches()
+        off_ms = family_ms(lambda: run.forward(batch), MESH_ROUNDS)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        distribute_params(run.model, api.param_shapes(cfg),
+                          api.param_logical(cfg), SERVE_RULES, mesh)
+        placed = place_batch(batch, mesh, SERVE_RULES)
+        torch.cuda.synchronize()
+        moved = torch.cuda.memory_allocated() - before
+
+        def forward_on():
+            out = api.forward(cfg, run.model, placed, ctx)
+            return out[0] if isinstance(out, tuple) else out
+
+        zero_launches()
+        on = plain(forward_on())
+        on_launches = kernel_launches()
+        same = torch.equal(on, off)
+        on_ms = family_ms(forward_on, MESH_ROUNDS)
+    print(f"  {arch}{' ' + str(changes) if changes else ''} forward {b} x "
+          f"{s} under SERVE_RULES: logits bit-equal {same}; launches off "
+          f"{off_launches}, on {on_launches} (want {want}); bytes allocated "
+          f"by the wrapping {moved}; {off_ms['event_ms']!r} ms off, "
+          f"{on_ms['event_ms']!r} ms on", flush=True)
+    if off_launches != want or on_launches != want:
+        raise AssertionError(f"{arch} on the mesh: launches {off_launches} "
+                             f"off, {on_launches} on, not {want}")
+    if not same:
+        raise AssertionError(f"{arch}: the mesh's logits are not bit-equal")
+    if moved > 0:
+        raise AssertionError(f"{arch}: wrapping the parameters allocated "
+                             f"{moved} bytes")
+    del run, off, on, placed, batch
+    torch.cuda.empty_cache()
+    return {"shape": list(shape), "changes": changes, "bit_equal": same,
+            "launches": on_launches, "bytes_allocated_by_wrapping": moved,
+            "off_ms": off_ms, "on_ms": on_ms}
+
+
+def run_mesh() -> dict:
+    """Phase 16: a world of one NCCL rank started in this process (a
+    HashStore, no environment), ``make_host_mesh()`` on it (a (1, 1)
+    mesh), SmolLM-135M's train steps (``mesh_train``) and the four other
+    families' forwards (``mesh_forward``), then the process group
+    destroyed. NCCL failing to start fails the phase."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+    t0 = time.perf_counter()
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = make_host_mesh(device="cuda")
+        print(f"  mesh {tuple(mesh.shape)} {mesh.mesh_dim_names} on "
+              f"{mesh.device_type}, backend {dist.get_backend()}", flush=True)
+        train = mesh_train(mesh)
+        forwards = {arch: mesh_forward(mesh, arch, *spec)
+                    for arch, *spec in MESH_FORWARDS}
+    finally:
+        dist.destroy_process_group()
+    seconds = time.perf_counter() - t0
+    # the launches made on the mesh: its train steps and forwards
+    launches = collections.Counter(train["launches"])
+    for f in forwards.values():
+        launches.update(f["launches"])
+    print(f"  phase 16 took {seconds!r} s", flush=True)
+    return {"train": train, "forwards": forwards, "seconds": seconds,
+            "launches": dict(launches)}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -4674,8 +4904,13 @@ def main() -> int:
     phase(f"15 warehouse safety (UC2 + UC3), {WAREHOUSE_FRAMES} frames")
     warehouse = run_warehouse()
 
-    # ------------------------------------------------------------- 16 lines
-    phase("16 summary")
+    # ------------------------------------------------------------- 16 mesh
+    phase("16 a one-card NCCL mesh: SmolLM-135M's train steps through "
+          "build(cfg, mesh), the other families' forwards under SERVE_RULES")
+    mesh = run_mesh()
+
+    # ------------------------------------------------------------- 17 lines
+    phase("17 summary")
     main_sizes_text = {**triage["sizes"],
                        "rglru": registry["runs"]["rglru"]["sizes"]}
     text_main = {name: max(c, key=lambda b: (c[b], -b))
@@ -4724,6 +4959,7 @@ def main() -> int:
                                         "ssd_bwd")},
         "families": families,
         "moe": moe_runs,
+        "mesh": mesh,
         "total_s": time.perf_counter() - t_start,
     }
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
@@ -4776,6 +5012,8 @@ def main() -> int:
             paths["train"] = trained(name)
         if name in cascade["launches"]:
             paths["cascade"] = cascade["launches"][name]
+        if name in mesh["launches"]:
+            paths["mesh"] = mesh["launches"][name]
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
@@ -4798,6 +5036,7 @@ def main() -> int:
             paths["llm"] = llm["launches"]
             paths["families"] = family_launches(name)
             paths["train"] = trained(name)
+            paths["mesh"] = mesh["launches"][name]
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
@@ -4814,7 +5053,8 @@ def main() -> int:
                             family_cases.get(name, {}).items()}},
         })
     bwd_main = next(iter(flash_bwd["timings"]))   # SmolLM's bf16 training
-    paths = {"train": trained("flash_attention_bwd")}
+    paths = {"train": trained("flash_attention_bwd"),
+             "mesh": mesh["launches"]["flash_attention_bwd"]}
     kernels.append({
         "name": "flash_attention_bwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",

@@ -16,8 +16,12 @@ each) instead of a JAX treedef; a sequence comes back as a tuple. numpy
 has no bfloat16, so a bfloat16 tensor is stored as its uint16 bits with
 ``"bfloat16"`` in ``dtypes``, and comes back bit for bit. ``restore``
 returns tensors: on the CPU, or cast to a target leaf's dtype and put on
-its device. Elastic re-mesh on restore waits for the port of sharding
-(ROADMAP.md, queue 1, item 4).
+its device.
+
+On a mesh: ``save`` writes a ``DTensor`` leaf's global tensor (every
+rank gathers it, rank 0 writes; the layout on disk is the same), and
+``restore`` places each leaf on its target leaf's mesh and placements —
+elastic re-mesh: a checkpoint written on one mesh restores onto another.
 """
 from __future__ import annotations
 
@@ -63,11 +67,22 @@ def _unflatten(names, leaves):
     return built
 
 
+def _writer() -> bool:
+    """Whether this process writes checkpoints: rank 0 of a running
+    process group, or a process with none."""
+    import torch.distributed as dist
+
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 def _to_host(x) -> np.ndarray:
     """A snapshot of one leaf in host memory (a copy: the caller may go on
-    updating the tensor in place); bfloat16 as its uint16 bits."""
+    updating the tensor in place); bfloat16 as its uint16 bits. A
+    ``DTensor`` leaf's global tensor (a collective: every rank calls)."""
+    from repro_torch.distributed.sharding import plain
+
     if isinstance(x, torch.Tensor):
-        t = x.detach().to("cpu", copy=True)
+        t = plain(x.detach()).to("cpu", copy=True)
         if t.dtype == torch.bfloat16:
             return t.view(torch.int16).numpy().view(np.uint16)
         return t.numpy()
@@ -75,10 +90,10 @@ def _to_host(x) -> np.ndarray:
 
 
 def _from_host(a: np.ndarray, dtype: str) -> torch.Tensor:
+    a = np.ascontiguousarray(a).reshape(a.shape)   # a 0-d leaf stays 0-d
     if dtype == BF16:
-        return torch.from_numpy(np.ascontiguousarray(a).view(np.int16)).view(
-            torch.bfloat16)
-    return torch.from_numpy(np.ascontiguousarray(a))
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
 
 
 def latest_step(directory: str) -> Optional[int]:
@@ -120,6 +135,8 @@ class Checkpointer:
             "dtypes": dtypes,
             "shapes": [list(a.shape) for a in host],
         }
+        if not _writer():
+            return
         if self.async_save:
             self.wait()
             self._pending = self._pool.submit(self._write, step, host, manifest)
@@ -166,7 +183,11 @@ class Checkpointer:
         """Restore step as a tree of tensors on the CPU (or ``device``).
         ``target``: a tree of the same structure whose tensor leaves (real
         or on the meta device) give each leaf's dtype and, unless
-        ``device`` is given, its device (a meta leaf's is the CPU)."""
+        ``device`` is given, its device (a meta leaf's is the CPU); a
+        ``DTensor`` leaf also its mesh and placements, and the leaf comes
+        back a ``DTensor`` placed so."""
+        from repro_torch.distributed.sharding import from_global, is_dtensor
+
         path = os.path.join(self.directory, f"step_{step}")
         with open(os.path.join(path, "manifest.json")) as f:
             manifest = json.load(f)
@@ -186,7 +207,11 @@ class Checkpointer:
         placed = []
         for name, t in want:
             a = loaded[name]
-            if isinstance(t, torch.Tensor):
+            if is_dtensor(t):
+                dev = device if device is not None else t.to_local().device
+                a = from_global(a.to(device=dev, dtype=t.dtype),
+                                t.placements, t.device_mesh)
+            elif isinstance(t, torch.Tensor):
                 dev = device if device is not None else (
                     "cpu" if t.device.type == "meta" else t.device)
                 a = a.to(device=dev, dtype=t.dtype)

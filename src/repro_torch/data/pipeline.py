@@ -4,9 +4,9 @@ Port of ``repro.data.pipeline``. The pipeline shape matches a production
 layout: Source (resumable iterator, seeded) -> Batcher -> Prefetcher
 (background thread, bounded queue — the host-side analogue of Hydro's
 EddyPull) -> device placement. ``TokenSource`` is the JAX package's numpy
-code, so the same seed and step give bit-equal arrays. Placement with a
-mesh's batch sharding waits for the port of sharding (ROADMAP.md, queue
-1, item 4): ``shard_batch`` moves a host batch to one device.
+code, so the same seed and step give bit-equal arrays. ``shard_batch``
+moves a host batch to the device, and with a mesh places it with batch
+sharding (each rank keeps its block of the batch as a ``DTensor``).
 """
 from __future__ import annotations
 
@@ -94,15 +94,28 @@ class Prefetcher:
 def shard_batch(batch: Dict[str, np.ndarray], mesh=None, rules=None,
                 logical=None, *, device="cuda") -> Dict[str, torch.Tensor]:
     """Place a host batch on ``device`` (each array as a tensor of its own
-    dtype). A mesh raises: batch sharding waits for the port of sharding
-    (ROADMAP.md, queue 1, item 4)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "shard_batch over a mesh waits for the port of sharding "
-            "(ROADMAP.md, queue 1, item 4)")
+    dtype). With a mesh and rules, each becomes a ``DTensor`` placed by
+    its logical dims (``logical[k]``, by default "batch" then replicated
+    dims); every rank passes the same host batch and keeps its block."""
     dev = require_device(device)
-    return {k: torch.from_numpy(np.asarray(v)).to(dev)
-            for k, v in batch.items()}
+    out = {k: torch.from_numpy(np.asarray(v)).to(dev)
+           for k, v in batch.items()}
+    if mesh is None or rules is None:
+        return out
+    return place_batch(out, mesh, rules, logical)
+
+
+def place_batch(batch: Dict[str, torch.Tensor], mesh, rules,
+                logical=None) -> Dict[str, torch.Tensor]:
+    """Each plain tensor of ``batch`` (the same global value on every
+    rank) as a ``DTensor`` placed by its logical dims, ``logical[k]`` or
+    by default "batch" then replicated dims; a ``DTensor`` as it is."""
+    from repro_torch.distributed.sharding import distribute, is_dtensor
+
+    logical = logical or {}
+    return {k: v if is_dtensor(v) else distribute(
+        v, logical.get(k, "batch" + " ." * (v.dim() - 1)), rules, mesh)
+        for k, v in batch.items()}
 
 
 def data_iterator(source: TokenSource, batch_size: int, *, prefetch: int = 2) -> Iterator[Dict]:

@@ -1,7 +1,7 @@
 """Fault-tolerant training driver.
 
-Port of ``repro.launch.train`` at world size 1: params and optimizer
-state on one device -> the family's ``make_train_step`` -> step loop with
+Port of ``repro.launch.train``: params and optimizer state on one device,
+or placed on a mesh -> the family's ``make_train_step`` -> step loop with
 async checkpoints, auto-resume, watchdog, heartbeat, and deterministic
 failure injection for tests. Attention's, the RG-LRU's and the SSD scan's
 forward and gradient run the hand-written kernels on the card
@@ -12,10 +12,16 @@ forward and gradient run the hand-written kernels on the card
 
 --smoke uses the reduced config; --device cpu runs the plain versions of
 the kernels (the default, cuda, raises at once without a card). --mesh
-raises: sharding is not ported yet (ROADMAP.md, queue 1, item 4). The
-dense, vlm, ssm, encdec and hybrid families train; moe raises at
-``build``. ``train_loop`` feeds tokens only, as the reference's does: an
-encdec model's frames come through ``build``'s step directly.
+trains on a ("data", "model") mesh over the launched world, under
+``TRAIN_RULES`` (FSDP x TP), one card a rank:
+
+  torchrun --standalone --nproc-per-node 1 -m repro_torch.launch.train --mesh \
+      --arch smollm-135m --steps 50 --batch 8 --seq 128
+
+The dense, vlm, ssm, encdec and hybrid families train; moe raises at
+``build`` (ROADMAP.md, queue 1, item 2b). ``train_loop`` feeds tokens
+only, as the reference's does: an encdec model's frames come through
+``build``'s step directly.
 """
 from __future__ import annotations
 
@@ -28,41 +34,66 @@ import torch
 
 from repro_torch.checkpoint import Checkpointer, latest_step
 from repro_torch.configs import get_config
-from repro_torch.data.pipeline import Prefetcher, TokenSource, shard_batch
+from repro_torch.data.pipeline import (
+    Prefetcher, TokenSource, place_batch, shard_batch,
+)
 from repro_torch.distributed.fault_tolerance import (
     FailureInjector, Heartbeat, StepWatchdog,
 )
+from repro_torch.distributed.sharding import TRAIN_RULES, tree_distribute
 from repro_torch.kernels.launch import require_device
-from repro_torch.models.params import param_leaves, set_param, stacked
+from repro_torch.models.layers import ShardCtx
+from repro_torch.models.params import (
+    distribute_params, param_leaves, set_param, stacked,
+)
 from repro_torch.models.registry import model_api
 from repro_torch.optim import AdamW, cosine_schedule
 
 # what training a family without make_train_step waits for
 _WAITS = {
-    "moe": "sharding (one layer at published width, with the step's copies "
-           "of weights, gradients and AdamW state, outgrows a card) and "
-           "the router weights' gradient (ROADMAP.md, queue 1, item 2b)",
+    "moe": "the router weights' gradient kernel and FSDP over several "
+           "cards (one layer at published width, with the step's copies "
+           "of weights, gradients and AdamW state, outgrows a card; "
+           "ROADMAP.md, queue 1, item 2b)",
 }
 
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "training on a mesh waits for the port of sharding (ROADMAP.md, "
-            "queue 1, item 4)")
-
-
 def build(cfg, mesh=None, *, lr=3e-4, warmup=20, total=1000):
-    """(api, optimizer, train_step) as the reference's ``build``, which
-    also returns its sharding context and jits the step."""
-    _no_mesh(mesh)
+    """(api, optimizer, train_step). The reference's ``build`` also
+    returns its sharding context and jits the step; here, with a mesh, the
+    step runs sharded under ``TRAIN_RULES`` on parameters and optimizer
+    state that ``place`` put on the mesh, and places a batch of plain
+    tensors with batch sharding (``shard_batch``'s placement); its
+    metrics are plain tensors."""
     api = model_api(cfg)
     if not hasattr(api, "make_train_step"):
         raise NotImplementedError(
             f"training the {cfg.family} family waits for "
             f"{_WAITS[cfg.family]}")
     opt = AdamW(schedule=cosine_schedule(lr, warmup, total))
-    return api, opt, api.make_train_step(cfg, opt)
+    if mesh is None:
+        return api, opt, api.make_train_step(cfg, opt)
+    step = api.make_train_step(cfg, opt, ShardCtx(mesh, TRAIN_RULES))
+
+    def sharded_step(params, opt_state, batch):
+        return step(params, opt_state, place_batch(batch, mesh, TRAIN_RULES))
+
+    return api, opt, sharded_step
+
+
+def place(cfg, opt, mesh, params, opt_state):
+    """(params, opt_state) on ``mesh`` under ``TRAIN_RULES``, once before
+    the steps of ``build(cfg, mesh)``: the module's parameters by
+    ``param_logical`` (in place), the optimizer state by
+    ``state_logical``. With no mesh, both as they are."""
+    if mesh is None:
+        return params, opt_state
+    api = model_api(cfg)
+    shapes, logical = api.param_shapes(cfg), api.param_logical(cfg)
+    distribute_params(params, shapes, logical, TRAIN_RULES, mesh)
+    state_logical = opt.state_logical(dict(param_leaves(logical)))
+    return params, tree_distribute(opt_state, state_logical, TRAIN_RULES,
+                                   mesh)
 
 
 def _restore(api, cfg, ckpt, dev):
@@ -93,7 +124,9 @@ def train_loop(
     ``torch.Generator(device).manual_seed(seed)`` (torch's numbers, not
     ``jax.random``'s); a checkpoint holds (the stacked parameters, the
     optimizer state, the source's step), and a resume restores all three.
-    Returns the losses, the straggler count and the parameter module."""
+    Returns the losses, the straggler count and the parameter module.
+    With ``mesh`` the step runs sharded (``build``) and a checkpoint holds
+    the global tensors, written by rank 0."""
     dev = require_device(device)
     api, opt, step_fn = build(cfg, mesh)
     shapes = api.param_shapes(cfg)
@@ -111,6 +144,7 @@ def train_loop(
         params = api.init_params(cfg, torch.Generator(dev).manual_seed(seed),
                                  device=dev)
         opt_state = opt.init(stacked(params, shapes))
+    params, opt_state = place(cfg, opt, mesh, params, opt_state)
 
     watchdog = StepWatchdog()
     hb = Heartbeat(os.path.join(ckpt_dir, "heartbeat")) if ckpt_dir else None
@@ -122,7 +156,9 @@ def train_loop(
                 injector.check(step)
             t0 = time.perf_counter()
             hbatch = pf.next()
-            dbatch = shard_batch(hbatch, device=dev)
+            dbatch = shard_batch(hbatch, mesh,
+                                 None if mesh is None else TRAIN_RULES,
+                                 device=dev)
             params, opt_state, metrics = step_fn(params, opt_state, dbatch)
             loss = float(metrics["loss"])
             dt = time.perf_counter() - t0
@@ -159,23 +195,34 @@ def main(argv=None) -> None:
     ap.add_argument("--smoke", action="store_true", help="reduced config")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--mesh", action="store_true",
-                    help="use a device mesh (not ported yet: raises)")
+                    help="train on a (data, model) mesh over the launched "
+                         "world (torchrun)")
     ap.add_argument("--resume", action="store_true",
                     help="(auto when --ckpt-dir has checkpoints)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
+    mesh = None
     if args.mesh:
-        _no_mesh(True)
+        from repro_torch.launch.mesh import make_host_mesh
+
+        require_device(args.device)
+        mesh = make_host_mesh(device=args.device)
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = cfg.reduce_for_smoke()
-    out = train_loop(
-        cfg, steps=args.steps, batch=args.batch, seq=args.seq,
-        ckpt_dir=args.ckpt_dir, device=args.device,
-    )
-    print(f"[train] done: final_loss={out['final_loss']:.4f} "
-          f"stragglers={out['stragglers']}")
+    try:
+        out = train_loop(
+            cfg, steps=args.steps, batch=args.batch, seq=args.seq,
+            ckpt_dir=args.ckpt_dir, device=args.device, mesh=mesh,
+        )
+        print(f"[train] done: final_loss={out['final_loss']:.4f} "
+              f"stragglers={out['stragglers']}")
+    finally:
+        if mesh is not None:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -1,6 +1,6 @@
 """Hybrid family (recurrentgemma-9b): Griffin-style RG-LRU + local attention.
 
-Port of ``repro.models.hybrid`` at world size 1. Block pattern = (rglru,
+Port of ``repro.models.hybrid``. Block pattern = (rglru,
 rglru, local-attn) repeated; remainder layers are rglru. The parameters
 live in a ``Hybrid`` module (``models/params.py``): ``groups``, one
 ``nn.ModuleDict`` of (rg1, rg2, attn) layers a group, and ``rest``, one
@@ -22,9 +22,13 @@ Training: ``loss_fn`` and ``make_train_step`` as the reference's. The
 RG-LRU wrapper and the flash wrapper are differentiable (their backward
 passes are the hand-written gradient kernels on the card), and where a
 gradient is taken each (rglru, rglru, local) group and each remainder
-layer runs under ``cfg.remat``, as the reference's scanned bodies do. Not
-here yet, as in transformer.py: ``input_specs``, ``roofline_units`` and
-``param_logical``.
+layer runs under ``cfg.remat``, as the reference's scanned bodies do.
+
+Sharding: the reference's ``ShardCtx`` through every function (its three
+constraints), ``param_logical`` and ``cache_logical``; on a mesh the
+RG-LRU kernel gets each rank's blocks (``ShardCtx.local``: batch over
+the batch axes, the LRU width over "model"). Not here yet, as in
+transformer.py: ``input_specs`` and ``roofline_units`` (the dry run).
 """
 from __future__ import annotations
 
@@ -39,9 +43,12 @@ from repro_torch.kernels.rglru import rglru_bsw
 from repro_torch.models import attention as attn
 from repro_torch.models import transformer as tf
 from repro_torch.models.layers import (
+    NULL_CTX,
+    ShardCtx,
     dtype_of,
     embed_tokens,
     lm_logits,
+    pad_dim,
     position_ids,
     rms_norm,
     softmax_xent,
@@ -115,6 +122,43 @@ def param_shapes(cfg) -> Dict:
     }
 
 
+_MLP_LOGICAL = {
+    "mlp_norm": "layers .",
+    "w_gate": "layers d_model_w d_ff",
+    "w_up": "layers d_model_w d_ff",
+    "w_down": "layers d_ff d_model_w",
+}
+
+RG_LOGICAL = {
+    "norm": "layers .",
+    "w_x": "layers d_model_w lru",
+    "w_g": "layers d_model_w lru",
+    "conv_w": "layers lru conv",
+    "conv_b": "layers lru",
+    "w_r": "layers lru_blocks . .",
+    "b_r": "layers lru",
+    "w_i": "layers lru_blocks . .",
+    "b_i": "layers lru",
+    "a_param": "layers lru",
+    "w_out": "layers lru d_model_w",
+    **_MLP_LOGICAL,
+}
+
+
+def param_logical(cfg) -> Dict:
+    return {
+        "embed": "vocab d_model_w",
+        "out_head": "d_model_w vocab",
+        "final_norm": ".",
+        "groups": {
+            "rg1": dict(RG_LOGICAL),
+            "rg2": dict(RG_LOGICAL),
+            "attn": tf.layer_param_logical(cfg),
+        },
+        "rest": dict(RG_LOGICAL),
+    }
+
+
 def param_count(cfg) -> int:
     return count(param_shapes(cfg))
 
@@ -165,7 +209,7 @@ def causal_conv1d(x, w, b, state=None):
     product and sum rounded to x's dtype."""
     cw = w.shape[-1]
     if state is None:
-        pad = F.pad(x, (0, 0, cw - 1, 0))
+        pad = pad_dim(x, 1, cw - 1)
     else:
         pad = torch.cat([state.to(x.dtype), x], dim=1)
     s = x.shape[1]
@@ -175,24 +219,37 @@ def causal_conv1d(x, w, b, state=None):
     return out + b.to(x.dtype)
 
 
-def rg_block(cfg, lp, h, state=None):
+def _recur(ctx, xr, r, i, a_param, h0):
+    """``rglru_bsw`` on each rank's blocks: batch over the batch axes, the
+    LRU width over "model"."""
+    outs = (0, None)
+    if ctx.mesh is not None:
+        outs = (0, ctx.places((xr.shape[0], xr.shape[2]), "batch lru"))
+    return ctx.local(
+        functools.partial(rglru_bsw, c=RG_C), (xr, r, i, a_param, h0),
+        ("batch seq lru",) * 3 + ("lru", "batch lru"), outs)
+
+
+def rg_block(cfg, lp, h, state=None, ctx: ShardCtx = NULL_CTX):
     """Griffin recurrent block (+MLP). state: None (train) or {"conv":
     (B, cw-1, W), "h": (B, W)}; returns (h, new state or None)."""
     x_in = rms_norm(h, lp["norm"], cfg.norm_eps)
     gate = F.gelu(torch.matmul(x_in, lp["w_g"].to(x_in.dtype)).to(
         torch.float32), approximate="tanh").to(x_in.dtype)
+    gate = ctx.constrain(gate, "batch seq lru")
     xr_raw = torch.matmul(x_in, lp["w_x"].to(x_in.dtype))
+    xr_raw = ctx.constrain(xr_raw, "batch seq lru")
 
     conv_state = None if state is None else state["conv"]
     xr = causal_conv1d(xr_raw, lp["conv_w"], lp["conv_b"], conv_state)
     r = _blockdiag(xr, lp["w_r"], lp["b_r"])
     i = _blockdiag(xr, lp["w_i"], lp["b_i"])
     h0 = None if state is None else state["h"]
-    y, h_last = rglru_bsw(xr, r, i, lp["a_param"], h0, c=RG_C)
+    y, h_last = _recur(ctx, xr, r, i, lp["a_param"], h0)
     out = torch.matmul(y * gate, lp["w_out"].to(y.dtype))
-    h = h + out
+    h = h + ctx.constrain(out, "batch seq d_model")
     m_in = rms_norm(h, lp["mlp_norm"], cfg.norm_eps)
-    h = h + swiglu_mlp(m_in, lp["w_gate"], lp["w_up"], lp["w_down"])
+    h = h + swiglu_mlp(m_in, lp["w_gate"], lp["w_up"], lp["w_down"], ctx)
 
     if state is None:
         return h, None
@@ -200,56 +257,59 @@ def rg_block(cfg, lp, h, state=None):
     return h, {"conv": tail_src[:, -(CONV_W - 1):], "h": h_last}
 
 
-def attn_block(cfg, lp, h, positions):
+def attn_block(cfg, lp, h, positions, ctx: ShardCtx = NULL_CTX):
     a_in = rms_norm(h, lp["attn_norm"], cfg.norm_eps)
-    a_out, kv = attn.attention_train(cfg, a_in, lp, positions,
+    a_out, kv = attn.attention_train(cfg, a_in, lp, positions, ctx,
                                      window=cfg.local_window)
     h = h + a_out
     m_in = rms_norm(h, lp["mlp_norm"], cfg.norm_eps)
-    h = h + swiglu_mlp(m_in, lp["w_gate"], lp["w_up"], lp["w_down"])
+    h = h + swiglu_mlp(m_in, lp["w_gate"], lp["w_up"], lp["w_down"], ctx)
     return h, kv
 
 
 # --------------------------------------------------------------------------- #
 # forward                                                                      #
 # --------------------------------------------------------------------------- #
-def _group(cfg, gp, h, pos):
-    h, _ = rg_block(cfg, gp["rg1"], h)
-    h, _ = rg_block(cfg, gp["rg2"], h)
-    return attn_block(cfg, gp["attn"], h, pos)[0]
+def _group(cfg, gp, h, pos, ctx: ShardCtx = NULL_CTX):
+    h, _ = rg_block(cfg, gp["rg1"], h, None, ctx)
+    h, _ = rg_block(cfg, gp["rg2"], h, None, ctx)
+    return attn_block(cfg, gp["attn"], h, pos, ctx)[0]
 
 
-def _rest(cfg, lp, h):
-    return rg_block(cfg, lp, h)[0]
+def _rest(cfg, lp, h, ctx: ShardCtx = NULL_CTX):
+    return rg_block(cfg, lp, h, None, ctx)[0]
 
 
-def _stack(cfg, params: Hybrid, h, pos):
+def _stack(cfg, params: Hybrid, h, pos, ctx: ShardCtx = NULL_CTX):
     group = tf.remat_where_grad(cfg, functools.partial(_group, cfg), h,
                                 params)
     rest = tf.remat_where_grad(cfg, functools.partial(_rest, cfg), h, params)
     for gp in params.groups:
-        h = group(gp, h, pos)
+        h = group(gp, h, pos, ctx)
     for lp in params.rest:
-        h = rest(lp, h)
+        h = rest(lp, h, ctx)
     return h
 
 
-def forward(cfg, params: Hybrid, batch):
-    tokens = batch["tokens"]
-    h = embed_tokens(tokens, params.embed)
-    h = _stack(cfg, params, h, position_ids(*tokens.shape, tokens.device))
-    h = rms_norm(h, params.final_norm, cfg.norm_eps)
-    return lm_logits(h, params.out_head, cfg.vocab_size)
+def forward(cfg, params: Hybrid, batch, ctx: ShardCtx = NULL_CTX):
+    with ctx.scope():
+        tokens = batch["tokens"]
+        h = embed_tokens(tokens, params.embed, ctx)
+        h = _stack(cfg, params, h,
+                   position_ids(*tokens.shape, tokens.device), ctx)
+        h = rms_norm(h, params.final_norm, cfg.norm_eps)
+        return lm_logits(h, params.out_head, cfg.vocab_size, ctx)
 
 
-def loss_fn(cfg, params: Hybrid, batch):
-    logits = forward(cfg, params, batch)
-    loss = softmax_xent(logits, batch["labels"], batch.get("loss_mask"))
+def loss_fn(cfg, params: Hybrid, batch, ctx: ShardCtx = NULL_CTX):
+    logits = forward(cfg, params, batch, ctx)
+    with ctx.scope():
+        loss = softmax_xent(logits, batch["labels"], batch.get("loss_mask"))
     return loss, {"loss": loss}
 
 
-def make_train_step(cfg, optimizer):
-    return tf.make_train_step(cfg, optimizer, loss=loss_fn)
+def make_train_step(cfg, optimizer, ctx: ShardCtx = NULL_CTX):
+    return tf.make_train_step(cfg, optimizer, ctx, loss=loss_fn)
 
 
 # --------------------------------------------------------------------------- #
@@ -263,9 +323,8 @@ def _rg_state_shapes(cfg, L, batch):
 
 
 def cache_shapes(cfg, batch: int, seq_len: int) -> Dict:
-    """The cache's tensors on the meta device (the JAX package also
-    returns their logical sharding names, which belong to sharding, not
-    ported yet)."""
+    """The cache's tensors on the meta device (the reference's first half;
+    ``cache_logical`` is its second)."""
     g, r = _counts(cfg)
     kv, hd = cfg.num_kv_heads, cfg.head_dim
     win = min(cfg.local_window, seq_len)
@@ -283,12 +342,32 @@ def cache_shapes(cfg, batch: int, seq_len: int) -> Dict:
     }
 
 
-def prefill(cfg, params: Hybrid, batch):
+def cache_logical(cfg) -> Dict:
+    """The logical dims of ``cache_shapes``' tensors."""
+    rg = {"conv": "layers batch . lru", "h": "layers batch lru"}
+    return {
+        "groups": {
+            "rg1": dict(rg),
+            "rg2": dict(rg),
+            "attn_k": "layers batch cache_seq kv_heads .",
+            "attn_v": "layers batch cache_seq kv_heads .",
+        },
+        "rest": dict(rg),
+        "lengths": "batch",
+    }
+
+
+def prefill(cfg, params: Hybrid, batch, ctx: ShardCtx = NULL_CTX):
     """Run the full prompt; returns (cache, last-position logits). The
     local-attention caches keep the last min(window, S) keys and values in
     ring order (position p at slot p % window)."""
+    with ctx.scope():
+        return _prefill(cfg, params, batch, ctx)
+
+
+def _prefill(cfg, params, batch, ctx):
     tokens = batch["tokens"]
-    h = embed_tokens(tokens, params.embed)
+    h = embed_tokens(tokens, params.embed, ctx)
     b, s = tokens.shape
     pos = position_ids(b, s, tokens.device)
     w = cfg.d_model
@@ -305,16 +384,16 @@ def prefill(cfg, params: Hybrid, batch):
 
     st1, st2, ks, vs = [], [], [], []
     for gp in params.groups:
-        h, st = rg_block(cfg, gp["rg1"], h, zero_state)
+        h, st = rg_block(cfg, gp["rg1"], h, zero_state, ctx)
         st1.append(st)
-        h, st = rg_block(cfg, gp["rg2"], h, zero_state)
+        h, st = rg_block(cfg, gp["rg2"], h, zero_state, ctx)
         st2.append(st)
-        h, (k, v) = attn_block(cfg, gp["attn"], h, pos)
+        h, (k, v) = attn_block(cfg, gp["attn"], h, pos, ctx)
         ks.append(ring_align(k))
         vs.append(ring_align(v))
     rest = []
     for lp in params.rest:
-        h, st = rg_block(cfg, lp, h, zero_state)
+        h, st = rg_block(cfg, lp, h, zero_state, ctx)
         rest.append(st)
     cache = {"lengths": torch.full((b,), s, dtype=torch.int32,
                                    device=h.device)}
@@ -326,7 +405,7 @@ def prefill(cfg, params: Hybrid, batch):
     if rest:
         cache["rest"] = stacked(rest)
     h = rms_norm(h, params.final_norm, cfg.norm_eps)
-    logits = lm_logits(h[:, -1:], params.out_head, cfg.vocab_size)[:, 0]
+    logits = lm_logits(h[:, -1:], params.out_head, cfg.vocab_size, ctx)[:, 0]
     return cache, logits
 
 
@@ -334,7 +413,7 @@ def _layer_state(states: Dict, i: int) -> Dict:
     return {"conv": states["conv"][i], "h": states["h"][i]}
 
 
-def decode_step(cfg, params: Hybrid, cache, batch):
+def decode_step(cfg, params: Hybrid, cache, batch, ctx: ShardCtx = NULL_CTX):
     """One token for every sequence. batch: {"token": (B,) int32}.
 
     The RG-LRU blocks run as in the forward at S = 1 from their cached
@@ -342,8 +421,13 @@ def decode_step(cfg, params: Hybrid, cache, batch):
     blocks write the new token's K/V into their ring caches in place
     (``attention.decode_attention_block``, the ring as long as the cache).
     Returns the new cache with the lengths advanced by one."""
+    with ctx.scope():
+        return _decode_step(cfg, params, cache, batch, ctx)
+
+
+def _decode_step(cfg, params, cache, batch, ctx):
     token = batch["token"]
-    h = embed_tokens(token[:, None], params.embed)
+    h = embed_tokens(token[:, None], params.embed, ctx)
     lengths = cache["lengths"]
     new_cache = {"lengths": lengths + 1}
 
@@ -351,27 +435,30 @@ def decode_step(cfg, params: Hybrid, cache, batch):
     if len(params.groups):
         gc = cache["groups"]
         for i, gp in enumerate(params.groups):
-            h, st = rg_block(cfg, gp["rg1"], h, _layer_state(gc["rg1"], i))
+            h, st = rg_block(cfg, gp["rg1"], h, _layer_state(gc["rg1"], i),
+                             ctx)
             st1.append(st)
-            h, st = rg_block(cfg, gp["rg2"], h, _layer_state(gc["rg2"], i))
+            h, st = rg_block(cfg, gp["rg2"], h, _layer_state(gc["rg2"], i),
+                             ctx)
             st2.append(st)
             lp = gp["attn"]
             a_in = rms_norm(h, lp["attn_norm"], cfg.norm_eps)
             a_out, _, _ = attn.decode_attention_block(
                 cfg, a_in, lp, gc["attn_k"][i], gc["attn_v"][i], lengths,
-                window=gc["attn_k"].shape[2])
+                ctx, window=gc["attn_k"].shape[2])
             h = h + a_out
             m_in = rms_norm(h, lp["mlp_norm"], cfg.norm_eps)
-            h = h + swiglu_mlp(m_in, lp["w_gate"], lp["w_up"], lp["w_down"])
+            h = h + swiglu_mlp(m_in, lp["w_gate"], lp["w_up"], lp["w_down"],
+                               ctx)
         new_cache["groups"] = {"rg1": stacked(st1),
                                "rg2": stacked(st2),
                                "attn_k": gc["attn_k"], "attn_v": gc["attn_v"]}
     if len(params.rest):
         rest = []
         for i, lp in enumerate(params.rest):
-            h, st = rg_block(cfg, lp, h, _layer_state(cache["rest"], i))
+            h, st = rg_block(cfg, lp, h, _layer_state(cache["rest"], i), ctx)
             rest.append(st)
         new_cache["rest"] = stacked(rest)
     h = rms_norm(h, params.final_norm, cfg.norm_eps)
-    logits = lm_logits(h, params.out_head, cfg.vocab_size)[:, 0]
+    logits = lm_logits(h, params.out_head, cfg.vocab_size, ctx)[:, 0]
     return new_cache, logits

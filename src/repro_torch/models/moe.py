@@ -1,8 +1,20 @@
 """MoE decoder family (arctic-480b, grok-1-314b).
 
-Port of ``repro.models.moe`` at world size 1: the reference's
-``moe_ffn`` with no mesh, which runs ``_moe_local`` with ``axis=None``
-and ``ep=False`` (every expert local, no psum). The parameters live in a
+Port of ``repro.models.moe``. With no mesh ``moe_ffn`` runs
+``_moe_local`` with ``axis=None`` and ``ep=False`` (every expert local,
+no psum). On a mesh it keeps the reference's two ``shard_map`` branches
+as ``ShardCtx.local`` calls (each rank's blocks as plain tensors, a sum
+across ranks by functional collectives): activations replicated over
+"model", experts sharded over it where they divide it (EP: each shard
+owns E/model experts) or else d_ff (TP: each shard computes every expert
+on its f-slice), one sum over "model"; and with ``moe_serve_ep2d`` the
+resident-expert layout, experts over "data" and d_ff over "model", the
+tokens replicated, one sum over both. Capacity comes from the tokens of
+one data shard, as there. A mesh whose "model" axis is 1 runs the
+function on every token, replicated. The router kernel runs inside on
+each rank's tokens. The aux loss of a data-sharded call is each rank's
+own (the reference's ``P()`` out-spec with its replication check off
+takes one device's value). The parameters live in a
 ``MoE`` module (``models/params.py``), one ``nn.ParameterDict`` a layer
 holding the dense decoder's attention leaves, the router and the stacked
 experts (``e_gate``/``e_up`` (E, d, f), ``e_down`` (E, f, d)), and the
@@ -29,24 +41,28 @@ a time and an expert leaf an expert at a time: drawing a whole stacked
 expert leaf in float32 first would need 38.7 GB for grok-1's ``e_gate``
 at 6 layers. The numbers are torch's, not ``jax.random``'s.
 
-Not here yet: ``loss_fn`` and ``make_train_step`` (training);
-``param_logical``, ``layer_param_logical``, ``input_specs``,
-``roofline_units`` and the ``shard_map`` branches of ``moe_ffn``,
-``moe_serve_ep2d`` among them (sharding and dry-run).
+``param_logical`` and ``layer_param_logical`` are the reference's
+(``moe_serve_ep2d`` picks the resident-expert layout). Not here yet:
+``loss_fn`` and ``make_train_step`` (training, ROADMAP.md queue 1, item
+2b); ``input_specs`` and ``roofline_units`` (the dry run).
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import all_reduce, axis_index
 from repro_torch.kernels import ref
 from repro_torch.kernels.moe_router import moe_router_tk
 from repro_torch.models import attention as attn
 from repro_torch.models import transformer as tf
 from repro_torch.models.layers import (
+    NULL_CTX,
+    ShardCtx,
     dtype_of,
     lm_logits,
     rms_norm,
@@ -55,6 +71,8 @@ from repro_torch.models.layers import (
 )
 from repro_torch.models.params import Params, count, param_leaves
 from repro_torch.models.params import spec as _spec
+
+AUX_LOSS_COEF = 0.01   # the reference's weight of the aux loss in its loss
 
 EXPERT_LEAVES = ("e_gate", "e_up", "e_down")
 DENSE_MLP = ("w_gate", "w_up", "w_down")
@@ -80,9 +98,41 @@ def layer_param_shapes(cfg) -> Dict[str, torch.Tensor]:
     return shapes
 
 
+def layer_param_logical(cfg) -> Dict[str, str]:
+    logical = tf.layer_param_logical(cfg)
+    if getattr(cfg, "moe_serve_ep2d", False):
+        # resident-expert serving layout: experts over 'data', d_ff over
+        # 'model' — matches the ep2d local call's placements exactly
+        logical.update({
+            "router": "layers d_model_w .",
+            "e_gate": "layers experts_data . d_ff",
+            "e_up": "layers experts_data . d_ff",
+            "e_down": "layers experts_data d_ff .",
+        })
+    else:
+        logical.update({
+            # expert_dw shards over "data" in BOTH train (FSDP) and serve
+            # rules: 480B of experts cannot be data-replicated at serve
+            "router": "layers d_model_w .",
+            "e_gate": "layers experts expert_dw d_ff",
+            "e_up": "layers experts expert_dw d_ff",
+            "e_down": "layers experts d_ff expert_dw",
+        })
+    if not cfg.moe_dense_residual:
+        for k in DENSE_MLP:
+            logical.pop(k)
+    return logical
+
+
 def param_shapes(cfg) -> Dict:
     out = tf.param_shapes(cfg)
     out["layers"] = layer_param_shapes(cfg)
+    return out
+
+
+def param_logical(cfg) -> Dict:
+    out = tf.param_logical(cfg)
+    out["layers"] = layer_param_logical(cfg)
     return out
 
 
@@ -199,8 +249,15 @@ def dispatch(idx: torch.Tensor, weights: torch.Tensor, num_experts: int,
             w[: e * capacity].reshape(e, capacity))
 
 
-def _moe_local(x, router_w, wg, wu, wd, *, cfg, capacity):
-    """x (B, S, D) -> ((B, S, D), aux): every expert on this device."""
+def _moe_local(x, router_w, wg, wu, wd, *, cfg, capacity, axis=None,
+               ep: bool = False, expert_axis=None, mesh=None):
+    """Per-shard MoE computation. x: (B_loc, S, D) replicated over
+    ``axis`` -> ((B_loc, S, D), aux).
+
+    ``axis``: the mesh axis (or axes) the partial outputs are summed over
+    (None: every expert and the whole d_ff here, no sum). With ``ep`` this
+    shard holds a block of ``wg.shape[0]`` experts, the one at its
+    coordinate along ``expert_axis`` (default ``axis``)."""
     b, s, d = x.shape
     t = b * s
     xf = x.reshape(t, d)
@@ -208,6 +265,10 @@ def _moe_local(x, router_w, wg, wu, wd, *, cfg, capacity):
     weights, idx = moe_router_tk(logits, cfg.num_experts_per_tok)
     aux = aux_loss(logits, idx)
     tok, w = dispatch(idx, weights, cfg.num_experts, capacity)
+    e_loc = wg.shape[0]
+    if ep and axis is not None:   # local expert slice
+        e0 = axis_index(mesh, expert_axis or axis) * e_loc
+        tok, w = tok[e0:e0 + e_loc], w[e0:e0 + e_loc]
 
     xpad = torch.cat([xf, torch.zeros((1, d), dtype=xf.dtype,
                                       device=xf.device)])
@@ -220,63 +281,114 @@ def _moe_local(x, router_w, wg, wu, wd, *, cfg, capacity):
 
     y = torch.zeros((t + 1, d), dtype=ye.dtype, device=ye.device).index_add_(
         0, tok.reshape(-1), ye.reshape(-1, d))[:t]
+    if axis is not None:
+        y = all_reduce(y, "sum", mesh, axis)
     return y.reshape(b, s, d), aux
 
 
-def moe_ffn(cfg, lp, x):
-    """(B, S, D) -> ((B, S, D), aux_loss), capacity from the B*S tokens
-    (one data shard)."""
+def moe_ffn(cfg, lp, x, ctx: ShardCtx = NULL_CTX):
+    """(B, S, D) -> ((B, S, D), aux_loss)."""
+    e = cfg.num_experts
+    model_size = ctx.axis_size("model")
+    # capacity from the PER-DATA-SHARD token count (what each shard routes)
+    dp = 1
+    if ctx.mesh is not None:
+        for a in ("pod", "data"):
+            dp *= ctx.axis_size(a)
     b, s, _ = x.shape
-    capacity = _capacity(cfg, max(1, b * s))
-    return _moe_local(x, lp["router"], lp["e_gate"], lp["e_up"],
-                      lp["e_down"], cfg=cfg, capacity=capacity)
+    local_tokens = max(1, (b // max(dp, 1)) * s) if b >= dp else b * s
+    capacity = _capacity(cfg, local_tokens)
+    args = (x, lp["router"], lp["e_gate"], lp["e_up"], lp["e_down"])
+    fn = functools.partial(_moe_local, cfg=cfg, mesh=ctx.mesh)
+
+    if ctx.mesh is None or model_size <= 1:
+        fn = functools.partial(fn, capacity=capacity)
+        if ctx.mesh is None:
+            return fn(*args)
+        rep = (None, None, None)   # every token and expert on every rank
+        return ctx.local(fn, args, (rep, rep[:2], rep, rep, rep),
+                         (0, ctx.places((), "")))
+
+    scalar = ctx.places((), "")
+    rs = (None, None)
+    # resident-expert 2D EP for small-token steps: experts over 'data',
+    # d_ff over 'model', tokens replicated; one sum over both axes
+    data_size = ctx.axis_size("data")
+    if (getattr(cfg, "moe_serve_ep2d", False) and data_size > 1
+            and e % data_size == 0 and b * s <= 4096):
+        fn = functools.partial(fn, capacity=_capacity(cfg, b * s),
+                               axis=("data", "model"), ep=True,
+                               expert_axis="data")
+        y, aux = ctx.local(
+            fn, args,
+            ((None, None, None), rs, ("data", None, "model"),
+             ("data", None, "model"), ("data", "model", None)),
+            (0, scalar))
+        return ctx.constrain(y, "batch seq d_model"), aux
+
+    ep = e % model_size == 0
+    ba = tuple(a for a in ("pod", "data") if a in ctx.mesh.mesh_dim_names)
+    bspec = ba if len(ba) > 1 else (ba[0] if ba else None)
+    if ep:
+        ws_gu = ws_d = ("model", None, None)
+    else:
+        ws_gu, ws_d = (None, None, "model"), (None, "model", None)
+    fn = functools.partial(fn, capacity=capacity, axis="model", ep=ep)
+    return ctx.local(fn, args, ((bspec, None, None), rs, ws_gu, ws_gu, ws_d),
+                     (0, scalar))
 
 
-def _moe_mlp_fn(cfg, lp, m_in):
-    y, _aux = moe_ffn(cfg, lp, m_in)
+def _moe_mlp_fn(cfg, lp, m_in, ctx: ShardCtx = NULL_CTX):
+    y, _aux = moe_ffn(cfg, lp, m_in, ctx)
     if cfg.moe_dense_residual:
-        y = y + swiglu_mlp(m_in, lp["w_gate"], lp["w_up"], lp["w_down"])
+        y = y + swiglu_mlp(m_in, lp["w_gate"], lp["w_up"], lp["w_down"], ctx)
     return y
 
 
 # --------------------------------------------------------------------------- #
 # blocks / steps                                                               #
 # --------------------------------------------------------------------------- #
-def moe_block(cfg, lp, h, positions):
-    a_in = rms_norm(h, lp["attn_norm"], cfg.norm_eps)
-    a_out, _ = attn.attention_train(cfg, a_in, lp, positions,
+def moe_block(cfg, lp, h, positions, ctx: ShardCtx = NULL_CTX):
+    a_in = tf.sp_gather(cfg, rms_norm(h, lp["attn_norm"], cfg.norm_eps), ctx)
+    a_out, _ = attn.attention_train(cfg, a_in, lp, positions, ctx,
                                     window=cfg.sliding_window)
-    h = h + a_out
-    m_in = rms_norm(h, lp["mlp_norm"], cfg.norm_eps)
-    y, aux = moe_ffn(cfg, lp, m_in)
+    h = tf.sp_constrain(cfg, h + a_out, ctx)
+    m_in = tf.sp_gather(cfg, rms_norm(h, lp["mlp_norm"], cfg.norm_eps), ctx)
+    y, aux = moe_ffn(cfg, lp, m_in, ctx)
     if cfg.moe_dense_residual:
-        y = y + swiglu_mlp(m_in, lp["w_gate"], lp["w_up"], lp["w_down"])
-    return h + y, aux
+        y = y + swiglu_mlp(m_in, lp["w_gate"], lp["w_up"], lp["w_down"], ctx)
+    return tf.sp_constrain(cfg, h + y, ctx), aux
 
 
-def forward(cfg, params: MoE, batch):
+def forward(cfg, params: MoE, batch, ctx: ShardCtx = NULL_CTX):
     """(logits (B, S, V_padded), the layers' aux losses summed)."""
-    h, positions = tf.embed_input(cfg, params, batch)
-    aux_sum = torch.zeros((), dtype=torch.float32, device=h.device)
-    for lp in params.layers:
-        h, aux = moe_block(cfg, lp, h, positions)
-        aux_sum = aux_sum + aux
-    h = rms_norm(h, params.final_norm, cfg.norm_eps)
-    return lm_logits(h, tf.head(cfg, params), cfg.vocab_size), aux_sum
+    with ctx.scope():
+        h, positions = tf.embed_input(cfg, params, batch, ctx)
+        aux_sum = torch.zeros((), dtype=torch.float32, device=h.device)
+        for lp in params.layers:
+            h, aux = moe_block(cfg, lp, h, positions, ctx)
+            aux_sum = aux_sum + aux
+        h = tf.sp_gather(cfg, rms_norm(h, params.final_norm, cfg.norm_eps),
+                         ctx)
+        return (lm_logits(h, tf.head(cfg, params), cfg.vocab_size, ctx),
+                aux_sum)
 
 
 cache_shapes = tf.cache_shapes
+cache_logical = tf.cache_logical
 
 
-def prefill(cfg, params: MoE, batch, pad_cache_to: int | None = None):
+def prefill(cfg, params: MoE, batch, ctx: ShardCtx = NULL_CTX,
+            pad_cache_to: int | None = None):
     """Run the full prompt through the dense decoder's prefill with the MoE
     FFN as its MLP; returns (cache, last-position logits). No moe config
     sets a window or a cache dtype, so the cache keeps K/V in the model's
     dtype as the layers made them, as the reference's does."""
-    return tf.prefill(cfg, params, batch, pad_cache_to, mlp_fn=_moe_mlp_fn)
+    return tf.prefill(cfg, params, batch, ctx, pad_cache_to,
+                      mlp_fn=_moe_mlp_fn)
 
 
-def decode_step(cfg, params: MoE, cache, batch):
+def decode_step(cfg, params: MoE, cache, batch, ctx: ShardCtx = NULL_CTX):
     """One token for every sequence through the dense decoder's step with
     the MoE FFN as its MLP (capacity from the B tokens of the step)."""
-    return tf.decode_step(cfg, params, cache, batch, mlp_fn=_moe_mlp_fn)
+    return tf.decode_step(cfg, params, cache, batch, ctx, mlp_fn=_moe_mlp_fn)

@@ -119,6 +119,51 @@ def get_param(model: Params, name: str):
     return out
 
 
+def layer_logical(logical: str) -> str:
+    """A stacked leaf's logical dims without the leading "layers" (which
+    the rules map to no mesh axis): those of each layer's slice."""
+    dims = logical.split()
+    assert dims[0] == "layers", logical
+    return " ".join(dims[1:])
+
+
+def distribute_params(model: Params, shapes: Dict, logical: Dict, rules,
+                      mesh) -> Params:
+    """Replace every parameter of ``model`` by a ``DTensor`` placed by its
+    leaf of ``logical`` (the family's ``param_logical``), in place; a
+    layer's slice of a stacked leaf by the leaf's dims after "layers".
+    Every rank holds the same values (a seeded draw), and each keeps its
+    block: no collective, and a replicated parameter keeps its storage.
+    A parameter already a ``DTensor`` is left as it is."""
+    from repro_torch.distributed.sharding import distribute, is_dtensor
+
+    flat = dict(param_leaves(logical))
+    for name, _ in param_leaves(shapes):
+        first, *rest = name.split(".")
+        if not rest:
+            owners = [(model, first)]
+            lg = flat[name]
+        else:
+            owners = []
+            for layer in getattr(model, first):
+                for key in rest[:-1]:
+                    layer = layer[key]
+                owners.append((layer, rest[-1]))
+            lg = layer_logical(flat[name])
+        for owner, key in owners:
+            p = owner[key] if isinstance(owner, nn.ParameterDict) else \
+                getattr(owner, key)
+            if is_dtensor(p):
+                continue
+            d = nn.Parameter(distribute(p.data, lg, rules, mesh),
+                             requires_grad=False)
+            if isinstance(owner, nn.ParameterDict):
+                owner[key] = d
+            else:
+                setattr(owner, key, d)
+    return model
+
+
 def stack_layers(tensors: list, s: torch.Tensor, device) -> torch.Tensor:
     """Each layer's tensor stacked over the layers; for a stack of no
     layers (the hybrid's remainder at a multiple of 3 layers), an empty

@@ -1,6 +1,6 @@
 """SSM family (mamba2-370m): attention-free SSD (state-space duality).
 
-Port of ``repro.models.ssm`` at world size 1. Block: in-proj -> depthwise
+Port of ``repro.models.ssm``. Block: in-proj -> depthwise
 causal conv over [x;B;C] -> SSD -> gated RMSNorm -> out-proj. The
 parameters live in an ``SSM`` module (``models/params.py``), one
 ``nn.ParameterDict`` a layer. Serving state is O(1) in context length:
@@ -21,8 +21,12 @@ reference's ``jax.lax.scan`` of ``tf._remat``), and the scan's gradient
 is the hand-written kernel's (``kernels.ssd.Ssd``: one gradient call a
 layer, counted by ``ssd.backward_launches``).
 
-Not here yet, as in transformer.py: ``input_specs``, ``roofline_units``
-and ``param_logical``.
+Sharding: the reference's ``ShardCtx`` through every function (its
+three constraints), ``param_logical`` and ``cache_logical``; on a mesh
+the scan gets each rank's blocks (``ShardCtx.local``: batch over the
+batch axes, heads over "model" where the B/C groups allow it). Not here
+yet, as in transformer.py: ``input_specs`` and ``roofline_units`` (the
+dry run).
 """
 from __future__ import annotations
 
@@ -37,9 +41,12 @@ from repro_torch.kernels.ssd import ssd_bshp
 from repro_torch.models import transformer as tf
 from repro_torch.models.hybrid import causal_conv1d
 from repro_torch.models.layers import (
+    NULL_CTX,
+    ShardCtx,
     dtype_of,
     embed_tokens,
     lm_logits,
+    pad_dim,
     rms_norm,
     softmax_xent,
     stacked,
@@ -93,6 +100,32 @@ def param_shapes(cfg) -> Dict:
     }
 
 
+LAYER_LOGICAL = {
+    "norm": "layers .",
+    "w_z": "layers d_model_w ssm_inner",
+    "w_x": "layers d_model_w ssm_inner",
+    "w_B": "layers d_model_w .",
+    "w_C": "layers d_model_w .",
+    "w_dt": "layers d_model_w ssm_heads",
+    "dt_bias": "layers ssm_heads",
+    "A_log": "layers ssm_heads",
+    "D_skip": "layers ssm_heads",
+    "conv_w": "layers . conv",
+    "conv_b": "layers .",
+    "gated_norm": "layers ssm_inner",
+    "w_out": "layers ssm_inner d_model_w",
+}
+
+
+def param_logical(cfg) -> Dict:
+    return {
+        "embed": "vocab d_model_w",
+        "out_head": "d_model_w vocab",
+        "final_norm": ".",
+        "layers": dict(LAYER_LOGICAL),
+    }
+
+
 def param_count(cfg) -> int:
     return count(param_shapes(cfg))
 
@@ -127,10 +160,33 @@ def init_params(cfg, generator: torch.Generator, *, device="cuda") -> SSM:
 # --------------------------------------------------------------------------- #
 # block                                                                        #
 # --------------------------------------------------------------------------- #
-def _proj_in(lp, x_in):
+def _proj_in(lp, x_in, ctx: ShardCtx = NULL_CTX):
     dt = x_in.dtype
-    return tuple(torch.matmul(x_in, lp[name].to(dt))
-                 for name in ("w_z", "w_x", "w_B", "w_C", "w_dt"))
+    z, xi, Bm, Cm, dtv = (torch.matmul(x_in, lp[name].to(dt))
+                          for name in ("w_z", "w_x", "w_B", "w_C", "w_dt"))
+    z = ctx.constrain(z, "batch seq ssm_inner")
+    xi = ctx.constrain(xi, "batch seq ssm_inner")
+    return z, xi, Bm, Cm, dtv
+
+
+def _scan(ctx, xh, dt, A, Bh, Ch, h0, *, chunk):
+    """``ssd_bshp`` on each rank's blocks: batch over the batch axes and
+    heads over "model" when B and C are one group (every head reads it)
+    or their groups split as the heads do; else every head."""
+    heads = ctx.mesh is not None and (
+        Bh.shape[2] == 1 or ctx.places(Bh.shape, "batch seq ssm_heads .")
+        != ctx.places(Bh.shape, "batch seq . ."))
+    hd = "ssm_heads" if heads else "."
+    grp = "ssm_heads" if heads and Bh.shape[2] > 1 else "."
+    state = f"batch {hd} . ."
+    outs = (0, None)
+    if ctx.mesh is not None:
+        b, _, h, p = xh.shape
+        outs = (0, ctx.places((b, h, p, Bh.shape[3]), state))
+    return ctx.local(
+        functools.partial(ssd_bshp, chunk=chunk), (xh, dt, A, Bh, Ch, h0),
+        (f"batch seq {hd} .", f"batch seq {hd}", hd, f"batch seq {grp} .",
+         f"batch seq {grp} .", state), outs)
 
 
 def _conv_xbc(cfg, lp, xi, Bm, Cm, state=None):
@@ -144,7 +200,7 @@ def _conv_xbc(cfg, lp, xi, Bm, Cm, state=None):
         [state.to(xbc.dtype), xbc], dim=1)
     pad = cw - 1 - tail_src.shape[1]
     if pad > 0:
-        tail_src = F.pad(tail_src, (0, 0, pad, 0))
+        tail_src = pad_dim(tail_src, 1, pad)
     tail = tail_src[:, -(cw - 1):]
     return (out[..., :di], out[..., di:di + g * n], out[..., di + g * n:],
             tail)
@@ -163,12 +219,12 @@ def _gate_out(cfg, lp, y, z):
     return torch.matmul(y, lp["w_out"].to(y.dtype))
 
 
-def ssm_block(cfg, lp, hin, state=None):
+def ssm_block(cfg, lp, hin, state=None, ctx: ShardCtx = NULL_CTX):
     """state: None (train) or {"conv": (B,cw-1,conv_ch), "ssm": (B,H,P,N)}."""
     di, h, p, n, g, conv_ch = _dims(cfg)
     b, s, _ = hin.shape
     x_in = rms_norm(hin, lp["norm"], cfg.norm_eps)
-    z, xi, Bm, Cm, dtv = _proj_in(lp, x_in)
+    z, xi, Bm, Cm, dtv = _proj_in(lp, x_in, ctx)
     conv_state = None if state is None else state["conv"]
     xi, Bm, Cm, tail = _conv_xbc(cfg, lp, xi, Bm, Cm, conv_state)
 
@@ -178,20 +234,22 @@ def ssm_block(cfg, lp, hin, state=None):
     Ch = Cm.reshape(b, s, g, n)
 
     h0 = None if state is None else state["ssm"]
-    y, h_last = ssd_bshp(xh, dt, A, Bh, Ch, h0, chunk=min(64, s))
+    y, h_last = _scan(ctx, xh, dt, A, Bh, Ch, h0, chunk=min(64, s))
     y = y + xh * lp["D_skip"].to(y.dtype)[None, None, :, None]
-    hout = hin + _gate_out(cfg, lp, y.reshape(b, s, di), z)
+    out = ctx.constrain(_gate_out(cfg, lp, y.reshape(b, s, di), z),
+                        "batch seq d_model")
+    hout = hin + out
     if state is None:
         return hout, None
     return hout, {"conv": tail, "ssm": h_last}
 
 
-def _ssm_decode_block(cfg, lp, hin, state):
+def _ssm_decode_block(cfg, lp, hin, state, ctx: ShardCtx = NULL_CTX):
     """Single-token step using the O(1) recurrent form."""
     di, h, p, n, g, conv_ch = _dims(cfg)
     b = hin.shape[0]
     x_in = rms_norm(hin, lp["norm"], cfg.norm_eps)
-    z, xi, Bm, Cm, dtv = _proj_in(lp, x_in)
+    z, xi, Bm, Cm, dtv = _proj_in(lp, x_in, ctx)
     xi1, Bm1, Cm1, tail = _conv_xbc(cfg, lp, xi, Bm, Cm, state["conv"])
 
     dt, A = _dt_A(lp, dtv[:, 0])                     # (B, H), (H,)
@@ -207,34 +265,35 @@ def _ssm_decode_block(cfg, lp, hin, state):
 # --------------------------------------------------------------------------- #
 # forward / loss / serving                                                     #
 # --------------------------------------------------------------------------- #
-def _block(cfg, lp, h):
-    return ssm_block(cfg, lp, h)[0]
+def _block(cfg, lp, h, ctx: ShardCtx = NULL_CTX):
+    return ssm_block(cfg, lp, h, None, ctx)[0]
 
 
-def forward(cfg, params: SSM, batch):
-    h = embed_tokens(batch["tokens"], params.embed)
-    block = tf.remat_where_grad(cfg, functools.partial(_block, cfg), h,
-                                params)
-    for lp in params.layers:
-        h = block(lp, h)
-    h = rms_norm(h, params.final_norm, cfg.norm_eps)
-    return lm_logits(h, params.out_head, cfg.vocab_size)
+def forward(cfg, params: SSM, batch, ctx: ShardCtx = NULL_CTX):
+    with ctx.scope():
+        h = embed_tokens(batch["tokens"], params.embed, ctx)
+        block = tf.remat_where_grad(cfg, functools.partial(_block, cfg), h,
+                                    params)
+        for lp in params.layers:
+            h = block(lp, h, ctx)
+        h = rms_norm(h, params.final_norm, cfg.norm_eps)
+        return lm_logits(h, params.out_head, cfg.vocab_size, ctx)
 
 
-def loss_fn(cfg, params: SSM, batch):
-    logits = forward(cfg, params, batch)
-    loss = softmax_xent(logits, batch["labels"], batch.get("loss_mask"))
+def loss_fn(cfg, params: SSM, batch, ctx: ShardCtx = NULL_CTX):
+    logits = forward(cfg, params, batch, ctx)
+    with ctx.scope():
+        loss = softmax_xent(logits, batch["labels"], batch.get("loss_mask"))
     return loss, {"loss": loss}
 
 
-def make_train_step(cfg, optimizer):
-    return tf.make_train_step(cfg, optimizer, loss=loss_fn)
+def make_train_step(cfg, optimizer, ctx: ShardCtx = NULL_CTX):
+    return tf.make_train_step(cfg, optimizer, ctx, loss=loss_fn)
 
 
 def cache_shapes(cfg, batch: int, seq_len: int) -> Dict:
-    """The cache's tensors on the meta device (the JAX package also
-    returns their logical sharding names, which belong to sharding, not
-    ported yet)."""
+    """The cache's tensors on the meta device (the reference's first half;
+    ``cache_logical`` is its second)."""
     di, h, p, n, g, conv_ch = _dims(cfg)
     L, cw = cfg.num_layers, cfg.ssm_conv_width
     return {
@@ -244,11 +303,25 @@ def cache_shapes(cfg, batch: int, seq_len: int) -> Dict:
     }
 
 
-def prefill(cfg, params: SSM, batch):
+def cache_logical(cfg) -> Dict[str, str]:
+    """The logical dims of ``cache_shapes``' tensors."""
+    return {
+        "conv": "layers batch . .",
+        "ssm": "layers batch ssm_heads . .",
+        "lengths": "batch",
+    }
+
+
+def prefill(cfg, params: SSM, batch, ctx: ShardCtx = NULL_CTX):
     """Run the full prompt from a zero state; returns (cache, last-position
     logits)."""
+    with ctx.scope():
+        return _prefill(cfg, params, batch, ctx)
+
+
+def _prefill(cfg, params, batch, ctx):
     tokens = batch["tokens"]
-    h = embed_tokens(tokens, params.embed)
+    h = embed_tokens(tokens, params.embed, ctx)
     b, s = tokens.shape
     di, hh, p, n, g, conv_ch = _dims(cfg)
     zero = {
@@ -259,25 +332,28 @@ def prefill(cfg, params: SSM, batch):
     }
     states = []
     for lp in params.layers:
-        h, st = ssm_block(cfg, lp, h, zero)
+        h, st = ssm_block(cfg, lp, h, zero, ctx)
         states.append(st)
     h = rms_norm(h, params.final_norm, cfg.norm_eps)
-    logits = lm_logits(h[:, -1:], params.out_head, cfg.vocab_size)[:, 0]
+    logits = lm_logits(h[:, -1:], params.out_head, cfg.vocab_size, ctx)[:, 0]
     cache = dict(stacked(states),
                  lengths=torch.full((b,), s, dtype=torch.int32,
                                     device=h.device))
     return cache, logits
 
 
-def decode_step(cfg, params: SSM, cache, batch):
+def decode_step(cfg, params: SSM, cache, batch, ctx: ShardCtx = NULL_CTX):
     """One token for every sequence. batch: {"token": (B,) int32}. Returns
     the new cache (new conv tails and states) with the lengths advanced by
     one."""
-    h = embed_tokens(batch["token"][:, None], params.embed)
-    states = []
-    for lp, conv, ssm_st in zip(params.layers, cache["conv"], cache["ssm"]):
-        h, st = _ssm_decode_block(cfg, lp, h, {"conv": conv, "ssm": ssm_st})
-        states.append(st)
-    h = rms_norm(h, params.final_norm, cfg.norm_eps)
-    logits = lm_logits(h, params.out_head, cfg.vocab_size)[:, 0]
-    return dict(stacked(states), lengths=cache["lengths"] + 1), logits
+    with ctx.scope():
+        h = embed_tokens(batch["token"][:, None], params.embed, ctx)
+        states = []
+        for lp, conv, ssm_st in zip(params.layers, cache["conv"],
+                                    cache["ssm"]):
+            h, st = _ssm_decode_block(cfg, lp, h,
+                                      {"conv": conv, "ssm": ssm_st}, ctx)
+            states.append(st)
+        h = rms_norm(h, params.final_norm, cfg.norm_eps)
+        logits = lm_logits(h, params.out_head, cfg.vocab_size, ctx)[:, 0]
+        return dict(stacked(states), lengths=cache["lengths"] + 1), logits

@@ -1,6 +1,6 @@
 """Dense GQA decoder LM: parameters, forward, prefill and decode.
 
-Port of ``repro.models.transformer`` at world size 1. The parameters live
+Port of ``repro.models.transformer``. The parameters live
 in a ``Transformer`` module (``models/params.py``) whose tensors keep the
 JAX package's shapes, one ``nn.ParameterDict`` a layer (``wq`` (d, H,
 hd), ``wo`` (H, hd, d), ...), so that ``convert.transformer_params`` is a
@@ -12,8 +12,18 @@ Training: ``loss_fn`` and ``make_train_step`` as the reference's, with
 ``torch.autograd`` over the trainable leaves (the flash kernel's gradient
 is a kernel too: ``kernels.flash_attention.FlashAttention``) and
 ``cfg.remat`` as ``torch.utils.checkpoint`` around each block
-(``_remat``). Not here yet: ``input_specs``, ``roofline_units`` and
-``param_logical`` (dry-run and sharding).
+(``_remat``).
+
+Sharding: every function takes the reference's ``ShardCtx`` (last,
+``NULL_CTX`` by default) with its constraints at the reference's sites
+(``seq_parallel``'s "batch seq_sp d_model", the microbatches, the
+prefill cache), and ``param_logical`` / ``layer_param_logical`` /
+``cache_logical`` give the reference's logical names (``cache_shapes``
+returns the shapes alone; ``cache_logical`` is the reference's second
+half). On a mesh the parameter module holds ``DTensor``s
+(``params.distribute_params``) and the step updates each rank's blocks.
+Not here yet: ``input_specs`` and ``roofline_units`` (the dry run,
+ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -23,11 +33,16 @@ from typing import Dict
 import torch
 from torch.utils import checkpoint as ckpt
 
+from repro_torch.distributed.sharding import distribute, is_dtensor, plain
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import (
+    NULL_CTX,
+    ShardCtx,
     dtype_of,
     embed_tokens,
+    grad_in_place,
     lm_logits,
+    pad_dim,
     position_ids,
     rms_norm,
     softmax_xent,
@@ -63,6 +78,29 @@ def layer_param_shapes(cfg) -> Dict[str, torch.Tensor]:
     }
 
 
+PRODUCTION_MODEL_AXIS = 16  # the reference's production mesh's model axis
+
+
+def layer_param_logical(cfg) -> Dict[str, str]:
+    # Archs whose head count doesn't divide the model axis (arctic/llava 56,
+    # whisper 12, smollm 9) would REPLICATE their attention projections —
+    # GBs per chip at serve. Shard them on the feature dim instead
+    # ("attn_dw": data at train [= FSDP, unchanged], model at serve).
+    div = cfg.num_heads % PRODUCTION_MODEL_AXIS == 0
+    adw = "d_model_w" if div else "attn_dw"
+    return {
+        "attn_norm": "layers .",
+        "wq": f"layers {adw} heads .",
+        "wk": f"layers {adw} kv_heads .",
+        "wv": f"layers {adw} kv_heads .",
+        "wo": f"layers heads . {adw}",
+        "mlp_norm": "layers .",
+        "w_gate": "layers d_model_w d_ff",
+        "w_up": "layers d_model_w d_ff",
+        "w_down": "layers d_ff d_model_w",
+    }
+
+
 def param_shapes(cfg) -> Dict:
     d, vp = cfg.d_model, cfg.vocab_padded
     dt = dtype_of(cfg)
@@ -75,6 +113,19 @@ def param_shapes(cfg) -> Dict:
         out["out_head"] = _spec((d, vp), dt)
     if cfg.family == "vlm":
         out["vision_proj"] = _spec((VISION_FEAT_DIM, d), dt)
+    return out
+
+
+def param_logical(cfg) -> Dict:
+    out = {
+        "embed": "vocab d_model_w",
+        "final_norm": ".",
+        "layers": layer_param_logical(cfg),
+    }
+    if not cfg.tie_embeddings:
+        out["out_head"] = "d_model_w vocab"
+    if cfg.family == "vlm":
+        out["vision_proj"] = ". d_model_w"
     return out
 
 
@@ -113,13 +164,32 @@ def init_params(cfg, generator: torch.Generator, *, device="cuda") -> Transforme
 # --------------------------------------------------------------------------- #
 # forward                                                                      #
 # --------------------------------------------------------------------------- #
-def dense_block(cfg, lp, h, positions):
-    a_in = rms_norm(h, lp["attn_norm"], cfg.norm_eps)
-    a_out, _ = attn.attention_train(cfg, a_in, lp, positions,
+def sp_constrain(cfg, h, ctx: ShardCtx):
+    """Megatron-SP: with ``cfg.seq_parallel`` the inter-block activations
+    shard SEQ over 'model'."""
+    if getattr(cfg, "seq_parallel", False):
+        return ctx.constrain(h, "batch seq_sp d_model")
+    return h
+
+
+def sp_gather(cfg, x, ctx: ShardCtx):
+    """With ``cfg.seq_parallel``, a normed input (a block's, the final
+    norm's) on whole sequences again before its matmuls: the gather the
+    reference's partitioner puts there (DTensor on torch 2.11 cannot fold
+    a batch- and sequence-sharded activation into a matmul's rows)."""
+    if getattr(cfg, "seq_parallel", False):
+        return ctx.constrain(x, "batch seq d_model")
+    return x
+
+
+def dense_block(cfg, lp, h, positions, ctx: ShardCtx = NULL_CTX):
+    a_in = sp_gather(cfg, rms_norm(h, lp["attn_norm"], cfg.norm_eps), ctx)
+    a_out, _ = attn.attention_train(cfg, a_in, lp, positions, ctx,
                                     window=cfg.sliding_window)
-    h = h + a_out
-    m_in = rms_norm(h, lp["mlp_norm"], cfg.norm_eps)
-    return h + swiglu_mlp(m_in, lp["w_gate"], lp["w_up"], lp["w_down"])
+    h = sp_constrain(cfg, h + a_out, ctx)
+    m_in = sp_gather(cfg, rms_norm(h, lp["mlp_norm"], cfg.norm_eps), ctx)
+    h = h + swiglu_mlp(m_in, lp["w_gate"], lp["w_up"], lp["w_down"], ctx)
+    return sp_constrain(cfg, h, ctx)
 
 
 # the matrix products remat's "dots" policies keep: with and without batch
@@ -168,50 +238,57 @@ def remat_where_grad(cfg, fn, h, params: torch.nn.Module):
 
 
 def stack_forward(cfg, params: Transformer, h, positions,
-                  block_fn=dense_block):
+                  ctx: ShardCtx = NULL_CTX, block_fn=dense_block):
     block = remat_where_grad(cfg, functools.partial(block_fn, cfg), h,
                              params.layers)
     for lp in params.layers:
-        h = block(lp, h, positions)
+        h = block(lp, h, positions, ctx)
     return h
 
 
-def embed_input(cfg, params: Transformer, batch):
+def embed_input(cfg, params: Transformer, batch, ctx: ShardCtx = NULL_CTX):
     """Token (+ optional patch) embedding. Returns (h, positions)."""
     tokens = batch["tokens"]
-    h = embed_tokens(tokens, params.embed)
+    h = embed_tokens(tokens, params.embed, ctx)
     b, s = tokens.shape
     if cfg.family == "vlm":
         patches = batch["patches"].to(h.dtype)  # (B, P, VISION_FEAT_DIM)
         pe = torch.matmul(patches, params.vision_proj.to(h.dtype))
+        pe = ctx.constrain(pe, "batch seq d_model")
         h = torch.cat([pe, h], dim=1)
         s = h.shape[1]
     return h, position_ids(b, s, h.device)
 
 
 def head(cfg, params: Transformer) -> torch.Tensor:
-    return params.embed.T if cfg.tie_embeddings else params.out_head
+    return (grad_in_place(params.embed).T if cfg.tie_embeddings
+            else params.out_head)
 
 
-def forward(cfg, params: Transformer, batch, block_fn=dense_block):
-    h, positions = embed_input(cfg, params, batch)
-    h = stack_forward(cfg, params, h, positions, block_fn)
-    h = rms_norm(h, params.final_norm, cfg.norm_eps)
-    return lm_logits(h, head(cfg, params), cfg.vocab_size)
+def forward(cfg, params: Transformer, batch, ctx: ShardCtx = NULL_CTX,
+            block_fn=dense_block):
+    with ctx.scope():
+        h, positions = embed_input(cfg, params, batch, ctx)
+        h = stack_forward(cfg, params, h, positions, ctx, block_fn)
+        h = sp_gather(cfg, rms_norm(h, params.final_norm, cfg.norm_eps), ctx)
+        return lm_logits(h, head(cfg, params), cfg.vocab_size, ctx)
 
 
-def loss_fn(cfg, params: Transformer, batch, block_fn=dense_block):
-    logits = forward(cfg, params, batch, block_fn)
+def loss_fn(cfg, params: Transformer, batch, ctx: ShardCtx = NULL_CTX,
+            block_fn=dense_block):
+    logits = forward(cfg, params, batch, ctx, block_fn)
     labels = batch["labels"]
     mask = batch.get("loss_mask")
     if cfg.family == "vlm":
         # image patch positions carry no next-token loss
         logits = logits[:, cfg.num_patches:]
-    loss = softmax_xent(logits, labels, mask)
+    with ctx.scope():
+        loss = softmax_xent(logits, labels, mask)
     return loss, {"loss": loss}
 
 
-def make_train_step(cfg, optimizer, block_fn=dense_block, loss=None):
+def make_train_step(cfg, optimizer, ctx: ShardCtx = NULL_CTX,
+                    block_fn=dense_block, loss=None):
     """Returns train_step(params, opt_state, batch) -> (params, opt_state,
     metrics), the reference's step: ``params`` is the family's parameter
     module, updated in place (the reference donates its buffers) and
@@ -223,7 +300,12 @@ def make_train_step(cfg, optimizer, block_fn=dense_block, loss=None):
     their gradients in ``cfg.grad_accum_dtype``, divides by the count and
     averages the loss. The update is ``optimizer.update`` on the stacked
     leaves, then p <- (p + u) in p's dtype; metrics are ``loss`` and
-    ``grad_norm``."""
+    ``grad_norm``, plain tensors.
+
+    On a mesh (``ctx``), the module's parameters and ``opt_state`` are
+    ``DTensor``s and ``batch`` is placed with batch sharding; each
+    gradient is brought to its parameter's placements before the update,
+    which works on each rank's blocks."""
     from repro_torch.models.registry import family_module
 
     loss = loss or functools.partial(loss_fn, block_fn=block_fn)
@@ -235,16 +317,26 @@ def make_train_step(cfg, optimizer, block_fn=dense_block, loss=None):
     def _grad(params, leaves, batch):
         """(loss, metrics, grads): grads keyed as ``leaves``, a layer
         stack's stacked over the layers."""
-        with torch.enable_grad():
-            value, metrics = loss(cfg, params, batch)
+        with torch.enable_grad(), ctx.scope():
+            value, metrics = loss(cfg, params, batch, ctx)
             flat = [t for ts in leaves.values() for t in ts]
             grads = iter(torch.autograd.grad(value, flat))
-        out = {}
-        for name, ts in leaves.items():
-            gs = [next(grads) for _ in ts]
-            out[name] = (stack_layers(gs, specs[name], value.device)
-                         if "." in name else gs[0])
-        return value.detach(), metrics, out
+            out = {}
+            for name, ts in leaves.items():
+                gs = [_like(next(grads), t) for t in ts]
+                out[name] = (stack_layers(gs, specs[name], value.device)
+                             if "." in name else gs[0])
+        return plain(value.detach()), metrics, out
+
+    def _micro(v):
+        """(accum, B / accum, ...) microbatches, batch-sharded on a mesh
+        (the reference's ". batch ..." constraint)."""
+        if not is_dtensor(v):
+            return v.reshape((accum, v.shape[0] // accum) + v.shape[1:])
+        v = v.full_tensor()
+        v = v.reshape((accum, v.shape[0] // accum) + v.shape[1:])
+        return distribute(v, ". batch" + " ." * (v.dim() - 2), ctx.rules,
+                          ctx.mesh)
 
     def train_step(params, opt_state, batch):
         # each leaf's tensors: a top-level leaf (no dot in its name) alone,
@@ -260,15 +352,13 @@ def make_train_step(cfg, optimizer, block_fn=dense_block, loss=None):
             if accum <= 1:
                 _, metrics, grads = _grad(params, leaves, batch)
             else:
-                micro = {k: v.reshape((accum, v.shape[0] // accum) + v.shape[1:])
-                         for k, v in batch.items()}
+                micro = {k: _micro(v) for k, v in batch.items()}
                 gsum = lsum = None
                 for i in range(accum):
                     value, _, g = _grad(params, leaves,
                                         {k: v[i] for k, v in micro.items()})
                     if gsum is None:
-                        gsum = {n: torch.zeros(t.shape, dtype=acc_dt,
-                                               device=t.device)
+                        gsum = {n: torch.zeros_like(t, dtype=acc_dt)
                                 for n, t in g.items()}
                         lsum = torch.zeros((), dtype=torch.float32,
                                            device=value.device)
@@ -287,11 +377,19 @@ def make_train_step(cfg, optimizer, block_fn=dense_block, loss=None):
                 new = (values[name] + updates[name]).to(values[name].dtype)
                 for t, v in zip(ts, new if "." in name else [new]):
                     t.copy_(v)
-        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics = {k: plain(v.detach()) for k, v in metrics.items()}
         metrics["grad_norm"] = optimizer.global_norm(grads)
         return params, opt_state, metrics
 
     return train_step
+
+
+def _like(g, t):
+    """A parameter's gradient in the parameter's placements (autograd may
+    leave a ``DTensor`` gradient partial or laid out otherwise)."""
+    if is_dtensor(g) and tuple(g.placements) != tuple(t.placements):
+        return g.redistribute(t.device_mesh, t.placements)
+    return g
 
 
 # --------------------------------------------------------------------------- #
@@ -310,9 +408,8 @@ def cache_dtype_of(cfg) -> torch.dtype:
 
 
 def cache_shapes(cfg, batch: int, seq_len: int) -> Dict[str, torch.Tensor]:
-    """The cache's tensors on the meta device. The JAX package also
-    returns their logical sharding names, which belong to sharding, not
-    ported yet."""
+    """The cache's tensors on the meta device (the reference's first half;
+    ``cache_logical`` is its second)."""
     L, kv, hd = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
     s = cache_len(cfg, seq_len)
     dt = cache_dtype_of(cfg)
@@ -323,27 +420,44 @@ def cache_shapes(cfg, batch: int, seq_len: int) -> Dict[str, torch.Tensor]:
     }
 
 
-def prefill(cfg, params: Transformer, batch, pad_cache_to: int | None = None,
-            mlp_fn=None):
+def cache_logical(cfg) -> Dict[str, str]:
+    """The logical dims of ``cache_shapes``' tensors (the second half of
+    the reference's ``cache_shapes``)."""
+    return {
+        "k": "layers batch cache_seq kv_heads .",
+        "v": "layers batch cache_seq kv_heads .",
+        "lengths": "batch",
+    }
+
+
+def prefill(cfg, params: Transformer, batch, ctx: ShardCtx = NULL_CTX,
+            pad_cache_to: int | None = None, mlp_fn=None):
     """Run the full prompt; returns (cache, last-position logits).
 
     ``pad_cache_to`` reserves decode headroom: the returned cache's seq dim
     is padded to that length (ring-buffer SWA caches are fixed-size and
-    ignore it). ``mlp_fn`` as in ``decode_step``."""
-    h, positions = embed_input(cfg, params, batch)
+    ignore it). ``mlp_fn`` as in ``decode_step``. On a mesh the cache comes
+    back placed by ``cache_logical``."""
+    with ctx.scope():
+        return _prefill(cfg, params, batch, ctx, pad_cache_to, mlp_fn)
+
+
+def _prefill(cfg, params, batch, ctx, pad_cache_to, mlp_fn):
+    h, positions = embed_input(cfg, params, batch, ctx)
     w = cfg.sliding_window
     cdt = cache_dtype_of(cfg)
     ks, vs = [], []
     for lp in params.layers:
         a_in = rms_norm(h, lp["attn_norm"], cfg.norm_eps)
-        a_out, (k, v) = attn.attention_train(cfg, a_in, lp, positions,
+        a_out, (k, v) = attn.attention_train(cfg, a_in, lp, positions, ctx,
                                              window=w)
         h = h + a_out
         m_in = rms_norm(h, lp["mlp_norm"], cfg.norm_eps)
         if mlp_fn is None:
-            h = h + swiglu_mlp(m_in, lp["w_gate"], lp["w_up"], lp["w_down"])
+            h = h + swiglu_mlp(m_in, lp["w_gate"], lp["w_up"], lp["w_down"],
+                               ctx)
         else:
-            h = h + mlp_fn(cfg, lp, m_in)
+            h = h + mlp_fn(cfg, lp, m_in, ctx)
         if w:
             # ring-buffer layout: slot = position % window
             s = k.shape[1]
@@ -351,46 +465,51 @@ def prefill(cfg, params: Transformer, batch, pad_cache_to: int | None = None,
             shift = s % w if s >= w else 0
             k = torch.roll(k[:, -keep:], shift, dims=1)
             v = torch.roll(v[:, -keep:], shift, dims=1)
-        ks.append(k.to(cdt))
-        vs.append(v.to(cdt))
+        ks.append(ctx.constrain(k.to(cdt), "batch cache_seq kv_heads ."))
+        vs.append(ctx.constrain(v.to(cdt), "batch cache_seq kv_heads ."))
     h = rms_norm(h, params.final_norm, cfg.norm_eps)
-    logits = lm_logits(h[:, -1:], head(cfg, params), cfg.vocab_size)[:, 0]
+    logits = lm_logits(h[:, -1:], head(cfg, params), cfg.vocab_size,
+                       ctx)[:, 0]
     b, s = h.shape[0], h.shape[1]
     ks, vs = torch.stack(ks), torch.stack(vs)
     if pad_cache_to is not None and not w and pad_cache_to > ks.shape[2]:
         pad = pad_cache_to - ks.shape[2]
-        ks = torch.nn.functional.pad(ks, (0, 0, 0, 0, 0, pad))
-        vs = torch.nn.functional.pad(vs, (0, 0, 0, 0, 0, pad))
+        ks = pad_dim(ks, 2, after=pad)
+        vs = pad_dim(vs, 2, after=pad)
+    logical = cache_logical(cfg)
     cache = {
-        "k": ks,
-        "v": vs,
+        "k": ctx.constrain(ks, logical["k"]),
+        "v": ctx.constrain(vs, logical["v"]),
         "lengths": torch.full((b,), s, dtype=torch.int32, device=h.device),
     }
     return cache, logits
 
 
-def decode_step(cfg, params: Transformer, cache, batch, mlp_fn=None):
+def decode_step(cfg, params: Transformer, cache, batch,
+                ctx: ShardCtx = NULL_CTX, mlp_fn=None):
     """One token for every sequence. batch: {"token": (B,) int32}.
 
     Writes the new token's K/V into ``cache["k"]`` and ``cache["v"]`` in
     place and returns them with the lengths advanced by one. ``mlp_fn(cfg,
-    lp, m_in)``, if given, takes the SwiGLU MLP's place (the moe
+    lp, m_in, ctx)``, if given, takes the SwiGLU MLP's place (the moe
     family's FFN)."""
-    token = batch["token"]
-    h = embed_tokens(token[:, None], params.embed)  # (B, 1, D)
-    lengths = cache["lengths"]
-    w = cfg.sliding_window
-    for lp, ck, cv in zip(params.layers, cache["k"], cache["v"]):
-        a_in = rms_norm(h, lp["attn_norm"], cfg.norm_eps)
-        a_out, _, _ = attn.decode_attention_block(cfg, a_in, lp, ck, cv,
-                                                  lengths, window=w)
-        h = h + a_out
-        m_in = rms_norm(h, lp["mlp_norm"], cfg.norm_eps)
-        if mlp_fn is None:
-            h = h + swiglu_mlp(m_in, lp["w_gate"], lp["w_up"], lp["w_down"])
-        else:
-            h = h + mlp_fn(cfg, lp, m_in)
-    h = rms_norm(h, params.final_norm, cfg.norm_eps)
-    logits = lm_logits(h, head(cfg, params), cfg.vocab_size)[:, 0]
+    with ctx.scope():
+        token = batch["token"]
+        h = embed_tokens(token[:, None], params.embed, ctx)  # (B, 1, D)
+        lengths = cache["lengths"]
+        w = cfg.sliding_window
+        for lp, ck, cv in zip(params.layers, cache["k"], cache["v"]):
+            a_in = rms_norm(h, lp["attn_norm"], cfg.norm_eps)
+            a_out, _, _ = attn.decode_attention_block(cfg, a_in, lp, ck, cv,
+                                                      lengths, ctx, window=w)
+            h = h + a_out
+            m_in = rms_norm(h, lp["mlp_norm"], cfg.norm_eps)
+            if mlp_fn is None:
+                h = h + swiglu_mlp(m_in, lp["w_gate"], lp["w_up"],
+                                   lp["w_down"], ctx)
+            else:
+                h = h + mlp_fn(cfg, lp, m_in, ctx)
+        h = rms_norm(h, params.final_norm, cfg.norm_eps)
+        logits = lm_logits(h, head(cfg, params), cfg.vocab_size, ctx)[:, 0]
     new_cache = {"k": cache["k"], "v": cache["v"], "lengths": lengths + 1}
     return new_cache, logits

@@ -13,6 +13,7 @@ from repro_torch.models import transformer as tf
 
 Model = tf.Model
 param_shapes = tf.param_shapes
+param_logical = tf.param_logical
 init_params = tf.init_params
 param_count = tf.param_count
 active_param_count = tf.active_param_count
@@ -22,3 +23,4 @@ make_train_step = tf.make_train_step
 prefill = tf.prefill
 decode_step = tf.decode_step
 cache_shapes = tf.cache_shapes
+cache_logical = tf.cache_logical

@@ -17,8 +17,16 @@ tensors, a slice of ``UPDATE_SLICE`` elements at a time, and returns that
 state: a step then holds one copy of the moments and float32 temporaries
 of one slice, not two copies and a leaf's temporaries (recurrentgemma-9b's
 embedding alone is 1.05 G elements, 4.2 GB a float32 temporary). ``state_shapes`` builds on
-the meta device; ``state_logical`` (sharding names) waits for the port of
-sharding (ROADMAP.md, queue 1, item 4).
+the meta device; ``state_logical`` gives the state's logical dims from the
+parameters' (a name-keyed dict of them, as ``params.param_leaves`` walks
+the family's ``param_logical``).
+
+On a mesh the leaves are ``DTensor``s, each gradient, moment and
+parameter in the same placements: ``AdamW.update`` runs its slices on
+each rank's blocks, and the global norm sums each rank's blocks' squares
+(a replicated leaf's divided by its copies) with one all-reduce over the
+mesh. With one rank, or plain tensors, it is the float32 sum of the
+leaves' sums in their order, as before.
 """
 from __future__ import annotations
 
@@ -27,6 +35,10 @@ from dataclasses import dataclass, field
 from typing import Callable, Dict
 
 import torch
+
+from repro_torch.distributed.sharding import (
+    is_dtensor, local as _local, mesh_all_reduce, parse_dims,
+)
 
 Tree = Dict[str, torch.Tensor]
 
@@ -51,7 +63,21 @@ def cosine_schedule(peak_lr: float, warmup: int, total: int, floor: float = 0.1)
 
 
 def _tree_global_norm(tree: Tree) -> torch.Tensor:
-    leaves = [torch.sum(torch.square(x.to(torch.float32))) for x in tree.values()]
+    """sqrt of the sum of every leaf's squares, a plain float32 0-d
+    tensor."""
+    leaves = [torch.sum(torch.square(_local(x).to(torch.float32)))
+              for x in tree.values()]
+    mesh = next((x.device_mesh for x in tree.values() if is_dtensor(x)), None)
+    if mesh is not None and mesh.size() > 1:
+        sizes = tuple(mesh.shape)
+        for i, x in enumerate(tree.values()):
+            # a plain leaf (a stack of no layers) is on every rank
+            copies = math.prod(n for n, p in zip(sizes, x.placements)
+                               if not p.is_shard()) if is_dtensor(x) \
+                else mesh.size()
+            if copies > 1:
+                leaves[i] = leaves[i] / copies
+        return torch.sqrt(mesh_all_reduce(sum(leaves), "sum", mesh))
     return torch.sqrt(sum(leaves))
 
 
@@ -83,9 +109,9 @@ class AdamW:
         mdt = getattr(torch, self.moment_dtype)
         device = next(iter(params.values())).device
         return {
-            "m": {k: torch.zeros(p.shape, dtype=mdt, device=p.device)
+            "m": {k: torch.zeros_like(p, dtype=mdt)
                   for k, p in params.items()},
-            "v": {k: torch.zeros(p.shape, dtype=mdt, device=p.device)
+            "v": {k: torch.zeros_like(p, dtype=mdt)
                   for k, p in params.items()},
             "count": torch.zeros((), dtype=torch.int32, device=device),
         }
@@ -99,27 +125,44 @@ class AdamW:
             "count": _spec((), torch.int32),
         }
 
+    def state_logical(self, param_logical: Dict[str, str]) -> Dict:
+        return {"m": dict(param_logical), "v": dict(param_logical),
+                "count": ""}  # scalar
+
     def global_norm(self, tree: Tree) -> torch.Tensor:
         return _tree_global_norm(tree)
 
     def update(self, grads: Tree, state: Dict, params: Tree):
         count = _count(state["count"])
         scale = _clip_scale(self.clip_norm, _tree_global_norm(grads))
-        lr = self.schedule(count)
+        lr = self.schedule(_local(count))
         b1, b2 = self.b1, self.b2
         mdt = getattr(torch, self.moment_dtype)
-        cf = count.to(torch.float32)
+        cf = _local(count).to(torch.float32)
         c1, c2 = 1 - b1 ** cf, 1 - b2 ** cf
         updates = {}
         for k, g in grads.items():
             m, v = state["m"][k], state["v"][k]
             if m.dtype != mdt or v.dtype != mdt:
                 raise ValueError(f"AdamW moments of {k} must be {mdt}")
-            out = updates[k] = torch.empty(g.shape, dtype=torch.float32,
-                                           device=g.device)
-            flat = (g.reshape(-1), m.view(-1), v.view(-1),
-                    params[k].reshape(-1), out.view(-1))
-            for i in range(0, g.numel(), UPDATE_SLICE):
+            p = params[k]
+            if is_dtensor(g) and not all(
+                    is_dtensor(t) and t.placements == g.placements
+                    for t in (m, v, p)):
+                raise ValueError(f"AdamW leaf {k}: its gradient, moments "
+                                 "and parameter must share placements")
+            gl = _local(g)
+            out = torch.empty(gl.shape, dtype=torch.float32, device=gl.device)
+            updates[k] = out
+            if is_dtensor(g):
+                from torch.distributed.tensor import DTensor
+
+                updates[k] = DTensor.from_local(
+                    out, g.device_mesh, g.placements, run_check=False,
+                    shape=g.shape, stride=g.stride())
+            flat = (gl.reshape(-1), _local(m).view(-1), _local(v).view(-1),
+                    _local(p).reshape(-1), out.view(-1))
+            for i in range(0, gl.numel(), UPDATE_SLICE):
                 gs, ms, vs, ps, us = (t[i:i + UPDATE_SLICE] for t in flat)
                 gs = gs.to(torch.float32) * scale
                 m32 = b1 * ms.to(torch.float32) + (1 - b1) * gs
@@ -165,6 +208,18 @@ class Adafactor:
                   for k, p in param_shapes.items()},
             "count": _spec((), torch.int32),
         }
+
+    def state_logical(self, param_logical: Dict[str, str]) -> Dict:
+        def z(logical):
+            dims = parse_dims(logical)
+            if len(dims) >= 2:
+                row = " ".join(d or "." for d in dims[:-1])
+                col = " ".join(d or "." for d in (dims[:-2] + dims[-1:]))
+                return {"row": row, "col": col}
+            return {"v": logical}
+
+        return {"f": {k: z(lg) for k, lg in param_logical.items()},
+                "count": ""}
 
     def global_norm(self, tree: Tree) -> torch.Tensor:
         return _tree_global_norm(tree)

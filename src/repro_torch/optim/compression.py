@@ -6,9 +6,13 @@ state and re-added next step, so the compressed all-reduce is unbiased in
 the long run. ``Int8ErrorFeedback(inner)`` wraps an optimizer and
 quantizes the gradients before the inner update (the compressed
 data-parallel collective, modelled numerically), on name-keyed dicts as
-``optim.adamw`` takes them. The reference's ``compressed_psum`` (the
-collective itself, inside ``shard_map``) waits for the port of sharding
-(ROADMAP.md, queue 1, item 4).
+``optim.adamw`` takes them. ``compressed_psum(x, mesh, dim)`` is the
+collective itself, on each rank's block (inside a ``ShardCtx.local``
+body, where the reference's runs inside ``shard_map``): int8-quantize
+with a per-tensor scale, the max of the scales across the mesh axis
+``dim``, an int32 sum, then dequantize; it returns (sum, the number of
+ranks summed) as the reference's does. The collectives are
+``torch.distributed``'s functional ones.
 """
 from __future__ import annotations
 
@@ -30,13 +34,29 @@ def quantize_dequantize(x: torch.Tensor) -> torch.Tensor:
     return q.to(torch.float32) * scale
 
 
+def compressed_psum(x: torch.Tensor, mesh, dim: str):
+    """int8 quantize -> int32 sum over the mesh axis ``dim`` -> dequantize;
+    returns (sum, n)."""
+    from repro_torch.distributed.sharding import all_reduce
+
+    xf = x.to(torch.float32)
+    q, scale = _quantize(xf)
+    # scales differ per shard: the max scale dequantizes conservatively
+    gmax = all_reduce(scale, "max", mesh, dim)
+    q = torch.round(xf / gmax).to(torch.int32)
+    total = all_reduce(q, "sum", mesh, dim)
+    n = all_reduce(torch.ones((), dtype=torch.float32, device=x.device),
+                   "sum", mesh, dim)
+    return total.to(torch.float32) * gmax, n
+
+
 @dataclass(frozen=True)
 class Int8ErrorFeedback:
     inner: Any
 
     def init(self, params):
         return {
-            "err": {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+            "err": {k: torch.zeros_like(p, dtype=torch.float32)
                     for k, p in params.items()},
             "inner": self.inner.init(params),
         }
@@ -47,6 +67,10 @@ class Int8ErrorFeedback:
                     for k, s in param_shapes.items()},
             "inner": self.inner.state_shapes(param_shapes),
         }
+
+    def state_logical(self, param_logical):
+        return {"err": dict(param_logical),
+                "inner": self.inner.state_logical(param_logical)}
 
     def global_norm(self, tree):
         return self.inner.global_norm(tree)
