@@ -2,9 +2,9 @@
 on one CUDA card, then drive the UC1 lost-dog query, the review-triage
 text query, the kernel predicates, the multi-tenant query service, the
 LLM predicate, the ssm, hybrid, encdec and moe model families, the dense
-decoder's training (with UC4's fine-tuned probe), the encdec, hybrid and
-ssm families' training, the on-device cascade filter and the UC2 + UC3
-warehouse-safety example through them.
+decoder's training (with UC4's fine-tuned probe), the encdec, hybrid,
+ssm and moe families' training, the on-device cascade filter and the
+UC2 + UC3 warehouse-safety example through them, and the dry run.
 
     python3 chip_smoke.py [--before DIR]
 
@@ -72,7 +72,10 @@ times them beside these in phase 3 (``before_ms``). Phases, in order:
              through ref.ssd, ref.ssd_bwd), and its library's tensor-core
              instructions counted by kernel in cuobjdump's SASS (TF32
              HMMA in the chunk-state and per-chunk kernels, no F32
-             atomics);
+             atomics); then the router's gradient kernel at grok-1's and
+             arctic-480b's (T, E, k) with tied rows against
+             ref.moe_router_bwd (TOL_TIGHT, 0 at the experts not chosen,
+             the same bits on a rerun), timed beside its bound;
 4. query   — the lost-dog query (5 minutes of 30-fps video) on the card
              under every eddy policy; row ids against the plain version
              on the CPU, launches on the kernel counter and the board;
@@ -176,7 +179,22 @@ times them beside these in phase 3 (``before_ms``). Phases, in order:
              off the mesh and under SERVE_RULES on it, the same storage
              wrapped as DTensors (no bytes allocated): logits bit-equal,
              launches exact; the process group destroyed at the end;
-17. the ``{"kernels": [...]}`` line, then the device line last.
+17. moe train — the dry run of MOE_TRAIN's step and of arctic-480b's
+             one layer on a (1, 1) fake mesh, in a subprocess; then
+             grok-1-314b at full width, 1 of 64 layers, bf16, remat, 4
+             steps of 2 x 512 under choose_optimizer(the whole model)
+             (Adafactor) on build's schedule: launches exact (flash and router, forward,
+             recompute and gradient), a falling loss, the peak memory at
+             most 1 / PREDICTION_FLOOR of the dry run's bytes; a step's
+             times, tokens/s and torch.profiler split; grok-1 reduced in
+             float32 through the kernels against the plain versions
+             (gradients and an Adafactor step); arctic-480b reduced with
+             128 experts through build's step;
+18. dry run — python -m repro_torch.launch.dryrun for smollm-135m
+             train_4k on the (16, 16) single-pod mesh with --roofline in a
+             subprocess (a fake world of 256 ranks): an ok record with
+             FLOPs, a gradient reduction and temporaries, its terms;
+19. the ``{"kernels": [...]}`` line, then the device line last.
 """
 from __future__ import annotations
 
@@ -1210,11 +1228,9 @@ def visible_pairs(s: int, causal: bool, window: int,
                   sk: int | None = None) -> int:
     """(query, key) pairs a causal or sliding-window mask leaves between S
     queries and ``sk`` keys (default S), both from position 0."""
-    sk = s if sk is None else sk
-    i = np.arange(s)
-    lo = np.maximum(i - window + 1, 0) if window > 0 else np.zeros_like(i)
-    hi = np.minimum(i + 1, sk) if causal else np.full_like(i, sk)
-    return int(np.maximum(hi - lo, 0).sum())
+    from repro_torch.kernels import flash_attention
+    return flash_attention.visible_pairs(s, s if sk is None else sk, causal,
+                                         window)
 
 
 def time_flash(q, k, v, *, group: int, causal: bool, window: int,
@@ -2304,10 +2320,7 @@ def time_rglru_case(x, r, i, a_param, h0, label: str) -> dict:
 
 
 # the RG-LRU gradient at recurrentgemma-9b's training shape (B, S, W), and
-# the floating-point operations a (t, w) element takes in csrc/rglru_bwd.cu
-# (two sigmoids, a's exp, the terms of dx, di, da, dr and dL, the walk)
 RGLRU_BWD_SHAPE = (2, 2560, 4096)
-RGLRU_BWD_FLOPS = 35
 
 
 def rglru_bwd_cases(before=None) -> dict:
@@ -2325,7 +2338,7 @@ def rglru_bwd_cases(before=None) -> dict:
     (float32 copies of x, r, i and dout, the earlier float32 kernel, dx,
     dr, di cast back to bf16: ``before_ms``); the bf16 entry point in a
     CUDA graph; and the plain version. Two bounds, each with a_param, h0,
-    dh_last, dh0 and dL and RGLRU_BWD_FLOPS a (t, w): the main path's
+    dh_last, dh0 and dL and ``rglru.BWD_FLOPS`` a (t, w): the main path's
     (``bound_ms``: x, r, i and dout read once in bfloat16, h in float32,
     dx, dr, di written once in bfloat16) and the float32 entry point's
     (``entry_bound_ms``: the eight arrays in float32). Returns {label:
@@ -2422,7 +2435,7 @@ def rglru_bwd_cases(before=None) -> dict:
              "bf16_bit_equal_to_f32_cast": cast}
         rglru.backward_launches = launches_before   # timing calls do not count
         small_bytes = 4 * (2 * w + (0 if h0 is None else 3 * b * w))
-        flops = RGLRU_BWD_FLOPS * b * s * w
+        flops = rglru.BWD_FLOPS * b * s * w
         t.update(zip(("bound_ms", "bound_by"), bound_ms(
             (2 * 7 + 4) * b * s * w + small_bytes, flops)))
         t.update(zip(("entry_bound_ms", "entry_bound_by"), bound_ms(
@@ -2454,15 +2467,6 @@ SSD_BWD_CASES = (
      (2, 512, 8, 64, 2, 128), True, True),
 )
 SSD_BWD_SEED = 23
-
-
-def ssd_bwd_flops(b: int, s: int, h: int, p: int, n: int, chunk: int) -> int:
-    """The gradient's floating-point operations (csrc/ssd_bwd.cu's bound
-    note): per (b, h, chunk) 5 L P N multiply-adds and T (3 N + 2 P) on
-    the triangles, T = L (L + 1) / 2, two operations each."""
-    tri = chunk * (chunk + 1) // 2
-    return 2 * b * h * (s // chunk) * (5 * chunk * p * n
-                                       + tri * (3 * n + 2 * p))
 
 
 def scaled_share(got, want) -> tuple:
@@ -2586,7 +2590,7 @@ def ssd_bwd_cases(mutants: list, before=None) -> dict:
     beside ``before``'s entry point, ``build_before``'s, given), and in a
     CUDA graph, beside
     its bound (x, dt, A, B, C, dy, h0, dh_last read once, the six
-    gradients written once, in float32; ``ssd_bwd_flops`` as 3xTF32 on
+    gradients written once, in float32; ``ssd.bwd_flops`` as 3xTF32 on
     the tensor cores, and on the float32 CUDA cores) and the plain
     versions: torch's autograd through ``ref.ssd`` (the backward pass of
     a recorded graph) and ``ref.ssd_bwd``, the closed form, and at
@@ -2720,7 +2724,7 @@ def ssd_bwd_cases(mutants: list, before=None) -> dict:
         # x, dy, dx; dt, ddt; B, C, dB, dC; A, dA; h0, dh_last, dh0
         nbytes = 4 * (3 * b * s * h * p + 2 * b * s * h + 4 * b * s * g * n
                       + 2 * h + (3 * b * h * p * n if extras else 0))
-        t.update(tensor_core_bound(nbytes, ssd_bwd_flops(b, s, h, p, n, chunk),
+        t.update(tensor_core_bound(nbytes, ssd.bwd_flops(b, s, h, p, n, chunk),
                                  torch.float32))
         extra = (f", the earlier kernel's entry point {t['before_ms']!r} ms"
                  if "before_ms" in t else "")
@@ -2789,6 +2793,81 @@ def time_router_case(logits: torch.Tensor, k: int, label: str,
           f"{out['graph_ms']!r}), plain {out['plain_ms']!r} ms, bound "
           f"{out['bound_ms']!r} ms ({out['bound_by']}); launch floor "
           f"{floor['entry_ms']!r} / {floor['graph_ms']!r} ms", flush=True)
+    return out
+
+
+ROUTER_BWD_CASES = ((1024, 8, 2), (1024, 128, 2))   # grok's, arctic's (T, E, k)
+
+
+def router_bwd_cases(floor: dict) -> dict:
+    """Phase 3 for the router's gradient kernel (``moe_router_bwd``) at
+    grok-1's and arctic-480b's (T, E, k), a third of the rows tied (their
+    logits drawn from four values): the weights and experts from the
+    forward kernel, a cotangent from a numpy seed; the kernel within
+    TOL_TIGHT of ``ref.moe_router_bwd`` (the same products and order: it
+    is bit-equal in practice), exactly 0 at every expert a row did not
+    choose, the same bits on a rerun; timed through its wrapper, at its C
+    entry point and in a CUDA graph, and the plain version, beside its
+    bound (T E 4 bytes written, T k 12 read) and the launch floor."""
+    from repro_torch.kernels import _build, moe_router, ref
+    rng = np.random.default_rng(31)
+    out = {}
+    for t, e, k in ROUTER_BWD_CASES:
+        label = f"T={t} E={e} k={k}"
+        logits = rng.standard_normal((t, e)).astype(np.float32) * 1.6
+        rows = rng.random(t) < 1 / 3
+        logits[rows] = rng.choice(np.float32([-1.0, 0.25, 0.5, 2.0]),
+                                  (int(rows.sum()), e))
+        w, idx = moe_router.moe_router_tk(torch.from_numpy(logits).cuda(), k)
+        dw = torch.from_numpy(rng.standard_normal((t, k)).astype(
+            np.float32)).cuda()
+        got = moe_router.moe_router_bwd(w, idx, dw, e)
+        again = moe_router.moe_router_bwd(w, idx, dw, e)
+        want = ref.moe_router_bwd(w, idx, dw, e)
+        torch.cuda.synchronize()
+        err, ok = within(got, want, **TOL_TIGHT)
+        chosen = torch.zeros((t, e), dtype=torch.bool, device="cuda")
+        chosen.scatter_(1, idx.long(), True)
+        zeros = bool((got[~chosen] == 0).all())
+        same = torch.equal(got, again)
+        bits = torch.equal(got, want)
+        print(f"  moe_router_bwd {label}, {int(rows.sum())} tied rows: "
+              f"max_abs_err {err!r} (bit-equal {bits}), 0 at the experts "
+              f"not chosen {zeros}, the same bits on a rerun {same}",
+              flush=True)
+        if not (ok and zeros and same):
+            raise AssertionError(f"moe_router_bwd disagrees on {label}")
+        res = torch.empty((t, e), device="cuda")
+        args = moe_router.BWD_ARGS.pack(w.data_ptr(), idx.data_ptr(),
+                                        dw.data_ptr(), res.data_ptr(),
+                                        t, e, k, 0)
+        call = _build.load("moe_router").lib.moe_router_bwd
+        stream = torch.cuda.current_stream().cuda_stream
+        if call(args, stream) != 0:
+            raise AssertionError("moe_router_bwd entry point failed")
+        timing = {
+            **paired_ms({"ms": lambda: moe_router.moe_router_bwd(w, idx, dw,
+                                                                  e),
+                         "entry_ms": lambda: call(args, stream)}),
+            "graph_ms": graph_ms(lambda st: call(args, st)),
+            "plain_ms": time_ms(lambda: ref.moe_router_bwd(w, idx, dw, e),
+                                TIME_ITERS),
+            **dict(zip(("bound_ms", "bound_by"), bound_ms(
+                t * e * 4 + t * k * 12, moe_router.bwd_flops(t, k)))),
+            "library_ms": None,   # no single PyTorch call is this gradient
+            "max_abs_err": err, "bit_equal": bits,
+            # what every model-path wrapper now adds before a launch: the
+            # check that its inputs are not fake (``_build.traced``)
+            "fake_check_ms": time_ms(lambda: _build.traced(
+                "moe_router_bwd", 0, (w, idx, dw), (res,)), TIME_ITERS)}
+        print(f"  moe_router_bwd {label}: kernel {timing['ms']!r} ms through "
+              f"the wrapper (entry point {timing['entry_ms']!r}, in a graph "
+              f"{timing['graph_ms']!r}), plain {timing['plain_ms']!r} ms, "
+              f"bound {timing['bound_ms']!r} ms ({timing['bound_by']}); "
+              f"launch floor {floor['entry_ms']!r} / {floor['graph_ms']!r} ms;"
+              f" the wrappers' fake-tensor check {timing['fake_check_ms']!r} "
+              "ms a call", flush=True)
+        out[label] = timing
     return out
 
 
@@ -3880,6 +3959,10 @@ def train_trace(step, params, state, batch) -> dict:
             key = "rglru_backward"
         elif "rglru_kernel" in name:
             key = "rglru_forward"
+        elif "moe_router_bwd" in name:
+            key = "router_backward"
+        elif "moe_router" in name:
+            key = "router_forward"
         elif "ssd_bwd" in name:
             key = "ssd_backward"
         elif "ssd_kernel" in name:
@@ -3898,20 +3981,23 @@ def train_trace(step, params, state, batch) -> dict:
 
 
 def train_counts() -> dict:
-    """The training kernels' launch counters: flash, RG-LRU and SSD
-    forward and gradient."""
-    from repro_torch.kernels import flash_attention, rglru, ssd
+    """The training kernels' launch counters: flash, RG-LRU, SSD and
+    router forward and gradient."""
+    from repro_torch.kernels import flash_attention, moe_router, rglru, ssd
     return {"flash_attention": flash_attention.launches,
             "flash_attention_bwd": flash_attention.backward_launches,
             "rglru": rglru.launches, "rglru_bwd": rglru.backward_launches,
-            "ssd": ssd.launches, "ssd_bwd": ssd.backward_launches}
+            "ssd": ssd.launches, "ssd_bwd": ssd.backward_launches,
+            "moe_router": moe_router.launches,
+            "moe_router_bwd": moe_router.backward_launches}
 
 
 def zero_train_counts() -> None:
-    from repro_torch.kernels import flash_attention, rglru, ssd
+    from repro_torch.kernels import flash_attention, moe_router, rglru, ssd
     flash_attention.launches = flash_attention.backward_launches = 0
     rglru.launches = rglru.backward_launches = 0
     ssd.launches = ssd.backward_launches = 0
+    moe_router.launches = moe_router.backward_launches = 0
 
 
 def family_batches(cfg, b: int, s: int, seed: int):
@@ -4269,6 +4355,303 @@ def run_train_families() -> dict:
         out[fam["arch"]] = run_train_family(fam)
         out[fam["arch"]]["phase_s"] = time.perf_counter() - t0
     return out
+
+
+# --------------------------------------------------------------------------- #
+# phase 17: the moe family trains                                              #
+# --------------------------------------------------------------------------- #
+# grok-1-314b at full width cut to 1 of its 64 layers, bf16, remat, under
+# the optimizer the dry run picks for the whole model (Adafactor: 314 G
+# parameters); the step's shape is phase 11's forward's. Launches a layer
+# and step: the forward and its recompute, and one gradient call, of
+# flash and of the router. grad_accum 0 keeps the dry run's
+# train_overrides (8 microbatches at d_model >= 2048) off, as one card's
+# batch of 2 wants.
+MOE_TRAIN = {"arch": "grok-1-314b", "layers": 1, "shape": (2, 512),
+             "steps": 4, "rounds": 3,
+             "a_layer": {"flash_attention": 2, "flash_attention_bwd": 1,
+                         "moe_router": 2, "moe_router_bwd": 1}}
+# arctic-480b's one layer at full width (13.9 G parameters) outgrows the
+# card: the dry run says by how much, and arctic reduced with its 128
+# experts takes the steps instead
+MOE_PREDICTED = (("grok-1-314b", 1), ("arctic-480b", 1))
+TRAIN_SCHEDULE = (3e-4, 20, 1000)   # launch.train.build's (lr, warmup, total)
+PREDICTION_FLOOR = 0.8   # the dry run's bytes against the card's peak
+
+# the dry run of a step on a (1, 1) fake mesh, in a process of its own:
+# argv is (B, S) and then arch:layers pairs; prints one JSON line
+DRYRUN_STEP = r"""
+import dataclasses, json, sys
+from repro_torch.configs import get_config, get_shape
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import make_fake_mesh, start_fake_world
+b, s = int(sys.argv[1]), int(sys.argv[2])
+shape = dataclasses.replace(get_shape("train_4k"), global_batch=b, seq_len=s)
+start_fake_world(1)
+mesh = make_fake_mesh((1, 1))
+out = {}
+for pair in sys.argv[3:]:
+    arch, layers = pair.split(":")
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, num_layers=int(layers), grad_accum=0)
+    sample, times = dryrun.compile_cell(cfg, shape, mesh,
+                                        opt=dryrun.choose_optimizer(full))
+    out[pair] = {"mem": sample.mem, "flops": sample.flops,
+                 "bytes_accessed": sample.bytes_accessed, "times": times,
+                 "optimizer": type(dryrun.choose_optimizer(full)).__name__}
+print(json.dumps(out))
+"""
+
+
+def moe_optimizer(full):
+    """``choose_optimizer(full)`` (Adafactor for grok's and arctic's 314 G
+    and 480 G parameters) on ``build``'s learning-rate schedule: its
+    default constant 1e-3 moves every weight of a freshly drawn layer by
+    ~5% of its scale a step (Adafactor's update is about the rate itself),
+    which sends the loss up (12.6 -> 41.5 in 4 steps, seen on the card)."""
+    import dataclasses
+    from repro_torch.launch.dryrun import choose_optimizer
+    from repro_torch.optim import cosine_schedule
+    return dataclasses.replace(choose_optimizer(full),
+                               schedule=cosine_schedule(*TRAIN_SCHEDULE))
+
+
+def dryrun_predictions(b: int, s: int) -> dict:
+    """MOE_PREDICTED's steps at (b, s) through the dry run (a fake world
+    of one rank, a (1, 1) mesh, fake CUDA tensors: nothing allocated on
+    the card, no kernel launched), in a subprocess."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    proc = subprocess.run(
+        [sys.executable, "-c", DRYRUN_STEP, str(b), str(s),
+         *(f"{a}:{n}" for a, n in MOE_PREDICTED)],
+        env=env, capture_output=True, text=True, timeout=600, cwd=ROOT)
+    if proc.returncode != 0:
+        raise AssertionError(f"the dry run of the moe steps failed:\n"
+                             f"{proc.stderr[-3000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def moe_gate() -> dict:
+    """grok-1 reduced in float32 (2 layers, 4 experts, remat; seed
+    TRAIN_SEED): the loss's gradients through the kernels against the
+    same through the plain versions (``plain_kernels``), each within
+    GATE_GRAD_RTOL |plain| + GATE_GRAD_ATOL max|plain| of its leaf; one
+    Adafactor step's parameters within twice its learning rate (a near-0
+    gradient may take either sign); launches a pass exact."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models.params import stacked
+    from repro_torch.models.registry import model_api
+    cfg = dataclasses.replace(get_config("grok-1-314b").reduce_for_smoke(),
+                              dtype="float32", remat=True)
+    api = model_api(cfg)
+    shapes = api.param_shapes(cfg)
+    opt = moe_optimizer(get_config("grok-1-314b"))
+    batch = family_batches(cfg, 2, 128, TRAIN_SEED)()
+
+    def model():
+        return api.init_params(cfg, torch.Generator("cuda").manual_seed(
+            TRAIN_SEED), device="cuda")
+
+    def stepped():
+        m = model()
+        api.make_train_step(cfg, opt)(m, opt.init(stacked(m, shapes)), batch)
+        return stacked(m, shapes)
+
+    zero_train_counts()
+    k_loss, k_grads = family_grads(api, cfg, model(), batch)
+    launched = {k: v for k, v in train_counts().items() if v}
+    with plain_kernels():
+        p_loss, p_grads = family_grads(api, cfg, model(), batch)
+        p_params = stepped()
+    k_params = stepped()
+    worst = 0.0
+    for name, w in p_grads.items():
+        lim = GATE_GRAD_RTOL * w.abs() + GATE_GRAD_ATOL * w.abs().max()
+        worst = max(worst, share_of(k_grads[name], w, lim))
+    lr = float(opt.schedule(torch.tensor(1)))
+    worst_p = max(float((k_params[n] - p_params[n]).abs().max())
+                  for n in k_params)
+    want = {k: cfg.num_layers * v for k, v in MOE_TRAIN["a_layer"].items()}
+    print(f"  float32 gate (grok-1 reduced, {cfg.num_layers} layers, "
+          f"{cfg.num_experts} experts, at (2, 128)): loss {k_loss!r} through "
+          f"the kernels, {p_loss!r} through the plain versions; gradients' "
+          f"largest share of their limit {worst!r}; Adafactor's stepped "
+          f"parameters' max_abs_err {worst_p!r} (limit 2 lr = {2 * lr!r}); "
+          f"launches a pass {launched} (want {want})", flush=True)
+    if launched != want:
+        raise AssertionError(f"the moe gate launched {launched}, not {want}")
+    if not (worst <= 1.0 and worst_p <= 2 * lr
+            and abs(k_loss - p_loss) <= 1e-4 * abs(p_loss)):
+        raise AssertionError("grok-1 reduced: the float32 train step through "
+                             "the kernels disagrees with the plain versions")
+    return {"loss": k_loss, "plain_loss": p_loss, "launches": launched,
+            "largest_grad_share_of_limit": worst,
+            "params_max_abs_err": worst_p, "params_limit": 2 * lr}
+
+
+def arctic_steps(steps: int = 3) -> dict:
+    """arctic-480b reduced with its published 128 experts (bf16, remat):
+    ``steps`` steps of ``build``'s step, so that a warp-a-row router and
+    its gradient go through a train step; launches exact, the loss
+    finite."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config("arctic-480b").reduce_for_smoke(),
+                              num_experts=128, dtype="bfloat16", remat=True)
+    zero_train_counts()
+    losses, _ = step_loop(cfg, 2, 128, steps)
+    launched = {k: v for k, v in train_counts().items() if v}
+    want = {k: steps * cfg.num_layers * v
+            for k, v in MOE_TRAIN["a_layer"].items()}
+    print(f"  arctic-480b reduced, 128 experts: {steps} steps, loss "
+          f"{losses[0]!r} -> {losses[-1]!r}, launches {launched} (want "
+          f"{want})", flush=True)
+    if launched != want or not np.isfinite(losses).all():
+        raise AssertionError("arctic-480b reduced: the train steps went "
+                             "wrong")
+    return {"layers": cfg.num_layers, "experts": cfg.num_experts,
+            "losses": losses, "launches": launched}
+
+
+def run_train_moe(card: str) -> dict:
+    """Phase 17: the dry run's prediction of MOE_TRAIN's step (and
+    arctic's), then grok-1-314b at full width, 1 of 64 layers, trains on
+    the card through the flash and router kernels and their gradients:
+    the counters set to 0 just before the steps and read just after
+    (launches exact), a falling loss, the peak memory beside the
+    prediction (which must be at least PREDICTION_FLOOR of it); a step's
+    times, tokens/s and torch.profiler split; the float32 gate
+    (``moe_gate``) and arctic reduced's steps (``arctic_steps``)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models.params import stacked
+    from repro_torch.models.registry import model_api
+    m = MOE_TRAIN
+    b, s = m["shape"]
+    full = get_config(m["arch"])
+    cfg = dataclasses.replace(full, num_layers=m["layers"], grad_accum=0)
+    api = model_api(cfg)
+    opt = moe_optimizer(full)
+    t0 = time.perf_counter()
+    preds = dryrun_predictions(b, s)
+    for pair, p in preds.items():
+        mem = p["mem"]
+        print(f"  dry run of {pair} layer(s) at ({b}, {s}) under "
+              f"{p['optimizer']}: arguments {mem['argument_bytes'] / 1e9!r} GB "
+              f"+ temporaries {mem['temp_bytes'] / 1e9!r} GB = "
+              f"{(mem['argument_bytes'] + mem['temp_bytes']) / 1e9!r} GB a "
+              f"card; {p['flops']!r} FLOPs; kernels {mem['kernels']} "
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    mem = preds[f"{m['arch']}:{m['layers']}"]["mem"]
+    predicted = mem["argument_bytes"] + mem["temp_bytes"]
+    print(f"  {cfg.name}: {cfg.num_layers} of {full.num_layers} layers, "
+          f"d_model {cfg.d_model}, {cfg.num_experts} experts of d_ff "
+          f"{cfg.d_ff}, top-{cfg.num_experts_per_tok}, {cfg.dtype}, "
+          f"remat={cfg.remat}; {api.param_count(cfg)} parameters; "
+          f"{type(opt).__name__} ({api.param_count(full)} parameters in the "
+          f"whole model); batch {b} x {s}", flush=True)
+    torch.cuda.empty_cache()
+    params = api.init_params(cfg, torch.Generator("cuda").manual_seed(
+        TRAIN_SEED), device="cuda")
+    state = opt.init(stacked(params, api.param_shapes(cfg)))
+    step = api.make_train_step(cfg, opt)
+    batch = family_batches(cfg, b, s, TRAIN_SEED)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_train_counts()
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(m["steps"]):
+        params, state, metrics = step(params, state, batch())
+        losses.append(float(metrics["loss"]))
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    launches = {k: v for k, v in train_counts().items() if v}
+    peak = torch.cuda.max_memory_allocated()
+    want = {k: m["steps"] * cfg.num_layers * v
+            for k, v in m["a_layer"].items()}
+    print(f"  {m['steps']} steps in {loop_s!r} s; loss {losses[0]!r} -> "
+          f"{losses[-1]!r}; launches {launches} (want {want}); peak memory "
+          f"{peak / 1e9!r} GB against the dry run's {predicted / 1e9!r} GB "
+          f"({predicted / peak!r} of it; {card})", flush=True)
+    if launches != want:
+        raise AssertionError(f"{cfg.name}: the steps launched {launches}, "
+                             f"not {want}")
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"{cfg.name}: the loss did not fall")
+    if predicted < PREDICTION_FLOOR * peak:
+        raise AssertionError(f"the dry run predicted {predicted} bytes, "
+                             f"below {PREDICTION_FLOOR} of the card's "
+                             f"{peak}")
+    timed = api.make_train_step(cfg, _Annotated(opt))
+    tbatch = batch()
+    times = family_ms(lambda: timed(params, state, tbatch), m["rounds"])
+    trace = train_trace(timed, params, state, tbatch)
+    timing = {**times, "tokens_per_s": b * s / (times["event_ms"] / 1e3),
+              "trace": trace}
+    print(f"  a train step: {times['event_ms']!r} ms between CUDA events "
+          f"({times['host_ms']!r} ms on the host clock), "
+          f"{timing['tokens_per_s']!r} tokens/s, peak {peak / 1e9!r} GB; one "
+          f"traced step: {trace['device_ms']!r} ms of device time in "
+          f"{trace['wall_ms']!r} ms (busy share {trace['busy_share']!r}), "
+          f"split {trace['split_ms']}, launches {trace['split_launches']} "
+          f"({card})", flush=True)
+    del params, state, step, timed, tbatch
+    torch.cuda.empty_cache()
+    gate = moe_gate()
+    arctic = arctic_steps()
+    return {"arch": cfg.name, "layers": cfg.num_layers,
+            "params": api.param_count(cfg), "optimizer": type(opt).__name__,
+            "steps": m["steps"], "batch": b, "seq": s, "losses": losses,
+            "loop_s": loop_s, "launches": launches,
+            "peak_memory_bytes": peak, "predicted_bytes": predicted,
+            "predictions": preds, "step": timing, "gate": gate,
+            "arctic": arctic}
+
+
+# --------------------------------------------------------------------------- #
+# phase 18: the dry run                                                        #
+# --------------------------------------------------------------------------- #
+DRYRUN_CELL = ("smollm-135m", "train_4k")
+
+
+def run_dryrun() -> dict:
+    """Phase 18: ``python -m repro_torch.launch.dryrun`` for DRYRUN_CELL on
+    the single-pod (16, 16) mesh with --roofline, in a subprocess (a fake
+    world of 256 ranks; nothing launched on the card): the cell's record
+    must be ok, with FLOPs, bytes, a gradient reduction among its
+    collectives and temporaries; its terms printed."""
+    arch, shape = DRYRUN_CELL
+    outdir = os.path.join(ROOT, "chiprun_out", "dryrun")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape, "--mesh", "singlepod", "--roofline", "--force",
+         "--outdir", outdir], env=env, capture_output=True, text=True,
+        timeout=500, cwd=ROOT)
+    wall = time.perf_counter() - t0
+    path = os.path.join(outdir, f"{arch}__{shape}__singlepod.json")
+    if proc.returncode != 0 or not os.path.exists(path):
+        raise AssertionError(f"the dry run failed ({proc.returncode}):\n"
+                             f"{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}")
+    with open(path) as f:
+        rec = json.load(f)
+    colls = {k: v["count"] for k, v in rec["collectives"].items() if v["count"]}
+    terms = rec["roofline"]["terms"]
+    print(f"  {arch} {shape} on (16, 16) in {wall:.1f} s: memory "
+          f"{rec['memory']}; FLOPs a card {rec['per_device']['flops_scan_once']!r}"
+          f", bytes {rec['per_device']['bytes_scan_once']!r}, wire "
+          f"{rec['per_device']['wire_bytes_scan_once']!r}; collectives "
+          f"{colls}; roofline terms {terms}; useful ratio "
+          f"{rec['roofline']['useful_ratio']!r}", flush=True)
+    if not (rec["status"] == "ok" and rec["per_device"]["flops_scan_once"] > 0
+            and colls.get("all-reduce", 0) + colls.get("reduce-scatter", 0)
+            and rec["memory"]["temp_bytes"] > 0):
+        raise AssertionError(f"the dry run's record is wrong: {rec}")
+    return {"wall_s": wall, "record": rec}
 
 
 # --------------------------------------------------------------------------- #
@@ -4719,6 +5102,10 @@ def main() -> int:
     ssd_bwd = ssd_bwd_cases(ssd_bwd_mutants, before)
     max_errs["ssd_bwd"] = max(t["max_abs_err"]
                               for t in ssd_bwd["cases"].values())
+    print()
+    router_bwd = router_bwd_cases(floor_ms)
+    max_errs["moe_router_bwd"] = max(t["max_abs_err"]
+                                     for t in router_bwd.values())
 
     # ------------------------------------------------------------- 4 query
     phase(f"4 lost-dog query, SyntheticVideo({QUERY_FRAMES}, seed={QUERY_SEED})")
@@ -4909,8 +5296,21 @@ def main() -> int:
           "build(cfg, mesh), the other families' forwards under SERVE_RULES")
     mesh = run_mesh()
 
-    # ------------------------------------------------------------- 17 lines
-    phase("17 summary")
+    # ------------------------------------------------------------- 17 moe
+    phase(f"17 moe training: {MOE_TRAIN['arch']} at full width, "
+          f"{MOE_TRAIN['layers']} layer, {MOE_TRAIN['steps']} steps of "
+          f"{MOE_TRAIN['shape'][0]} x {MOE_TRAIN['shape'][1]} under the dry "
+          "run's optimizer, beside the dry run's memory; a float32 gate; "
+          "arctic-480b reduced with 128 experts")
+    moe_train = run_train_moe(card)
+
+    # ------------------------------------------------------------- 18 dryrun
+    phase(f"18 the dry run: {' '.join(DRYRUN_CELL)} on the (16, 16) mesh "
+          "with --roofline")
+    dry = run_dryrun()
+
+    # ------------------------------------------------------------- 19 lines
+    phase("19 summary")
     main_sizes_text = {**triage["sizes"],
                        "rglru": registry["runs"]["rglru"]["sizes"]}
     text_main = {name: max(c, key=lambda b: (c[b], -b))
@@ -4960,6 +5360,9 @@ def main() -> int:
         "families": families,
         "moe": moe_runs,
         "mesh": mesh,
+        "router_bwd": router_bwd,
+        "moe_train": moe_train,
+        "dryrun": dry,
         "total_s": time.perf_counter() - t_start,
     }
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
@@ -4999,7 +5402,7 @@ def main() -> int:
         """``name``'s launches in the counted training steps of phases 12
         and 13."""
         return sum(f["launches"].get(name, 0)
-                   for f in (train, *train_families.values()))
+                   for f in (train, *train_families.values(), moe_train))
 
     text_path = {"moe_router": "triage", "ssd": "triage",
                  "rglru": "registry"}
@@ -5008,7 +5411,7 @@ def main() -> int:
         paths = {text_path[name]: launches[name]}
         if name in COUNTED:
             paths["families"] = family_launches(name)
-        if name in ("rglru", "ssd"):
+        if name in ("rglru", "ssd", "moe_router"):
             paths["train"] = trained(name)
         if name in cascade["launches"]:
             paths["cascade"] = cascade["launches"][name]
@@ -5088,6 +5491,17 @@ def main() -> int:
         "max_abs_err": max_errs["ssd_bwd"],
         "by_shape": {label: measured(t)
                      for label, t in ssd_bwd["cases"].items()},
+    })
+    router_main = next(iter(router_bwd))   # grok-1's (T, E, k)
+    kernels.append({
+        "name": "moe_router_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/moe_router.cu",
+        "replaces": "src/repro/kernels/moe_router.py:43",
+        "launches": trained("moe_router_bwd"),
+        "launches_by_path": {"train": trained("moe_router_bwd")},
+        "shape": router_main, **measured(router_bwd[router_main]),
+        "max_abs_err": max_errs["moe_router_bwd"],
+        "by_shape": {label: measured(t) for label, t in router_bwd.items()},
     })
     print(f"  chip_smoke.py took {summary['total_s']:.1f} s, builds included")
     print(card)

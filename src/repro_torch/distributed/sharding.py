@@ -253,6 +253,47 @@ def distribute(t: torch.Tensor, logical, rules: Rules, mesh) -> torch.Tensor:
     return from_global(t, placements(t.shape, logical, rules, mesh), mesh)
 
 
+def local_shape(shape, places, mesh) -> tuple:
+    """The shape of each rank's block of a global ``shape`` under
+    ``places`` (every sharded dim divides evenly, as ``spec_for``
+    guarantees)."""
+    out = list(shape)
+    for m, p in enumerate(places):
+        if p.is_shard():
+            out[p.dim] //= tuple(mesh.shape)[m]
+    return tuple(out)
+
+
+def tree_shape_dtypes(shapes_tree, logical_tree, rules: Rules, mesh):
+    """The reference's ``ShapeDtypeStruct``s with a sharding: each meta
+    tensor of ``shapes_tree`` as a ``DTensor`` on ``mesh``, placed by its
+    logical dims, whose block is a fake tensor (no storage) on the mesh's
+    device type. Made in the active ``FakeTensorMode`` (the dry run's), or
+    in a new one if none is active."""
+    from torch._guards import detect_fake_mode
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.distributed.tensor import DTensor
+
+    mode = detect_fake_mode() or FakeTensorMode()
+
+    def one(spec, logical):
+        places = placements(spec.shape, logical, rules, mesh)
+        with mode:
+            block = torch.empty(local_shape(spec.shape, places, mesh),
+                                dtype=spec.dtype, device=mesh.device_type)
+        return DTensor.from_local(block, mesh, places, run_check=False,
+                                  shape=spec.shape,
+                                  stride=torch.empty(spec.shape,
+                                                     device="meta").stride())
+
+    def walk(shapes, logical):
+        if isinstance(shapes, dict):
+            return {k: walk(shapes[k], logical[k]) for k in shapes}
+        return one(shapes, logical)
+
+    return walk(shapes_tree, logical_tree)
+
+
 def batch_axes(mesh) -> AxisSpec:
     return _present(mesh, ("pod", "data"))
 
@@ -361,6 +402,48 @@ def all_reduce(t: torch.Tensor, op: str, mesh, axes) -> torch.Tensor:
             t = funcol.all_reduce(t, op, mesh.get_group(a))
     return funcol.wait_tensor(t) if isinstance(
         t, funcol.AsyncCollectiveTensor) else t
+
+
+class _SumAcross(torch.autograd.Function):
+    """A sum over mesh axes whose cotangent passes through as it is: every
+    rank holds the sum and the sum's cotangent, so each rank's share gets
+    that cotangent (the reference's ``psum`` transpose after ``shard_map``
+    divides an output's cotangent by the axes it is replicated over)."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, axes):
+        return all_reduce(t, "sum", mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+def sum_across(t: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """``all_reduce(t, "sum", mesh, axes)``, differentiable (``_SumAcross``)."""
+    return _SumAcross.apply(t, mesh, axes)
+
+
+class _ScaleGrad(torch.autograd.Function):
+    """The identity, its cotangent multiplied by ``scale``."""
+
+    @staticmethod
+    def forward(ctx, t, scale):
+        ctx.scale = scale
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.scale, None
+
+
+def per_rank(t: torch.Tensor, mesh) -> torch.Tensor:
+    """``t``, a value each rank of ``mesh`` computes from its own share and
+    returns as if replicated (a data-sharded moe call's aux loss), with its
+    cotangent divided by the mesh's size: summed back over the ranks (the
+    inputs' partial gradients), the shares' gradients average, as the
+    reference's ``shard_map`` transpose of a ``P()`` output makes them."""
+    return _ScaleGrad.apply(t, 1.0 / mesh.size())
 
 
 def mesh_all_reduce(t: torch.Tensor, op: str, mesh) -> torch.Tensor:

@@ -24,6 +24,7 @@ from pathlib import Path
 from typing import Dict
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -66,7 +67,8 @@ SIGNATURES = {
                             "flash_attention_bwd_route": (
                                 [ctypes.c_char_p], _INT)},
     "hsv_color": {"hsv_color_hist": _PACKED},
-    "moe_router": {"moe_router_tk": _PACKED, "moe_router_tokens": _PACKED},
+    "moe_router": {"moe_router_tk": _PACKED, "moe_router_tokens": _PACKED,
+                   "moe_router_bwd": _PACKED},
     "rglru": {"rglru_bsw": _PACKED, "rglru_tokens": _PACKED},
     "rglru_bwd": {"rglru_bwd": _PACKED},
     "ssd": {"ssd_scan": _PACKED},
@@ -163,3 +165,73 @@ def load(name: str) -> Built:
             if built is None:
                 built = _LOADED[name] = _compile(name)
     return built
+
+
+# --------------------------------------------------------------------------- #
+# tensors with no storage on the card                                          #
+# --------------------------------------------------------------------------- #
+_tracer = None   # the dry run's kernel recorder while it traces, else None
+
+
+def storageless(t) -> bool:
+    """Whether ``t`` is a tensor whose data does not exist: a fake tensor
+    (``FakeTensorMode``; a fake CUDA tensor says ``is_cuda``) or a meta
+    tensor. Its ``data_ptr()`` is no address a kernel may read."""
+    return isinstance(t, torch.Tensor) and (t.is_meta
+                                            or isinstance(t, FakeTensor))
+
+
+def on_card(t: torch.Tensor) -> bool:
+    """Whether a model-path wrapper takes its kernel's path for ``t``: a
+    CUDA tensor, or a fake tensor of any device under the dry run's trace,
+    which stands for the card's step (a CPU-only build of torch cannot
+    differentiate fake CUDA tensors, so the dry run traces fake CPU ones
+    there)."""
+    return t.is_cuda or (_tracer is not None and isinstance(t, FakeTensor))
+
+
+def refuse_fake(kernel: str, *tensors) -> None:
+    """Raise before ``kernel`` would launch on a fake or meta tensor."""
+    if any(storageless(t) for t in tensors):
+        raise RuntimeError(
+            f"the {kernel} kernel got a fake or meta tensor: it launches only "
+            "on tensors whose data lies on the card")
+
+
+def traced(kernel: str, flops: float, reads, writes) -> bool:
+    """Whether a model-path launch of ``kernel`` is to be left out because
+    its inputs (``reads``) are fake: False for tensors on the card (launch
+    it); True under the dry run's trace (``tracing``), which is told the
+    kernel's operations and the bytes it reads and writes (``writes``,
+    allocated by the caller, are fake too, so the trace sees their
+    memory); otherwise ``refuse_fake``'s error."""
+    for t in reads:   # a plain tensor's type is exactly torch.Tensor
+        if t is not None and (type(t) is not torch.Tensor or t.is_meta) \
+                and storageless(t):
+            break
+    else:
+        return False
+    tensors = [t for t in (*reads, *writes) if t is not None]
+    if _tracer is None or any(t.is_meta for t in tensors):
+        refuse_fake(kernel, *tensors)
+    _tracer(kernel, float(flops),
+            sum(t.numel() * t.element_size() for t in tensors))
+    return True
+
+
+class tracing:
+    """``with tracing(record):`` the model-path kernels on fake tensors
+    call ``record(kernel, flops, bytes)`` and launch nothing (the dry
+    run's trace, ``roofline/analysis.py``)."""
+
+    def __init__(self, record):
+        self.record = record
+
+    def __enter__(self):
+        global _tracer
+        self.prev, _tracer = _tracer, self.record
+        return self
+
+    def __exit__(self, *exc):
+        global _tracer
+        _tracer = self.prev

@@ -48,6 +48,18 @@
 //     slot half -- is spread over the lanes with __syncwarp between
 //     levels, over S and then, after the division and the gate product,
 //     over D. Lane 0 runs route on the E logits.
+//   * moe_router_bwd, the weights' gradient (no TPU kernel: the reference
+//     differentiates its plain router through XLA): the renormalised
+//     weights are a softmax over the k chosen logits, so
+//     dlogit[t, idx[t, m]] = w[t, m] * (dw[t, m] - s[t]) with s[t] =
+//     sum_j w[t, j] * dw[t, j] in j order, and 0 at the other experts. One
+//     thread per element of the (T, E) output, so the writes coalesce; a
+//     thread finds its expert among the row's k indices (distinct, k <=
+//     E) and forms s itself from the row's 3k values (L1 serves the
+//     row's other threads). No atomics and no shared state: the same bits
+//     on every run, and equal to kernels/ref.py::moe_router_bwd (same
+//     products and order, no contraction). Bound: bytes, T * E * 4
+//     written and T * k * 12 read.
 // Every sum runs in an order fixed by the shapes, never by the batch, so a
 // row's result does not depend on its batch. The build passes
 // --fmad=false, so no multiply-add is contracted, and nvcc's division is
@@ -82,6 +94,16 @@ struct RouterTokensArgs {
   int b, s, d, e, k, v;
 };
 static_assert(sizeof(RouterTokensArgs) == 72, "RouterTokensArgs must match <6Q6i");
+
+// RouterBwdArgs in the wrapper's struct format.
+struct RouterBwdArgs {
+  const float* w;      // (T, k) the forward's weights
+  const int32_t* idx;  // (T, k) their experts
+  const float* dw;     // (T, k) the weights' cotangent
+  float* dlogits;      // (T, E)
+  int t, e, k, pad;
+};
+static_assert(sizeof(RouterBwdArgs) == 48, "RouterBwdArgs must match <4Q4i");
 
 namespace {
 
@@ -283,6 +305,27 @@ moe_router_tokens_kernel(const RouterTokensArgs a, int rows_per_cta, bool vec) {
   }
 }
 
+__global__ void __launch_bounds__(kThreads)
+moe_router_bwd_kernel(const RouterBwdArgs a) {
+  const long long g = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (g >= (long long)a.t * a.e) return;
+  const int row = (int)(g / a.e);
+  const int col = (int)(g - (long long)row * a.e);
+  const float* wr = a.w + (size_t)row * a.k;
+  const float* dr = a.dw + (size_t)row * a.k;
+  const int32_t* ir = a.idx + (size_t)row * a.k;
+  int m = -1;
+  for (int j = 0; j < a.k; ++j)
+    if (ir[j] == col) m = j;
+  float out = 0.f;
+  if (m >= 0) {
+    float s = 0.f;
+    for (int j = 0; j < a.k; ++j) s = s + wr[j] * dr[j];
+    out = wr[m] * (dr[m] - s);
+  }
+  a.dlogits[g] = out;
+}
+
 }  // namespace
 
 // logits: (T, E) float32, w: (T, k) float32, idx: (T, k) int32, all
@@ -329,5 +372,18 @@ extern "C" int moe_router_tokens(const RouterTokensArgs* a, void* stream) {
   const int blocks = (a->b + rows - 1) / rows;
   moe_router_tokens_kernel<<<blocks, rows * 32, bytes,
                              static_cast<cudaStream_t>(stream)>>>(*a, rows, vec);
+  return (int)cudaGetLastError();
+}
+
+// w, dw: (T, k) float32; idx: (T, k) int32 (distinct in a row, each in
+// [0, E)); dlogits: (T, E) float32; all contiguous on the card; 1 <= k <=
+// E <= 128. Returns cudaGetLastError() after the launch; the caller raises
+// if it is not cudaSuccess.
+extern "C" int moe_router_bwd(const RouterBwdArgs* a, void* stream) {
+  if (a->t <= 0 || a->e <= 0 || a->e > kMaxExpertsWarp || a->k <= 0 || a->k > a->e)
+    return (int)cudaErrorInvalidValue;
+  const long long n = (long long)a->t * a->e;
+  const int blocks = (int)((n + kThreads - 1) / kThreads);
+  moe_router_bwd_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(*a);
   return (int)cudaGetLastError();
 }

@@ -96,6 +96,8 @@ def _launch(q, k_cache, v_cache, lengths, out, layouts, batch: int,
     part = (torch.empty(batch * kv_heads * n * g * (d + 2),
                         dtype=torch.float32, device=q.device)
             if n > 1 else None)
+    _build.refuse_fake("decode_attention", q, k_cache, v_cache, lens, out,
+                       part)
     if _entry is None:
         _entry = _build.load("decode_attention").lib.decode_attention_bshd
     err = _entry(pack_args(q, k_cache, v_cache, lens, out, part, layouts,

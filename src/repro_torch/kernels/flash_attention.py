@@ -30,6 +30,7 @@ from __future__ import annotations
 import struct
 import threading
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import _build, ref
@@ -114,6 +115,23 @@ def _check(q, k, v) -> None:
                          f"{q.dtype}, {k.dtype}, {v.dtype}")
 
 
+def visible_pairs(sq: int, sk: int, causal: bool, window: int) -> int:
+    """(query, key) pairs the mask leaves between Sq queries and Sk keys,
+    both from position 0."""
+    i = np.arange(sq)
+    lo = np.maximum(i - window + 1, 0) if window > 0 else np.zeros_like(i)
+    hi = np.minimum(i + 1, sk) if causal else np.full_like(i, sk)
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+def flops(programs: int, d: int, sq: int, sk: int, causal: bool,
+          window: int, backward: bool = False) -> int:
+    """Operations of a call: 4 a visible (query, key) pair and dim forward
+    (two products), 10 for the gradient (five)."""
+    return ((10 if backward else 4) * programs * d
+            * visible_pairs(sq, sk, causal, window))
+
+
 _entry = None      # the library's C function, looked up once
 _bwd_entry = None  # the gradient library's
 
@@ -133,6 +151,10 @@ def _launch(q, k, v, out, layouts, batch: int, heads: int, group: int,
     if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
         raise ValueError("the last dimension of q, k and v must be "
                          "contiguous")
+    if _build.traced("flash_attention", flops(
+            batch * heads, q.shape[-1], sq, sk, causal, window),
+            (q, k, v), (out, lse)):
+        return out
     if _entry is None:
         _entry = _build.load("flash_attention").lib.flash_attention_bshd
     err = _entry(pack_args(q, k, v, out, layouts, batch, heads, group, sq,
@@ -160,6 +182,10 @@ def _launch_bwd(q, k, v, out, dout, lse, layout, batch: int, heads: int,
         dout = dout.contiguous()
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     delta = torch.empty_like(lse)
+    if _build.traced("flash_attention_bwd", flops(
+            batch * heads, q.shape[-1], sq, sk, causal, window, True),
+            (q, k, v, out, dout, lse), (dq, dk, dv)):
+        return dq, dk, dv
     if _bwd_entry is None:
         _bwd_entry = _build.load("flash_attention_bwd").lib.flash_attention_bwd
     lays = [layout(t, kv) for t, kv in ((q, False), (k, True), (v, True),
@@ -198,7 +224,7 @@ def _forward(q, k, v, kind: str, group: int, causal: bool, window: int,
     """(out, lse): the kernel's result on the card, with each row's
     log-sum-exp when ``with_lse`` (else None); the plain version's on the
     CPU (lse None: the plain gradient recomputes it)."""
-    if not q.is_cuda:
+    if not _build.on_card(q):
         if q.device.type != "cpu":
             raise _not_cuda(q)
         if kind == "bshd":
@@ -241,7 +267,7 @@ class FlashAttention(torch.autograd.Function):
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
         kind, group, causal, window, scale = ctx.args
-        if not q.is_cuda:
+        if not _build.on_card(q):
             plain = (ref.flash_attention_bwd_bshd if kind == "bshd"
                      else ref.flash_attention_bwd)
             kw = {} if kind == "bshd" else {"group": group}

@@ -110,6 +110,7 @@ def hsv_color_hist(
     if ranges.dtype != torch.float32 or not ranges.is_contiguous():
         ranges = ranges.to(torch.float32).contiguous()
     hist = torch.empty((b, c + 1), dtype=torch.float32, device=crops.device)
+    _build.refuse_fake("hsv_color", crops, ranges, hist)
     if _entry is None:
         _entry = _build.load("hsv_color").lib.hsv_color_hist
     err = _entry(pack_args(crops, ranges, hist, b, hh * ww, c),

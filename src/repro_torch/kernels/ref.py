@@ -142,6 +142,27 @@ def moe_topk_router(logits: torch.Tensor, k: int):
     return w.to(logits.dtype), torch.cat(idxs, dim=-1).to(torch.int32)
 
 
+def moe_router_bwd(w: torch.Tensor, idx: torch.Tensor, dw: torch.Tensor,
+                   num_experts: int) -> torch.Tensor:
+    """The logits' gradient of ``moe_topk_router``: (T, E) float32 from the
+    (T, k) weights, their experts and the weights' cotangent.
+
+    The renormalised weights are a softmax over the k chosen logits (the
+    full softmax's sum cancels), so ``dlogit[t, idx[t, m]] = w[t, m] *
+    (dw[t, m] - s[t])`` with ``s[t] = sum_j w[t, j] * dw[t, j]`` taken in
+    j order, and 0 at every expert not chosen; the indices carry none. The
+    kernel (``csrc/moe_router.cu``) computes the same products and sums in
+    the same order."""
+    w, dw = w.to(torch.float32), dw.to(torch.float32)
+    s = torch.zeros_like(w[:, 0])
+    for j in range(w.shape[1]):
+        s = s + w[:, j] * dw[:, j]
+    vals = w * (dw - s[:, None])
+    out = torch.zeros((w.shape[0], num_experts), dtype=torch.float32,
+                      device=w.device)
+    return out.scatter_(1, idx.to(torch.int64), vals)
+
+
 def fixed_sum(x: torch.Tensor, dim: int) -> torch.Tensor:
     """Sum over ``dim`` by halving it, in an order fixed by its length.
 

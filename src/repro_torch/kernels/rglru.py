@@ -54,6 +54,12 @@ def _check_state(a_param: torch.Tensor, h0, b: int, w: int) -> None:
                          f"{None if h0 is None else tuple(h0.shape)}")
 
 
+FLOPS = 12      # the forward's operations an element (``udfs/rooflines.rglru``)
+# the gradient's (csrc/rglru_bwd.cu: two sigmoids, a's exp, the terms of
+# dx, di, da, dr and dL, the walk)
+BWD_FLOPS = 35
+
+
 def _launch(fn: str, pack, ins: list, h0, out_shape: tuple, dev: int,
             device: torch.device):
     """Launch entry ``fn`` on float32 contiguous copies of ``ins`` and h0
@@ -67,6 +73,10 @@ def _launch(fn: str, pack, ins: list, h0, out_shape: tuple, dev: int,
     out = torch.empty(out_shape, dtype=torch.float32, device=device)
     h_last = torch.empty((out_shape[0], out_shape[2]), dtype=torch.float32,
                          device=device)
+    if fn != "rglru_bsw":   # the token entry is the predicates', not the models'
+        _build.refuse_fake("rglru", *ins, out, h_last)
+    elif _build.traced("rglru", FLOPS * out.numel(), ins, (out, h_last)):
+        return out, h_last
     ptrs = [t.data_ptr() for t in ins] + ([] if h0 is not None else [0])
     entry = _entries.get(fn)
     if entry is None:
@@ -84,7 +94,7 @@ def _forward_f32(x, r, i, a_param, h0, c: float):
     """(out, h_last) in float32: the kernel's on the card, the plain
     version's on float32 copies on the CPU."""
     b, s, w = x.shape
-    if not x.is_cuda:
+    if not _build.on_card(x):
         if x.device.type != "cpu":
             raise ValueError(f"rglru_bsw runs on cpu or cuda, not {x.device}")
         f32 = torch.float32
@@ -108,7 +118,9 @@ def rglru_bwd(x, r, i, a_param, h0, hs, dout, dh_last, *, c: float = 8.0):
     they are; on the CPU the plain version."""
     global backward_launches
     bf16 = all(t.dtype == torch.bfloat16 for t in (x, r, i, dout))
-    if not x.is_cuda:
+    if not _build.on_card(x):
+        if x.device.type != "cpu":
+            raise ValueError(f"rglru_bwd runs on cpu or cuda, not {x.device}")
         grads = ref.rglru_bwd(x, r, i, a_param, h0, hs, dout, dh_last, c=c)
         if bf16:
             grads = (*(g.to(torch.bfloat16) for g in grads[:3]), *grads[3:])
@@ -134,6 +146,9 @@ def rglru_bwd(x, r, i, a_param, h0, hs, dout, dh_last, *, c: float = 8.0):
     def ptr(t):
         return 0 if t is None else t.data_ptr()
 
+    if _build.traced("rglru_bwd", BWD_FLOPS * b * s * w,
+                     (*big, lam, h0f, hs, dhl), (dx, dr, di, dh0, part, da)):
+        return dx, dr, di, da, dh0
     entry = _entries.get("rglru_bwd")
     if entry is None:
         entry = _entries["rglru_bwd"] = _build.load("rglru_bwd").lib.rglru_bwd
@@ -199,7 +214,7 @@ def rglru_bsw(
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (x, r, i, a_param, h0)):
         return Rglru.apply(x, r, i, a_param, h0, c)
-    if not x.is_cuda:
+    if not _build.on_card(x):
         if x.device.type != "cpu":
             raise ValueError(f"rglru_bsw runs on cpu or cuda, not {x.device}")
         return ref.rglru(x, r, i, a_param, h0, c=c)

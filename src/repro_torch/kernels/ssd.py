@@ -109,6 +109,20 @@ def _wants_grad(*tensors) -> bool:
         t is not None and t.requires_grad for t in tensors)
 
 
+def flops(b: int, s: int, h: int, p: int, n: int) -> int:
+    """The forward's operations (``udfs/rooflines.ssd``'s count)."""
+    return 6 * b * s * h * p * n
+
+
+def bwd_flops(b: int, s: int, h: int, p: int, n: int, chunk: int) -> int:
+    """The gradient's (``csrc/ssd_bwd.cu``'s bound note): per (b, h,
+    chunk) 5 L P N multiply-adds and T (3 N + 2 P) on the triangles, T =
+    L (L + 1) / 2, two operations each."""
+    tri = chunk * (chunk + 1) // 2
+    return 2 * b * h * (s // chunk) * (5 * chunk * p * n
+                                       + tri * (3 * n + 2 * p))
+
+
 _entry = None  # the library's C function, looked up once
 _bwd_entry = None
 
@@ -132,6 +146,9 @@ def _launch(x, dt, A, Bm, Cm, h0, y, strides, sizes, chunk: int):
         h0 = h0.to(torch.float32).contiguous()
     h_last = torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
     sx, sdt, sb, sc, sy = strides
+    if _build.traced("ssd", flops(b, s, h, p, n), (x, dt, A, Bm, Cm, h0),
+                     (y, h_last)):
+        return y, h_last
     if _entry is None:
         _entry = _build.load("ssd").lib.ssd_scan
     err = _entry(ARGS.pack(
@@ -154,7 +171,7 @@ def _forward_f32(x, dt, A, Bm, Cm, h0, chunk: int, bhcp: bool):
     """(y float32 in x's layout, h_last float32) of float32 operands in
     the (B, S, H, P) layout, or the (B, H, S, P) one when ``bhcp``: the
     kernel's on the card, the plain version's on the CPU."""
-    if not x.is_cuda:
+    if not _build.on_card(x):
         if x.device.type != "cpu":
             raise _not_cuda(x)
         if bhcp:
@@ -186,7 +203,7 @@ def ssd_bwd(x, dt, A, Bm, Cm, h0, dy, dh_last, *, chunk: int = 64):
     dt, Bm, Cm and dy through their strides; on the CPU the plain
     version."""
     global _bwd_entry, backward_launches
-    if not x.is_cuda:
+    if not _build.on_card(x):
         if x.device.type != "cpu":
             raise _not_cuda(x)
         return ref.ssd_bwd(x, dt, A, Bm, Cm, h0, dy, dh_last, chunk=chunk)
@@ -214,6 +231,10 @@ def ssd_bwd(x, dt, A, Bm, Cm, h0, dy, dh_last, *, chunk: int = 64):
     dh0 = None if h0 is None else empty(b, h, p, n)
     scratch = (empty(b, h, nc, p, n), empty(b, h, nc, p, n), empty(b, h, s),
                empty(b, s, h, n), empty(b, s, h, n), empty(b, h, nc))
+    if _build.traced("ssd_bwd", bwd_flops(b, s, h, p, n, chunk),
+                     (xf, dtf, Af, Bf, Cf, h0f, dyf, dhl),
+                     (dx, ddt, dA, dB, dC, dh0)):
+        return dx, ddt, dA, dB, dC, dh0
     if _bwd_entry is None:
         _bwd_entry = _build.load("ssd_bwd").lib.ssd_bwd
     ptrs = (xf, dtf, Af, Bf, Cf, h0f, dyf, dhl, dx, ddt, dA, dB, dC, dh0,

@@ -3,9 +3,10 @@
 Port of ``repro.launch.train``: params and optimizer state on one device,
 or placed on a mesh -> the family's ``make_train_step`` -> step loop with
 async checkpoints, auto-resume, watchdog, heartbeat, and deterministic
-failure injection for tests. Attention's, the RG-LRU's and the SSD scan's
-forward and gradient run the hand-written kernels on the card
-(``kernels.flash_attention``, ``kernels.rglru``, ``kernels.ssd``).
+failure injection for tests. Attention's, the RG-LRU's, the SSD scan's
+and the moe router's forward and gradient run the hand-written kernels on
+the card (``kernels.flash_attention``, ``kernels.rglru``, ``kernels.ssd``,
+``kernels.moe_router``).
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \\
       --steps 50 --batch 8 --seq 128 --smoke --ckpt-dir /tmp/ckpt
@@ -18,10 +19,10 @@ trains on a ("data", "model") mesh over the launched world, under
   torchrun --standalone --nproc-per-node 1 -m repro_torch.launch.train --mesh \
       --arch smollm-135m --steps 50 --batch 8 --seq 128
 
-The dense, vlm, ssm, encdec and hybrid families train; moe raises at
-``build`` (ROADMAP.md, queue 1, item 2b). ``train_loop`` feeds tokens
-only, as the reference's does: an encdec model's frames come through
-``build``'s step directly.
+Every family trains (moe since ROADMAP.md's queue 1, item 2b, now done:
+its router's gradient is a kernel too, ``kernels.moe_router.RouterTopK``).
+``train_loop`` feeds tokens only, as the reference's does: an encdec
+model's frames come through ``build``'s step directly.
 """
 from __future__ import annotations
 
@@ -49,15 +50,6 @@ from repro_torch.models.params import (
 from repro_torch.models.registry import model_api
 from repro_torch.optim import AdamW, cosine_schedule
 
-# what training a family without make_train_step waits for
-_WAITS = {
-    "moe": "the router weights' gradient kernel and FSDP over several "
-           "cards (one layer at published width, with the step's copies "
-           "of weights, gradients and AdamW state, outgrows a card; "
-           "ROADMAP.md, queue 1, item 2b)",
-}
-
-
 def build(cfg, mesh=None, *, lr=3e-4, warmup=20, total=1000):
     """(api, optimizer, train_step). The reference's ``build`` also
     returns its sharding context and jits the step; here, with a mesh, the
@@ -66,10 +58,6 @@ def build(cfg, mesh=None, *, lr=3e-4, warmup=20, total=1000):
     tensors with batch sharding (``shard_batch``'s placement); its
     metrics are plain tensors."""
     api = model_api(cfg)
-    if not hasattr(api, "make_train_step"):
-        raise NotImplementedError(
-            f"training the {cfg.family} family waits for "
-            f"{_WAITS[cfg.family]}")
     opt = AdamW(schedule=cosine_schedule(lr, warmup, total))
     if mesh is None:
         return api, opt, api.make_train_step(cfg, opt)

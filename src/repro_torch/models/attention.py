@@ -48,22 +48,46 @@ from repro_torch.kernels.flash_attention import flash_attention_bshd
 from repro_torch.models.layers import NULL_CTX, ShardCtx, rope
 
 
+def _head_product(x, w):  # "bsd,dhk->bshk"
+    return torch.matmul(x, w.to(x.dtype).flatten(1)).unflatten(-1, w.shape[1:])
+
+
+def head_proj(x, w, logical: str, ctx: ShardCtx = NULL_CTX):
+    """x (B, S, D) times a (D, H, hd) weight -> (B, S, H, hd), placed by
+    ``logical``. Where the mesh leaves the heads unsplit (a model axis that
+    does not divide them), the flat product and its weight's gradient may
+    come out split off the heads' boundaries, which no view can unflatten:
+    each rank then projects its rows with the whole weight (gathered, as
+    the reference's partitioner gathers it)."""
+    if ctx.mesh is not None:
+        places = ctx.places((*x.shape[:2], *w.shape[1:]), logical)
+        if not any(p.is_shard(2) for p in places):
+            return ctx.local(_head_product, (x, w),
+                             ("batch seq d_model", ". . ."), (places,))
+    return ctx.constrain(_head_product(x, w), logical)
+
+
 def qkv_proj(cfg, x, wq, wk, wv, ctx: ShardCtx = NULL_CTX):
-    dt = x.dtype
-
-    def proj(w):  # "bsd,dhk->bshk"
-        return torch.matmul(x, w.to(dt).flatten(1)).unflatten(-1, w.shape[1:])
-
-    q = ctx.constrain(proj(wq), "batch seq heads .")
-    k = ctx.constrain(proj(wk), "batch seq kv_heads .")
-    v = ctx.constrain(proj(wv), "batch seq kv_heads .")
+    q = head_proj(x, wq, "batch seq heads .", ctx)
+    k = head_proj(x, wk, "batch seq kv_heads .", ctx)
+    v = head_proj(x, wv, "batch seq kv_heads .", ctx)
     return q, k, v
 
 
+def _out_product(x, wo):  # "bshk,hkd->bsd"
+    return torch.matmul(x.flatten(2), wo.to(x.dtype).flatten(0, 1))
+
+
 def out_proj(x, wo, ctx: ShardCtx = NULL_CTX):
-    # "bshk,hkd->bsd"
-    out = torch.matmul(x.flatten(2), wo.to(x.dtype).flatten(0, 1))
-    out = ctx.constrain(out, "batch seq d_sharded")
+    if ctx.mesh is not None and not any(
+            p.is_shard(2) for p in ctx.places(x.shape, "batch seq heads .")):
+        # heads the model axis does not divide: as in ``head_proj``, the
+        # flat product's gradient may come back split off the heads'
+        # boundaries, so each rank projects its rows with the whole weight
+        return ctx.local(_out_product, (x, wo), ("batch seq . .", ". . ."),
+                         (ctx.places((*x.shape[:2], wo.shape[-1]),
+                                     "batch seq d_model"),))
+    out = ctx.constrain(_out_product(x, wo), "batch seq d_sharded")
     return ctx.constrain(out, "batch seq d_model")
 
 
@@ -94,9 +118,7 @@ def attention_train(cfg, x, lp, positions, ctx: ShardCtx = NULL_CTX, *,
 def cross_attention(cfg, x, lp, k, v, ctx: ShardCtx = NULL_CTX):
     """Decoder cross-attention over precomputed encoder K/V (no mask).
     x (B, S, D); k, v (B, F, Hkv, D)."""
-    wq = lp["xwq"].to(x.dtype)   # "bsd,dhk->bshk"
-    q = torch.matmul(x, wq.flatten(1)).unflatten(-1, wq.shape[1:])
-    q = ctx.constrain(q, "batch seq heads .")
+    q = head_proj(x, lp["xwq"], "batch seq heads .", ctx)
     o = flash(q, k, v, ctx, causal=False)
     return out_proj(o, lp["xwo"], ctx)
 

@@ -22,8 +22,9 @@ reference's scanned bodies do.
 
 Sharding: the reference's ``ShardCtx`` through every function (the cross
 K/V constrained as "batch frames kv_heads ."), ``param_logical`` and
-``cache_logical``. Not here yet, as in transformer.py: ``input_specs``
-and ``roofline_units`` (the dry run).
+``cache_logical``; the dry run's ``input_specs`` (the stub frontend's
+frames among them) and ``roofline_units`` (encoder and decoder layers as
+units of their own) are the reference's.
 """
 from __future__ import annotations
 
@@ -45,6 +46,7 @@ from repro_torch.models.layers import (
     position_ids,
     rms_norm,
     softmax_xent,
+    stack0,
     swiglu_mlp,
 )
 from repro_torch.models.params import Params, count, init, spec
@@ -178,14 +180,9 @@ def _dec_block(cfg, lp, h, pos, enc_kv, ctx: ShardCtx = NULL_CTX):
 
 
 def _cross_kv(lp, enc_out, ctx: ShardCtx = NULL_CTX):
-    dt = enc_out.dtype
-
-    def proj(w):  # "bfd,dhk->bfhk"
-        w = w.to(dt)
-        out = torch.matmul(enc_out, w.flatten(1)).unflatten(-1, w.shape[1:])
-        return ctx.constrain(out, "batch frames kv_heads .")
-
-    return proj(lp["xwk"]), proj(lp["xwv"])
+    # "bfd,dhk->bfhk"
+    return tuple(attn.head_proj(enc_out, lp[k], "batch frames kv_heads .", ctx)
+                 for k in ("xwk", "xwv"))
 
 
 def _decoder_input(cfg, params: EncDec, batch, ctx: ShardCtx = NULL_CTX):
@@ -272,15 +269,17 @@ def _prefill(cfg, params, batch, ctx, pad_cache_to):
     h = rms_norm(h, params.final_norm, cfg.norm_eps)
     logits = lm_logits(h[:, -1:], params.out_head, cfg.vocab_size,
                        ctx)[:, 0]
-    ks, vs = torch.stack(ks), torch.stack(vs)
+    b, s = batch["tokens"].shape
+    kv = (cfg.num_kv_heads, cfg.head_dim)
+    ks, vs = (stack0(t, (b, s, *kv), h.dtype, h.device) for t in (ks, vs))
+    eks, evs = (stack0(t, (b, cfg.num_frames, *kv), h.dtype, h.device)
+                for t in (eks, evs))
     if pad_cache_to is not None and pad_cache_to > ks.shape[2]:
         pad = pad_cache_to - ks.shape[2]
         ks = pad_dim(ks, 2, after=pad)
         vs = pad_dim(vs, 2, after=pad)
-    b, s = batch["tokens"].shape
     cache = {
-        "k": ks, "v": vs, "cross_k": torch.stack(eks),
-        "cross_v": torch.stack(evs),
+        "k": ks, "v": vs, "cross_k": eks, "cross_v": evs,
         "lengths": torch.full((b,), s, dtype=torch.int32, device=h.device),
     }
     return cache, logits
@@ -310,3 +309,30 @@ def decode_step(cfg, params: EncDec, cache, batch, ctx: ShardCtx = NULL_CTX):
         h = rms_norm(h, params.final_norm, cfg.norm_eps)
         logits = lm_logits(h, params.out_head, cfg.vocab_size, ctx)[:, 0]
     return dict(cache, lengths=lengths + 1), logits
+
+
+# --------------------------------------------------------------------------- #
+# dry run                                                                      #
+# --------------------------------------------------------------------------- #
+def input_specs(cfg, shape, mesh=None, rules=None) -> Dict:
+    b, s = shape.global_batch, shape.seq_len
+    if shape.kind == "decode":
+        return tf.placed_specs({"token": spec((b,), torch.int32)},
+                               {"token": "batch"}, mesh, rules)
+    out = {"frames": spec((b, cfg.num_frames, cfg.d_model), dtype_of(cfg)),
+           "tokens": spec((b, s), torch.int32)}
+    if shape.kind == "train":
+        out["labels"] = spec((b, s), torch.int32)
+    return tf.placed_specs(out, {"frames": "batch frames d_model",
+                                 "tokens": "batch seq",
+                                 "labels": "batch seq"}, mesh, rules)
+
+
+def roofline_units(cfg):
+    base = dataclasses.replace(cfg, num_layers=0, num_encoder_layers=0,
+                               attention_unroll=True)
+    enc1 = dataclasses.replace(cfg, num_layers=0, num_encoder_layers=1,
+                               attention_unroll=True)
+    dec1 = dataclasses.replace(cfg, num_layers=1, num_encoder_layers=0,
+                               attention_unroll=True)
+    return base, [(cfg.num_encoder_layers, enc1), (cfg.num_layers, dec1)]

@@ -51,6 +51,7 @@ from repro_torch.models.layers import (
     pad_dim,
     position_ids,
     rms_norm,
+    roll_seq,
     softmax_xent,
     stacked,
     swiglu_mlp,
@@ -380,7 +381,7 @@ def _prefill(cfg, params, batch, ctx):
     def ring_align(k):
         keep = k[:, -win:]
         shift = s % cfg.local_window if s >= cfg.local_window else 0
-        return torch.roll(keep, shift, dims=1)
+        return roll_seq(keep, shift)
 
     st1, st2, ks, vs = [], [], [], []
     for gp in params.groups:
@@ -462,3 +463,15 @@ def _decode_step(cfg, params, cache, batch, ctx):
     h = rms_norm(h, params.final_norm, cfg.norm_eps)
     logits = lm_logits(h, params.out_head, cfg.vocab_size, ctx)[:, 0]
     return new_cache, logits
+
+
+input_specs = tf.input_specs
+
+
+def roofline_units(cfg):
+    """The reference's: the base keeps the remainder layers, a unit adds
+    one (rglru, rglru, local) group."""
+    g, r = _counts(cfg)
+    base = dataclasses.replace(cfg, num_layers=r, attention_unroll=True)
+    unit = dataclasses.replace(cfg, num_layers=r + 3, attention_unroll=True)
+    return base, [(g, unit)]

@@ -12,6 +12,7 @@ kernel gets each rank's blocks as plain tensors (``ShardCtx.local``).
 from __future__ import annotations
 
 import contextlib
+import functools
 import threading
 from dataclasses import dataclass
 from typing import Optional
@@ -163,8 +164,20 @@ def grad_in_place(w: torch.Tensor) -> torch.Tensor:
     return _GradInPlace.apply(w) if is_dtensor(w) else w
 
 
+def _lookup(embed, tokens):
+    return embed[tokens]
+
+
 def embed_tokens(tokens, embed, ctx: ShardCtx = NULL_CTX):
-    return ctx.constrain(grad_in_place(embed)[tokens], "batch seq d_model")
+    if ctx.mesh is None or not is_dtensor(embed):
+        return ctx.constrain(grad_in_place(embed)[tokens], "batch seq d_model")
+    # each rank looks its rows up in the whole table (gathered, as
+    # DTensor's own lookup gathers it): the gradient is then a plain
+    # index_put on each rank's block, where torch 2.11's DTensor misplaces
+    # an index_put of a partial gradient on a mesh of two dims
+    out = ctx.places((*tokens.shape, embed.shape[1]), "batch seq d_model")
+    return ctx.local(_lookup, (grad_in_place(embed), tokens),
+                     (". .", "batch seq"), (out,))
 
 
 def pad_dim(x: torch.Tensor, dim: int, before: int = 0,
@@ -184,10 +197,34 @@ def position_ids(b: int, s: int, device) -> torch.Tensor:
     return torch.arange(s, dtype=torch.int32, device=device).expand(b, s)
 
 
-def stacked(states: list) -> dict:
+def stacked(states: list, empty: dict | None = None) -> dict:
     """Per-layer cache dicts -> one dict of tensors stacked over the
-    layers (the JAX package's scan outputs)."""
+    layers (the JAX package's scan outputs). With no layer (the dry run's
+    roofline base), zeros of ``empty``'s meta tensors (a ``cache_shapes``
+    of 0 layers) on ``empty["device"]``."""
+    if not states:
+        device = empty["device"]
+        return {k: torch.zeros(v.shape, dtype=v.dtype, device=device)
+                for k, v in empty.items() if k not in ("device", "lengths")}
     return {k: torch.stack([st[k] for st in states]) for k in states[0]}
+
+
+def stack0(xs: list, shape, dtype, device) -> torch.Tensor:
+    """``xs`` stacked over the layers; with no layer, zeros of (0,
+    *shape)."""
+    if not xs:
+        return torch.zeros((0, *shape), dtype=dtype, device=device)
+    return torch.stack(xs)
+
+
+def roll_seq(x: torch.Tensor, shift: int) -> torch.Tensor:
+    """``torch.roll(x, shift, dims=1)`` as a concatenation of two slices,
+    which a ``DTensor`` takes (it has no rule for roll)."""
+    n = x.shape[1]
+    shift %= n
+    if not shift:
+        return x
+    return torch.cat([x[:, n - shift:], x[:, :n - shift]], dim=1)
 
 
 def lm_logits(h, out_head, vocab_size: int, ctx: ShardCtx = NULL_CTX):
@@ -201,21 +238,61 @@ def lm_logits(h, out_head, vocab_size: int, ctx: ShardCtx = NULL_CTX):
     return logits
 
 
+def _sharded_nll(logits, labels, *, mesh, axes, block: int):
+    """Each rank's (B, S) next-token losses from its (B, S, V / n) block of
+    the logits, the vocab split over ``axes``: the row maxima and the sums
+    of exponentials and the gold logits summed across the ranks."""
+    from repro_torch.distributed.sharding import (
+        all_reduce, axis_index, sum_across,
+    )
+
+    x = logits.to(torch.float32)
+    m = all_reduce(x.detach().amax(dim=-1), "max", mesh, axes)
+    total = sum_across(torch.exp(x - m[..., None]).sum(dim=-1), mesh, axes)
+    v0 = 0
+    for a in axes:
+        v0 = v0 * axis_size(mesh, a) + axis_index(mesh, a)
+    local = labels.long() - v0 * block
+    inside = (local >= 0) & (local < block)
+    gold = torch.gather(x, -1, local.clamp(0, block - 1)[..., None])[..., 0]
+    gold = sum_across(torch.where(inside, gold, torch.zeros_like(gold)),
+                      mesh, axes)
+    return m + torch.log(total) - gold
+
+
 def softmax_xent(logits, labels, mask=None):
     """Mean next-token cross-entropy. logits (B,S,V) fp-any, labels (B,S).
-    A ``DTensor``'s vocab is gathered first: its gather over a sharded
-    vocab leaves a masked partial that the later reduction cannot take."""
-    if is_dtensor(logits) and any(p.is_shard(logits.dim() - 1)
-                                  for p in logits.placements):
+    A ``DTensor`` whose vocab is split is not gathered (at 128k words its
+    float32 logits and their temporaries would be tens of GB a card): each
+    rank takes its block's share (``_sharded_nll``), as a vocab-parallel
+    loss does."""
+    last = logits.dim() - 1
+    axes = ()
+    if is_dtensor(logits):
+        mesh = logits.device_mesh
+        axes = tuple(n for n, p in zip(mesh.mesh_dim_names, logits.placements)
+                     if p.is_shard(last) and axis_size(mesh, n) > 1)
+    if axes:
         from torch.distributed.tensor import Replicate
 
-        logits = logits.redistribute(logits.device_mesh, [
-            Replicate() if p.is_shard(logits.dim() - 1) else p
-            for p in logits.placements])
-    logits = logits.to(torch.float32)
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
-    nll = logz - gold
+        rows = tuple(Replicate() if p.is_shard(last) else p
+                     for p in logits.placements)
+        nll = local_call(
+            functools.partial(_sharded_nll, mesh=mesh, axes=axes,
+                              block=logits.to_local().shape[-1]),
+            (logits, labels), (tuple(logits.placements), rows), mesh, (rows,))
+    else:
+        if is_dtensor(logits) and any(p.is_shard(last)
+                                      for p in logits.placements):
+            from torch.distributed.tensor import Replicate
+
+            logits = logits.redistribute(logits.device_mesh, [
+                Replicate() if p.is_shard(last) else p
+                for p in logits.placements])   # a split over one rank
+        logits = logits.to(torch.float32)
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+        nll = logz - gold
     if mask is None:
         return torch.mean(nll)
     mask = mask.to(torch.float32)

@@ -42,9 +42,17 @@ expert leaf in float32 first would need 38.7 GB for grok-1's ``e_gate``
 at 6 layers. The numbers are torch's, not ``jax.random``'s.
 
 ``param_logical`` and ``layer_param_logical`` are the reference's
-(``moe_serve_ep2d`` picks the resident-expert layout). Not here yet:
-``loss_fn`` and ``make_train_step`` (training, ROADMAP.md queue 1, item
-2b); ``input_specs`` and ``roofline_units`` (the dry run).
+(``moe_serve_ep2d`` picks the resident-expert layout). ``loss_fn`` is
+the task loss plus ``AUX_LOSS_COEF`` times the aux loss, as the
+reference's; training runs each layer under ``tf.remat_where_grad``, and
+the router's gradient is the router kernel's
+(``kernels.moe_router.RouterTopK``). The aux loss carries a gradient
+through torch's softmax of the logits, its expert counts none. On a mesh
+the sum over "model" (and "data" for ep2d) passes its cotangent through,
+and the aux loss's is divided by the mesh's size
+(``sharding.sum_across``, ``sharding.per_rank``), as the reference's
+``shard_map`` transpose makes them. ``input_specs`` and
+``roofline_units`` are the dense decoder's.
 """
 from __future__ import annotations
 
@@ -55,7 +63,7 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed.sharding import all_reduce, axis_index
+from repro_torch.distributed.sharding import axis_index, per_rank, sum_across
 from repro_torch.kernels import ref
 from repro_torch.kernels.moe_router import moe_router_tk
 from repro_torch.models import attention as attn
@@ -66,6 +74,7 @@ from repro_torch.models.layers import (
     dtype_of,
     lm_logits,
     rms_norm,
+    softmax_xent,
     swiglu_mlp,
     trunc_normal,
 )
@@ -282,7 +291,8 @@ def _moe_local(x, router_w, wg, wu, wd, *, cfg, capacity, axis=None,
     y = torch.zeros((t + 1, d), dtype=ye.dtype, device=ye.device).index_add_(
         0, tok.reshape(-1), ye.reshape(-1, d))[:t]
     if axis is not None:
-        y = all_reduce(y, "sum", mesh, axis)
+        y = sum_across(y, mesh, axis)
+        aux = per_rank(aux, mesh)
     return y.reshape(b, s, d), aux
 
 
@@ -349,6 +359,7 @@ def _moe_mlp_fn(cfg, lp, m_in, ctx: ShardCtx = NULL_CTX):
 # blocks / steps                                                               #
 # --------------------------------------------------------------------------- #
 def moe_block(cfg, lp, h, positions, ctx: ShardCtx = NULL_CTX):
+    """One layer: ((B, S, D), its aux loss)."""
     a_in = tf.sp_gather(cfg, rms_norm(h, lp["attn_norm"], cfg.norm_eps), ctx)
     a_out, _ = attn.attention_train(cfg, a_in, lp, positions, ctx,
                                     window=cfg.sliding_window)
@@ -365,8 +376,10 @@ def forward(cfg, params: MoE, batch, ctx: ShardCtx = NULL_CTX):
     with ctx.scope():
         h, positions = tf.embed_input(cfg, params, batch, ctx)
         aux_sum = torch.zeros((), dtype=torch.float32, device=h.device)
+        block = tf.remat_where_grad(cfg, functools.partial(moe_block, cfg), h,
+                                    params.layers)
         for lp in params.layers:
-            h, aux = moe_block(cfg, lp, h, positions, ctx)
+            h, aux = block(lp, h, positions, ctx)
             aux_sum = aux_sum + aux
         h = tf.sp_gather(cfg, rms_norm(h, params.final_norm, cfg.norm_eps),
                          ctx)
@@ -374,8 +387,23 @@ def forward(cfg, params: MoE, batch, ctx: ShardCtx = NULL_CTX):
                 aux_sum)
 
 
+def loss_fn(cfg, params: MoE, batch, ctx: ShardCtx = NULL_CTX):
+    """(task + AUX_LOSS_COEF * aux, {"loss": task, "aux_loss": aux})."""
+    logits, aux = forward(cfg, params, batch, ctx)
+    with ctx.scope():
+        task = softmax_xent(logits, batch["labels"], batch.get("loss_mask"))
+        loss = task + AUX_LOSS_COEF * aux
+    return loss, {"loss": task, "aux_loss": aux}
+
+
+def make_train_step(cfg, optimizer, ctx: ShardCtx = NULL_CTX):
+    return tf.make_train_step(cfg, optimizer, ctx, loss=loss_fn)
+
+
 cache_shapes = tf.cache_shapes
 cache_logical = tf.cache_logical
+input_specs = tf.input_specs
+roofline_units = tf.roofline_units
 
 
 def prefill(cfg, params: MoE, batch, ctx: ShardCtx = NULL_CTX,

@@ -14,6 +14,7 @@ over the list takes the place of ``lax.scan``, and
 from __future__ import annotations
 
 import math
+from collections.abc import Mapping
 from typing import Dict
 
 import torch
@@ -185,6 +186,31 @@ def stacked(model: Params, shapes: Dict) -> Dict[str, torch.Tensor]:
                      else stack_layers([t.detach() for t in value], s,
                                        device))
     return out
+
+
+class StackedView(Mapping):
+    """``stacked(model, shapes)`` a leaf at a time: each lookup stacks
+    that leaf anew and keeps nothing, so a train step holds one leaf's
+    stacked copy at a time (one layer of grok-1 is 13 GB of bf16
+    weights)."""
+
+    def __init__(self, model: Params, shapes: Dict):
+        self.model = model
+        self.specs = dict(param_leaves(shapes))
+        self.device = next(model.parameters()).device
+
+    def __getitem__(self, name: str) -> torch.Tensor:
+        value = get_param(self.model, name)
+        if isinstance(value, torch.Tensor):
+            return value.detach()
+        return stack_layers([t.detach() for t in value], self.specs[name],
+                            self.device)
+
+    def __iter__(self):
+        return iter(self.specs)
+
+    def __len__(self) -> int:
+        return len(self.specs)
 
 
 def init(model: Params, shapes: Dict, generator: torch.Generator, *,

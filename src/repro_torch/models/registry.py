@@ -5,9 +5,9 @@ family raises ``KeyError``.
 
 Every ported module offers: param_shapes, init_params, param_count,
 active_param_count, forward, prefill, decode_step, cache_shapes, and
-``Model``, its parameter module (``models/params.py``). The dense, vlm,
-ssm, encdec and hybrid families also offer loss_fn and make_train_step;
-training the moe family waits (ROADMAP.md, queue 1, item 2b).
+``Model``, its parameter module (``models/params.py``), loss_fn,
+make_train_step (moe's since ROADMAP.md's queue 1, item 2b, done),
+input_specs and roofline_units (the dry run, ``launch/dryrun.py``).
 """
 from __future__ import annotations
 

@@ -24,9 +24,9 @@ layer, counted by ``ssd.backward_launches``).
 Sharding: the reference's ``ShardCtx`` through every function (its
 three constraints), ``param_logical`` and ``cache_logical``; on a mesh
 the scan gets each rank's blocks (``ShardCtx.local``: batch over the
-batch axes, heads over "model" where the B/C groups allow it). Not here
-yet, as in transformer.py: ``input_specs`` and ``roofline_units`` (the
-dry run).
+batch axes, heads over "model" where the B/C groups allow it). The dry run's
+``input_specs`` and ``roofline_units`` are the dense decoder's, as in the
+reference.
 """
 from __future__ import annotations
 
@@ -189,6 +189,20 @@ def _scan(ctx, xh, dt, A, Bh, Ch, h0, *, chunk):
          f"batch seq {grp} .", state), outs)
 
 
+def _decode_scan(ctx, xh, dt, A, Bh, Ch, h):
+    """``ops.ssd_decode_step`` on each rank's blocks, split as ``_scan``
+    splits the scan (its flatten of batch and heads would merge two
+    sharded dims, which a ``DTensor`` view cannot)."""
+    heads = ctx.mesh is not None and (
+        Bh.shape[1] == 1 or ctx.places(Bh.shape, "batch ssm_heads .")
+        != ctx.places(Bh.shape, "batch . ."))
+    hd = "ssm_heads" if heads else "."
+    grp = "ssm_heads" if heads and Bh.shape[1] > 1 else "."
+    return ctx.local(ops.ssd_decode_step, (xh, dt, A, Bh, Ch, h),
+                     (f"batch {hd} .", f"batch {hd}", hd, f"batch {grp} .",
+                      f"batch {grp} .", f"batch {hd} . ."), (0, 5))
+
+
 def _conv_xbc(cfg, lp, xi, Bm, Cm, state=None):
     """Depthwise causal conv over concat([x, B, C]); returns pieces + tail."""
     di, h, p, n, g, conv_ch = _dims(cfg)
@@ -256,7 +270,7 @@ def _ssm_decode_block(cfg, lp, hin, state, ctx: ShardCtx = NULL_CTX):
     xh = xi1[:, 0].reshape(b, h, p)
     Bh = Bm1[:, 0].reshape(b, g, n)
     Ch = Cm1[:, 0].reshape(b, g, n)
-    y, h_new = ops.ssd_decode_step(xh, dt, A, Bh, Ch, state["ssm"])
+    y, h_new = _decode_scan(ctx, xh, dt, A, Bh, Ch, state["ssm"])
     y = y + xh * lp["D_skip"].to(y.dtype)[None, :, None]
     out = _gate_out(cfg, lp, y.reshape(b, 1, di), z)
     return hin + out, {"conv": tail, "ssm": h_new}
@@ -336,7 +350,8 @@ def _prefill(cfg, params, batch, ctx):
         states.append(st)
     h = rms_norm(h, params.final_norm, cfg.norm_eps)
     logits = lm_logits(h[:, -1:], params.out_head, cfg.vocab_size, ctx)[:, 0]
-    cache = dict(stacked(states),
+    cache = dict(stacked(states, {**cache_shapes(cfg, b, s),
+                                  "device": h.device}),
                  lengths=torch.full((b,), s, dtype=torch.int32,
                                     device=h.device))
     return cache, logits
@@ -356,4 +371,13 @@ def decode_step(cfg, params: SSM, cache, batch, ctx: ShardCtx = NULL_CTX):
             states.append(st)
         h = rms_norm(h, params.final_norm, cfg.norm_eps)
         logits = lm_logits(h, params.out_head, cfg.vocab_size, ctx)[:, 0]
-        return dict(stacked(states), lengths=cache["lengths"] + 1), logits
+        empty = cache_shapes(cfg, h.shape[0], 1)
+        return dict(stacked(states, {**empty, "device": h.device}),
+                    lengths=cache["lengths"] + 1), logits
+
+
+def input_specs(cfg, shape, mesh=None, rules=None) -> Dict:
+    return tf.input_specs(cfg, shape, mesh, rules)
+
+
+roofline_units = tf.roofline_units

@@ -22,18 +22,21 @@ prefill cache), and ``param_logical`` / ``layer_param_logical`` /
 returns the shapes alone; ``cache_logical`` is the reference's second
 half). On a mesh the parameter module holds ``DTensor``s
 (``params.distribute_params``) and the step updates each rank's blocks.
-Not here yet: ``input_specs`` and ``roofline_units`` (the dry run,
-ROADMAP.md).
+The dry run's ``input_specs`` (meta tensors, or placed fake ones on a
+mesh) and ``roofline_units`` are the reference's.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 from typing import Dict
 
 import torch
 from torch.utils import checkpoint as ckpt
 
-from repro_torch.distributed.sharding import distribute, is_dtensor, plain
+from repro_torch.distributed.sharding import (
+    distribute, is_dtensor, plain, tree_shape_dtypes,
+)
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import (
     NULL_CTX,
@@ -45,12 +48,14 @@ from repro_torch.models.layers import (
     pad_dim,
     position_ids,
     rms_norm,
+    roll_seq,
     softmax_xent,
+    stack0,
     swiglu_mlp,
 )
 from repro_torch.models.params import Params, count, get_param, init, param_leaves
 from repro_torch.models.params import spec as _spec
-from repro_torch.models.params import stack_layers, stacked
+from repro_torch.models.params import StackedView, stack_layers
 
 VISION_FEAT_DIM = 1024  # stub frontend feature width (llava patch embeddings)
 
@@ -320,12 +325,18 @@ def make_train_step(cfg, optimizer, ctx: ShardCtx = NULL_CTX,
         with torch.enable_grad(), ctx.scope():
             value, metrics = loss(cfg, params, batch, ctx)
             flat = [t for ts in leaves.values() for t in ts]
-            grads = iter(torch.autograd.grad(value, flat))
-            out = {}
+            # a leaf the loss does not reach (an encoder of no layers in
+            # the dry run's roofline base) gets zeros, as JAX's grad gives
+            grads = list(torch.autograd.grad(value, flat,
+                                             materialize_grads=True))
+            out, at = {}, 0
             for name, ts in leaves.items():
-                gs = [_like(next(grads), t) for t in ts]
+                gs = [_like(g, t) for g, t in zip(grads[at:at + len(ts)], ts)]
+                grads[at:at + len(ts)] = [None] * len(ts)  # each layer's
+                at += len(ts)                             # freed once stacked
                 out[name] = (stack_layers(gs, specs[name], value.device)
                              if "." in name else gs[0])
+                del gs
         return plain(value.detach()), metrics, out
 
     def _micro(v):
@@ -370,11 +381,13 @@ def make_train_step(cfg, optimizer, ctx: ShardCtx = NULL_CTX,
             for ts in leaves.values():
                 for t in ts:
                     t.requires_grad_(False)
-        values = stacked(params, shapes)
+        values = StackedView(params, shapes)
         updates, opt_state = optimizer.update(grads, opt_state, values)
         with torch.no_grad():
             for name, ts in leaves.items():
-                new = (values[name] + updates[name]).to(values[name].dtype)
+                value = values[name]
+                new = (value + updates.pop(name)).to(value.dtype)
+                del value
                 for t, v in zip(ts, new if "." in name else [new]):
                     t.copy_(v)
         metrics = {k: plain(v.detach()) for k, v in metrics.items()}
@@ -463,15 +476,16 @@ def _prefill(cfg, params, batch, ctx, pad_cache_to, mlp_fn):
             s = k.shape[1]
             keep = min(w, s)
             shift = s % w if s >= w else 0
-            k = torch.roll(k[:, -keep:], shift, dims=1)
-            v = torch.roll(v[:, -keep:], shift, dims=1)
+            k = roll_seq(k[:, -keep:], shift)
+            v = roll_seq(v[:, -keep:], shift)
         ks.append(ctx.constrain(k.to(cdt), "batch cache_seq kv_heads ."))
         vs.append(ctx.constrain(v.to(cdt), "batch cache_seq kv_heads ."))
     h = rms_norm(h, params.final_norm, cfg.norm_eps)
     logits = lm_logits(h[:, -1:], head(cfg, params), cfg.vocab_size,
                        ctx)[:, 0]
     b, s = h.shape[0], h.shape[1]
-    ks, vs = torch.stack(ks), torch.stack(vs)
+    empty = (b, cache_len(cfg, s), cfg.num_kv_heads, cfg.head_dim)
+    ks, vs = (stack0(t, empty, cdt, h.device) for t in (ks, vs))
     if pad_cache_to is not None and not w and pad_cache_to > ks.shape[2]:
         pad = pad_cache_to - ks.shape[2]
         ks = pad_dim(ks, 2, after=pad)
@@ -513,3 +527,47 @@ def decode_step(cfg, params: Transformer, cache, batch,
         logits = lm_logits(h, head(cfg, params), cfg.vocab_size, ctx)[:, 0]
     new_cache = {"k": cache["k"], "v": cache["v"], "lengths": lengths + 1}
     return new_cache, logits
+
+
+# --------------------------------------------------------------------------- #
+# dry run                                                                      #
+# --------------------------------------------------------------------------- #
+def placed_specs(specs: Dict, logical: Dict, mesh=None, rules=None) -> Dict:
+    """``specs`` (meta tensors) as they are, or placed on ``mesh`` by
+    ``logical`` (``tree_shape_dtypes``) when a mesh and rules are given."""
+    if mesh is None or rules is None:
+        return specs
+    return tree_shape_dtypes(specs, {k: logical[k] for k in specs}, rules,
+                             mesh)
+
+
+def input_specs(cfg, shape, mesh=None, rules=None) -> Dict[str, torch.Tensor]:
+    """Stand-ins for every model input of this shape cell: meta tensors
+    (the reference's ``ShapeDtypeStruct``s), placed on ``mesh`` as fake
+    ``DTensor``s when a mesh and rules are given."""
+    b, s = shape.global_batch, shape.seq_len
+    dt = dtype_of(cfg)
+    if shape.kind == "decode":
+        return placed_specs({"token": _spec((b,), torch.int32)},
+                            {"token": "batch"}, mesh, rules)
+    text = s
+    out, logical = {}, {"tokens": "batch seq", "labels": "batch seq",
+                        "patches": "batch patches ."}
+    if cfg.family == "vlm":
+        text = s - cfg.num_patches
+        out["patches"] = _spec((b, cfg.num_patches, VISION_FEAT_DIM), dt)
+    out["tokens"] = _spec((b, text), torch.int32)
+    if shape.kind == "train":
+        out["labels"] = _spec((b, text), torch.int32)
+    return placed_specs(out, logical, mesh, rules)
+
+
+def roofline_units(cfg):
+    """(base_cfg, [(count, unit_cfg)]): cost(cfg) = cost(base) + sum
+    count * (cost(unit) - cost(base)). The port runs every layer eagerly,
+    so a trace counts each; the identity is exact for a homogeneous stack
+    (``attention_unroll`` is the reference's flag, which the port's models
+    ignore)."""
+    base = dataclasses.replace(cfg, num_layers=0, attention_unroll=True)
+    unit = dataclasses.replace(cfg, num_layers=1, attention_unroll=True)
+    return base, [(cfg.num_layers, unit)]

@@ -5,9 +5,7 @@ supplies precomputed patch embeddings (B, num_patches, 1024) which a
 learned ``vision_proj`` maps into the token stream ahead of the text
 tokens. The backbone is exactly the dense decoder (transformer.py) —
 decode/serving is identical once the prefix is in the KV cache, and the
-loss skips the patch positions (``transformer.loss_fn``). The dry-run
-entries of the reference's list are not ported yet, as in
-transformer.py.
+loss skips the patch positions (``transformer.loss_fn``).
 """
 from repro_torch.models import transformer as tf
 
@@ -24,3 +22,5 @@ prefill = tf.prefill
 decode_step = tf.decode_step
 cache_shapes = tf.cache_shapes
 cache_logical = tf.cache_logical
+input_specs = tf.input_specs
+roofline_units = tf.roofline_units

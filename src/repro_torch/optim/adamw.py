@@ -235,14 +235,19 @@ class Adafactor:
             g = g.to(torch.float32) * scale
             g2 = g * g + self.eps
             if "row" in f:
+                # the reference's expressions, each full-size intermediate
+                # computed in place (the same operations in the same order,
+                # so the same bits): a leaf of grok-1's experts is 6.4 GB
+                # in float32
                 row = d * f["row"] + (1 - d) * torch.mean(g2, dim=-1)
                 col = d * f["col"] + (1 - d) * torch.mean(g2, dim=-2)
-                rms = torch.sqrt(
-                    row[..., :, None] * col[..., None, :]
-                    / torch.clamp(torch.mean(row, dim=-1, keepdim=True)[..., None],
-                                  min=self.eps)
-                )
-                updates[k] = -lr * g / torch.clamp(rms, min=1e-12)
+                del g2
+                rms = row[..., :, None] * col[..., None, :]
+                rms.div_(torch.clamp(
+                    torch.mean(row, dim=-1, keepdim=True)[..., None],
+                    min=self.eps)).sqrt_()
+                updates[k] = g.mul_(-lr).div_(rms.clamp_(min=1e-12))
+                del rms
                 new_f[k] = {"row": row, "col": col}
             else:
                 v = d * f["v"] + (1 - d) * g2

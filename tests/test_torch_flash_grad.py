@@ -225,7 +225,6 @@ def _refusal_cases():
     lens = torch.tensor([3, 5], dtype=torch.int32)
     return {
         "hsv_color_hist": (hsv_color.hsv_color_hist, (crops, ranges), {}, 0),
-        "moe_router_tk": (moe_router.moe_router_tk, (t(5, 8), 2), {}, 0),
         "moe_router_tokens": (moe_router.moe_router_tokens,
                               (toks, t(16, 4), t(4, 8), 2), {}, 2),
         "rglru_tokens": (rglru.rglru_tokens, (toks, t(16, 8), t(16, 8),

@@ -54,8 +54,12 @@ LOSS_ARCHS = ("smollm-135m", "llava-next-34b", "mamba2-370m",
 TRAIN_ARCHS = ("smollm-135m", "mamba2-370m", "recurrentgemma-9b",
                "whisper-small")
 SP_ARCH, DECODE_ARCH, MOE_ARCH = "llama3-8b", "smollm-135m", "arctic-480b"
+MOE_TRAIN_ARCH, MOE_TRAIN_STEPS = "grok-1-314b", 2
+# heads a (1, 4) mesh's model axis does not divide: the projections run on
+# each rank's rows with the whole weight (attention.head_proj, out_proj)
+ODD_ARCH, ODD_HEADS = "whisper-small", dict(num_heads=6, num_kv_heads=3)
 WEIGHT_ARCHS = sorted(set(LOSS_ARCHS + TRAIN_ARCHS
-                          + (SP_ARCH, DECODE_ARCH, MOE_ARCH)))
+                          + (SP_ARCH, DECODE_ARCH, MOE_ARCH, MOE_TRAIN_ARCH)))
 B, S = 4, 16
 SP_SHAPE = (4, 32)
 TRAIN_LR, TRAIN_STEPS = 1e-2, 3
@@ -122,19 +126,21 @@ def _batch(cfg, b, s, seed=0):
                                                            seed).items()}
 
 
-def _cfg(arch):
+def _cfg(arch, **changes):
     from repro_torch.configs import get_config
 
-    return get_config(arch).reduce_for_smoke()
+    return dataclasses.replace(get_config(arch).reduce_for_smoke(), **changes)
 
 
-def _model(arch, outdir):
-    """The port's module of ``arch`` reduced, on the JAX package's weights
-    that the test process wrote (``convert.model_params``)."""
+def _model(arch, outdir, tag="", **changes):
+    """The port's module of ``arch`` reduced (then ``changes``), on the JAX
+    package's weights that the test process wrote
+    (``convert.model_params``)."""
     from repro_torch import convert
 
-    with np.load(os.path.join(outdir, f"weights_{arch}.npz")) as f:
-        return convert.model_params(dict(f), _cfg(arch), device="cpu")
+    with np.load(os.path.join(outdir, f"weights_{arch}{tag}.npz")) as f:
+        return convert.model_params(dict(f), _cfg(arch, **changes),
+                                    device="cpu")
 
 
 def _place_model(model, cfg, rules, mesh):
@@ -178,6 +184,88 @@ def _case_loss(arch, mesh, outdir):
                   for t in model.parameters())
     return dict(_close(got, single, **LOSS_TOL), got=got, single=single,
                 sharded_params=sharded)
+
+
+def _case_moe_train(mesh, outdir):
+    """The reference's sharded moe train path (its
+    ``test_moe_train_sharded_matches_single_subprocess``): ``loss_fn`` of
+    grok-1 reduced on a (2, 2) mesh under TRAIN_RULES (EP over "model")
+    against one process's; then MOE_TRAIN_STEPS steps of ``build(cfg,
+    mesh)``, whose gradients pass the expert sum's and the aux loss's
+    collectives: finite losses and gradient norms, the first step's loss
+    (the task loss, as the reference's step reports it) that
+    ``loss_fn``'s."""
+    from repro_torch.distributed.sharding import TRAIN_RULES, distribute, plain
+    from repro_torch.launch.train import build, place
+    from repro_torch.models.layers import ShardCtx
+    from repro_torch.models.params import stacked
+    from repro_torch.models.registry import model_api
+
+    cfg = _cfg(MOE_TRAIN_ARCH)
+    api = model_api(cfg)
+    model, batch = _model(MOE_TRAIN_ARCH, outdir), _batch(cfg, B, S)
+    value, parts = api.loss_fn(cfg, model, batch)
+    single, task = float(value), float(parts["loss"])
+    _place_model(model, cfg, TRAIN_RULES, mesh)
+    placed = {k: distribute(v, "batch .", TRAIN_RULES, mesh)
+              for k, v in batch.items()}
+    got = float(plain(api.loss_fn(cfg, model, placed,
+                                  ShardCtx(mesh, TRAIN_RULES))[0]))
+    _, opt, step = build(cfg, mesh, lr=TRAIN_LR, warmup=0)
+    model = _model(MOE_TRAIN_ARCH, outdir)
+    state = opt.init(stacked(model, api.param_shapes(cfg)))
+    model, state = place(cfg, opt, mesh, model, state)
+    steps = []
+    for i in range(MOE_TRAIN_STEPS):
+        model, state, mt = step(model, state, _batch(cfg, B, S, seed=i))
+        steps.append([float(mt["loss"]), float(mt["grad_norm"])])
+    out = _close(got, single, **LOSS_TOL)
+    first = _close(steps[0][0], task, **LOSS_TOL)   # a step reports the task
+    out.update(ok=out["ok"] and first["ok"] and bool(np.isfinite(steps).all()),
+               got=got, single=single, task=task, steps=steps)
+    return out
+
+
+def _case_odd_heads(mesh, outdir):
+    """whisper-small reduced with 6 heads on 3 kv heads on a (1, 4) mesh:
+    ``loss_fn`` against one process's, and two steps of ``build(cfg,
+    mesh)`` against the same steps in one process (loss, grad_norm)."""
+    from repro_torch.distributed.sharding import TRAIN_RULES, distribute, plain
+    from repro_torch.launch.train import build, place
+    from repro_torch.models.layers import ShardCtx
+    from repro_torch.models.params import stacked
+    from repro_torch.models.registry import model_api
+
+    cfg = _cfg(ODD_ARCH, **ODD_HEADS)
+    api = model_api(cfg)
+
+    def model():
+        return _model(ODD_ARCH, outdir, "-odd", **ODD_HEADS)
+
+    batch = _batch(cfg, B, S)
+    m = model()
+    single = float(api.loss_fn(cfg, m, batch)[0])
+    _place_model(m, cfg, TRAIN_RULES, mesh)
+    placed = {k: distribute(v, "batch" + " ." * (v.dim() - 1), TRAIN_RULES,
+                            mesh) for k, v in batch.items()}
+    got = float(plain(api.loss_fn(cfg, m, placed,
+                                  ShardCtx(mesh, TRAIN_RULES))[0]))
+    runs = []
+    for on in (None, mesh):
+        _, opt, step = build(cfg, on, lr=TRAIN_LR, warmup=0)
+        m = model()
+        state = opt.init(stacked(m, api.param_shapes(cfg)))
+        m, state = place(cfg, opt, on, m, state)
+        steps = []
+        for i in range(2):
+            m, state, mt = step(m, state, _batch(cfg, B, S, seed=i))
+            steps.append([float(mt["loss"]), float(mt["grad_norm"])])
+        runs.append(steps)
+    out = _close(got, single, **LOSS_TOL)
+    same = _close(runs[1], runs[0], **LOSS_TOL)
+    out.update(ok=out["ok"] and same["ok"], got=got, single=single,
+               steps=runs[1], single_steps=runs[0])
+    return out
 
 
 def _case_seq_parallel(mesh, outdir):
@@ -450,6 +538,8 @@ def _run(rank, world, init, outdir):
         for arch in LOSS_ARCHS:
             case(f"loss:{arch}", _case_loss, arch, mesh, outdir)
         case("seq_parallel", _case_seq_parallel, mesh, outdir)
+        case("moe_train", _case_moe_train, mesh, outdir)
+        case("odd_heads", _case_odd_heads, mesh14, outdir)
         for arch in TRAIN_ARCHS:
             case(f"train_steps:{arch}", _case_train_steps, arch, mesh, outdir)
         case("shard_batch", _case_shard_batch, mesh)
@@ -520,6 +610,12 @@ def _write_weights(jax, tmp):
         np.savez(os.path.join(tmp, f"weights_{arch}.npz"),
                  **{k: np.asarray(v) for k, v in param_leaves(params)})
         out[arch] = (cfg, params)
+    cfg = dataclasses.replace(configs.get_config(ODD_ARCH).reduce_for_smoke(),
+                              **ODD_HEADS)
+    params = model_api(cfg).init_params(cfg, jax.random.key(0))
+    np.savez(os.path.join(tmp, f"weights_{ODD_ARCH}-odd.npz"),
+             **{k: np.asarray(v) for k, v in param_leaves(params)})
+    out["odd_heads"] = (cfg, params)
     return out
 
 
@@ -541,6 +637,15 @@ def _jax_numbers(jax, weights):
             cfg, p, x)[0])(params, batch))
 
     out = {f"loss:{a}": loss(a, B, S) for a in LOSS_ARCHS}
+    cfg, params = weights["odd_heads"]
+    batch = {k: jnp.asarray(v) for k, v in _np_batch(cfg, B, S).items()}
+    out["odd_heads"] = float(jax.jit(lambda p, x: model_api(cfg).loss_fn(
+        cfg, p, x)[0])(params, batch))
+    cfg, params = weights[MOE_TRAIN_ARCH]
+    batch = {k: jnp.asarray(v) for k, v in _np_batch(cfg, B, S).items()}
+    value, parts = jax.jit(lambda p, x: model_api(cfg).loss_fn(cfg, p, x))(
+        params, batch)
+    out["moe_train"] = (float(value), float(parts["loss"]))
     out["seq_parallel"] = loss(SP_ARCH, *SP_SHAPE)
     for arch in TRAIN_ARCHS:
         cfg, params = weights[arch]
@@ -630,6 +735,26 @@ def test_seq_parallel_loss(runs):
     _check(runs["ranks"], "seq_parallel")
     _assert_close(runs["ranks"]["seq_parallel"]["base"],
                   runs["jax"]["seq_parallel"], LOSS_TOL, "seq_parallel")
+
+
+def test_moe_train_sharded_matches_single(runs):
+    """grok-1 reduced's ``loss_fn`` on a (2, 2) mesh (EP) against one
+    process's and the JAX package's, to the reference's bound; two steps
+    of ``build(cfg, mesh)`` train it, the first step's loss the same."""
+    _check(runs["ranks"], "moe_train")
+    r, (want, task) = runs["ranks"]["moe_train"], runs["jax"]["moe_train"]
+    _assert_close(r["got"], want, LOSS_TOL, "moe loss_fn on the mesh")
+    _assert_close(r["steps"][0][0], task, LOSS_TOL, "moe first step")
+
+
+def test_heads_the_model_axis_does_not_divide(runs):
+    """whisper-small reduced with 6 heads on 3 kv heads on a (1, 4) mesh
+    (every projection on each rank's rows with the whole weight): its
+    loss against the JAX package's and one process's, and two train steps
+    against one process's."""
+    _check(runs["ranks"], "odd_heads")
+    _assert_close(runs["ranks"]["odd_heads"]["got"], runs["jax"]["odd_heads"],
+                  LOSS_TOL, "odd heads")
 
 
 @pytest.mark.parametrize("arch", TRAIN_ARCHS)

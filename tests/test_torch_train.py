@@ -825,9 +825,11 @@ def test_train_main_refuses_a_mesh_and_defaults_to_the_card(monkeypatch):
 
 @pytest.mark.parametrize("arch", ["grok-1-314b"])
 def test_families_without_a_train_step_raise_at_build(arch):
+    # no family is left without a train step: moe's, the last, builds
+    # (its training is held in tests/test_torch_moe_train.py)
     cfg = get_config(arch).reduce_for_smoke()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        port_train.build(cfg)
+    api, _, step = port_train.build(cfg)
+    assert callable(step) and hasattr(api, "loss_fn")
 
 
 def test_train_lm_example_learns(tmp_path):
