@@ -10,26 +10,33 @@ UC2 + UC3 warehouse-safety example through them, and the dry run.
 
 Needs a CUDA card and nvcc; exits non-zero without them, and on any
 failed phase. ``--before DIR`` (a checkout of an earlier commit, e.g. a
-``git archive`` of it unpacked) also builds DIR's three gradient kernels
-(``flash_attention_bwd.cu``, ``rglru_bwd.cu`` and ``ssd_bwd.cu``) and
-times them beside these in phase 3 (``before_ms``). Phases, in order:
+``git archive`` of it unpacked) also builds DIR's SSD forward (``ssd.cu``)
+and three gradient kernels (``flash_attention_bwd.cu``, ``rglru_bwd.cu``
+and ``ssd_bwd.cu``) and times them beside these in phase 3
+(``before_ms``), the SSD forward's P = N = 4 instance and the SSD
+gradient held bit-equal to DIR's. Phases, in order:
 
 1. setup   — card name and power limit, torch/CUDA/nvcc versions;
 2. build   — compile every kernel from the sources in the checkout (and
              an empty kernel, the launch floor, two broken copies of the
              flash source, FLASH_MUTANTS, two of the flash gradient's,
-             FLASH_BWD_MUTANTS, one of the SSD gradient's,
-             SSD_BWD_MUTANTS, and --before's), one nvcc per source, all
-             at once;
+             FLASH_BWD_MUTANTS, one each of the SSD forward's and
+             gradient's, SSD_FWD_MUTANTS and SSD_BWD_MUTANTS, ssd.cu
+             without its P = N = 4 instance, and --before's), one nvcc per
+             source, all at once;
 3. kernels — each kernel against its plain PyTorch version on the card
              (rglru and the router's logits bit for bit, through both entry
              points of each), then timed with CUDA events through its
              wrapper and at its C entry point beside its bound, the launch
              floor (and, for the attention kernels, beside
              scaled_dot_product_attention; for ssd, its P = N = 4 instance
-             beside its generic one); then ssd, rglru, flash and the router
+             beside its three stages); then ssd, rglru, flash and the router
              at the shapes the model families of phases 10 and 11 give
-             them (mamba2's scan, recurrentgemma's forward and decode step
+             them (mamba2's scan with and without h0, a rerun's bits, a
+             copy with one TF32 product instead of three, SSD_FWD_MUTANTS,
+             refused, timed beside its 3xTF32 bound and --before's source,
+             each of its three kernels' device time, TF32 HMMA counted in
+             its SASS; recurrentgemma's forward and decode step
              and its local attention, whisper's encoder and
              cross-attention, grok-1's and arctic's attention in bf16 and
              grok-1's in float32, the router at (T, E, k) = (1024, 8, 2)
@@ -753,19 +760,32 @@ def ssd_view_args(x, dt, A, Bm, Cm, y, h_last, chunk: int = SEQ) -> bytes:
         b, h, s, p, g, n, chunk, 0)
 
 
-SSD_DISPATCH = "  if (k.p == 4 && k.n == 4) return launch<4, 4>(k, warps, bytes, s);\n"
+# csrc/ssd.cu's dispatch of the P = N = 4 instance, and the line of
+# csrc/ssd_stages.cuh's mma3 that adds the 3xTF32 split's two corrections
+SSD_DISPATCH = "  if (a->p == 4 && a->n == 4) return launch_p4n4(*a, s);\n"
+SSD_SPLIT_LINE = ("      mma_tf32(small[j], al, bh); mma_tf32(small[j], ah, bl);  "
+                  "// the split's corrections\n")
 
 
-def build_variant(name: str, line: str, new: str, path: str, entry: str):
+def build_variant(name: str, line: str, new: str, path: str, entry: str,
+                  header: str | None = None):
     """``entry`` of a copy of ``csrc/<name>.cu`` with its one ``line``
-    replaced by ``new``, written to ``path`` (a .cu) and built beside it
-    with the library's own flags."""
+    replaced by ``new`` (or, given ``header``, a copy of that header of
+    ``csrc/`` edited so, written beside the source's copy, where its
+    #include finds it first), written to ``path`` (a .cu) and built beside
+    it with the library's own flags."""
     from repro_torch.kernels import _build
-    src = (_build.CSRC / f"{name}.cu").read_text()
+    edited = header or f"{name}.cu"
+    src = (_build.CSRC / edited).read_text()
     if src.count(line) != 1:
-        raise AssertionError(f"{name}.cu: the line {line!r} is gone")
+        raise AssertionError(f"{edited}: the line {line!r} is gone")
+    code = src.replace(line, new)
+    if header:
+        with open(os.path.join(os.path.dirname(path), header), "w") as f:
+            f.write(code)
+        code = (_build.CSRC / f"{name}.cu").read_text()
     with open(path, "w") as f:
-        f.write(src.replace(line, new))
+        f.write(code)
     lib_path = path[:-len(".cu")] + ".so"
     proc = subprocess.run([_build.nvcc_path(), *_build.flags(name), "-o",
                            lib_path, path], capture_output=True, text=True)
@@ -777,48 +797,68 @@ def build_variant(name: str, line: str, new: str, path: str, entry: str):
     return fn
 
 
-def build_ssd_generic():
+def build_ssd_stages():
     """The ssd entry point of a copy of ``csrc/ssd.cu`` whose dispatch
-    leaves out the P = N = 4 instance, so every shape runs the generic
-    one, for ``ssd_instances``."""
+    leaves out the P = N = 4 instance, so every shape takes the three
+    stages, for ``ssd_instances``."""
     from repro_torch.kernels import _build
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     return build_variant("ssd", SSD_DISPATCH, "",
-                         str(_build.BUILD_DIR / "ssd_generic.cu"), "ssd_scan")
+                         str(_build.BUILD_DIR / "ssd_stages_only.cu"),
+                         "ssd_scan")
 
 
-def ssd_instances(inputs: TextInputs, generic) -> dict:
-    """The ssd kernel's P = N = 4 instance against its generic instance
-    (``build_ssd_generic``) on the main path's call at B = 4 and BIG rows:
-    each replayed in a CUDA graph (``graph_ms``), in the order special,
-    generic, generic, special, and the largest difference of their y and
-    h_last."""
-    from repro_torch.kernels import _build
-    calls = {"p4n4": _build.load("ssd").lib.ssd_scan, "generic": generic}
+def ssd_instances(inputs: TextInputs, stages, before=None) -> dict:
+    """The ssd kernel's P = N = 4 instance against its three stages
+    (``build_ssd_stages``) on the main path's call at B = 4 and BIG rows:
+    each replayed in a CUDA graph (``graph_ms``), in the order p4n4,
+    stages, stages, p4n4, and the largest difference of their y and
+    h_last; given ``before`` (``build_before``'s), the P = N = 4
+    instance's y and h_last bit-equal to the earlier source's."""
+    from repro_torch.kernels import _build, ssd
+    lib = _build.load("ssd").lib.ssd_scan
     stream = torch.cuda.current_stream().cuda_stream
     out = {}
     for b in (4, BIG):
         x, dt, A, Bm, Cm, h0 = inputs.ssd_args(b)
-        res, times = {}, {name: [] for name in calls}
+        _, s, h, p = x.shape
+        scratch = torch.empty(ssd.stage_floats(b, h, s, p, Bm.shape[3], SEQ),
+                              device="cuda")
+        calls = {"p4n4": lambda a, st: lib(a, None, st),
+                 "stages": lambda a, st: stages(a, scratch.data_ptr(), st)}
+        if before is not None:
+            calls["before"] = lambda a, st: before["ssd"](a, None, st)
+        res, times = {}, {name: [] for name in ("p4n4", "stages")}
         for name in calls:
             res[name] = (torch.empty_like(x), torch.empty_like(h0))
         args = {name: ssd_view_args(x, dt, A, Bm, Cm, *res[name])
                 for name in calls}
-        for name in ("p4n4", "generic", "generic", "p4n4"):
+        for name in ("p4n4", "stages", "stages", "p4n4"):
             call, a = calls[name], args[name]
             if call(a, stream) != 0:
-                raise AssertionError(f"ssd {name} instance failed")
+                raise AssertionError(f"ssd {name} failed")
             times[name].append(graph_ms(lambda st: call(a, st)))
         torch.cuda.synchronize()
         diff = max(float((u - v).abs().max())
-                   for u, v in zip(res["p4n4"], res["generic"]))
+                   for u, v in zip(res["p4n4"], res["stages"]))
         out[str(b)] = {**{f"{name}_graph_ms": float(np.mean(t))
                           for name, t in times.items()},
                        "max_abs_diff": diff}
+        extra = ""
+        if before is not None:
+            if calls["before"](args["before"], stream) != 0:
+                raise AssertionError("the earlier ssd entry point failed")
+            torch.cuda.synchronize()
+            same = all(torch.equal(u, v)
+                       for u, v in zip(res["p4n4"], res["before"]))
+            out[str(b)]["p4n4_bit_equal_to_before"] = same
+            extra = f"; P = N = 4 bit-equal to the earlier source's: {same}"
+            if not same:
+                raise AssertionError("the P = N = 4 instance's bits moved")
         print(f"  ssd instances B={b}: P = N = 4 "
-              f"{out[str(b)]['p4n4_graph_ms']!r} ms, generic "
-              f"{out[str(b)]['generic_graph_ms']!r} ms in a graph; "
-              f"outputs differ by {diff!r}", flush=True)
+              f"{out[str(b)]['p4n4_graph_ms']!r} ms, the stages "
+              f"{out[str(b)]['stages_graph_ms']!r} ms in a graph; "
+              f"outputs differ by {diff!r}{extra}", flush=True)
         if not diff <= TOL_TIGHT["atol"]:
             raise AssertionError("ssd instances disagree")
     return out
@@ -829,7 +869,8 @@ def time_text(inputs: TextInputs, b: int) -> dict:
     from their C entry points (``entry_ms``), taken in turns
     (``paired_ms``), and of their plain versions, on the library's inputs
     for b rows, beside the bounds (each input read once, each output
-    written once; flops of the cost model in ``udfs/rooflines.py``). Each
+    written once; flops of the cost model in ``udfs/rooflines.py``, the
+    SSD's ``ssd.flops``). Each
     kernel's plain keys time the main path's own call: ``ssd_bshp`` on the
     predicate's views (ssd_inputs: a dt broadcast over heads, no h0), with
     ``ops_ms`` the same through ``ops.ssd``, and the token entries
@@ -848,8 +889,10 @@ def time_text(inputs: TextInputs, b: int) -> dict:
     def entry(name: str, fn: str, args: bytes, key: str | None = None):
         """The C entry point alone: the device time while the host keeps
         ahead of it (and, in ``graphs[key or name]``, replayed in a CUDA
-        graph)."""
-        call = getattr(_build.load(name).lib, fn)
+        graph). ssd's takes no scratch at P = N = 4."""
+        lib_call = getattr(_build.load(name).lib, fn)
+        call = ((lambda a, st: lib_call(a, None, st)) if name == "ssd"
+                else lib_call)
         if call(args, stream) != 0:
             raise AssertionError(f"{name} entry point failed")
         graphs[key or name] = graph_ms(lambda st: call(args, st))
@@ -920,12 +963,12 @@ def time_text(inputs: TextInputs, b: int) -> dict:
         **dict(zip(("bound_ms", "bound_by"), bound_ms(
             4 * (2 * b * s * h * p + b * s + h + 2 * b * s * g * n
                  + b * h * p * n),
-            b * rooflines.ssd(s, h, p, n).flops_per_row))),
+            ssd.flops(b, s, h, p, n, SEQ)))),
         # the same with dt per head and h0 read: the bhcp call's work
         "bhcp_bound_ms": bound_ms(
             4 * (2 * b * h * s * p + b * h * s + h + 2 * b * g * s * n
                  + 2 * b * h * p * n),
-            b * rooflines.ssd(s, h, p, n).flops_per_row)[0],
+            ssd.flops(b, s, h, p, n, SEQ))[0],
     }
     # rglru: the main path's call, the token entry on the predicate's ids
     # and tables with no h0; rglru_bsw on the gathered rows with a zero h0
@@ -1984,8 +2027,10 @@ def device_trace(fn, data) -> dict:
         name = e.name.lower()
         if "flash" in name:
             key = "flash_attention"
-        elif "ssd_kernel" in name or "rglru_kernel" in name:
-            key = "ssd" if "ssd_kernel" in name else "rglru"
+        elif "ssd_kernel" in name or "ssd_fwd_" in name:
+            key = "ssd"
+        elif "rglru_kernel" in name:
+            key = "rglru"
         elif "moe_router" in name:
             key = "moe_router"
         elif name.startswith(("memcpy", "memset")):
@@ -2224,54 +2269,161 @@ def ptxas_lines(lib_name: str, instance: str) -> list:
     return lines
 
 
-def time_ssd_case(x, dt, A, Bm, Cm, label: str) -> dict:
-    """ssd at a model's shape (no h0, chunk min(64, S), as the scan calls
-    it): held against the plain version in float32 (y and h_last within
-    TOL_TIGHT), then timed through ``ssd_bshp`` on the model's bfloat16
-    x, B and C (the wrapper's three float32 copies included) and at the C
-    entry point on the float32 views, in turns, and the plain version on
-    the bfloat16 inputs, beside the bound (x, dt, A, B, C read once, y and
-    h_last written once, in float32; ``rooflines.ssd``'s flops)."""
+def kernel_stage_ms(call, pattern: str, calls: int = 10) -> dict:
+    """Device ms a call of ``call()`` by kernel, the kernels named by
+    ``pattern``'s group, from a torch.profiler trace of ``calls`` calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            call()
+        torch.cuda.synchronize()
+    out = collections.Counter()
+    for e in prof.events():
+        stage = re.search(pattern, e.name)
+        if e.device_type == DeviceType.CUDA and stage:
+            out[stage.group(1)] += e.time_range.elapsed_us() / 1e3 / calls
+    return dict(out)
+
+
+def time_ssd_case(x, dt, A, Bm, Cm, label: str, mutants=(),
+                  before=None) -> dict:
+    """ssd at a model's shape (chunk min(64, S), as the scan calls it):
+    held against the plain version in float32 (y and h_last within
+    TOL_TIGHT) with no h0, as the model calls it, and with one, one count
+    a call and the same bits on a rerun; each of SSD_FWD_MUTANTS
+    (``mutants``, built) refused by the same rule; then timed through
+    ``ssd_bshp`` on the model's bfloat16 x, B and C (the wrapper's three
+    float32 copies included) and at the C entry point on the float32
+    views, in turns, in a CUDA graph, beside ``before``'s entry point
+    (``build_before``'s, given; in turns with this one), the plain version
+    on the bfloat16 inputs and the bound (x, dt, A, B, C read once, y and
+    h_last written once, in float32; ``ssd.flops`` as 3xTF32 on the tensor
+    cores, and on the float32 CUDA cores); each of the call's kernels'
+    device time; and the forward kernels' tensor-core instructions in the
+    library's SASS (``sass_counts``: TF32 HMMA in the chunk-state and
+    per-chunk kernels, no F32 atomics)."""
     from repro_torch.kernels import _build, ref, ssd
-    from repro_torch.udfs import rooflines
     b, s, h, p = x.shape
     g, n = Bm.shape[2], Bm.shape[3]
     chunk = min(64, s)
-    y, h_last = ssd.ssd_bshp(x, dt, A, Bm, Cm, chunk=chunk)
-    y_p, h_p = ref.ssd(x, dt, A, Bm, Cm, None, chunk=chunk)
-    torch.cuda.synchronize()
-    err_y, ok_y = within(y, y_p, **TOL_TIGHT)
-    err_h, ok_h = within(h_last, h_p, **TOL_TIGHT)
-    print(f"  ssd {label}: B={b} S={s} H={h} P={p} G={g} N={n} chunk={chunk}"
-          f" y max_abs_err {err_y!r}, h_last {err_h!r} (|y| up to "
-          f"{float(y_p.abs().max())!r})", flush=True)
-    if not (ok_y and ok_h):
-        raise AssertionError(f"ssd kernel disagrees on {label}")
-    xb, Bb, Cb = (t.to(torch.bfloat16) for t in (x, Bm, Cm))
+    h0 = torch.from_numpy(np.random.default_rng(22).standard_normal(
+        (b, h, p, n)).astype(np.float32)).cuda()
+    errs, shares = {}, {}
+    for what, init in (("h0", h0), ("no h0", None)):   # the model's last
+        counted = ssd.launches
+        y, h_last = ssd.ssd_bshp(x, dt, A, Bm, Cm, init, chunk=chunk)
+        y2, h2 = ssd.ssd_bshp(x, dt, A, Bm, Cm, init, chunk=chunk)
+        y_p, h_p = ref.ssd(x, dt, A, Bm, Cm, init, chunk=chunk)
+        torch.cuda.synchronize()
+        counted = ssd.launches - counted
+        err_y, ok_y = within(y, y_p, **TOL_TIGHT)
+        err_h, ok_h = within(h_last, h_p, **TOL_TIGHT)
+        share = max(share_of(y, y_p, TOL_TIGHT["atol"]
+                             + TOL_TIGHT["rtol"] * y_p.abs()),
+                    share_of(h_last, h_p, TOL_TIGHT["atol"]
+                             + TOL_TIGHT["rtol"] * h_p.abs()))
+        same = torch.equal(y, y2) and torch.equal(h_last, h2)
+        print(f"  ssd {label} chunk={chunk}, {what}: y max_abs_err "
+              f"{err_y!r}, h_last {err_h!r} (|y| up to "
+              f"{float(y_p.abs().max())!r}), largest share of TOL_TIGHT's "
+              f"limit {share!r}; bit-equal on a rerun {same}, counted "
+              f"{counted} in 2 calls", flush=True)
+        if not (ok_y and ok_h and same and counted == 2):
+            raise AssertionError(f"ssd kernel disagrees on {label}, {what}")
+        errs[what] = max(err_y, err_h)
+        shares[what] = share
+    del y2, h2, h0
     call = _build.load("ssd").lib.ssd_scan
     y_out, h_out = torch.empty_like(x), torch.empty_like(h_last)  # kept
     args = ssd_view_args(x, dt, A, Bm, Cm, y_out, h_out, chunk)
+    scratch = torch.empty(ssd.scratch_floats(b, h, s, p, n, chunk),
+                          device="cuda")
+    ptr = scratch.data_ptr() if scratch.numel() else None
     stream = torch.cuda.current_stream().cuda_stream
-    if call(args, stream) != 0:
+    if call(args, ptr, stream) != 0:
         raise AssertionError("ssd entry point failed")
+    torch.cuda.synchronize()
+    if not (torch.equal(y_out, y) and torch.equal(h_out, h_last)):
+        raise AssertionError("the ssd entry point's result differs")
+    refused = {}
+    for (what, _, _), fn in zip(SSD_FWD_MUTANTS, mutants):
+        my, mh = torch.empty_like(x), torch.empty_like(h_last)
+        if fn(ssd_view_args(x, dt, A, Bm, Cm, my, mh, chunk), ptr,
+              stream) != 0:
+            raise AssertionError(f"the ssd mutant that {what} failed")
+        torch.cuda.synchronize()
+        err_y, ok_y = within(my, y_p, **TOL_TIGHT)
+        err_h, ok_h = within(mh, h_p, **TOL_TIGHT)
+        refused[what] = {"y_max_abs_err": err_y, "h_last_max_abs_err": err_h,
+                         "accepted": ok_y and ok_h}
+        print(f"  ssd rule at {label}, the mutant that {what}: y max_abs_err "
+              f"{err_y!r}, h_last {err_h!r}; accepted {ok_y and ok_h}",
+              flush=True)
+        if ok_y and ok_h:
+            raise AssertionError(f"the ssd rule accepts the mutant that "
+                                 f"{what}")
+        del my, mh
+    xb, Bb, Cb = (t.to(torch.bfloat16) for t in (x, Bm, Cm))
+
+    def entry():
+        return call(args, ptr, stream)
+
     t = {
         "dtype": "bfloat16 in, float32 kernel",
-        **paired_ms({   # tens of ms a launch at mamba2's widths: few
+        **paired_ms({
             "ms": lambda: ssd.ssd_bshp(xb, dt, A, Bb, Cb, chunk=chunk),
-            "entry_ms": lambda: call(args, stream)}, iters=3),
+            "entry_ms": entry}, iters=20),
+        "graph_ms": graph_ms(lambda st: call(args, ptr, st), n=20, reps=5),
         "plain_ms": time_ms(lambda: ref.ssd(xb, dt, A, Bb, Cb, None,
                                             chunk=chunk), 10),
-        **dict(zip(("bound_ms", "bound_by"), bound_ms(
-            4 * (2 * b * s * h * p + b * s * h + h + 2 * b * s * g * n
-                 + b * h * p * n),
-            b * rooflines.ssd(s, h, p, n).flops_per_row))),
         "library_ms": None,   # no single PyTorch call scans SSD
-        "max_abs_err": max(err_y, err_h),
+        "max_abs_err": max(errs.values()),
+        "errors": errs,
+        "share_of_limit": shares,
+        "mutants": refused,
     }
+    if before is not None:   # few calls: an earlier kernel may take tens of ms
+        old_args = ssd_view_args(x, dt, A, Bm, Cm, torch.empty_like(x),
+                                 torch.empty_like(h_last), chunk)
+        old = before["ssd"]
+        if old(old_args, ptr, stream) != 0:
+            raise AssertionError("the earlier ssd entry point failed")
+        pair = paired_ms({"entry_ms": entry,
+                          "before_ms": lambda: old(old_args, ptr, stream)},
+                         rounds=3, iters=3)
+        t["before_ms"] = pair["before_ms"]
+        t["entry_ms_beside_before"] = pair["entry_ms"]
+    t["stage_ms"] = kernel_stage_ms(entry, r"ssd_fwd_(\w+?)_kernel")
+    t.update(tensor_core_bound(
+        4 * (2 * b * s * h * p + b * s * h + h + 2 * b * s * g * n
+             + b * h * p * n), ssd.flops(b, s, h, p, n, chunk),
+        torch.float32))
+    extra = (f", the earlier source's entry point {t['before_ms']!r} ms "
+             f"(this one {t['entry_ms_beside_before']!r} ms beside it)"
+             if "before_ms" in t else "")
     print(f"  ssd {label}: kernel {t['ms']!r} ms through the wrapper on "
-          f"bfloat16 (entry point on float32 {t['entry_ms']!r} ms), plain "
-          f"{t['plain_ms']!r} ms, bound {t['bound_ms']!r} ms "
-          f"({t['bound_by']})", flush=True)
+          f"bfloat16 (entry point on float32 {t['entry_ms']!r} ms, in a "
+          f"CUDA graph {t['graph_ms']!r} ms){extra}; device ms a call by "
+          f"kernel {t['stage_ms']}; plain {t['plain_ms']!r} ms, bound "
+          f"{t['bound_ms']!r} ms ({t['bound_by']}, 3xTF32; float32 CUDA "
+          f"cores {t['bound_f32_cores_ms']!r} ms)", flush=True)
+    for line in ptxas_lines("ssd", "ssd_"):
+        print(f"  ssd (ptxas): {line}")
+    sass = sass_counts("ssd")
+    for fn, c in sass.items():
+        print(f"  ssd (SASS) {fn}: {c}")
+    t["hmma_tf32"] = {
+        m.group(1) + (f"<{m.group(2)}>" if m.group(2) else ""): c["hmma_tf32"]
+        for fn, c in sass.items()
+        for m in [re.search(r"(ssd_fwd_[a-z]+_kernel|ssd_kernel)(?:ILi(\d+))?",
+                            fn)] if m}
+    for stage in ("ssd_fwd_states_kernel", "ssd_fwd_out_kernel"):
+        if not t["hmma_tf32"].get(stage):
+            raise AssertionError(f"{stage} holds no TF32 HMMA")
+    if any(c["f32_atomics"] for c in sass.values()):
+        raise AssertionError("the ssd library holds F32 atomics")
     return t
 
 
@@ -2512,24 +2664,27 @@ def ssd_bwd_gate(got, want, exact) -> dict:
             "ok": ok}
 
 
-# phase 3's check of its own SSD gradient rule: a copy of
-# csrc/ssd_bwd.cu broken in one line (what it breaks, the line, its
-# replacement), which the rule must refuse at mamba2's training shape
+# phase 3's checks of the SSD rules: the forward and its gradient built
+# with csrc/ssd_stages.cuh broken in one line (what it breaks, the line,
+# its replacement), which each rule must refuse at mamba2's shape
 SSD_BWD_MUTANTS = (
-    ("drops the split's two correction products (1xTF32)",
-     "      mma_tf32(small[j], al, bh); mma_tf32(small[j], ah, bl);  "
-     "// the split's corrections\n", ""),
+    ("drops the split's two correction products (1xTF32)", SSD_SPLIT_LINE,
+     ""),
 )
+SSD_FWD_MUTANTS = SSD_BWD_MUTANTS
 
 
-def build_ssd_bwd_mutants() -> list:
-    """The entry points of SSD_BWD_MUTANTS, built in a temporary directory
-    (removed once they are loaded)."""
-    with tempfile.TemporaryDirectory() as tmp:
-        return [build_variant("ssd_bwd", line, new,
-                              os.path.join(tmp, f"ssd_bwd_mutant{i}.cu"),
-                              "ssd_bwd")
-                for i, (_, line, new) in enumerate(SSD_BWD_MUTANTS)]
+def build_ssd_mutants(name: str, mutants: tuple, entry: str) -> list:
+    """The entry points of ``name`` built with each of ``mutants`` applied
+    to csrc/ssd_stages.cuh, in a temporary directory a mutant (removed once
+    they are loaded)."""
+    fns = []
+    for i, (_, line, new) in enumerate(mutants):
+        with tempfile.TemporaryDirectory() as tmp:
+            fns.append(build_variant(name, line, new,
+                                     os.path.join(tmp, f"{name}_mutant{i}.cu"),
+                                     entry, header="ssd_stages.cuh"))
+    return fns
 
 
 def sass_counts(lib_name: str) -> dict:
@@ -2558,26 +2713,6 @@ def sass_counts(lib_name: str) -> dict:
     return counts
 
 
-def ssd_bwd_stages(args, chunk: int, calls: int = 10) -> dict:
-    """Device ms a call of each of the SSD gradient's four kernels (chunk
-    states, passes, per-chunk gradients, sums), from a torch.profiler
-    trace of ``calls`` calls of ``ssd.ssd_bwd`` on ``args``."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    from repro_torch.kernels import ssd
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            ssd.ssd_bwd(*args, chunk=chunk)
-        torch.cuda.synchronize()
-    out = collections.Counter()
-    for e in prof.events():
-        stage = re.search(r"ssd_bwd_(\w+?)_kernel", e.name)
-        if e.device_type == DeviceType.CUDA and stage:
-            out[stage.group(1)] += e.time_range.elapsed_us() / 1e3 / calls
-    return dict(out)
-
-
 def ssd_bwd_cases(mutants: list, before=None) -> dict:
     """Phase 3 for the SSD gradient kernel at SSD_BWD_CASES (float32
     inputs from a numpy seed: dt a softplus, A negative): ``ssd.ssd_bwd``
@@ -2594,7 +2729,7 @@ def ssd_bwd_cases(mutants: list, before=None) -> dict:
     the tensor cores, and on the float32 CUDA cores) and the plain
     versions: torch's autograd through ``ref.ssd`` (the backward pass of
     a recorded graph) and ``ref.ssd_bwd``, the closed form, and at
-    mamba2's shape each kernel's device time (``ssd_bwd_stages``). No
+    mamba2's shape each kernel's device time (``kernel_stage_ms``). No
     single PyTorch call differentiates the scan. Last, the library's
     tensor-core instructions and floating-point atomics by kernel
     (``sass_counts``): the chunk-state and per-chunk kernels must hold
@@ -2695,6 +2830,13 @@ def ssd_bwd_cases(mutants: list, before=None) -> dict:
             old = before["ssd_bwd"]
             if old(old_packed, stream) != 0:
                 raise AssertionError("the earlier ssd_bwd entry point failed")
+            torch.cuda.synchronize()
+            same = all(u is None and v is None or torch.equal(u, v)
+                       for u, v in zip(old_bufs[:6], bufs[:6]))
+            print(f"  ssd_bwd {label}: the six gradients bit-equal to the "
+                  f"earlier source's {same}", flush=True)
+            if not same:
+                raise AssertionError("the SSD gradient's bits moved")
             fns["before_ms"] = lambda: old(old_packed, stream)
         leaves = [t.detach().clone().requires_grad_()
                   for t in (x, dt, A, Bm, Cm) + (() if h0 is None else (h0,))]
@@ -2716,7 +2858,9 @@ def ssd_bwd_cases(mutants: list, before=None) -> dict:
              "share_of_limit": gate["share_of_limit"],
              "float64_shares": gate["float64_shares"]}
         if label == SSD_BWD_CASES[0][0]:
-            t["stage_ms"] = ssd_bwd_stages(args, chunk)
+            t["stage_ms"] = kernel_stage_ms(
+                lambda: ssd.ssd_bwd(*args, chunk=chunk),
+                r"ssd_bwd_(\w+?)_kernel")
             print(f"  ssd_bwd {label}: device ms a call by kernel "
                   f"{t['stage_ms']}", flush=True)
         del leaves, y, last, outs, bufs, exact
@@ -2941,9 +3085,10 @@ def flash_limit_mutants(mutants: list) -> dict:
     return res
 
 
-def family_kernel_cases(floor: dict) -> dict:
+def family_kernel_cases(floor: dict, ssd_mutants=(), before=None) -> dict:
     """Phase 3 at the shapes the model families give the kernels (inputs
-    from a numpy seed): ssd at mamba2-370m's scan, rglru at
+    from a numpy seed): ssd at mamba2-370m's scan (with its mutants and
+    beside ``before``'s, see ``time_ssd_case``), rglru at
     recurrentgemma-9b's forward and decode step, flash at its local
     attention, at whisper-small's encoder and cross-attention and at
     grok-1-314b's and arctic-480b's attention, and the router at the moe
@@ -2965,7 +3110,8 @@ def family_kernel_cases(floor: dict) -> dict:
         T(rng.standard_normal((b, s, h, p)) * 0.5),
         T(rng.uniform(0.5, 1.0, (b, s, h))), T(-np.exp(np.full(h, 0.1))),
         T(rng.standard_normal((b, s, g, n)) * 0.3),
-        T(rng.standard_normal((b, s, g, n)) * 0.3), label)
+        T(rng.standard_normal((b, s, g, n)) * 0.3), label, ssd_mutants,
+        before)
     # recurrentgemma-9b: the forward's (1, 2560, 4096), no h0, and a
     # decode step's (1, 1, 4096) from a state
     w = 4096
@@ -3578,33 +3724,41 @@ BEFORE_RGLRU_ARGS = struct.Struct("<14Q3if")
 
 
 def build_before(root: str) -> dict:
-    """The three gradient entry points of the checkout at ``root`` (``python3
-    chip_smoke.py --before DIR``: the sources these kernels replaced,
-    timed beside them), built side by side with each library's flags and
-    ``root``'s own headers, into a temporary directory removed once they
-    are loaded."""
+    """The SSD forward's and the three gradient entry points of the
+    checkout at ``root`` (``python3 chip_smoke.py --before DIR``: the
+    sources these kernels replaced, timed beside them), built side by side
+    with each library's flags and ``root``'s own headers, into a temporary
+    directory removed once they are loaded. The forward's is called as
+    this source's ``ssd_scan`` is, (args, scratch, stream), also where the
+    earlier source takes no scratch."""
     from repro_torch.kernels import _build
     csrc = os.path.join(root, "src", "repro_torch", "kernels", "csrc")
     tmp = tempfile.mkdtemp()
 
     def one(name):
         out = os.path.join(tmp, f"before_{name}.so")
+        src = os.path.join(csrc, f"{name}.cu")
         proc = subprocess.run(
             [_build.nvcc_path(), *_build.NVCC_FLAGS, "-I", csrc,
-             *_build.LIBRARY_FLAGS[name], "-o", out,
-             os.path.join(csrc, f"{name}.cu")], capture_output=True,
-            text=True)
+             *_build.LIBRARY_FLAGS[name], "-o", out, src],
+            capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {root}'s {name}.cu:\n"
                                f"{proc.stdout}{proc.stderr}")
-        fn = getattr(ctypes.CDLL(out), name)
-        fn.argtypes, fn.restype = _build.SIGNATURES[name][name]
+        entry = "ssd_scan" if name == "ssd" else name
+        fn = getattr(ctypes.CDLL(out), entry)
+        fn.argtypes, fn.restype = _build.SIGNATURES[name][entry]
+        with open(src) as f:
+            two_args = "ssd_scan(const SsdArgs* a, void* stream)" in f.read()
+        if two_args:   # no scratch: one launch at every shape
+            fn.argtypes = [ctypes.c_char_p, ctypes.c_void_p]
+            return name, lambda args, scratch, stream: fn(args, stream)
         return name, fn
 
     try:
-        with ThreadPoolExecutor(3) as pool:
-            return dict(pool.map(one, ("flash_attention_bwd", "rglru_bwd",
-                                       "ssd_bwd")))
+        with ThreadPoolExecutor(4) as pool:
+            return dict(pool.map(one, ("ssd", "flash_attention_bwd",
+                                       "rglru_bwd", "ssd_bwd")))
     finally:
         shutil.rmtree(tmp)
 
@@ -3920,8 +4074,8 @@ def train_trace(step, params, state, batch) -> dict:
     """One train step under torch.profiler: device time by flash forward
     (flash_kernel), flash backward (the D, dq and dkv kernels of both
     designs), RG-LRU forward (rglru_kernel) and backward (rglru_bwd
-    kernels), SSD forward (ssd_kernel) and backward (the four ssd_bwd
-    kernels), GEMMs, the
+    kernels), SSD forward (ssd_kernel, or the three ssd_fwd kernels) and
+    backward (the four ssd_bwd kernels), GEMMs, the
     optimizer (the kernels inside the device's span of
     ``_Annotated.update``'s range: one stream runs them in order) and the
     other elementwise and copy kernels, with the busy share of the step's
@@ -3965,7 +4119,7 @@ def train_trace(step, params, state, batch) -> dict:
             key = "router_forward"
         elif "ssd_bwd" in name:
             key = "ssd_backward"
-        elif "ssd_kernel" in name:
+        elif "ssd_kernel" in name or "ssd_fwd_" in name:
             key = "ssd_forward"
         elif any(w in name.lower() for w in ("gemm", "gemv", "cutlass",
                                              "xmma", "nvjet")):
@@ -5010,17 +5164,21 @@ def main() -> int:
     # ------------------------------------------------------------- 2 build
     phase("2 build")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(LIBRARIES) + 5) as pool:  # one nvcc a source
-        generic = pool.submit(build_ssd_generic)
+    with ThreadPoolExecutor(len(LIBRARIES) + 6) as pool:  # one nvcc a source
+        stages = pool.submit(build_ssd_stages)
         mutants = pool.submit(build_flash_mutants)
         grad_mutants = pool.submit(build_bwd_mutants)
-        ssd_grad_mutants = pool.submit(build_ssd_bwd_mutants)
+        ssd_grad_mutants = pool.submit(build_ssd_mutants, "ssd_bwd",
+                                       SSD_BWD_MUTANTS, "ssd_bwd")
+        ssd_fwd_mutants = pool.submit(build_ssd_mutants, "ssd",
+                                      SSD_FWD_MUTANTS, "ssd_scan")
         earlier = (pool.submit(build_before, before_root) if before_root
                    else None)
         libs = dict(zip(LIBRARIES, pool.map(_build.load, LIBRARIES)))
-        ssd_generic, flash_mutants = generic.result(), mutants.result()
+        ssd_stages, flash_mutants = stages.result(), mutants.result()
         bwd_mutants = grad_mutants.result()
         ssd_bwd_mutants = ssd_grad_mutants.result()
+        ssd_mutants = ssd_fwd_mutants.result()
         before = earlier.result() if earlier else None
     print(f"  {len(libs)} libraries in {time.perf_counter() - t0:.2f}s")
     for name, lib in libs.items():
@@ -5077,7 +5235,7 @@ def main() -> int:
     max_errs = check_text_kernels(inputs)
     max_errs["hsv_color"] = max_err
     text_timings = {b: time_text(inputs, b) for b in (*BUCKETS, BIG)}
-    instances = ssd_instances(inputs, ssd_generic)
+    instances = ssd_instances(inputs, ssd_stages, before)
     print()
     att_inputs = AttentionInputs(toks_kept)
     att_errs = check_attention_kernels(att_inputs)
@@ -5086,7 +5244,7 @@ def main() -> int:
     att_timings = {b: time_attention(att_inputs, b) for b in (*BUCKETS, BIG)}
     att_bench = time_attention_bench()
     print()
-    family_cases = family_kernel_cases(floor_ms)
+    family_cases = family_kernel_cases(floor_ms, ssd_mutants, before)
     for name, cases in family_cases.items():
         max_errs[name] = max(max_errs[name], *(t["max_abs_err"]
                                                for t in cases.values()))

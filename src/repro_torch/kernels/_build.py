@@ -53,7 +53,8 @@ LIBRARY_FLAGS = {
 # C signature of each library's entry point: (argtypes, restype). Each
 # kernel takes its arguments packed into one buffer (a bytes object from
 # the wrapper's struct format) and the stream: ctypes converts two
-# arguments where it would convert up to ~27. ``empty`` launches a kernel
+# arguments where it would convert up to ~27 (``ssd_scan`` also takes its
+# scratch, a pointer or None). ``empty`` launches a kernel
 # that does nothing: the launch floor beside the kernels' times;
 # ``flash_attention_bwd_route`` launches nothing and tells which of the
 # gradient's designs a call with those arguments takes.
@@ -71,7 +72,7 @@ SIGNATURES = {
                    "moe_router_bwd": _PACKED},
     "rglru": {"rglru_bsw": _PACKED, "rglru_tokens": _PACKED},
     "rglru_bwd": {"rglru_bwd": _PACKED},
-    "ssd": {"ssd_scan": _PACKED},
+    "ssd": {"ssd_scan": ([ctypes.c_char_p, _VOIDP, _VOIDP], _INT)},
     "ssd_bwd": {"ssd_bwd": _PACKED},
 }
 

@@ -1,14 +1,18 @@
 """Mamba-2 SSD chunked scan, for Hopper.
 
-Port of ``repro.kernels.ssd``. For CUDA tensors the wrappers launch the
-hand-written kernel in ``csrc/ssd.cu`` (a warp per (b, h) walking the
-chunks in order, see the source's note) or raise; for CPU tensors they
-run the plain version in ``ref.py``. The kernel reads every operand
-through its strides: ``ssd_bshp`` takes the model's (B, S, H, P) views as
-they are (a dt broadcast over heads included) and writes (B, S, H, P);
-``ssd_bhcp`` takes the JAX package's (B, H, S, P) layout. ``launches``
-counts kernel launches, so a run can show that it went through the
-kernel.
+Port of ``repro.kernels.ssd``. For CUDA tensors the wrappers call the
+hand-written kernel in ``csrc/ssd.cu`` or raise; for CPU tensors they run
+the plain version in ``ref.py``. The kernel has two designs behind one
+entry point (see the source's note): at P = N = 4, the text predicate's
+shapes, one launch of a warp per (b, h) walking the chunks in order; at
+every other shape (mamba2's scan) three launches on the tensor cores --
+chunk states, the pass over the chunks and per-chunk outputs -- through
+scratch the wrapper allocates (``scratch_floats``). The kernel reads every
+operand through its strides: ``ssd_bshp`` takes the model's (B, S, H, P)
+views as they are (a dt broadcast over heads included) and writes
+(B, S, H, P); ``ssd_bhcp`` takes the JAX package's (B, H, S, P) layout.
+``launches`` counts the kernel's calls, one a call whatever its number of
+launches, so a run can show that it went through the kernel.
 
 Both wrappers are differentiable. When grad mode is on and an input
 requires a gradient, they go through ``Ssd``, a
@@ -29,10 +33,10 @@ import torch
 
 from repro_torch.kernels import _build, ref
 
-MAX_CHUNK = 64  # the kernel's lanes own two rows of a chunk each
+MAX_CHUNK = 64  # a chunk's rows: two a lane (P = N = 4), four 16-row tiles
 SMEM_LIMIT = 227 * 1024  # shared memory one CTA may hold
 
-launches = 0           # forward launches
+launches = 0           # forward kernel calls (one or three launches each)
 backward_launches = 0  # gradient kernel calls (four launches each)
 _COUNT_LOCK = threading.Lock()
 
@@ -60,6 +64,22 @@ def bhsp_strides(t: torch.Tensor) -> tuple:
 
 def _f32(t: torch.Tensor) -> torch.Tensor:
     return t if t.dtype == torch.float32 else t.to(torch.float32)
+
+
+def stage_floats(b: int, h: int, s: int, p: int, n: int, chunk: int) -> int:
+    """Float32 scratch the three stages take at any shape: the chunk
+    states, B H (S / chunk) P N floats, then each chunk's cum, B H S
+    (``launch_stages`` in ``csrc/ssd.cu``)."""
+    return b * h * (s // chunk) * p * n + b * h * s
+
+
+def scratch_floats(b: int, h: int, s: int, p: int, n: int,
+                   chunk: int) -> int:
+    """Float32 scratch one forward call takes on the card: none at
+    P = N = 4 (one launch), else ``stage_floats``."""
+    if p == 4 and n == 4:
+        return 0
+    return stage_floats(b, h, s, p, n, chunk)
 
 
 def _check(shapes: tuple, want: tuple, h: int, g: int, s: int,
@@ -109,9 +129,14 @@ def _wants_grad(*tensors) -> bool:
         t is not None and t.requires_grad for t in tensors)
 
 
-def flops(b: int, s: int, h: int, p: int, n: int) -> int:
-    """The forward's operations (``udfs/rooflines.ssd``'s count)."""
-    return 6 * b * s * h * p * n
+def flops(b: int, s: int, h: int, p: int, n: int, chunk: int) -> int:
+    """The forward's operations, counted as ``bwd_flops`` counts the
+    gradient's: per (b, h, chunk) 2 L P N multiply-adds (the chunk state
+    and C h_in^T) and T (N + P) on the triangle (C B^T and its product
+    with x), T = L (L + 1) / 2, two operations each; the pass's P N a
+    chunk is left out, as there."""
+    tri = chunk * (chunk + 1) // 2
+    return 2 * b * h * (s // chunk) * (2 * chunk * p * n + tri * (n + p))
 
 
 def bwd_flops(b: int, s: int, h: int, p: int, n: int, chunk: int) -> int:
@@ -145,9 +170,12 @@ def _launch(x, dt, A, Bm, Cm, h0, y, strides, sizes, chunk: int):
     if h0 is not None and (h0.dtype != torch.float32 or not h0.is_contiguous()):
         h0 = h0.to(torch.float32).contiguous()
     h_last = torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
+    floats = scratch_floats(b, h, s, p, n, chunk)
+    scratch = (torch.empty(floats, dtype=torch.float32, device=x.device)
+               if floats else None)
     sx, sdt, sb, sc, sy = strides
-    if _build.traced("ssd", flops(b, s, h, p, n), (x, dt, A, Bm, Cm, h0),
-                     (y, h_last)):
+    if _build.traced("ssd", flops(b, s, h, p, n, chunk),
+                     (x, dt, A, Bm, Cm, h0), (y, h_last)):
         return y, h_last
     if _entry is None:
         _entry = _build.load("ssd").lib.ssd_scan
@@ -155,7 +183,8 @@ def _launch(x, dt, A, Bm, Cm, h0, y, strides, sizes, chunk: int):
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
         Cm.data_ptr(), 0 if h0 is None else h0.data_ptr(), y.data_ptr(),
         h_last.data_ptr(), *sx, *sdt, *sb, *sc, *sy, b, h, s, p, g, n, chunk,
-        0), _build.raw_stream(dev))
+        0), None if scratch is None else scratch.data_ptr(),
+        _build.raw_stream(dev))
     if err != 0:
         raise RuntimeError(f"ssd kernel launch failed: CUDA error {err}")
     with _COUNT_LOCK:
