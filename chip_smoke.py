@@ -10,11 +10,12 @@ UC2 + UC3 warehouse-safety example through them, and the dry run.
 
 Needs a CUDA card and nvcc; exits non-zero without them, and on any
 failed phase. ``--before DIR`` (a checkout of an earlier commit, e.g. a
-``git archive`` of it unpacked) also builds DIR's SSD forward (``ssd.cu``)
-and three gradient kernels (``flash_attention_bwd.cu``, ``rglru_bwd.cu``
-and ``ssd_bwd.cu``) and times them beside these in phase 3
-(``before_ms``), the SSD forward's P = N = 4 instance and the SSD
-gradient held bit-equal to DIR's. Phases, in order:
+``git archive`` of it unpacked) also builds DIR's SSD forward (``ssd.cu``),
+flash forward (``flash_attention.cu``) and three gradient kernels
+(``flash_attention_bwd.cu``, ``rglru_bwd.cu`` and ``ssd_bwd.cu``) and
+times them beside these in phases 3 and 9 (``before_ms``), the SSD
+forward's P = N = 4 instance, the SSD gradient and the flash forward's
+float32 instances held bit-equal to DIR's. Phases, in order:
 
 1. setup   — card name and power limit, torch/CUDA/nvcc versions;
 2. build   — compile every kernel from the sources in the checkout (and
@@ -41,8 +42,12 @@ gradient held bit-equal to DIR's. Phases, in order:
              cross-attention, grok-1's and arctic's attention in bf16 and
              grok-1's in float32, the router at (T, E, k) = (1024, 8, 2)
              and (1024, 128, 2) with tied rows, indices exact); bf16
-             flash is held to flash_bf16_limit, a limit of a few bf16
-             ulps, which must refuse both flash mutants; then the flash
+             flash is held to ref.flash_bf16_limit, a limit of a few bf16
+             ulps, which must refuse both flash mutants (each a line of
+             its bf16 kernel broken), takes the wgmma design fed by TMA
+             (flash_attention_route) and gives the same bits on a rerun,
+             at every shape it is timed at; its HGMMA are counted in each
+             bf16 instance's SASS; then the flash
              gradient kernel through the autograd function against
              ref.flash_attention_bwd (FLASH_BWD_CASES, bf16 and float32:
              SmolLM-135M's training attention, a 4096-long windowed one,
@@ -1079,18 +1084,6 @@ def limit_share(got, want, limit: torch.Tensor) -> tuple:
     return float(diff.max()), float((diff / limit).max())
 
 
-def flash_bf16_limit(q, k, v, want, **kw) -> torch.Tensor:
-    """Per-element limits for bf16 flash against its plain version
-    ``want``: 2 bf16 ulps of the output (2^-6 |want|; each side rounds its
-    output once) plus 4 times the most that the kernel's rounding of P to
-    bf16 for P.V can move it (2^-9 P.|V|: the row sums add the unrounded
-    P), with P.|V| from the plain version on |V| in float32. A kernel that
-    drops or mis-scales a key tile leaves it (``flash_limit_mutants``)."""
-    from repro_torch.kernels import ref
-    pv = ref.flash_attention_bshd(q.float(), k.float(), v.float().abs(), **kw)
-    return 2.0 ** -6 * want.float().abs() + 2.0 ** -7 * pv
-
-
 class AttentionInputs:
     """The attention predicates' own kernel inputs for the first rows of
     the kept review table, made on the card by the library's featurizer,
@@ -1277,28 +1270,35 @@ def visible_pairs(s: int, causal: bool, window: int,
 
 
 def time_flash(q, k, v, *, group: int, causal: bool, window: int,
-               label: str) -> dict:
+               label: str, before=None) -> dict:
     """Times of the flash kernel on (BH, S, D) inputs in its layout, or on
     the model's (B, S, H, D) views (4-d inputs, through
     ``flash_attention_bshd``; there k and v may hold another length than
     q, as the cross-attention's do): through the wrapper, at its C entry
-    point and of ``scaled_dot_product_attention`` on the same work (in q's
-    dtype), taken in turns (``paired_ms``), and of the plain version,
-    beside the bound (each input read once and the output written once; 4
-    flops per visible (query, key) pair and dim)."""
+    point, at ``before``'s (an earlier source's entry point, from
+    ``build_before``; given) and of ``scaled_dot_product_attention`` on the
+    same work (in q's dtype), taken in turns (``paired_ms``), and of the
+    plain version, beside the bound (each input read once and the output
+    written once; 4 flops per visible (query, key) pair and dim). In bf16
+    the call must take the wgmma design fed by TMA
+    (``flash_attention_route``) and give the same bits on a rerun; in
+    float32 its bits must equal ``before``'s."""
     from repro_torch.kernels import _build, flash_attention, ref
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream().cuda_stream
-    call = _build.load("flash_attention").lib.flash_attention_bshd
+    lib = _build.load("flash_attention").lib
+    call = lib.flash_attention_bshd
     sk = k.shape[1]
     if q.dim() == 4:
         b, s, h, d = q.shape
         bh = b * h
-        args = flash_attention.pack_args(
-            q, k, v, out,
-            tuple(map(flash_attention.bshd_layout, (q, k, v, out))),
-            batch=b, heads=h, group=group, sq=s, sk=sk, causal=causal,
-            window=window, scale=d ** -0.5)
+
+        def pack(o):
+            return flash_attention.pack_args(
+                q, k, v, o,
+                tuple(map(flash_attention.bshd_layout, (q, k, v, o))),
+                batch=b, heads=h, group=group, sq=s, sk=sk, causal=causal,
+                window=window, scale=d ** -0.5)
         wrapper = lambda: flash_attention.flash_attention_bshd(  # noqa: E731
             q, k, v, causal=causal, window=window)
         plain = lambda: ref.flash_attention_bshd(  # noqa: E731
@@ -1307,11 +1307,13 @@ def time_flash(q, k, v, *, group: int, causal: bool, window: int,
     else:
         bh, s, d = q.shape
         lay = flash_attention.bhsd_layout
-        args = flash_attention.pack_args(
-            q, k, v, out,
-            (lay(q, group), lay(k, 1), lay(v, 1), lay(out, group)),
-            batch=bh // group, heads=group, group=group, sq=s, sk=s,
-            causal=causal, window=window, scale=d ** -0.5)
+
+        def pack(o):
+            return flash_attention.pack_args(
+                q, k, v, o,
+                (lay(q, group), lay(k, 1), lay(v, 1), lay(o, group)),
+                batch=bh // group, heads=group, group=group, sq=s, sk=s,
+                causal=causal, window=window, scale=d ** -0.5)
         wrapper = lambda: flash_attention.flash_attention_bhsd(  # noqa: E731
             q, k, v, group=group, causal=causal, window=window)
         plain = lambda: ref.flash_attention_bhsd(  # noqa: E731
@@ -1319,33 +1321,60 @@ def time_flash(q, k, v, *, group: int, causal: bool, window: int,
         # the same work for scaled_dot_product_attention: the programs as
         # the heads of one sequence (query head i reads kv head i // group)
         q4, k4, v4 = q.unsqueeze(0), k.unsqueeze(0), v.unsqueeze(0)
+    args = pack(out)
     if call(args, stream) != 0:
         raise AssertionError("flash_attention entry point failed")
+    fns, checks = {"ms": wrapper, "entry_ms": lambda: call(args, stream)}, {}
+    if q.dtype == torch.bfloat16:
+        rerun = torch.empty_like(q)
+        if call(pack(rerun), stream) != 0:
+            raise AssertionError("flash_attention entry point failed")
+        torch.cuda.synchronize()
+        checks["route"] = flash_attention.ROUTES[lib.flash_attention_route(
+            args)]
+        checks["rerun_bit_equal"] = torch.equal(out, rerun)
+        if checks["route"] != "bf16 wgmma, TMA ring" or \
+                not checks["rerun_bit_equal"]:
+            raise AssertionError(f"flash_attention {label}: {checks}")
+    if before is not None:
+        old = torch.empty_like(q)
+        old_args = pack(old)
+        if before(old_args, stream) != 0:
+            raise AssertionError("the earlier flash entry point failed")
+        torch.cuda.synchronize()
+        fns["before_ms"] = lambda: before(old_args, stream)
+        if q.dtype == torch.float32:
+            checks["bit_equal_to_before"] = torch.equal(out, old)
+            if not checks["bit_equal_to_before"]:
+                raise AssertionError(f"flash_attention {label}: float32 "
+                                     "differs from the earlier source's")
     if window > 0:
         i = torch.arange(s, device=q.device)
         mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
-        library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        fns["library_ms"] = lambda: F.scaled_dot_product_attention(
             q4, k4, v4, attn_mask=mask, enable_gqa=True)
     else:
-        library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        fns["library_ms"] = lambda: F.scaled_dot_product_attention(
             q4, k4, v4, is_causal=causal, enable_gqa=True)
     big = bh * s > 2 * 4096 or s * sk > 2 ** 22
     t = {
         "dtype": str(q.dtype).replace("torch.", ""),
-        **paired_ms({
-            "ms": wrapper,
-            "entry_ms": lambda: call(args, stream),
-            "library_ms": library}),
+        **paired_ms(fns),
         "plain_ms": time_ms(plain, 10 if big else TIME_ITERS),
         **tensor_core_bound(
             (2 * q.numel() + k.numel() + v.numel()) * q.element_size(),
             4.0 * visible_pairs(s, causal, window, sk) * bh * d, q.dtype),
+        **checks,
     }
+    extra = (f", the earlier source's entry point {t['before_ms']!r} ms "
+             f"({t['before_ms'] / t['entry_ms']!r} x this one's)"
+             if "before_ms" in t else "")
     print(f"  flash_attention {label}: kernel {t['ms']!r} ms (entry point "
-          f"{t['entry_ms']!r} ms), plain {t['plain_ms']!r} ms, "
+          f"{t['entry_ms']!r} ms{extra}), plain {t['plain_ms']!r} ms, "
           f"scaled_dot_product_attention {t['library_ms']!r} ms, bound "
           f"{t['bound_ms']!r} ms ({t['bound_by']}; float32 CUDA cores "
-          f"{t['bound_f32_cores_ms']!r} ms)", flush=True)
+          f"{t['bound_f32_cores_ms']!r} ms)"
+          f"{'; ' + str(checks) if checks else ''}", flush=True)
     return t
 
 
@@ -1398,18 +1427,20 @@ def time_decode(q, kc, vc, lens, *, num_kv_heads: int, label: str) -> dict:
     return t
 
 
-def time_attention(inputs: AttentionInputs, b: int) -> dict:
-    """Both attention kernels on the predicates' inputs for b rows."""
+def time_attention(inputs: AttentionInputs, b: int, before=None) -> dict:
+    """Both attention kernels on the predicates' inputs for b rows (flash
+    beside ``before``'s entry point, given, and bit-equal to it)."""
     q, k, v = inputs.flash_args(b)
     flash = time_flash(q, k, v, group=1, causal=True, window=0,
-                       label=f"B={b}")
+                       label=f"B={b}", before=before)
     dq, kc, vc, lens = inputs.decode_args(b)
     decode = time_decode(dq, kc, vc, lens, num_kv_heads=1, label=f"B={b}")
     return {"flash_attention": flash, "decode_attention": decode}
 
 
-def time_attention_bench() -> dict:
-    """Both attention kernels at the JAX package's bench_kernels shapes:
+def time_attention_bench(before=None) -> dict:
+    """Both attention kernels at the JAX package's bench_kernels shapes
+    (flash beside ``before``'s entry point, given):
     flash in float32 (and the causal shapes in bfloat16, beside SDPA in
     bfloat16), decode with full lengths and with lengths drawn from the
     seed in [1, S]."""
@@ -1428,7 +1459,7 @@ def time_attention_bench() -> dict:
                 label += " bf16"
             out[label] = {"flash_attention": time_flash(
                 q, k, v, group=h // hkv, causal=True, window=window,
-                label=label)}
+                label=label, before=before)}
     b, s, h, hkv, d = DECODE_BENCH
     q = torch.from_numpy(rng.standard_normal((b * hkv, h // hkv, d)).astype(
         np.float32)).cuda()
@@ -2056,12 +2087,13 @@ def device_trace(fn, data) -> dict:
             "top_kernels_ms": dict(by_name.most_common(12))}
 
 
-def time_llm(cfg, model, udf, toks: np.ndarray) -> dict:
+def time_llm(cfg, model, udf, toks: np.ndarray, before=None) -> dict:
     """One LLM call at 10 and 64 rows: ms a call on the host clock and
     between CUDA events on its stream (the median of LLM_ROUNDS, each
     ending in the copy back), torch operations a call,
     its device time by kernel, and its parts timed alone with CUDA events:
-    the flash kernel at its shape (beside its bound and SDPA), the
+    the flash kernel at its shape (beside its bound, SDPA and ``before``'s
+    entry point, given), the
     vocabulary GEMM, and the float32 log-softmax with the masked pool."""
     from repro_torch.kernels import launch, ref
     from repro_torch.kernels.flash_attention import flash_attention_bshd
@@ -2101,9 +2133,9 @@ def time_llm(cfg, model, udf, toks: np.ndarray) -> dict:
         want = ref.flash_attention_bshd(*qkv)
         flash_err = check_close(
             "flash_attention", flash_attention_bshd(*qkv), want, label,
-            tol=flash_bf16_limit(*qkv, want))
+            tol=ref.flash_bf16_limit(*qkv, want))
         flash = time_flash(*qkv, group=group, causal=True, window=0,
-                           label=label)
+                           label=label, before=before)
         with torch.inference_mode():
             h = embed_tokens(x, model.embed)
             head = model.embed.T
@@ -3015,22 +3047,21 @@ def router_bwd_cases(floor: dict) -> dict:
     return out
 
 
-# flash_bf16_limit's own check: copies of csrc/flash_attention.cu, each
-# broken in one line (what it breaks, the line, its replacement), which
-# the limit must refuse at grok-1-314b's bf16 attention
+# ref.flash_bf16_limit's own check: copies of csrc/flash_attention.cu,
+# each broken in one line of its bf16 kernel (what it breaks, the line,
+# its replacement), which the limit must refuse at grok-1-314b's bf16
+# attention
 FLASH_MUTANTS = (
     ("drops the last query block's last key tile",
-     "  const int n_tiles = k_end > k_begin ? (k_end - k_begin + BK - 1) / BK"
-     " : 0;\n",
-     "  const int n_tiles = (k_end > k_begin ? (k_end - k_begin + BK - 1) / "
-     "BK : 0) -\n      (q_start + kBlockQ >= p.sq && k_end - k_begin > BK);"
-     "\n"),
+     "  const int n_tiles = k_end > k_begin ? (k_end - k_begin + kRows - 1) / "
+     "kRows : 0;\n",
+     "  const int n_tiles = (k_end > k_begin ? (k_end - k_begin + kRows - 1) / "
+     "kRows : 0) -\n      (q0 + kRows >= p.sq && k_end - k_begin > kRows);\n"),
     ("scales every later query block's last key tile's P.V by 1 + 2^-5",
-     "    pv_tile<DP, BK>(o, s, cur_v, g, t, corr);\n",
-     "    if (tile > 0 && tile == n_tiles - 1)\n"
-     "      for (int j = 0; j < BK / 8; ++j)\n"
-     "        for (int e = 0; e < 4; ++e) s[j][e] *= 1.03125f;\n"
-     "    pv_tile<DP, BK>(o, s, cur_v, g, t, corr);\n"),
+     "      wg::to_a_frags(pa, s);\n",
+     "      if (n > 0 && n == n_tiles - 1)\n"
+     "        for (int e = 0; e < 32; ++e) s[e] *= 1.03125f;\n"
+     "      wg::to_a_frags(pa, s);\n"),
 )
 
 
@@ -3046,6 +3077,24 @@ def build_flash_mutants() -> list:
                 "flash_attention_bshd"), range(len(FLASH_MUTANTS))))
 
 
+def flash_sass() -> dict:
+    """The flash library's instances from ``cuobjdump -sass``
+    (``sass_counts``): every bf16 instance (flash_wgmma_kernel) must hold
+    HGMMA and no instance an F32 atomic. Returns {instance: counts}."""
+    out = {}
+    for fn, c in sass_counts("flash_attention").items():
+        bf16 = "flash_wgmma_kernel" in fn
+        if not bf16 and "flash_kernel" not in fn:
+            continue
+        out[fn] = c
+        print(f"  flash_attention SASS {fn}: {c['hgmma']} HGMMA, "
+              f"{c['hmma_tf32']} TF32 HMMA, {c['f32_atomics']} F32 atomics",
+              flush=True)
+        if (bf16 and c["hgmma"] == 0) or c["f32_atomics"]:
+            raise AssertionError(f"flash_attention {fn}: {c}")
+    return out
+
+
 def flash_limit_mutants(mutants: list) -> dict:
     """At grok-1-314b's bf16 attention (inputs from a numpy seed), the
     kernel through its wrapper and each of FLASH_MUTANTS at its entry
@@ -3058,7 +3107,7 @@ def flash_limit_mutants(mutants: list) -> dict:
     q, k, v = (torch.from_numpy(rng.standard_normal((b, s, n, d)).astype(
         np.float32)).cuda().to(torch.bfloat16) for n in (h, hkv, hkv))
     want = ref.flash_attention_bshd(q, k, v)
-    limit = flash_bf16_limit(q, k, v, want)
+    limit = ref.flash_bf16_limit(q, k, v, want)
     stream = torch.cuda.current_stream().cuda_stream
     outs = {"sound kernel": flash_attention.flash_attention_bshd(q, k, v)}
     for (what, _, _), call in zip(FLASH_MUTANTS, mutants):
@@ -3143,16 +3192,18 @@ def family_kernel_cases(floor: dict, ssd_mutants=(), before=None) -> dict:
         kw = {"causal": causal, "window": window}
         got = flash_attention_bshd(q, k, v, **kw)
         want = ref.flash_attention_bshd(q, k, v, **kw)
-        tol = flash_bf16_limit(q, k, v, want, **kw) if dt == bf16 else TOL_TIGHT
+        tol = (ref.flash_bf16_limit(q, k, v, want, **kw) if dt == bf16
+               else TOL_TIGHT)
         err = check_close("flash_attention", got, want, label, tol=tol)
         share = {"largest_share_of_limit": limit_share(got, want, tol)[1]
                  } if dt == bf16 else {}
         out["flash_attention"][label] = {
             **time_flash(q, k, v, group=h // hkv, causal=causal,
-                         window=window, label=label), "max_abs_err": err,
-            **share}
-    for line in ptxas_lines("flash_attention", "13__nv_bfloat16Li256E"):
-        print(f"  flash bf16 D=256 instance (ptxas): {line}")
+                         window=window, label=label,
+                         before=before and before["flash_attention"]),
+            "max_abs_err": err, **share}
+    for line in ptxas_lines("flash_attention", "flash_wgmma_kernelILi256E"):
+        print(f"  flash bf16 D=256 instances (ptxas): {line}")
     # the router at a moe forward's tokens (B * S = 1024): grok-1's 8
     # experts (a thread a row) and arctic's 128 (a warp a row); logits
     # spread as a bf16 layer's router gives them (std 1.6)
@@ -3724,13 +3775,14 @@ BEFORE_RGLRU_ARGS = struct.Struct("<14Q3if")
 
 
 def build_before(root: str) -> dict:
-    """The SSD forward's and the three gradient entry points of the
-    checkout at ``root`` (``python3 chip_smoke.py --before DIR``: the
+    """The SSD and flash forwards' and the three gradient entry points of
+    the checkout at ``root`` (``python3 chip_smoke.py --before DIR``: the
     sources these kernels replaced, timed beside them), built side by side
     with each library's flags and ``root``'s own headers, into a temporary
-    directory removed once they are loaded. The forward's is called as
+    directory removed once they are loaded. The SSD forward's is called as
     this source's ``ssd_scan`` is, (args, scratch, stream), also where the
-    earlier source takes no scratch."""
+    earlier source takes no scratch; the flash forward's takes this
+    source's packed arguments (FlashArgs is unchanged)."""
     from repro_torch.kernels import _build
     csrc = os.path.join(root, "src", "repro_torch", "kernels", "csrc")
     tmp = tempfile.mkdtemp()
@@ -3745,7 +3797,8 @@ def build_before(root: str) -> dict:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {root}'s {name}.cu:\n"
                                f"{proc.stdout}{proc.stderr}")
-        entry = "ssd_scan" if name == "ssd" else name
+        entry = {"ssd": "ssd_scan",
+                 "flash_attention": "flash_attention_bshd"}.get(name, name)
         fn = getattr(ctypes.CDLL(out), entry)
         fn.argtypes, fn.restype = _build.SIGNATURES[name][entry]
         with open(src) as f:
@@ -3756,9 +3809,10 @@ def build_before(root: str) -> dict:
         return name, fn
 
     try:
-        with ThreadPoolExecutor(4) as pool:
-            return dict(pool.map(one, ("ssd", "flash_attention_bwd",
-                                       "rglru_bwd", "ssd_bwd")))
+        with ThreadPoolExecutor(5) as pool:
+            return dict(pool.map(one, ("ssd", "flash_attention",
+                                       "flash_attention_bwd", "rglru_bwd",
+                                       "ssd_bwd")))
     finally:
         shutil.rmtree(tmp)
 
@@ -3938,13 +3992,13 @@ def flash_bwd_cases(mutants: list, before=None) -> dict:
     it should take (``flash_attention_bwd_route``: bf16 the wgmma
     instances fed by TMA, these operands being aligned; float32 the
     mma.sync ones), both FLASH_BWD_MUTANTS refused by the bf16 limit at
-    the main path's shape, and the kernel (beside ``before``'s, given) and
-    the forward's LSE timed. Returns {"cases", "mutants", "timings",
-    "lse"}."""
+    the main path's shape, every case bit-equal to ``before``'s entry
+    point on the same arguments (given), and the kernel (beside
+    ``before``'s) and the forward's LSE timed. Returns {"cases",
+    "mutants", "timings", "lse"}."""
     from repro_torch.kernels import _build, flash_attention
     route_of = _build.load("flash_attention_bwd").lib.flash_attention_bwd_route
-    routes = {2: "bf16 wgmma, TMA ring", 1: "bf16 wgmma, producer loads",
-              0: "float32 mma.sync"}
+    routes = flash_attention.ROUTES   # the gradient's route answers alike
     out = {"cases": {}, "mutants": {}, "timings": {}, "lse": {}}
     bf16, f32 = torch.bfloat16, torch.float32
     stream = torch.cuda.current_stream().cuda_stream
@@ -3972,6 +4026,26 @@ def flash_bwd_cases(mutants: list, before=None) -> dict:
             if not (res["within"] and res["bit_equal_rerun"]):
                 raise AssertionError(f"the flash gradient kernel disagrees "
                                      f"on {label}")
+            if before is not None:
+                # the earlier source fed the same arguments (this forward's
+                # o and LSE) gives the same bits: the gradient's device
+                # code is as it was
+                mine = [torch.empty_like(t) for t in (case.q, case.k, case.v)]
+                old = [torch.empty_like(t) for t in mine]
+                if (_build.load("flash_attention_bwd").lib.flash_attention_bwd(
+                        case.entry_args(mine), stream) != 0
+                        or before["flash_attention_bwd"](
+                            case.entry_args(old), stream) != 0):
+                    raise AssertionError("flash_attention_bwd entry failed")
+                torch.cuda.synchronize()
+                res["bit_equal_to_before"] = all(
+                    torch.equal(a, c) for a, c in zip(mine, old))
+                print(f"  flash_attention_bwd {label}: bit-equal to the "
+                      f"earlier source's {res['bit_equal_to_before']}",
+                      flush=True)
+                if not res["bit_equal_to_before"]:
+                    raise AssertionError(f"the flash gradient differs from "
+                                         f"the earlier source's on {label}")
             if name == "smollm-135m train" and dt == bf16:
                 for (what, _, _), call in zip(FLASH_BWD_MUTANTS, mutants):
                     outs = [torch.empty_like(t) for t in (case.q, case.k,
@@ -4072,10 +4146,10 @@ class _Annotated:
 
 def train_trace(step, params, state, batch) -> dict:
     """One train step under torch.profiler: device time by flash forward
-    (flash_kernel), flash backward (the D, dq and dkv kernels of both
-    designs), RG-LRU forward (rglru_kernel) and backward (rglru_bwd
-    kernels), SSD forward (ssd_kernel, or the three ssd_fwd kernels) and
-    backward (the four ssd_bwd kernels), GEMMs, the
+    (flash_kernel, flash_wgmma_kernel), flash backward (the D, dq and dkv
+    kernels of both designs), RG-LRU forward (rglru_kernel) and backward
+    (rglru_bwd kernels), SSD forward (ssd_kernel, or the three ssd_fwd
+    kernels) and backward (the four ssd_bwd kernels), GEMMs, the
     optimizer (the kernels inside the device's span of
     ``_Annotated.update``'s range: one stream runs them in order) and the
     other elementwise and copy kernels, with the busy share of the step's
@@ -4107,7 +4181,7 @@ def train_trace(step, params, state, batch) -> dict:
                                      "delta_kernel", "dq_wgmma_kernel",
                                      "dkv_wgmma_kernel", "delta_vec_kernel")):
             key = "flash_backward"
-        elif "flash_kernel" in name:
+        elif "flash_kernel" in name or "flash_wgmma_kernel" in name:
             key = "flash_forward"
         elif "rglru_bwd" in name:
             key = "rglru_backward"
@@ -5241,14 +5315,17 @@ def main() -> int:
     att_errs = check_attention_kernels(att_inputs)
     max_errs.update((k, att_errs[k]) for k in ("flash_attention",
                                                 "decode_attention"))
-    att_timings = {b: time_attention(att_inputs, b) for b in (*BUCKETS, BIG)}
-    att_bench = time_attention_bench()
+    flash_before = before and before["flash_attention"]
+    att_timings = {b: time_attention(att_inputs, b, flash_before)
+                   for b in (*BUCKETS, BIG)}
+    att_bench = time_attention_bench(flash_before)
     print()
     family_cases = family_kernel_cases(floor_ms, ssd_mutants, before)
     for name, cases in family_cases.items():
         max_errs[name] = max(max_errs[name], *(t["max_abs_err"]
                                                for t in cases.values()))
     limit_mutants = flash_limit_mutants(flash_mutants)
+    flash_instances = flash_sass()
     print()
     flash_bwd = flash_bwd_cases(bwd_mutants, before)
     max_errs["flash_attention_bwd"] = max(
@@ -5412,7 +5489,7 @@ def main() -> int:
     llm = run_llm(make_reviews(LLM_REVIEWS, seed=0), llm_cfg, llm_model,
                   torch.device("cuda"))
     llm["timings"] = time_llm(llm_cfg, llm_model, llm.pop("udf"),
-                              llm.pop("tokens"))
+                              llm.pop("tokens"), flash_before)
     del llm_model
     torch.cuda.empty_cache()
 
@@ -5504,6 +5581,7 @@ def main() -> int:
         "llm": llm,
         "family_kernel_cases": family_cases,
         "flash_limit_mutants": limit_mutants,
+        "flash_sass": flash_instances,
         "flash_bwd": flash_bwd,
         "train": train,
         "train_families": train_families,

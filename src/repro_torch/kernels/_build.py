@@ -56,14 +56,16 @@ LIBRARY_FLAGS = {
 # arguments where it would convert up to ~27 (``ssd_scan`` also takes its
 # scratch, a pointer or None). ``empty`` launches a kernel
 # that does nothing: the launch floor beside the kernels' times;
-# ``flash_attention_bwd_route`` launches nothing and tells which of the
-# gradient's designs a call with those arguments takes.
+# ``flash_attention_route`` and ``flash_attention_bwd_route`` launch
+# nothing and tell which of the forward's or the gradient's designs a call
+# with those arguments takes.
 _VOIDP, _INT = ctypes.c_void_p, ctypes.c_int
 _PACKED = ([ctypes.c_char_p, _VOIDP], _INT)
 SIGNATURES = {
     "decode_attention": {"decode_attention_bshd": _PACKED},
     "empty": {"empty_launch": ([_VOIDP], _INT)},
-    "flash_attention": {"flash_attention_bshd": _PACKED},
+    "flash_attention": {"flash_attention_bshd": _PACKED,
+                        "flash_attention_route": ([ctypes.c_char_p], _INT)},
     "flash_attention_bwd": {"flash_attention_bwd": _PACKED,
                             "flash_attention_bwd_route": (
                                 [ctypes.c_char_p], _INT)},

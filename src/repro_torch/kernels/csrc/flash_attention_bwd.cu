@@ -53,7 +53,8 @@
 //   empty mbarriers hand each stage over, so the next tile loads while
 //   the consumers work on this one.
 // - Loads are TMA (a rank-4 map per operand, made on the host through
-//   cudaGetDriverEntryPoint, so the library needs no libcuda) when the
+//   cudaGetDriverEntryPoint, so the library needs no libcuda; the encoder
+//   and the tile loads are flash_tma.cuh's, shared with the forward) when the
 //   operands' strides and base addresses are 16-byte aligned; TMA writes
 //   zeros past the sequence and past D. Otherwise (an unaligned view,
 //   whose rows cp.async's 4-, 8- and 16-byte pieces cannot move) the
@@ -90,6 +91,7 @@
 #include <stdint.h>
 
 #include "flash_tiles.cuh"
+#include "flash_tma.cuh"
 #include "flash_wgmma.cuh"
 
 namespace {
@@ -419,15 +421,10 @@ dkv_kernel(const Params p, int kv_programs) {
 
 namespace wg = flash_wgmma;
 using wg::kRows;
+using namespace flash_tma;
 
 constexpr int kWgThreads = 160;  // a consumer warpgroup and a producer warp
 constexpr int kProducer = 4;     // the producer's warp
-
-// where a rank-4 TMA map keeps the positions, heads and sequences of an
-// operand (dims 1 .. 3, ordered by increasing stride; dim 0 is D)
-struct MapDims {
-  int seq, head, batch;
-};
 
 struct WgParams {
   CUtensorMap mq, mk, mv, mdo;
@@ -435,15 +432,6 @@ struct WgParams {
   Params p;
   int tma;  // 1: tiles come by TMA; 0: by the producer's own loads
 };
-
-__device__ __forceinline__ int pick(const MapDims& m, int dim, int pos, int h,
-                                    int b) {
-  return m.seq == dim ? pos : m.head == dim ? h : b;
-}
-
-__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
-  return p + ((1024 - (wg::smem_u32(p) & 1023)) & 1023);
-}
 
 // visible(), as one predicate without short-circuit branches
 __device__ __forceinline__ bool seen(const Params& p, int i, int j) {
@@ -457,36 +445,6 @@ __device__ __forceinline__ bool block_full(const Params& p, int q0, int k0) {
   return q0 + kRows <= p.sq && k0 + kRows <= p.sk &&
          (!p.causal || k0 + kRows - 1 <= q0) &&
          (p.window <= 0 || k0 > q0 + kRows - 1 - p.window);
-}
-
-// rows [pos0, pos0 + 64) of (sequence b, head h) of an operand into a
-// swizzled tile: DP / 64 boxes of 64 columns, by the calling lane
-template <int DP>
-__device__ __forceinline__ void tma_tile(unsigned char* dst,
-                                         const CUtensorMap* map,
-                                         const MapDims& md, uint64_t* bar,
-                                         int pos0, int h, int b) {
-#pragma unroll
-  for (int c = 0; c < DP / 64; ++c)
-    wg::tma_load_4d(dst + c * wg::kPanel, map, bar, c * 64,
-                    pick(md, 1, pos0, h, b), pick(md, 2, pos0, h, b),
-                    pick(md, 3, pos0, h, b));
-}
-
-// the same tile by the 32 lanes' own loads (any alignment), zero past
-// position n and column d
-template <int DP>
-__device__ __forceinline__ void plain_tile(unsigned char* dst,
-                                           const __nv_bfloat16* src,
-                                           long long stride, int pos0, int n,
-                                           int d, int lane) {
-  for (int i = lane; i < kRows * DP; i += 32) {
-    const int r = i / DP;
-    const int c = i - r * DP;
-    const int pos = pos0 + r;
-    *reinterpret_cast<__nv_bfloat16*>(dst + wg::swizzled(r, c)) =
-        pos < n && c < d ? src[pos * stride + c] : __float2bfloat16(0.f);
-  }
 }
 
 // one operand's rows as the producer loads them: its map, where the map
@@ -944,73 +902,6 @@ int launch_wgmma(const WgParams& w, int batch, cudaStream_t stream) {
       <<<dim3((unsigned)(kv_programs * k_tiles), kSplits), kWgThreads,
          kDkvSmem, stream>>>(w, (int)kv_programs);
   return (int)cudaGetLastError();
-}
-
-// cuTensorMapEncodeTiled, found through the runtime (no libcuda link)
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = []() -> EncodeTiled {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
-#endif
-    return e == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(f)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// a rank-4 map of a bf16 (batch, heads, n, d) operand with layout l: dim 0
-// is D, then positions, heads and sequences by increasing stride (the
-// order TMA is sure to take); boxes of 64 columns by kRows positions,
-// 128-byte swizzle, zeros out of bounds. False if the driver refuses it.
-bool encode(CUtensorMap* map, MapDims* dims, const void* ptr, const Layout& l,
-            int batch, int heads, int n, int d) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
-  struct Dim {
-    long long stride;
-    int size, what;
-  } o[3] = {{l.seq, n, 0}, {l.head, heads, 1}, {l.batch, batch, 2}};
-  for (int i = 1; i < 3; ++i)
-    for (int j = i; j > 0 && o[j].stride < o[j - 1].stride; --j) {
-      const Dim x = o[j];
-      o[j] = o[j - 1];
-      o[j - 1] = x;
-    }
-  cuuint64_t gdim[4] = {(cuuint64_t)d, 0, 0, 0};
-  cuuint64_t gstride[3];
-  cuuint32_t box[4] = {64, 1, 1, 1};
-  const cuuint32_t estride[4] = {1, 1, 1, 1};
-  for (int i = 0; i < 3; ++i) {
-    if (o[i].stride <= 0) return false;
-    gdim[i + 1] = (cuuint64_t)o[i].size;
-    gstride[i] = (cuuint64_t)o[i].stride * 2;
-    if (o[i].what == 0) {
-      box[i + 1] = kRows;
-      dims->seq = i + 1;
-    } else if (o[i].what == 1) {
-      dims->head = i + 1;
-    } else {
-      dims->batch = i + 1;
-    }
-  }
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
-            gdim, gstride, box, estride, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace

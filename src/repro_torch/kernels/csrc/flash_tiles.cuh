@@ -1,10 +1,12 @@
-// Tile helpers shared by the flash attention kernels for Hopper (sm_90a):
-// the forward (flash_attention.cu) and its gradient (flash_attention_bwd.cu).
-// Operands are read through element strides into shared-memory tiles by
-// cp.async, and products run on the tensor cores with mma.sync: m16n8k8
-// TF32 for float32 (3xTF32: every product split into hi and lo TF32
-// parts, see flash_attention.cu's note) and m16n8k16 bf16 for bf16, both
-// with float32 accumulators.
+// Tile helpers shared by the float32 instances of the flash attention
+// kernels for Hopper (sm_90a): the forward (flash_attention.cu) and its
+// gradient (flash_attention_bwd.cu), whose bf16 instances take the wgmma
+// tiles of flash_wgmma.cuh instead. Operands are read through element
+// strides into shared-memory tiles by cp.async, and products run on the
+// tensor cores as mma.sync m16n8k8 TF32 with float32 accumulators
+// (3xTF32: every product split into hi and lo TF32 parts, see
+// flash_attention.cu's note). Also the operands' layout, the bf16 store
+// and the alignment test, which both designs use.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -22,10 +24,6 @@ template <typename T>
 __device__ __forceinline__ T zero();
 template <>
 __device__ __forceinline__ float zero<float>() { return 0.f; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 zero<__nv_bfloat16>() {
-  return __float2bfloat16(0.f);
-}
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
@@ -99,28 +97,6 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo,
-                                              __nv_bfloat16 hi) {
-  const __nv_bfloat162 v = __halves2bfloat162(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
 // Fragment coordinates below: lane = 4 * g + t; a C fragment c[0..3]
 // holds rows (g, g, g + 8, g + 8) and columns (2t, 2t + 1, 2t, 2t + 1).
 
@@ -159,31 +135,6 @@ __device__ __forceinline__ void qk_tile(float (&s)[BK / 8][4],
   for (int j = 0; j < BK / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) s[j][e] += small[j][e];
-}
-template <int DP, int BK>
-__device__ __forceinline__ void qk_tile(float (&s)[BK / 8][4],
-                                        const __nv_bfloat16* sq,
-                                        const __nv_bfloat16* sk, int g,
-                                        int t) {
-  constexpr int RS = DP + 8;
-#pragma unroll
-  for (int j = 0; j < BK / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < DP; kk += 16) {
-    uint32_t a[4];
-    a[0] = ld32(sq + g * RS + kk + 2 * t);
-    a[1] = ld32(sq + (g + 8) * RS + kk + 2 * t);
-    a[2] = ld32(sq + g * RS + kk + 2 * t + 8);
-    a[3] = ld32(sq + (g + 8) * RS + kk + 2 * t + 8);
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j) {
-      const __nv_bfloat16* kr = sk + (j * 8 + g) * RS + kk;
-      const uint32_t b[2] = {ld32(kr + 2 * t), ld32(kr + 2 * t + 8)};
-      mma_bf16(s[j], a, b);
-    }
-  }
 }
 
 // dim blocks of 8 whose P.V sums one pass keeps in registers
@@ -242,46 +193,6 @@ __device__ __forceinline__ void pv_tile(float (&o)[NO / 8][4],
       for (int e = 0; e < 4; ++e)
         o[n0 + nn][e] = fmaf(o[n0 + nn][e], corr[e >> 1],
                              big[nn][e] + small[nn][e]);
-  }
-}
-template <int DP, int BK, int NO = DP>
-__device__ __forceinline__ void pv_tile(float (&o)[NO / 8][4],
-                                        const float (&p)[BK / 8][4],
-                                        const __nv_bfloat16* sv, int g,
-                                        int t, const float (&corr)[2]) {
-  constexpr int RS = DP + 8;
-  uint32_t a[BK / 16][4];
-#pragma unroll
-  for (int c = 0; c < BK / 16; ++c) {
-    a[c][0] = pack_bf16(p[2 * c][0], p[2 * c][1]);
-    a[c][1] = pack_bf16(p[2 * c][2], p[2 * c][3]);
-    a[c][2] = pack_bf16(p[2 * c + 1][0], p[2 * c + 1][1]);
-    a[c][3] = pack_bf16(p[2 * c + 1][2], p[2 * c + 1][3]);
-  }
-#pragma unroll
-  for (int n0 = 0; n0 < NO / 8; n0 += kDimBlocks<NO>) {
-    constexpr int NB = kDimBlocks<NO>;
-    float acc[NB][4];
-#pragma unroll
-    for (int nn = 0; nn < NB; ++nn)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[nn][e] = 0.f;
-#pragma unroll
-    for (int c = 0; c < BK / 16; ++c) {
-      const __nv_bfloat16* v0 = sv + (c * 16 + 2 * t) * RS + n0 * 8 + g;
-#pragma unroll
-      for (int nn = 0; nn < NB; ++nn) {
-        const __nv_bfloat16* vn = v0 + nn * 8;
-        const uint32_t b[2] = {pack_bf16(vn[0], vn[RS]),
-                               pack_bf16(vn[8 * RS], vn[9 * RS])};
-        mma_bf16(acc[nn], a[c], b);
-      }
-    }
-#pragma unroll
-    for (int nn = 0; nn < NB; ++nn)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        o[n0 + nn][e] = fmaf(o[n0 + nn][e], corr[e >> 1], acc[nn][e]);
   }
 }
 

@@ -1,11 +1,11 @@
-// Hopper tiles for the flash gradient's bf16 instances
-// (flash_attention_bwd.cu): tiles of 64 rows in shared memory, each split
-// into panels of 64 columns (128 bytes a row) in the 128-byte swizzle
-// that TMA writes and wgmma reads; mbarriers; TMA loads; and the three
-// wgmma shapes the gradient issues (m64n64k16 from shared memory,
-// m64n64k16 and m64n128k16 with A from registers), all bf16 with float32
-// accumulators. Separate from flash_tiles.cuh, whose mma.sync tiles the
-// forward and the float32 gradient keep.
+// Hopper tiles for the flash kernels' bf16 instances (the forward,
+// flash_attention.cu, and the gradient, flash_attention_bwd.cu): tiles of
+// 64 rows in shared memory, each split into panels of 64 columns (128
+// bytes a row) in the 128-byte swizzle that TMA writes and wgmma reads;
+// mbarriers; TMA loads; and the three wgmma shapes both issue (m64n64k16
+// from shared memory, m64n64k16 and m64n128k16 with A from registers), all
+// bf16 with float32 accumulators. Separate from flash_tiles.cuh, whose
+// mma.sync tiles the float32 instances keep.
 #pragma once
 
 #include <cuda.h>
@@ -71,6 +71,24 @@ __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
   return y;
+}
+
+// this thread's warp, as a value the compiler knows to be the same across
+// the warp (a lane's own tid / 32 it does not): wgmma under a branch on it
+// is then not taken for divergent and serialized
+__device__ __forceinline__ int warp_uniform() {
+  return __shfl_sync(0xffffffffu, (int)(threadIdx.x >> 5), 0);
+}
+
+// set the registers a thread of this warpgroup owns to N, for the code
+// that follows: up, from those other warpgroups gave back, or down
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 
 // generic-proxy stores to shared memory made visible to wgmma's reads

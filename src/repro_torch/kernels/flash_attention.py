@@ -1,13 +1,16 @@
 """Blocked causal / sliding-window flash attention with GQA, for Hopper.
 
 Port of ``repro.kernels.flash_attention``. For a CUDA tensor the wrappers
-launch the hand-written kernel in ``csrc/flash_attention.cu`` (tensor-core
-tiles of 64 query rows, 3xTF32 for float32, a cp.async ring of K/V tiles;
-see the source's note) or raise; for a CPU tensor they run the plain
-version in ``ref.py``. The kernel reads every operand through its strides,
-so ``flash_attention_bshd`` takes the model's (B, S, H, D) views as they
-are and writes (B, S, H, D). ``launches`` counts kernel launches, so a run
-can show that it went through the kernel.
+launch the hand-written kernel in ``csrc/flash_attention.cu`` or raise; for
+a CPU tensor they run the plain version in ``ref.py``. The kernel has two
+designs, chosen by the dtype (see the source's note): bf16 runs wgmma
+tiles of 64 query rows fed by a TMA ring (by the producer warp's own loads
+for views that are not 16-byte aligned), float32 runs 3xTF32 mma.sync
+tiles fed by cp.async; ``route`` tells which a call takes. The kernel reads
+every operand through its strides, so ``flash_attention_bshd`` takes the
+model's (B, S, H, D) views as they are and writes (B, S, H, D).
+``launches`` counts kernel launches (one a call), so a run can show that
+it went through the kernel.
 
 Both wrappers are differentiable. When grad mode is on and q, k or v
 requires a gradient, they go through ``FlashAttention``, a
@@ -130,6 +133,24 @@ def flops(programs: int, d: int, sq: int, sk: int, causal: bool,
     (two products), 10 for the gradient (five)."""
     return ((10 if backward else 4) * programs * d
             * visible_pairs(sq, sk, causal, window))
+
+
+# flash_attention_route's answers: the design a call takes
+ROUTES = {2: "bf16 wgmma, TMA ring", 1: "bf16 wgmma, producer loads",
+          0: "float32 mma.sync", -1: "refused"}
+
+
+def route(q, k, v, *, causal: bool = True, window: int = 0,
+          scale: float | None = None) -> str:
+    """The design ``flash_attention_bshd`` takes on the card for these
+    (B, S, H, D) views (``ROUTES``), from the library's
+    ``flash_attention_route``, which launches nothing."""
+    b, sq, h, d = q.shape
+    scale = d ** -0.5 if scale is None else scale
+    lays = tuple(map(bshd_layout, (q, k, v, q)))
+    fn = _build.load("flash_attention").lib.flash_attention_route
+    return ROUTES[fn(pack_args(q, k, v, q, lays, b, h, h // k.shape[2], sq,
+                               k.shape[1], causal, window, scale))]
 
 
 _entry = None      # the library's C function, looked up once

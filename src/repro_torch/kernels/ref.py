@@ -695,6 +695,20 @@ def flash_attention_bshd(
     return out.reshape(b, h, sq, d).transpose(1, 2)
 
 
+def flash_bf16_limit(q, k, v, want, *, causal: bool = True, window: int = 0,
+                     scale: float | None = None) -> torch.Tensor:
+    """Per-element limits for the bf16 flash kernel's output against
+    ``want``, this plain version's on the same bf16 (B, S, H, D) inputs: 2
+    bf16 ulps of the output (2^-6 |want|; each side rounds its output
+    once) plus 4 times the most that the kernel's rounding of P to bf16
+    for P.V can move it (2^-9 P.|V|: the row sums add the unrounded P),
+    with P.|V| from this plain version on |V| in float32. A kernel that
+    drops or mis-scales a key tile leaves it."""
+    pv = flash_attention_bshd(q.float(), k.float(), v.float().abs(),
+                              causal=causal, window=window, scale=scale)
+    return 2.0 ** -6 * want.float().abs() + 2.0 ** -7 * pv
+
+
 def flash_attention_terms(q, k, v, out, dout, *, group: int,
                           causal: bool = True, window: int = 0,
                           scale: float | None = None):
