@@ -77,9 +77,12 @@ float32 instances held bit-equal to DIR's. Phases, in order:
              1e-4 |want| + 1e-5 max |want| (scaled_share) and no worse
              against a float64 evaluation than the float32 plain version
              (twice its share, or 0.1), the same bits on a rerun, a copy
-             with one TF32 product instead of three (SSD_BWD_MUTANTS)
+             with one TF32 product instead of three and one whose
+             partials of dB and dC keep only a CTA's last head
+             (SSD_BWD_MUTANTS)
              refused by that rule, timed through its wrapper and entry
-             point (and beside --before's) beside its bound (3xTF32, and
+             point (and beside --before's, each stage's device time
+             beside it) beside its bound (3xTF32, and
              the float32 CUDA cores) and the plain versions (autograd
              through ref.ssd, ref.ssd_bwd), and its library's tensor-core
              instructions counted by kernel in cuobjdump's SASS (TF32
@@ -321,15 +324,22 @@ def graph_ms(call, n: int = 100, reps: int = 20) -> float:
     return start.elapsed_time(end) / (n * reps)
 
 
-def paired_ms(fns: dict, rounds: int = 5, iters: int = TIME_ITERS) -> dict:
-    """Median ``time_ms`` of each call over ``rounds`` rounds that take the
+def paired_times(fns: dict, rounds: int = 5,
+                 iters: int = TIME_ITERS) -> dict:
+    """``time_ms`` of each call in each of ``rounds`` rounds that take the
     calls in turn, reversing the order every round, so that host noise
     (these calls are host-bound at small batches) falls on all of them."""
     times = {name: [] for name in fns}
     for r in range(rounds):
         for name in (list(fns) if r % 2 == 0 else list(fns)[::-1]):
             times[name].append(time_ms(fns[name], iters))
-    return {name: float(np.median(t)) for name, t in times.items()}
+    return times
+
+
+def paired_ms(fns: dict, rounds: int = 5, iters: int = TIME_ITERS) -> dict:
+    """Median of each call's ``paired_times``."""
+    return {name: float(np.median(t))
+            for name, t in paired_times(fns, rounds, iters).items()}
 
 
 # --------------------------------------------------------------------------- #
@@ -2380,7 +2390,7 @@ def time_ssd_case(x, dt, A, Bm, Cm, label: str, mutants=(),
     if not (torch.equal(y_out, y) and torch.equal(h_out, h_last)):
         raise AssertionError("the ssd entry point's result differs")
     refused = {}
-    for (what, _, _), fn in zip(SSD_FWD_MUTANTS, mutants):
+    for (what, *_), fn in zip(SSD_FWD_MUTANTS, mutants):
         my, mh = torch.empty_like(x), torch.empty_like(h_last)
         if fn(ssd_view_args(x, dt, A, Bm, Cm, my, mh, chunk), ptr,
               stream) != 0:
@@ -2651,6 +2661,7 @@ SSD_BWD_CASES = (
      (2, 512, 8, 64, 2, 128), True, True),
 )
 SSD_BWD_SEED = 23
+SSD_BWD_PAIRS = 10   # rounds of the entry point beside the earlier kernel
 
 
 def scaled_share(got, want) -> tuple:
@@ -2696,26 +2707,33 @@ def ssd_bwd_gate(got, want, exact) -> dict:
             "ok": ok}
 
 
+# csrc/ssd_bwd.cu's add of a CTA's earlier heads' dB and dC to a head's
+HEADS_SUM_LINE = "  if (add) {\n"
+
 # phase 3's checks of the SSD rules: the forward and its gradient built
-# with csrc/ssd_stages.cuh broken in one line (what it breaks, the line,
-# its replacement), which each rule must refuse at mamba2's shape
-SSD_BWD_MUTANTS = (
+# with one line broken (what it breaks, the line, its replacement, and the
+# header of csrc/ it lies in, or None for the source itself), which each
+# rule must refuse at mamba2's shape
+SSD_FWD_MUTANTS = (
     ("drops the split's two correction products (1xTF32)", SSD_SPLIT_LINE,
-     ""),
+     "", "ssd_stages.cuh"),
 )
-SSD_FWD_MUTANTS = SSD_BWD_MUTANTS
+SSD_BWD_MUTANTS = SSD_FWD_MUTANTS + (
+    ("keeps only the last of a CTA's heads in its partials of dB and dC",
+     HEADS_SUM_LINE, "  if (false) {\n", None),
+)
 
 
 def build_ssd_mutants(name: str, mutants: tuple, entry: str) -> list:
     """The entry points of ``name`` built with each of ``mutants`` applied
-    to csrc/ssd_stages.cuh, in a temporary directory a mutant (removed once
-    they are loaded)."""
+    (to the source or to the header the mutant names), in a temporary
+    directory a mutant (removed once they are loaded)."""
     fns = []
-    for i, (_, line, new) in enumerate(mutants):
+    for i, (_, line, new, header) in enumerate(mutants):
         with tempfile.TemporaryDirectory() as tmp:
             fns.append(build_variant(name, line, new,
                                      os.path.join(tmp, f"{name}_mutant{i}.cu"),
-                                     entry, header="ssd_stages.cuh"))
+                                     entry, header=header))
     return fns
 
 
@@ -2752,10 +2770,16 @@ def ssd_bwd_cases(mutants: list, before=None) -> dict:
     gradient within the limit of ``scaled_share``; against ``ref.ssd_bwd``
     in float64, the kernel's shares no worse than twice the plain
     version's, or under 0.1), the same bits on a rerun (no atomics); at
-    mamba2's shape each of SSD_BWD_MUTANTS refused by the same rule; then
-    timed through the wrapper and at its C entry point, in turns (and
-    beside ``before``'s entry point, ``build_before``'s, given), and in a
-    CUDA graph, beside
+    mamba2's shape each of SSD_BWD_MUTANTS refused by the same rule; the
+    partials of dB and dC a (b, s) the entry point writes
+    (``ssd_bwd_parts``) those ``ssd.cta_heads`` sizes the scratch for;
+    then timed through the wrapper and at its C entry point in
+    SSD_BWD_PAIRS rounds that take them in turns (and beside ``before``'s
+    entry point, ``build_before``'s, given: dx, ddt, dA and dh0 bit-equal
+    to its, dB and dC too where a CTA takes one head (K = 1) and else the
+    earlier kernel's held to the same rule, the pairs the entry point
+    wins and the spread of the earlier kernel's rounds, and at mamba2's
+    shape each stage's device time beside), and in a CUDA graph, beside
     its bound (x, dt, A, B, C, dy, h0, dh_last read once, the six
     gradients written once, in float32; ``ssd.bwd_flops`` as 3xTF32 on
     the tensor cores, and on the float32 CUDA cores) and the plain
@@ -2768,7 +2792,8 @@ def ssd_bwd_cases(mutants: list, before=None) -> dict:
     TF32 HMMA, and no kernel an F32 atomic. Returns {"cases": {label:
     timings}, "mutants", "sass"}."""
     from repro_torch.kernels import _build, ref, ssd
-    call = _build.load("ssd_bwd").lib.ssd_bwd
+    lib = _build.load("ssd_bwd").lib
+    call = lib.ssd_bwd
     stream = torch.cuda.current_stream().cuda_stream
     out = {"cases": {}, "mutants": {}}
     for label, (b, s, h, p, g, n), extras, strided in SSD_BWD_CASES:
@@ -2819,13 +2844,22 @@ def ssd_bwd_cases(mutants: list, before=None) -> dict:
         def empty(*shape):
             return torch.empty(shape, dtype=torch.float32, device="cuda")
 
-        def entry_args():
+        # the heads a CTA of the per-chunk stage takes, and the partials of
+        # dB and dC a (b, s) this source's call writes (the earlier
+        # source's: one a head)
+        k = ssd.cta_heads(b, s, h, g, chunk)
+        parts = lib.ssd_bwd_parts(b, s, h, g, chunk)
+        if parts != h // k:
+            raise AssertionError(f"ssd_bwd_parts gives {parts} partials, "
+                                 f"ssd.cta_heads {h // k}")
+
+        def entry_args(parts=parts):
             bufs = (empty(b, s, h, p), empty(b, s, h), empty(h),
                     empty(b, s, g, n), empty(b, s, g, n),
                     None if h0 is None else empty(b, h, p, n),
                     empty(b, h, nc, p, n), empty(b, h, nc, p, n),
-                    empty(b, h, s), empty(b, s, h, n), empty(b, s, h, n),
-                    empty(b, h, nc))
+                    empty(b, h, s), empty(b, s, parts, n),
+                    empty(b, s, parts, n), empty(b, h, nc))
             return bufs, ssd.BWD_ARGS.pack(
                 *(0 if t is None else t.data_ptr()
                   for t in (x, dt, A, Bm, Cm, h0, dy, dh_last, *bufs)),
@@ -2839,7 +2873,7 @@ def ssd_bwd_cases(mutants: list, before=None) -> dict:
         if not torch.equal(bufs[0], got[0]):
             raise AssertionError("the ssd_bwd entry point's dx differs")
         if label == SSD_BWD_CASES[0][0]:   # mamba2's training shape
-            for (what, _, _), fn in zip(SSD_BWD_MUTANTS, mutants):
+            for (what, *_), fn in zip(SSD_BWD_MUTANTS, mutants):
                 mbufs, margs = entry_args()
                 if fn(margs, stream) != 0:
                     raise AssertionError(f"the SSD gradient mutant that "
@@ -2858,17 +2892,26 @@ def ssd_bwd_cases(mutants: list, before=None) -> dict:
         fns = {"ms": lambda: ssd.ssd_bwd(*args, chunk=chunk),
                "entry_ms": lambda: call(packed, stream)}
         if before is not None:
-            old_bufs, old_packed = entry_args()
+            old_bufs, old_packed = entry_args(parts=h)
             old = before["ssd_bwd"]
             if old(old_packed, stream) != 0:
                 raise AssertionError("the earlier ssd_bwd entry point failed")
             torch.cuda.synchronize()
-            same = all(u is None and v is None or torch.equal(u, v)
-                       for u, v in zip(old_bufs[:6], bufs[:6]))
-            print(f"  ssd_bwd {label}: the six gradients bit-equal to the "
-                  f"earlier source's {same}", flush=True)
-            if not same:
+            bits = [u is None and v is None or torch.equal(u, v)
+                    for u, v in zip(old_bufs[:6], bufs[:6])]
+            old_gate = ssd_bwd_gate(old_bufs[:6], want, exact)
+            print(f"  ssd_bwd {label}: K {k}; (dx, ddt, dA, dB, dC, dh0) "
+                  f"bit-equal to the earlier source's {bits}; the earlier "
+                  f"kernel's share of the limit "
+                  f"{old_gate['share_of_limit']}", flush=True)
+            # dB and dC are summed over the heads in another order where a
+            # CTA takes several
+            if not all(bits[i] for i in (0, 1, 2, 5)) or (
+                    k == 1 and not all(bits)):
                 raise AssertionError("the SSD gradient's bits moved")
+            if not old_gate["ok"]:
+                raise AssertionError("the earlier SSD gradient misses the "
+                                     "rule")
             fns["before_ms"] = lambda: old(old_packed, stream)
         leaves = [t.detach().clone().requires_grad_()
                   for t in (x, dt, A, Bm, Cm) + (() if h0 is None else (h0,))]
@@ -2879,7 +2922,9 @@ def ssd_bwd_cases(mutants: list, before=None) -> dict:
         def autograd_plain():
             return torch.autograd.grad(outs, leaves, cots, retain_graph=True)
 
-        t = {"dtype": "float32", **paired_ms(fns, iters=10),
+        rounds = paired_times(fns, rounds=SSD_BWD_PAIRS, iters=10)
+        t = {"dtype": "float32",
+             **{name: float(np.median(v)) for name, v in rounds.items()},
              "graph_ms": graph_ms(lambda st: call(packed, st), n=10, reps=5),
              "plain_ms": time_ms(autograd_plain, 3, warmup=1),
              "closed_form_ms": time_ms(lambda: ref.ssd_bwd(
@@ -2889,13 +2934,34 @@ def ssd_bwd_cases(mutants: list, before=None) -> dict:
              "errors": gate["errors"],
              "share_of_limit": gate["share_of_limit"],
              "float64_shares": gate["float64_shares"]}
+        t["cta_heads"] = k
+        if before is not None:
+            # the pairs the entry point wins against the earlier kernel's,
+            # and the spread of the earlier kernel's own rounds
+            q1, q3 = np.percentile(rounds["before_ms"], [25, 75])
+            t["pairs_won"] = sum(e < o for e, o in zip(rounds["entry_ms"],
+                                                       rounds["before_ms"]))
+            t["before_iqr_ms"] = float(q3 - q1)
+            print(f"  ssd_bwd {label}: entry ms by round "
+                  f"{rounds['entry_ms']}, the earlier kernel's "
+                  f"{rounds['before_ms']}; won {t['pairs_won']} of "
+                  f"{SSD_BWD_PAIRS} pairs, the earlier kernel's rounds' "
+                  f"quartiles {float(q3 - q1)!r} ms apart", flush=True)
         if label == SSD_BWD_CASES[0][0]:
             t["stage_ms"] = kernel_stage_ms(
                 lambda: ssd.ssd_bwd(*args, chunk=chunk),
                 r"ssd_bwd_(\w+?)_kernel")
+            if before is not None:
+                t["before_stage_ms"] = kernel_stage_ms(
+                    lambda: old(old_packed, stream),
+                    r"ssd_bwd_(\w+?)_kernel")
             print(f"  ssd_bwd {label}: device ms a call by kernel "
-                  f"{t['stage_ms']}", flush=True)
+                  f"{t['stage_ms']}"
+                  + (f", the earlier kernel's {t['before_stage_ms']}"
+                     if before is not None else ""), flush=True)
         del leaves, y, last, outs, bufs, exact
+        if before is not None:
+            del old_bufs
         ssd.backward_launches = launches_before   # checks and timing
         # x, dy, dx; dt, ddt; B, C, dB, dC; A, dA; h0, dh_last, dh0
         nbytes = 4 * (3 * b * s * h * p + 2 * b * s * h + 4 * b * s * g * n

@@ -58,7 +58,9 @@ LIBRARY_FLAGS = {
 # that does nothing: the launch floor beside the kernels' times;
 # ``flash_attention_route`` and ``flash_attention_bwd_route`` launch
 # nothing and tell which of the forward's or the gradient's designs a call
-# with those arguments takes.
+# with those arguments takes; ``ssd_bwd_parts`` launches nothing and tells
+# how many partials of dB and of dC a (b, s) the SSD gradient writes at
+# (batch, seq, heads, groups, chunk).
 _VOIDP, _INT = ctypes.c_void_p, ctypes.c_int
 _PACKED = ([ctypes.c_char_p, _VOIDP], _INT)
 SIGNATURES = {
@@ -75,7 +77,8 @@ SIGNATURES = {
     "rglru": {"rglru_bsw": _PACKED, "rglru_tokens": _PACKED},
     "rglru_bwd": {"rglru_bwd": _PACKED},
     "ssd": {"ssd_scan": ([ctypes.c_char_p, _VOIDP, _VOIDP], _INT)},
-    "ssd_bwd": {"ssd_bwd": _PACKED},
+    "ssd_bwd": {"ssd_bwd": _PACKED,
+                "ssd_bwd_parts": ([_INT] * 5, _INT)},
 }
 
 

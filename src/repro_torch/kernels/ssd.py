@@ -18,11 +18,16 @@ Both wrappers are differentiable. When grad mode is on and an input
 requires a gradient, they go through ``Ssd``, a
 ``torch.autograd.Function`` whose backward is ``ssd_bwd``: the
 hand-written gradient kernel in ``csrc/ssd_bwd.cu`` on the card
-(``backward_launches`` counts its calls, four launches each) and
-``ref.ssd_bwd`` on the CPU. The JAX package differentiates its plain scan
-instead: its Pallas kernel has no backward. A shape whose gradient tiles
-outgrow a CTA's shared memory (``grad_smem_bytes``) is refused before the
-forward runs, on both devices.
+(``backward_launches`` counts its calls, four launches each: chunk
+states, the passes over the chunks, the per-chunk gradients, a CTA
+taking K heads in turn and summing their dB and dC shares, and the
+ordered sums) and ``ref.ssd_bwd`` on the CPU. Its scratch is the chunk
+states and their gradients, each chunk's cum and dA share, and one
+partial of dB and of dC a CTA of K heads (``cta_heads`` gives K).
+The JAX package differentiates its plain scan instead: its Pallas kernel
+has no backward. A shape whose gradient tiles outgrow a CTA's shared
+memory (``grad_smem_bytes``) is refused before the forward runs, on both
+devices.
 """
 from __future__ import annotations
 
@@ -35,6 +40,8 @@ from repro_torch.kernels import _build, ref
 
 MAX_CHUNK = 64  # a chunk's rows: two a lane (P = N = 4), four 16-row tiles
 SMEM_LIMIT = 227 * 1024  # shared memory one CTA may hold
+MAX_CTA_HEADS = 8  # heads one CTA of the gradient's per-chunk stage takes
+SMS = 132          # the H100 SXM's SMs: a wave of that stage's CTAs
 
 launches = 0           # forward kernel calls (one or three launches each)
 backward_launches = 0  # gradient kernel calls (four launches each)
@@ -48,7 +55,7 @@ _COUNT_LOCK = threading.Lock()
 ARGS = struct.Struct("<8Q19q8i")
 # the gradient entry point's (SsdBwdArgs): x, dt, A, Bm, Cm, h0 or 0, dy,
 # dh_last or 0, dx, ddt, dA, dB, dC, dh0 or 0, then the scratch (states,
-# grads, cum, dB_heads, dC_heads, dA_part); the element strides of x,
+# grads, cum, dB_part, dC_part, dA_part); the element strides of x,
 # dt, Bm, Cm and dy in (b, s, h, last) order; batch, heads, seq, P, G, N,
 # chunk and a word the entry point fills (which operands move in 16-byte
 # pieces)
@@ -111,6 +118,25 @@ def grad_smem_bytes(chunk: int, p: int, n: int) -> int:
                 + (pp // 16) * lp + (nq // 32) * lp + 16)
 
 
+def cta_heads(b: int, s: int, h: int, g: int, chunk: int) -> int:
+    """K, the heads one CTA of the gradient's per-chunk stage takes in turn,
+    summing their dB and dC shares into one partial (``cta_heads`` in
+    ``csrc/ssd_bwd.cu``, whose entry ``ssd_bwd_parts`` the wrapper holds
+    this to): of the divisors of H / G up to ``MAX_CTA_HEADS`` (a CTA's
+    heads share a group), the one whose waves of B (S / chunk) H / K CTAs
+    on the card's ``SMS`` SMs, times K, are least, the largest of those
+    that tie. By the shape alone; the ordered sums then take H / K
+    partials a (b, s)."""
+    chunks = b * (s // chunk)
+    best, least = 1, -(-chunks * h // SMS)
+    for k in range(2, MAX_CTA_HEADS + 1):
+        if (h // g) % k == 0:
+            t = -(-chunks * (h // k) // SMS) * k
+            if t <= least:
+                best, least = k, t
+    return best
+
+
 def _check_grad(chunk: int, p: int, n: int) -> None:
     """Raise unless the gradient kernel takes this shape (on the CPU too,
     so that the CPU does not train what the card refuses)."""
@@ -150,6 +176,7 @@ def bwd_flops(b: int, s: int, h: int, p: int, n: int, chunk: int) -> int:
 
 _entry = None  # the library's C function, looked up once
 _bwd_entry = None
+_parts_entry = None
 
 
 def _launch(x, dt, A, Bm, Cm, h0, y, strides, sizes, chunk: int):
@@ -229,9 +256,12 @@ def ssd_bwd(x, dt, A, Bm, Cm, h0, dy, dh_last, *, chunk: int = 64):
     (B, S, H, P) layout; dh0 is None when h0 is. On the card one call of
     the gradient kernel (four launches: chunk states, the passes over the
     chunks, the per-chunk gradients and the ordered sums), which reads x,
-    dt, Bm, Cm and dy through their strides; on the CPU the plain
-    version."""
-    global _bwd_entry, backward_launches
+    dt, Bm, Cm and dy through their strides, into scratch of the chunk
+    states and their gradients (B H (S / chunk) P N floats each), cum (B
+    H S), dA's shares (B H (S / chunk)) and one partial of dB and of dC a
+    CTA of K heads (B S (H / K) N each, K from ``cta_heads``); on the CPU
+    the plain version."""
+    global _bwd_entry, _parts_entry, backward_launches
     if not _build.on_card(x):
         if x.device.type != "cpu":
             raise _not_cuda(x)
@@ -258,14 +288,22 @@ def ssd_bwd(x, dt, A, Bm, Cm, h0, dy, dh_last, *, chunk: int = 64):
     dx, ddt, dA = empty(b, s, h, p), empty(b, s, h), empty(h)
     dB, dC = empty(b, s, g, n), empty(b, s, g, n)
     dh0 = None if h0 is None else empty(b, h, p, n)
+    parts = h // cta_heads(b, s, h, g, chunk)
     scratch = (empty(b, h, nc, p, n), empty(b, h, nc, p, n), empty(b, h, s),
-               empty(b, s, h, n), empty(b, s, h, n), empty(b, h, nc))
+               empty(b, s, parts, n), empty(b, s, parts, n), empty(b, h, nc))
     if _build.traced("ssd_bwd", bwd_flops(b, s, h, p, n, chunk),
                      (xf, dtf, Af, Bf, Cf, h0f, dyf, dhl),
                      (dx, ddt, dA, dB, dC, dh0)):
         return dx, ddt, dA, dB, dC, dh0
     if _bwd_entry is None:
-        _bwd_entry = _build.load("ssd_bwd").lib.ssd_bwd
+        lib = _build.load("ssd_bwd").lib
+        _bwd_entry, _parts_entry = lib.ssd_bwd, lib.ssd_bwd_parts
+    # the kernel writes as many partials as its own rule says: the scratch
+    # must hold them
+    if _parts_entry(b, s, h, g, chunk) != parts:
+        raise RuntimeError(f"ssd_bwd writes {_parts_entry(b, s, h, g, chunk)}"
+                           f" partials of dB a (b, s), the scratch holds "
+                           f"{parts}")
     ptrs = (xf, dtf, Af, Bf, Cf, h0f, dyf, dhl, dx, ddt, dA, dB, dC, dh0,
             *scratch)
     err = _bwd_entry(BWD_ARGS.pack(

@@ -269,14 +269,44 @@ def test_grad_smem_bytes_at_the_model_shapes():
     assert ssd.grad_smem_bytes(64, 128, 128) > ssd.SMEM_LIMIT
 
 
+@pytest.mark.parametrize("b,s,h,g,want", [
+    (4, 512, 32, 1, 8),    # mamba2's step: H / G = 32, 128 CTAs, one wave
+    (8, 512, 32, 1, 8),
+    (4, 512, 12, 1, 3),    # H / G = 12: 3 heads a CTA, 128 CTAs
+    (4, 512, 3, 1, 1),     # H / G = 3: 3 heads a CTA would add two waves
+    (4, 512, 8, 8, 1),     # H / G = 1 (G = H): one head a CTA
+    (2, 512, 8, 2, 1),     # 128 CTAs already one wave
+    (16, 64, 2, 1, 1),     # the predicates'
+    (8, 512, 24, 2, 6),    # H / G = 12 in each of two groups
+])
+def test_cta_heads_from_the_shape(b, s, h, g, want):
+    """A CTA of the gradient's per-chunk stage takes K consecutive heads of
+    a group in turn and sums their dB and dC shares into one partial: K
+    is the divisor of H / G up to 8 whose waves of CTAs on 132 SMs, times
+    K, are least (the largest of those that tie), decided by the shape
+    alone; the ordered sums then take H / K partials a (b, s)."""
+    k = ssd.cta_heads(b, s, h, g, 64)
+    assert k == want
+    assert (h // g) % k == 0 and k <= ssd.MAX_CTA_HEADS
+    ctas = b * (s // 64) * h
+
+    def head_times(c):
+        return -(-ctas // c // ssd.SMS) * c
+    assert all(head_times(k) <= head_times(c) for c in range(1, 9)
+               if (h // g) % c == 0)
+
+
 # --------------------------------------------------------------------------- #
 # on the card                                                                 #
 # --------------------------------------------------------------------------- #
 # (B, S, H, P, G, N, chunk): P and N not multiples of 4 or of a warp, G = H
 # and G < H, a chunk of 50 and of 1, the predicate's, mamba2's widths
+# and H / G = 32 and 12 at mamba2's batch and length (8 and 3 heads a CTA
+# of the per-chunk stage, the others one)
 CARD_SHAPES = [(3, 96, 6, 12, 3, 20, 32), (2, 150, 4, 7, 2, 9, 50),
                (1, 64, 2, 4, 1, 4, 64), (2, 5, 3, 33, 3, 5, 1),
-               (1, 128, 32, 64, 1, 128, 64)]
+               (1, 128, 32, 64, 1, 128, 64), (4, 512, 32, 16, 1, 32, 64),
+               (4, 512, 12, 16, 1, 32, 64)]
 
 
 def _on(card, args):
@@ -306,6 +336,18 @@ def test_ssd_bwd_kernel_matches_plain(card, shape, with_h0, with_dh_last):
     got = _twice(args, chunk)
     want = ref.ssd_bwd(*args, chunk=chunk)
     assert_grads_close(got, want, str(shape), scaled=NAMES)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", CARD_SHAPES)
+def test_ssd_bwd_parts_is_the_cta_heads_rule(card, shape):
+    """The partials of dB and dC a (b, s) the kernel writes
+    (``ssd_bwd_parts``) are H / K, K from ``ssd.cta_heads``: the scratch
+    the wrapper sizes holds them."""
+    from repro_torch.kernels import _build
+    b, s, h, p, g, n, chunk = shape
+    parts = _build.load("ssd_bwd").lib.ssd_bwd_parts(b, s, h, g, chunk)
+    assert parts == h // ssd.cta_heads(b, s, h, g, chunk)
 
 
 @pytest.mark.gpu
