@@ -11,11 +11,14 @@ UC2 + UC3 warehouse-safety example through them, and the dry run.
 Needs a CUDA card and nvcc; exits non-zero without them, and on any
 failed phase. ``--before DIR`` (a checkout of an earlier commit, e.g. a
 ``git archive`` of it unpacked) also builds DIR's SSD forward (``ssd.cu``),
-flash forward (``flash_attention.cu``) and three gradient kernels
-(``flash_attention_bwd.cu``, ``rglru_bwd.cu`` and ``ssd_bwd.cu``) and
-times them beside these in phases 3 and 9 (``before_ms``), the SSD
-forward's P = N = 4 instance, the SSD gradient and the flash forward's
-float32 instances held bit-equal to DIR's. Phases, in order:
+flash forward (``flash_attention.cu``), RG-LRU forward (``rglru.cu``) and
+three gradient kernels (``flash_attention_bwd.cu``, ``rglru_bwd.cu`` and
+``ssd_bwd.cu``) and times them beside these in phases 3 and 9
+(``before_ms``; the RG-LRU forward's path on the model's bf16 tensors in
+alternating pairs), the SSD forward's P = N = 4 instance, the SSD
+gradient, the flash forward's float32 instances, the RG-LRU forward's
+float32 instance and token entry and the RG-LRU gradient held bit-equal
+to DIR's. Phases, in order:
 
 1. setup   — card name and power limit, torch/CUDA/nvcc versions;
 2. build   — compile every kernel from the sources in the checkout (and
@@ -37,8 +40,16 @@ float32 instances held bit-equal to DIR's. Phases, in order:
              copy with one TF32 product instead of three, SSD_FWD_MUTANTS,
              refused, timed beside its 3xTF32 bound and --before's source,
              each of its three kernels' device time, TF32 HMMA counted in
-             its SASS; recurrentgemma's forward and decode step
-             and its local attention, whisper's encoder and
+             its SASS; rglru at recurrentgemma's forward (1, 2560,
+             4096), train step (2, 2560, 4096, the float32 h sequence kept,
+             with and without h0) and decode step (1, 1, 4096, a bf16
+             state) on the model's bf16 tensors: bit-equal to ref.rglru,
+             to the float32 instance cast and on a rerun, the design
+             rglru.route picks, timed through the wrapper and at both
+             entry points beside the bytes bound and the terms' issue
+             floor counted in the SASS, and each design in a CUDA graph
+             at the route's boundary shapes (RGLRU_ROUTE_SHAPES);
+             recurrentgemma's local attention, whisper's encoder and
              cross-attention, grok-1's and arctic's attention in bf16 and
              grok-1's in float32, the router at (T, E, k) = (1024, 8, 2)
              and (1024, 128, 2) with tied rows, indices exact); bf16
@@ -128,7 +139,9 @@ float32 instances held bit-equal to DIR's. Phases, in order:
              3e-6), a prefill and decode steps (26 rglru and 12 flash
              launches a step for the last two) against full forwards,
              then a forward's and a decode step's times and a
-             torch.profiler split of one forward. The logits are held to
+             torch.profiler split of one forward (recurrentgemma's: each
+             rglru_bsw call one RG-LRU kernel and no copy or cast in its
+             profiler range). The logits are held to
              TOL_BF16 in bf16 for whisper-small, and in float32 (the same
              checks on the same model in float32) for the other two,
              whose bf16 control alone exceeds TOL_BF16;
@@ -170,7 +183,9 @@ float32 instances held bit-equal to DIR's. Phases, in order:
              (2 + 2 layers; one group at (1, 2560); 2 layers): gradients
              and a step through the kernels against the plain versions;
              two steps run twice to the same parameter bits; a step's
-             time, tokens/s and torch.profiler split;
+             time, tokens/s and torch.profiler split (recurrentgemma's:
+             each rglru_bsw call, forward and recompute, one RG-LRU kernel
+             and no copy or cast);
 14. cascade — core.vectorized.cascade_filter over phase 6's kept rows:
              the router's token entry on the whole table, the SSD scan on
              compacted buckets of its survivors (the zero sentinel row
@@ -1001,10 +1016,8 @@ def time_text(inputs: TextInputs, b: int) -> dict:
                 a_param.data_ptr(), 0, o_out.data_ptr(), hl_out.data_ptr(),
                 b, SEQ, w, v, 8.0, 0)),
             "bsw_ms": lambda: rglru.rglru_bsw(rx, rr, ri, a_param, rh0),
-            "bsw_entry_ms": entry("rglru", "rglru_bsw", rglru.ARGS.pack(
-                *(t.data_ptr() for t in (rx, rr, ri, a_param, rh0, o_out,
-                                         hl_out)), b, SEQ, w, 8.0),
-                "rglru_bsw")}),
+            "bsw_entry_ms": entry("rglru", "rglru_bsw", rglru.pack_args(
+                rx, rr, ri, a_param, rh0, o_out, hl_out), "rglru_bsw")}),
         "plain_ms": time_ms(lambda: ref.rglru_tokens(ids, *tables, a_param),
                             iters),
         "bsw_plain_ms": time_ms(lambda: ref.rglru(rx, rr, ri, a_param, rh0),
@@ -2044,25 +2057,123 @@ def llm_query(udf, reviews, policy: str) -> tuple:
     return rep, time.perf_counter() - t0
 
 
+RGLRU_SCOPE = "rglru_bsw call"   # the profiler range of a hybrid call
+COPY_OPS = ("aten::copy_", "aten::_to_copy", "aten::to", "aten::contiguous",
+            "aten::clone")
+RGLRU_KERNEL = re.compile(r"rglru_(pipe_)?kernel")
+# the CUDA API calls in a trace (cudaLaunchKernel,
+# cuLaunchKernelEx, cudaMemcpyAsync ...), which share a correlation id
+# with the device work they start
+RUNTIME_CALL = re.compile(r"cu(da)?[A-Z]")
+PROFILER_WARM_UP = "profiler warm-up"   # the range of ``warm_up_profiler``
+
+
+def warm_up_profiler() -> None:
+    """Launch a small kernel in a range of its own and wait for it. Called
+    first inside a trace that counts kernels: past a process's first
+    trace, the profiler drops the first kernel it sees, which may be an
+    rglru_bsw call's (on an H100 with torch 2.11; none goes missing with
+    this warm-up first). ``warm_up_ids`` names its device work, which the
+    counts skip."""
+    with torch.profiler.record_function(PROFILER_WARM_UP):
+        torch.ones(1, device="cuda").add_(1)
+    torch.cuda.synchronize()
+
+
+def warm_up_ids(events) -> set:
+    """The correlation ids of the device work ``warm_up_profiler``
+    launched in a trace's ``events``."""
+    from torch.autograd import DeviceType
+    ranges = [e.time_range for e in events if e.name == PROFILER_WARM_UP
+              and e.device_type == DeviceType.CPU]
+    return {e.id for e in events if e.device_type == DeviceType.CPU
+            and RUNTIME_CALL.match(e.name)
+            and any(r.start <= e.time_range.start <= r.end for r in ranges)}
+
+
+@contextlib.contextmanager
+def rglru_scopes():
+    """While open, each of the hybrid family's ``rglru_bsw`` calls runs
+    inside a profiler range named RGLRU_SCOPE."""
+    from repro_torch.models import hybrid
+    inner = hybrid.rglru_bsw
+
+    def scoped(*args, **kw):
+        with torch.profiler.record_function(RGLRU_SCOPE):
+            return inner(*args, **kw)
+
+    hybrid.rglru_bsw = scoped
+    try:
+        yield
+    finally:
+        hybrid.rglru_bsw = inner
+
+
+def rglru_calls(prof):
+    """The ``rglru_bsw`` calls of a trace taken under ``rglru_scopes``:
+    the device work each call launched (the runtime's calls inside the
+    call's host range, joined to the device's kernels and copies by
+    correlation id), and the copy and cast operations (COPY_OPS) inside
+    its range on the host. Raises unless each call launched one RG-LRU
+    kernel, no copy, and shows as one span of the range on the device;
+    None where the trace holds no call."""
+    from torch.autograd import DeviceType
+    events = list(prof.events())
+    host = [e for e in events
+            if e.name == RGLRU_SCOPE and e.device_type == DeviceType.CPU]
+    if not host:
+        return None
+    spans = [e for e in events
+             if e.name == RGLRU_SCOPE and e.device_type == DeviceType.CUDA]
+    device = collections.defaultdict(list)   # correlation id -> names
+    for e in events:
+        if e.device_type == DeviceType.CUDA and e.name not in (
+                RGLRU_SCOPE, "optimizer"):
+            device[e.id].append(e.name)
+    runtime = [e for e in events if e.device_type == DeviceType.CPU
+               and RUNTIME_CALL.match(e.name) and e.id in device]
+    per_call = [[n for e in runtime
+                 if c.time_range.start <= e.time_range.start
+                 <= c.time_range.end for n in device[e.id]] for c in host]
+    copies = [e.name for e in events if e.device_type == DeviceType.CPU
+              and e.name in COPY_OPS and any(
+                  c.thread == e.thread and c.time_range.start
+                  <= e.time_range.start <= c.time_range.end for c in host)]
+    out = {"calls": len(host), "device_spans": len(spans),
+           "kernels_a_call": dict(collections.Counter(map(len, per_call))),
+           "kernel_names": sorted({n[:60] for c in per_call for n in c}),
+           "copy_ops": len(copies)}
+    print(f"  rglru_bsw calls in the trace: {out}", flush=True)
+    if len(spans) != len(host) or copies or any(
+            len(c) != 1 or not RGLRU_KERNEL.search(c[0]) for c in per_call):
+        raise AssertionError(f"an rglru_bsw call made other than one RG-LRU "
+                             f"kernel and no copy: {out}")
+    return out
+
+
 def device_trace(fn, data) -> dict:
     """Device time of one call ``fn(data)`` (an LLM call, a model's
     forward) by kernel, from a ``torch.profiler`` trace: the flash, ssd,
     rglru and router launches, the vocabulary GEMM (the call's last GEMM:
     the head's product), the layers' GEMMs, log-softmax, copies and the
-    rest."""
+    rest; with the hybrid family, its ``rglru_bsw`` calls (``rglru_calls``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn(data)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with rglru_scopes(), profile(activities=[ProfilerActivity.CPU,
+                                             ProfilerActivity.CUDA]) as prof:
+        warm_up_profiler()
         fn(data)
         torch.cuda.synchronize()
     split, count, by_name, gemms = (collections.Counter(),
                                     collections.Counter(),
                                     collections.Counter(), [])
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
+    events = list(prof.events())
+    warm = warm_up_ids(events)
+    for e in events:
+        if e.device_type != DeviceType.CUDA or e.name in (
+                RGLRU_SCOPE, PROFILER_WARM_UP) or e.id in warm:
             continue
         ms = e.time_range.elapsed_us() / 1e3
         name = e.name.lower()
@@ -2070,7 +2181,7 @@ def device_trace(fn, data) -> dict:
             key = "flash_attention"
         elif "ssd_kernel" in name or "ssd_fwd_" in name:
             key = "ssd"
-        elif "rglru_kernel" in name:
+        elif RGLRU_KERNEL.search(name):
             key = "rglru"
         elif "moe_router" in name:
             key = "moe_router"
@@ -2094,7 +2205,8 @@ def device_trace(fn, data) -> dict:
         split["vocab_gemm"], count["vocab_gemm"] = last, 1
     return {"device_ms": sum(split.values()), "kernels": sum(count.values()),
             "split_ms": dict(split), "split_launches": dict(count),
-            "top_kernels_ms": dict(by_name.most_common(12))}
+            "top_kernels_ms": dict(by_name.most_common(12)),
+            "rglru_calls": rglru_calls(prof)}
 
 
 def time_llm(cfg, model, udf, toks: np.ndarray, before=None) -> dict:
@@ -2469,48 +2581,301 @@ def time_ssd_case(x, dt, A, Bm, Cm, label: str, mutants=(),
     return t
 
 
-def time_rglru_case(x, r, i, a_param, h0, label: str) -> dict:
-    """rglru at a model's shape: ``rglru_bsw`` against ``ref.rglru`` bit
-    for bit on float32 and on the model's bfloat16 inputs, then timed
-    through the wrapper on bfloat16 (its float32 copies included) and at
-    the C entry point on float32, in turns, and the plain version, beside
-    the bound (x, r, i, a_param, h0 read, out and h_last written, in
-    float32; ``rooflines.rglru``'s flops)."""
+def rglru_term_instructions(listing: str | None = None) -> dict:
+    """Warp instructions an element of the pipelined RG-LRU kernel's terms,
+    counted in the built SASS (``cuobjdump -sass``) of its bf16 instance
+    with 16 term warps: the straight run of ``terms4`` from the last
+    branch before its first MUFU.EX2 to its last STS.128 (four elements'
+    a_t and m_t, from the widened inputs to the stores), less the block a
+    predicated forward branch skips that holds a CALL (the divisions of
+    divisors of 2^126 or more, not taken); the run is the first MUFU.EX2
+    after the loop's wait on `walked` (its store of the chunk before has
+    none). Loads, stores to memory and barriers are left out, so the bound
+    drawn from it is a floor."""
+    if listing is None:
+        from repro_torch.kernels import _build
+        tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+        listing = subprocess.run(
+            [tool, "-sass", str(_build.load("rglru").path)],
+            capture_output=True, text=True, check=True).stdout
+    ins, fn = [], None
+    for line in listing.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            continue
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if m and fn and "rglru_pipe_kernelI13__nv_bfloat16Li16" in fn:
+            ins.append((int(m.group(1), 16), m.group(2)))
+    ops = [op for _, op in ins]
+    rsq = [k for k, op in enumerate(ops) if "MUFU.RSQ" in op]
+    # the term loop: its wait on `walked`, the store, then terms4
+    wait = max(k for k in range(rsq[0]) if "SYNCS.PHASECHK" in ops[k])
+    first = next(k for k in range(wait, rsq[0]) if "MUFU.EX2" in ops[k])
+    last_rsq = rsq[-1]
+    control = re.compile(r"\b(BRA|BSSY|BSYNC|SYNCS)")
+    start = 1 + max(k for k in range(first) if control.search(ops[k]))
+    stop = next(k for k in range(last_rsq, len(ops)) if control.search(ops[k]))
+    end = max(k for k in range(last_rsq, stop) if ops[k].startswith("STS.128"))
+    skipped = set()
+    for k in range(start, end + 1):
+        br = re.match(r"@!?P\d\s+BRA\s+(?:0x)?([0-9a-f]+)", ops[k])
+        if br:
+            target = int(br.group(1), 16)
+            block = {j for j in range(k + 1, end + 1) if ins[j][0] < target}
+            if any("CALL" in ops[j] for j in block):
+                skipped |= block
+    count = end - start + 1 - len(skipped)
+    return {"instructions_4_elements": count, "per_element": count / 4,
+            "straight_run": end - start + 1, "slow_block": len(skipped)}
+
+
+def issue_bound_ms(elements: int, per_element: float) -> float:
+    """The terms' issue floor: ``per_element`` thread instructions an
+    element, a warp instruction for 32 elements, over the card's 132 SMs x
+    4 schedulers at its highest SM clock (``nvidia-smi``)."""
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0])
+    return elements * per_element / 32 / (132 * 4 * mhz * 1e6) * 1e3
+
+
+# (B, S, W) at the route's boundaries: a decode step, the predicates'
+# width, a short prefill, one tile, recurrentgemma's forward and train
+# step, and a wide batch
+RGLRU_ROUTE_SHAPES = ((1, 1, 4096), (32, 64, 16), (4096, 64, 16),
+                      (1, 64, 4096), (1, 2560, 32), (1, 2560, 4096),
+                      (2, 2560, 4096), (8, 256, 4096))
+
+
+def rglru_route_cases() -> dict:
+    """Each of ``rglru_bsw``'s designs at RGLRU_ROUTE_SHAPES on bf16
+    inputs with a bf16 h0, forced at the C entry point and timed in a CUDA
+    graph (the device's time, below the host's cost of a call), beside
+    the design ``rglru.route`` picks; every design's out and h_last
+    bit-equal to the routed one's."""
+    from repro_torch.kernels import _build, rglru
+    call = _build.load("rglru").lib.rglru_bsw
+    rng = np.random.default_rng(29)
+    out = {}
+    for b, s, w in RGLRU_ROUTE_SHAPES:
+        def T(*dims):
+            return torch.from_numpy(rng.standard_normal(dims).astype(
+                np.float32)).cuda().to(torch.bfloat16)
+
+        x, r, i, a_param, h0 = T(b, s, w), T(b, s, w), T(b, s, w), T(w), \
+            T(b, w)
+        design = rglru.route(b, s, w)
+        want = rglru.rglru_bsw(x, r, i, a_param, h0)
+        ms, same = {}, True
+        for d in (rglru.STAGED, rglru.PIPELINED, rglru.PIPELINED_PAIRS):
+            o, hl = torch.empty_like(x), torch.empty_like(h0)
+            args = rglru.pack_args(x, r, i, a_param, h0, o, hl, design=d)
+            ms[d] = graph_ms(lambda st: call(args, st), n=20, reps=5)
+            torch.cuda.synchronize()
+            same = same and torch.equal(o, want[0]) and torch.equal(
+                hl, want[1])
+        label = f"B={b} S={s} W={w}"
+        out[label] = {"route": design, "graph_ms": ms, "bit_equal": same}
+        print(f"  rglru designs at {label} bf16, ms a launch in a CUDA graph "
+              f"(0 staged, 1 pipelined, 2 pipelined two CTAs an SM): {ms}; "
+              f"route {design}; bit-equal {same}", flush=True)
+        if not same:
+            raise AssertionError(f"rglru's designs disagree at {label}")
+    return out
+
+
+# the RglruArgs of sources before the bf16 instance (x, r, i, a_param,
+# h0, out, h_last, all float32; B, S, W, c), for ``build_before``'s
+# rglru_bsw
+BEFORE_RGLRU_FWD_ARGS = struct.Struct("<7Q3if")
+RGLRU_PAIRS = 10   # alternating rounds of the wrapper beside the parent's
+
+
+def time_rglru_case(x, r, i, a_param, h0, label: str, keep_hs=False,
+                    terms=None, before=None) -> dict:
+    """rglru at a model's shape, on the model's bf16 tensors (x, r, i,
+    a_param and h0 rounded once from the float32 draws, as the hybrid
+    family holds them): ``rglru_bsw`` against ``ref.rglru`` bit for bit in
+    float32 and bf16, the bf16 instance bit-equal to the float32 instance
+    cast to bf16 and on a rerun, with ``keep_hs`` the float32 h sequence
+    the same launch writes (``Rglru.forward``'s) equal to the float32
+    instance's output; the design ``rglru.route`` picks; then timed
+    through the wrapper as the main path calls it (with ``keep_hs``
+    through the autograd function, inputs requiring a gradient), at the
+    bf16 and float32 C entry points, in turns, each entry point in a
+    CUDA graph, and the plain version.
+    Given ``before`` (``build_before``'s), the parent's path (float32
+    copies of the bf16 tensors, its float32 kernel, out and h_last cast
+    back: ``before_ms``) beside the wrapper in RGLRU_PAIRS alternating
+    pairs, and the parent's float32 entry point (also in a CUDA graph),
+    bit-equal to this one's float32 instance. Bounds: bytes (x, r, i, a_param, h0 read once, out
+    and h_last written once in bf16, hs in float32) against
+    ``rooflines.rglru``'s flops at the float32 rate, and the terms' issue
+    floor from ``terms`` (``rglru_term_instructions``)."""
     from repro_torch.kernels import _build, ref, rglru
     from repro_torch.udfs import rooflines
     b, s, w = x.shape
-    bf = [t.to(torch.bfloat16) for t in (x, r, i)]
-    h0b = None if h0 is None else h0.to(torch.bfloat16)
-    err = max(check_rglru(x, r, i, a_param, h0, f"{label} float32"),
-              check_rglru(*bf, a_param, h0b, f"{label} bfloat16"))
-    out, h_last = torch.empty_like(x), torch.empty((b, w), device=x.device)
-    args = rglru.ARGS.pack(
-        x.data_ptr(), r.data_ptr(), i.data_ptr(), a_param.data_ptr(),
-        0 if h0 is None else h0.data_ptr(), out.data_ptr(),
-        h_last.data_ptr(), b, s, w, 8.0)
+    bf16 = torch.bfloat16
+    bf = [t.to(bf16) for t in (x, r, i)]
+    ab = a_param.to(bf16)
+    h0b = None if h0 is None else h0.to(bf16)
+    wide = [t.float() for t in bf]
+    ab32, h032 = ab.float(), None if h0b is None else h0b.float()
+    err = max(check_rglru(*wide, ab32, h032, f"{label} float32"),
+              check_rglru(*bf, ab, h0b, f"{label} bfloat16"))
+    got16 = rglru.rglru_bsw(*bf, ab, h0b)
+    again = rglru.rglru_bsw(*bf, ab, h0b)
+    got32 = rglru.rglru_bsw(*wide, ab32, h032)
+    same = {"rerun": all(torch.equal(g, a) for g, a in zip(got16, again)),
+            "float32_cast": all(torch.equal(g, f.to(bf16))
+                                for g, f in zip(got16, got32))}
+    if keep_hs:
+        out, h_last, hs = rglru._forward(*bf, ab, h0b, 8.0, keep_hs=True)
+        same["hs_is_float32_instance"] = (
+            hs.dtype == torch.float32 and torch.equal(hs, got32[0])
+            and torch.equal(out, got16[0]) and torch.equal(h_last, got16[1]))
+        del out, h_last, hs
+    torch.cuda.synchronize()
+    design = rglru.route(b, s, w)
+    print(f"  rglru {label}: design {design} ({rglru.DESIGNS[design]}); "
+          f"bf16 instance bit-equal {same}", flush=True)
+    if not all(same.values()):
+        raise AssertionError(f"rglru {label}: the bf16 instance disagrees "
+                             f"{same}")
+    o16, hl16 = torch.empty_like(bf[0]), torch.empty((b, w), dtype=bf16,
+                                                     device=x.device)
+    hs_buf = torch.empty_like(x) if keep_hs else None
+    o32, hl32 = torch.empty_like(x), torch.empty((b, w), device=x.device)
+    args16 = rglru.pack_args(*bf, ab, h0b, o16, hl16, hs_buf)
+    args32 = rglru.pack_args(*wide, ab32, h032, o32, hl32)
     call = _build.load("rglru").lib.rglru_bsw
     stream = torch.cuda.current_stream().cuda_stream
-    if call(args, stream) != 0:
+    if call(args16, stream) != 0 or call(args32, stream) != 0:
         raise AssertionError("rglru entry point failed")
-    t = {
-        "dtype": "bfloat16 in, float32 kernel",
-        **paired_ms({
-            "ms": lambda: rglru.rglru_bsw(*bf, a_param, h0b),
-            "entry_ms": lambda: call(args, stream)}),
-        "plain_ms": time_ms(lambda: ref.rglru(*bf, a_param, h0b),
-                            3 if s > 64 else TIME_ITERS),
-        **dict(zip(("bound_ms", "bound_by"), bound_ms(
-            4 * (3 * b * s * w + w + (0 if h0 is None else b * w)
-                 + b * s * w + b * w),
-            b * rooflines.rglru(s, w).flops_per_row))),
-        "library_ms": None,   # no single PyTorch call scans RG-LRU
-        "max_abs_err": err,
-    }
-    print(f"  rglru {label}: kernel {t['ms']!r} ms through the wrapper on "
-          f"bfloat16 (entry point on float32 {t['entry_ms']!r} ms), plain "
-          f"{t['plain_ms']!r} ms, bound {t['bound_ms']!r} ms "
-          f"({t['bound_by']})", flush=True)
+    leaves = [t.clone().requires_grad_(keep_hs) for t in bf]
+
+    def wrapper():
+        with torch.enable_grad():
+            return rglru.rglru_bsw(*leaves, ab, h0b)
+
+    fns = {"ms": wrapper, "entry_ms": lambda: call(args16, stream),
+           "f32_entry_ms": lambda: call(args32, stream)}
+    launches = rglru.launches
+    t = {"dtype": "bfloat16 in and out (the bf16 instance)",
+         "design": design, "keeps_hs": keep_hs, **paired_ms(fns, iters=20),
+         "graph_ms": graph_ms(lambda st: call(args16, st), n=20, reps=5),
+         "f32_graph_ms": graph_ms(lambda st: call(args32, st), n=20, reps=5),
+         "plain_ms": time_ms(lambda: ref.rglru(*bf, ab, h0b),
+                             3 if s > 64 else TIME_ITERS, warmup=1),
+         "library_ms": None,   # no single PyTorch call scans RG-LRU
+         "max_abs_err": err, "bit_equal": same}
+    if before is not None:
+        old = before["rglru"][0]
+        f32 = [t.to(torch.float32).contiguous() for t in (*bf, ab)]
+        st = None if h0b is None else h0b.to(torch.float32).contiguous()
+        oo, ohl = torch.empty_like(x), torch.empty((b, w), device=x.device)
+        old_args = BEFORE_RGLRU_FWD_ARGS.pack(
+            *(t.data_ptr() for t in f32), 0 if st is None else st.data_ptr(),
+            oo.data_ptr(), ohl.data_ptr(), b, s, w, 8.0)
+        if old(old_args, stream) != 0:
+            raise AssertionError("the parent's rglru entry point failed")
+        torch.cuda.synchronize()
+        t["f32_bit_equal_to_parent"] = (torch.equal(oo, o32)
+                                        and torch.equal(ohl, hl32))
+        if not t["f32_bit_equal_to_parent"]:
+            raise AssertionError(f"rglru {label}: the float32 instance "
+                                 "differs from the parent's")
+
+        def parent_path():   # the parent's wrapper on the model's tensors
+            ins = [u.to(torch.float32).contiguous() for u in (*bf, ab)]
+            h = None if h0b is None else h0b.to(torch.float32).contiguous()
+            o = torch.empty((b, s, w), device=x.device)
+            hl = torch.empty((b, w), device=x.device)
+            old(BEFORE_RGLRU_FWD_ARGS.pack(
+                *(u.data_ptr() for u in ins), 0 if h is None else h.data_ptr(),
+                o.data_ptr(), hl.data_ptr(), b, s, w, 8.0), stream)
+            return o.to(bf16), hl.to(bf16)
+
+        pairs = paired_times({"ms": wrapper, "before_ms": parent_path},
+                             rounds=RGLRU_PAIRS, iters=20)
+        t["pairs"] = pairs
+        t["pairs_won"] = sum(n < o for n, o in zip(pairs["ms"],
+                                                   pairs["before_ms"]))
+        t["before_ms"] = float(np.median(pairs["before_ms"]))
+        t["ms_beside_before"] = float(np.median(pairs["ms"]))
+        t["before_entry_ms"] = time_ms(lambda: old(old_args, stream), 20)
+        t["before_graph_ms"] = graph_ms(lambda st: old(old_args, st), n=20,
+                                        reps=5)
+    rglru.launches = launches   # timing calls do not count
+    small = w + (0 if h0 is None else b * w) + b * w   # a_param, h0, h_last
+    t.update(zip(("bound_ms", "bound_by"), bound_ms(
+        2 * (4 * b * s * w + small) + (4 * b * s * w if keep_hs else 0),
+        b * rooflines.rglru(s, w).flops_per_row)))
+    t["f32_entry_bound_ms"] = bound_ms(
+        4 * (4 * b * s * w + small), b * rooflines.rglru(s, w).flops_per_row)[0]
+    if terms is not None:
+        t["issue_bound_ms"] = issue_bound_ms(b * s * w, terms["per_element"])
+    extra = (f"; the parent's path {t['before_ms']!r} ms beside "
+             f"{t['ms_beside_before']!r} (won {t['pairs_won']} of "
+             f"{RGLRU_PAIRS} pairs), its float32 entry point "
+             f"{t['before_entry_ms']!r} ms, in a CUDA graph "
+             f"{t['before_graph_ms']!r} (bit-equal to this one's float32 "
+             f"instance)" if "before_ms" in t else "")
+    issue = (f", the terms' issue floor {t['issue_bound_ms']!r} ms"
+             if "issue_bound_ms" in t else "")
+    print(f"  rglru {label}: {t['ms']!r} ms through the wrapper "
+          f"({'autograd, h sequence kept' if keep_hs else 'no grad'}); bf16 "
+          f"entry point {t['entry_ms']!r} ms, in a CUDA graph "
+          f"{t['graph_ms']!r}, float32 {t['f32_entry_ms']!r} ms (in a CUDA "
+          f"graph {t['f32_graph_ms']!r}); plain {t['plain_ms']!r} ms; bound {t['bound_ms']!r} ms "
+          f"({t['bound_by']}; float32 entry {t['f32_entry_bound_ms']!r})"
+          f"{issue}{extra}", flush=True)
     return t
+
+
+def rglru_parent_cases(inputs: TextInputs, before) -> dict:
+    """``rglru_tokens`` on the predicates' ids and tables (the first 16
+    and BIG rows, with no h0 and with a zero one) and ``rglru_bsw`` in
+    float32 on the gathered rows, each against the parent's entry point
+    (``build_before``'s) on the same arguments: bit-equal."""
+    from repro_torch.kernels import rglru
+    old_bsw, old_tokens = before["rglru"]
+    tables, a_param = inputs.rglru[:3], inputs.rglru[3]
+    stream = torch.cuda.current_stream().cuda_stream
+    v, w = tables[0].shape
+    out = {}
+    for b in (16, BIG):
+        ids = inputs.toks[:b]
+        x, r, i, _, zero = inputs.rglru_args(b)
+        for h0 in (None, zero):
+            o, hl = torch.empty((b, SEQ, w), device="cuda"), torch.empty(
+                (b, w), device="cuda")
+            ptr = 0 if h0 is None else h0.data_ptr()
+            old_tokens(rglru.TOKENS_ARGS.pack(
+                ids.data_ptr(), *(t.data_ptr() for t in tables),
+                a_param.data_ptr(), ptr, o.data_ptr(), hl.data_ptr(), b, SEQ,
+                w, v, 8.0, 0), stream)
+            ob, hb = torch.empty_like(o), torch.empty_like(hl)
+            old_bsw(BEFORE_RGLRU_FWD_ARGS.pack(
+                *(t.data_ptr() for t in (x, r, i, a_param)), ptr,
+                ob.data_ptr(), hb.data_ptr(), b, SEQ, w, 8.0), stream)
+            got = rglru.rglru_tokens(ids, *tables, a_param, h0)
+            got_bsw = rglru.rglru_bsw(x, r, i, a_param, h0)
+            torch.cuda.synchronize()
+            label = f"B={b} h0 {'None' if h0 is None else 'zero'}"
+            out[label] = {
+                "rglru_tokens": torch.equal(got[0], o)
+                and torch.equal(got[1], hl),
+                "rglru_bsw_float32": torch.equal(got_bsw[0], ob)
+                and torch.equal(got_bsw[1], hb)}
+    print(f"  rglru_tokens and the float32 rglru_bsw at the predicates' "
+          f"shapes, bit-equal to the parent's entry points: {out}",
+          flush=True)
+    if not all(v for case in out.values() for v in case.values()):
+        raise AssertionError("rglru differs from the parent's kernel at the "
+                             "predicates' shapes")
+    return out
 
 
 # the RG-LRU gradient at recurrentgemma-9b's training shape (B, S, W), and
@@ -2528,9 +2893,9 @@ def rglru_bwd_cases(before=None) -> dict:
     as the main path calls it (``Rglru.backward``: the wrapper on the
     model's bf16 x, r, i and dout and the float32 h, straight through the
     bf16 instance), at the bf16 and float32 C entry points, in turns, and
-    given ``before`` (``build_before``'s entry points) the earlier path
-    (float32 copies of x, r, i and dout, the earlier float32 kernel, dx,
-    dr, di cast back to bf16: ``before_ms``); the bf16 entry point in a
+    given ``before`` (``build_before``'s entry points) the parent's bf16
+    entry point on the same arguments (``before_ms``; dx, dr, di and dL
+    bit-equal to this one's); the bf16 entry point in a
     CUDA graph; and the plain version. Two bounds, each with a_param, h0,
     dh_last, dh0 and dL and ``rglru.BWD_FLOPS`` a (t, w): the main path's
     (``bound_ms``: x, r, i and dout read once in bfloat16, h in float32,
@@ -2604,20 +2969,19 @@ def rglru_bwd_cases(before=None) -> dict:
                                              dh_last),
                "entry_ms": lambda: call(bf_args, stream),
                "f32_entry_ms": lambda: call(f32_args, stream)}
-        if before is not None:
+        if before is not None:   # the parent's entry: the same arguments
             old = before["rglru_bwd"]
-
-            def earlier():   # the wrapper and the kernel before the bf16 one
-                ins = [t.to(torch.float32).contiguous() for t in bf]
-                outs = [torch.empty_like(hs) for _ in range(3)]
-                ptrs = (*ins[:3], a_param, h0, hs, ins[3], dh_last, *outs,
-                        dh0, part, dl)
-                old(BEFORE_RGLRU_ARGS.pack(*(0 if t is None else t.data_ptr()
-                                             for t in ptrs), b, s, w, 8.0),
-                    stream)
-                return [g.to(torch.bfloat16) for g in outs]
-
-            fns["before_ms"] = earlier
+            mine = [g.clone() for g in bf_outs] + [dl.clone()]
+            old_outs = [torch.empty_like(bf[0]) for _ in range(3)]
+            old_args = pack(bf, old_outs, 1)
+            if old(old_args, stream) != 0:
+                raise AssertionError("the parent's rglru_bwd entry failed")
+            torch.cuda.synchronize()
+            if not all(torch.equal(m, o) for m, o in zip(
+                    mine, [*old_outs, dl])):
+                raise AssertionError(f"rglru_bwd {label}: the bf16 instance "
+                                     "differs from the parent's")
+            fns["before_ms"] = lambda: old(old_args, stream)
         launches_before = rglru.backward_launches
         t = {"dtype": "bfloat16 in and out (the bf16 instance)",
              **paired_ms(fns, iters=20),
@@ -2634,7 +2998,8 @@ def rglru_bwd_cases(before=None) -> dict:
             (2 * 7 + 4) * b * s * w + small_bytes, flops)))
         t.update(zip(("entry_bound_ms", "entry_bound_by"), bound_ms(
             4 * 8 * b * s * w + small_bytes, flops)))
-        extra = (f"; the earlier path {t['before_ms']!r} ms"
+        extra = (f"; the parent's bf16 entry point {t['before_ms']!r} ms "
+                 f"(dx, dr, di and dL bit-equal to this one's)"
                  if "before_ms" in t else "")
         print(f"  rglru_bwd {label}: {t['ms']!r} ms as the main path calls "
               f"it, bfloat16 in and out (bound {t['bound_ms']!r} ms, "
@@ -3227,14 +3592,25 @@ def family_kernel_cases(floor: dict, ssd_mutants=(), before=None) -> dict:
         T(rng.standard_normal((b, s, g, n)) * 0.3),
         T(rng.standard_normal((b, s, g, n)) * 0.3), label, ssd_mutants,
         before)
-    # recurrentgemma-9b: the forward's (1, 2560, 4096), no h0, and a
-    # decode step's (1, 1, 4096) from a state
+    # recurrentgemma-9b: the forward's (1, 2560, 4096), no h0; the train
+    # step's (2, 2560, 4096), the h sequence kept for the gradient, with
+    # and without an h0; a decode step's (1, 1, 4096) from a bf16 state
     w = 4096
-    for s, h0 in ((2560, None), (1, T(rng.standard_normal((1, w))))):
-        label = f"recurrentgemma-9b B=1 S={s} W={w}"
+    terms = rglru_term_instructions()
+    print(f"  rglru pipelined terms in the SASS: {terms}", flush=True)
+    for (b, s), with_h0, keep_hs, what in (
+            ((1, 2560), False, False, "forward"),
+            ((2, 2560), False, True, "train"),
+            ((2, 2560), True, True, "train"),
+            ((1, 1), True, False, "decode step")):
+        label = (f"recurrentgemma-9b {what} B={b} S={s} W={w} h0 "
+                 f"{'given' if with_h0 else 'None'}")
         out["rglru"][label] = time_rglru_case(
-            *(T(rng.standard_normal((1, s, w))) for _ in range(3)),
-            T(rng.standard_normal(w)), h0, label)
+            *(T(rng.standard_normal((b, s, w))) for _ in range(3)),
+            T(rng.standard_normal(w)),
+            T(rng.standard_normal((b, w))) if with_h0 else None, label,
+            keep_hs, terms, before)
+        out["rglru"][label]["sass_terms"] = terms
     # flash: (B, Sq, Sk, H, Hkv, D, causal, window, dtype), the models' own
     # views; bf16 held to flash_bf16_limit, float32 (3xTF32) to TOL_TIGHT
     bf16, f32 = torch.bfloat16, torch.float32
@@ -3835,17 +4211,13 @@ def build_bwd_mutants() -> list:
                 "flash_attention_bwd"), range(len(FLASH_BWD_MUTANTS))))
 
 
-# the RG-LRU gradient's packed arguments before its bf16 instance (x, r,
-# i, dout, dx, dr, di all float32; no dtype flag), for ``build_before``'s
-BEFORE_RGLRU_ARGS = struct.Struct("<14Q3if")
-
-
 def build_before(root: str) -> dict:
-    """The SSD and flash forwards' and the three gradient entry points of
-    the checkout at ``root`` (``python3 chip_smoke.py --before DIR``: the
-    sources these kernels replaced, timed beside them), built side by side
-    with each library's flags and ``root``'s own headers, into a temporary
-    directory removed once they are loaded. The SSD forward's is called as
+    """The SSD, flash and RG-LRU forwards' and the three gradient entry
+    points of the checkout at ``root`` (``python3 chip_smoke.py --before
+    DIR``: the sources these kernels replaced, timed beside them), built
+    side by side with each library's flags and ``root``'s own headers,
+    into a temporary directory removed once they are loaded; "rglru" is
+    the pair (rglru_bsw, rglru_tokens). The SSD forward's is called as
     this source's ``ssd_scan`` is, (args, scratch, stream), also where the
     earlier source takes no scratch; the flash forward's takes this
     source's packed arguments (FlashArgs is unchanged)."""
@@ -3863,6 +4235,12 @@ def build_before(root: str) -> dict:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {root}'s {name}.cu:\n"
                                f"{proc.stdout}{proc.stderr}")
+        if name == "rglru":   # both entries, the parent's arguments
+            lib = ctypes.CDLL(out)
+            fns = tuple(getattr(lib, e) for e in ("rglru_bsw", "rglru_tokens"))
+            for f in fns:
+                f.argtypes, f.restype = _build.SIGNATURES[name]["rglru_bsw"]
+            return name, fns
         entry = {"ssd": "ssd_scan",
                  "flash_attention": "flash_attention_bshd"}.get(name, name)
         fn = getattr(ctypes.CDLL(out), entry)
@@ -3875,10 +4253,10 @@ def build_before(root: str) -> dict:
         return name, fn
 
     try:
-        with ThreadPoolExecutor(5) as pool:
+        with ThreadPoolExecutor(6) as pool:
             return dict(pool.map(one, ("ssd", "flash_attention",
-                                       "flash_attention_bwd", "rglru_bwd",
-                                       "ssd_bwd")))
+                                       "flash_attention_bwd", "rglru",
+                                       "rglru_bwd", "ssd_bwd")))
     finally:
         shutil.rmtree(tmp)
 
@@ -4213,18 +4591,20 @@ class _Annotated:
 def train_trace(step, params, state, batch) -> dict:
     """One train step under torch.profiler: device time by flash forward
     (flash_kernel, flash_wgmma_kernel), flash backward (the D, dq and dkv
-    kernels of both designs), RG-LRU forward (rglru_kernel) and backward
-    (rglru_bwd kernels), SSD forward (ssd_kernel, or the three ssd_fwd
+    kernels of both designs), RG-LRU forward (rglru_kernel,
+    rglru_pipe_kernel) and backward (rglru_bwd kernels), SSD forward (ssd_kernel, or the three ssd_fwd
     kernels) and backward (the four ssd_bwd kernels), GEMMs, the
     optimizer (the kernels inside the device's span of
     ``_Annotated.update``'s range: one stream runs them in order) and the
     other elementwise and copy kernels, with the busy share of the step's
-    wall time."""
+    wall time; with the hybrid family, its ``rglru_bsw`` calls
+    (``rglru_calls``, forward and recompute)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with rglru_scopes(), profile(activities=[ProfilerActivity.CPU,
+                                             ProfilerActivity.CUDA]) as prof:
+        warm_up_profiler()
         t0 = time.perf_counter()
         step(params, state, batch)
         torch.cuda.synchronize()
@@ -4236,8 +4616,11 @@ def train_trace(step, params, state, batch) -> dict:
     if not spans:
         raise AssertionError("the trace holds no device span of the "
                              "optimizer's range")
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA or e.name == "optimizer":
+    events = list(prof.events())
+    warm = warm_up_ids(events)
+    for e in events:
+        if e.device_type != DeviceType.CUDA or e.name in (
+                "optimizer", RGLRU_SCOPE, PROFILER_WARM_UP) or e.id in warm:
             continue
         name = e.name
         r = e.time_range
@@ -4251,7 +4634,7 @@ def train_trace(step, params, state, batch) -> dict:
             key = "flash_forward"
         elif "rglru_bwd" in name:
             key = "rglru_backward"
-        elif "rglru_kernel" in name:
+        elif RGLRU_KERNEL.search(name):
             key = "rglru_forward"
         elif "moe_router_bwd" in name:
             key = "router_backward"
@@ -4271,7 +4654,7 @@ def train_trace(step, params, state, batch) -> dict:
     device_ms = sum(split.values())
     return {"wall_ms": wall_ms, "device_ms": device_ms,
             "busy_share": device_ms / wall_ms, "split_ms": dict(split),
-            "split_launches": dict(count)}
+            "split_launches": dict(count), "rglru_calls": rglru_calls(prof)}
 
 
 def train_counts() -> dict:
@@ -5387,6 +5770,9 @@ def main() -> int:
     att_bench = time_attention_bench(flash_before)
     print()
     family_cases = family_kernel_cases(floor_ms, ssd_mutants, before)
+    rglru_routes = rglru_route_cases()
+    rglru_parent = (rglru_parent_cases(inputs, before) if before is not None
+                    else None)
     for name, cases in family_cases.items():
         max_errs[name] = max(max_errs[name], *(t["max_abs_err"]
                                                for t in cases.values()))
@@ -5646,6 +6032,8 @@ def main() -> int:
         "service": service,
         "llm": llm,
         "family_kernel_cases": family_cases,
+        "rglru_parent": rglru_parent,
+        "rglru_routes": rglru_routes,
         "flash_limit_mutants": limit_mutants,
         "flash_sass": flash_instances,
         "flash_bwd": flash_bwd,

@@ -1,7 +1,7 @@
 // Asynchronous global-to-shared copies (cp.async, sm_80 and later), shared
 // by the kernels that stage their operands this way (moe_router.cu,
-// rglru.cu). A copy moves 4 or 16 bytes; the .ca form caches the line at
-// every level, L1 included.
+// rglru.cu, rglru_bwd.cu). A copy moves 4, 8 or 16 bytes; the .ca form
+// caches the line at every level, L1 included.
 #pragma once
 
 __device__ __forceinline__ unsigned smem_addr(const void* ptr) {
@@ -10,6 +10,11 @@ __device__ __forceinline__ unsigned smem_addr(const void* ptr) {
 
 __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)),
+               "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(smem_addr(dst)),
                "l"(src) : "memory");
 }
 
@@ -25,6 +30,12 @@ __device__ __forceinline__ void cp_async_commit() {
 // wait until at most the newest committed group is still in flight
 __device__ __forceinline__ void cp_async_wait_1() {
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// wait until at most the newest n committed groups are still in flight
+template <int n>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(n) : "memory");
 }
 
 // commit what is issued and wait for every group

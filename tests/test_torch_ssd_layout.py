@@ -20,6 +20,8 @@ of operations and scratch the wrappers give. Tests marked ``gpu`` run the
 CUDA kernel and skip without a card. Run as a script, it prints the
 stages' largest share of ``TOL_TIGHT``'s limit on both sets of inputs.
 """
+import pathlib
+import re
 import types
 
 import numpy as np
@@ -422,7 +424,12 @@ def test_packed_argument_sizes_match_the_sources():
     assert ssd.ARGS.size == 248
     assert hsv_color.ARGS.size == 56
     assert moe_router.ARGS.size == 40
-    assert rglru.ARGS.size == 72
+    assert rglru.ARGS.size == 96
+    # RglruArgs: the source's static_assert names the same size and format
+    src = (pathlib.Path(rglru.__file__).parent / "csrc" / "rglru.cu").read_text()
+    size, fmt = re.search(r'static_assert\(sizeof\(RglruArgs\) == (\d+),\s*'
+                          r'"RglruArgs must match (\S+)"', src).groups()
+    assert int(size) == rglru.ARGS.size and fmt == rglru.ARGS.format
 
 
 @pytest.mark.parametrize("b,s,h,p,n,chunk", [
