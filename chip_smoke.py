@@ -22,8 +22,9 @@ to DIR's. Phases, in order:
 
 1. setup   — card name and power limit, torch/CUDA/nvcc versions;
 2. build   — compile every kernel from the sources in the checkout (and
-             an empty kernel, the launch floor, two broken copies of the
-             flash source, FLASH_MUTANTS, two of the flash gradient's,
+             an empty kernel, the launch floor, three broken copies of
+             the flash source, FLASH_MUTANTS, its tick probe, two of the
+             flash gradient's,
              FLASH_BWD_MUTANTS, one each of the SSD forward's and
              gradient's, SSD_FWD_MUTANTS and SSD_BWD_MUTANTS, ssd.cu
              without its P = N = 4 instance, and --before's), one nvcc per
@@ -54,11 +55,16 @@ to DIR's. Phases, in order:
              grok-1's in float32, the router at (T, E, k) = (1024, 8, 2)
              and (1024, 128, 2) with tied rows, indices exact); bf16
              flash is held to ref.flash_bf16_limit, a limit of a few bf16
-             ulps, which must refuse both flash mutants (each a line of
-             its bf16 kernel broken), takes the wgmma design fed by TMA
-             (flash_attention_route) and gives the same bits on a rerun,
-             at every shape it is timed at; its HGMMA are counted in each
-             bf16 instance's SASS; then the flash
+             ulps, which must refuse the three flash mutants (each a
+             place of its shared kernel broken), takes a wgmma design fed
+             by TMA (flash_attention_route) and gives the same bits on a
+             rerun, at every shape it is timed at, where each bf16 design
+             (a CTA a query tile; shared stages with two and three
+             warpgroups, with and without turns) is timed beside it; its
+             HGMMA are counted in each bf16 instance's SASS, the shared
+             instances' spills (none) in ptxas' lines; the tick probe (a build with -DFLASH_PROBE)
+             splits a CTA's chain at the LLM's and whisper's encoder
+             shapes for both bf16 designs; then the flash
              gradient kernel through the autograd function against
              ref.flash_attention_bwd (FLASH_BWD_CASES, bf16 and float32:
              SmolLM-135M's training attention, a 4096-long windowed one,
@@ -1303,9 +1309,15 @@ def time_flash(q, k, v, *, group: int, causal: bool, window: int,
     same work (in q's dtype), taken in turns (``paired_ms``), and of the
     plain version, beside the bound (each input read once and the output
     written once; 4 flops per visible (query, key) pair and dim). In bf16
-    the call must take the wgmma design fed by TMA
-    (``flash_attention_route``) and give the same bits on a rerun; in
-    float32 its bits must equal ``before``'s."""
+    the call must take a wgmma design fed by TMA (``flash_attention_route``)
+    and give the same bits on a rerun, and each bf16 design
+    (``flash_attention_variant``: a CTA a query tile; the shared design
+    with two and three warpgroups, taking turns or not, where it takes the
+    shape) is timed in the same turns (``variant<n>_ms``): the shared
+    designs must give the same bits, the call those of one of the designs,
+    and the design of a CTA a query tile those of ``before``'s source
+    (given: the same kernel); in float32 the call's bits must equal
+    ``before``'s."""
     from repro_torch.kernels import _build, flash_attention, ref
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream().cuda_stream
@@ -1356,8 +1368,24 @@ def time_flash(q, k, v, *, group: int, causal: bool, window: int,
         checks["route"] = flash_attention.ROUTES[lib.flash_attention_route(
             args)]
         checks["rerun_bit_equal"] = torch.equal(out, rerun)
-        if checks["route"] != "bf16 wgmma, TMA ring" or \
-                not checks["rerun_bit_equal"]:
+        designs = {}
+        for n in flash_attention.VARIANTS:
+            got = torch.empty_like(q)
+            n_args = pack(got)
+            if lib.flash_attention_variant(n_args, n, stream) == 0:
+                designs[n] = got
+                fns[f"variant{n}_ms"] = (
+                    lambda a=n_args, n=n: lib.flash_attention_variant(
+                        a, n, stream))
+        torch.cuda.synchronize()
+        # the shared design on key tiles of 64 (designs 2 to 5): one order
+        shared = [o for n, o in designs.items() if 1 < n < 6]
+        checks["designs_bit_equal"] = all(torch.equal(shared[0], o)
+                                          for o in shared[1:])
+        checks["call_is_a_design"] = any(torch.equal(out, o)
+                                         for o in designs.values())
+        if checks["route"] not in flash_attention.TMA_ROUTES or \
+                not all(v for key, v in checks.items() if key != "route"):
             raise AssertionError(f"flash_attention {label}: {checks}")
     if before is not None:
         old = torch.empty_like(q)
@@ -1366,6 +1394,13 @@ def time_flash(q, k, v, *, group: int, causal: bool, window: int,
             raise AssertionError("the earlier flash entry point failed")
         torch.cuda.synchronize()
         fns["before_ms"] = lambda: before(old_args, stream)
+        if q.dtype == torch.bfloat16:
+            checks["per_tile_bit_equal_to_before"] = torch.equal(
+                designs[1], old)
+            if not checks["per_tile_bit_equal_to_before"]:
+                raise AssertionError(f"flash_attention {label}: a CTA a "
+                                     "query tile differs from the earlier "
+                                     "source's kernel")
         if q.dtype == torch.float32:
             checks["bit_equal_to_before"] = torch.equal(out, old)
             if not checks["bit_equal_to_before"]:
@@ -1392,6 +1427,9 @@ def time_flash(q, k, v, *, group: int, causal: bool, window: int,
     extra = (f", the earlier source's entry point {t['before_ms']!r} ms "
              f"({t['before_ms'] / t['entry_ms']!r} x this one's)"
              if "before_ms" in t else "")
+    extra += "".join(f", design {n} {t[f'variant{n}_ms']!r} ms"
+                     for n in flash_attention.VARIANTS
+                     if f"variant{n}_ms" in t)
     print(f"  flash_attention {label}: kernel {t['ms']!r} ms (entry point "
           f"{t['entry_ms']!r} ms{extra}), plain {t['plain_ms']!r} ms, "
           f"scaled_dot_product_attention {t['library_ms']!r} ms, bound "
@@ -2770,7 +2808,7 @@ def time_rglru_case(x, r, i, a_param, h0, label: str, keep_hs=False,
                              3 if s > 64 else TIME_ITERS, warmup=1),
          "library_ms": None,   # no single PyTorch call scans RG-LRU
          "max_abs_err": err, "bit_equal": same}
-    if before is not None:
+    if before is not None and "rglru" in before:
         old = before["rglru"][0]
         f32 = [t.to(torch.float32).contiguous() for t in (*bf, ab)]
         st = None if h0b is None else h0b.to(torch.float32).contiguous()
@@ -3479,20 +3517,22 @@ def router_bwd_cases(floor: dict) -> dict:
 
 
 # ref.flash_bf16_limit's own check: copies of csrc/flash_attention.cu,
-# each broken in one line of its bf16 kernel (what it breaks, the line,
-# its replacement), which the limit must refuse at grok-1-314b's bf16
-# attention
+# each broken in one place of its shared kernel (what it breaks, the
+# lines, their replacement), which the limit must refuse at grok-1-314b's
+# bf16 attention (kv group 6, three heads a CTA)
 FLASH_MUTANTS = (
     ("drops the last query block's last key tile",
-     "  const int n_tiles = k_end > k_begin ? (k_end - k_begin + kRows - 1) / "
-     "kRows : 0;\n",
-     "  const int n_tiles = (k_end > k_begin ? (k_end - k_begin + kRows - 1) / "
-     "kRows : 0) -\n      (q0 + kRows >= p.sq && k_end - k_begin > kRows);\n"),
+     "  if (!o.valid) o.nt = 0;\n  return o;\n",
+     "  if (!o.valid) o.nt = 0;\n"
+     "  o.nt -= o.q0 + kRows >= p.sq && o.nt > 1;\n  return o;\n"),
     ("scales every later query block's last key tile's P.V by 1 + 2^-5",
-     "      wg::to_a_frags(pa, s);\n",
-     "      if (n > 0 && n == n_tiles - 1)\n"
-     "        for (int e = 0; e < 32; ++e) s[e] *= 1.03125f;\n"
-     "      wg::to_a_frags(pa, s);\n"),
+     "        to_frags<BN>(pa, s);\n      }\n      probe.lap(kPvWait);\n",
+     "        if (i > mine_lo && i == mine_hi - 1)\n"
+     "          for (int e = 0; e < BN / 2; ++e) s[e] *= 1.03125f;\n"
+     "        to_frags<BN>(pa, s);\n      }\n      probe.lap(kPvWait);\n"),
+    ("feeds every warpgroup of a CTA its first warpgroup's Q",
+     "    const Slot x = slot_at<W, BN>(w, un, s);\n    const Src q[1] = {\n",
+     "    const Slot x = slot_at<W, BN>(w, un, 0);\n    const Src q[1] = {\n"),
 )
 
 
@@ -3510,11 +3550,13 @@ def build_flash_mutants() -> list:
 
 def flash_sass() -> dict:
     """The flash library's instances from ``cuobjdump -sass``
-    (``sass_counts``): every bf16 instance (flash_wgmma_kernel) must hold
-    HGMMA and no instance an F32 atomic. Returns {instance: counts}."""
+    (``sass_counts``): every bf16 instance (flash_wgmma_kernel,
+    flash_shared_kernel) must hold HGMMA and no instance an F32 atomic;
+    and from ptxas, each shared instance's registers and no spills.
+    Returns {instance: counts}."""
     out = {}
     for fn, c in sass_counts("flash_attention").items():
-        bf16 = "flash_wgmma_kernel" in fn
+        bf16 = "flash_wgmma_kernel" in fn or "flash_shared_kernel" in fn
         if not bf16 and "flash_kernel" not in fn:
             continue
         out[fn] = c
@@ -3523,6 +3565,103 @@ def flash_sass() -> dict:
               flush=True)
         if (bf16 and c["hgmma"] == 0) or c["f32_atomics"]:
             raise AssertionError(f"flash_attention {fn}: {c}")
+    lines = ptxas_lines("flash_attention", "flash_shared_kernel")
+    for line in lines:
+        print(f"  flash shared instances (ptxas): {line}", flush=True)
+    spills = [int(n) for line in lines
+              for n in re.findall(r"(\d+) bytes spill", line)]
+    if not spills or any(spills):
+        raise AssertionError(f"flash shared instances spill: {lines}")
+    out["shared_ptxas"] = lines
+    return out
+
+
+def build_flash_probe():
+    """``csrc/flash_attention.cu`` built with ``-DFLASH_PROBE`` (the tick
+    probe, which the shipped library compiles out) in a temporary
+    directory, removed once it is loaded: the library, with its
+    ``flash_attention_variant`` and ``flash_probe_take``."""
+    from repro_torch.kernels import _build
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "flash_probe.so")
+        proc = subprocess.run(
+            [_build.nvcc_path(), *_build.flags("flash_attention"),
+             "-DFLASH_PROBE", "-o", path,
+             str(_build.CSRC / "flash_attention.cu")],
+            capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for the flash probe:\n"
+                               f"{proc.stdout}{proc.stderr}")
+        lib = ctypes.CDLL(path)
+    fn = lib.flash_attention_variant
+    fn.argtypes, fn.restype = _build.SIGNATURES["flash_attention"][
+        "flash_attention_variant"]
+    lib.flash_probe_take.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    lib.flash_probe_take.restype = ctypes.c_int
+    return lib
+
+
+# the tick probe's shapes, (B, Sq, Sk, H, Hkv, D, causal): the LLM
+# predicate's 64 rows and whisper-small's encoder; its stretches, in the
+# order of the kernels' Lap
+PROBE_SHAPES = (("LLM predicate", (64, 512, 512, 9, 3, 64, True)),
+                ("whisper-small encoder", (4, 1500, 1500, 12, 12, 64, False)))
+PROBE_LAPS = ("setup", "q_wait", "stage_wait", "s_wait", "softmax",
+              "pv_wait", "epilogue")
+PROBE_CTAS = 16384   # the probe's kProbeCtas
+
+
+def flash_probe(lib) -> dict:
+    """Where a CTA's chain spends its clock64 ticks, from the probe library
+    (``build_flash_probe``): at each of PROBE_SHAPES, one launch of the
+    design of a CTA a query tile and of the shared design's three
+    warpgroups (issuing freely) on key tiles of 64 and of 128,
+    each CTA's thread 0 adding the ticks of each stretch (setup; waiting
+    for Q; for a tile's K/V stage, and the turn where warpgroups take
+    turns; for S; the softmax; waiting for P.V, with the rescale; the
+    epilogue) over its units. Prints each design's CTAs,
+    their mean ticks and each stretch's share of the sum."""
+    from repro_torch.kernels import flash_attention
+    rng = np.random.default_rng(29)
+    stream = torch.cuda.current_stream().cuda_stream
+    out = {}
+    for name, (b, sq, sk, h, hkv, d, causal) in PROBE_SHAPES:
+        q, k, v = (torch.from_numpy(rng.standard_normal((b, s, n, d)).astype(
+            np.float32)).cuda().to(torch.bfloat16)
+            for s, n in ((sq, h), (sk, hkv), (sk, hkv)))
+        o = torch.empty_like(q)
+        args = flash_attention.pack_args(
+            q, k, v, o, tuple(map(flash_attention.bshd_layout, (q, k, v, o))),
+            batch=b, heads=h, group=h // hkv, sq=sq, sk=sk, causal=causal,
+            window=0, scale=d ** -0.5)
+        ctas = min(PROBE_CTAS, b * h * -(-sq // 64))
+        ticks = np.zeros((ctas, len(PROBE_LAPS) + 1), np.int64)
+        for variant, design in ((1, "a CTA a query tile"),
+                                (5, "shared, three warpgroups"),
+                                (6, "shared, three warpgroups, 128-key "
+                                    "tiles")):
+            for _ in range(2):   # the second launch is read
+                lib.flash_probe_take(ticks.ctypes.data, ctas)
+                if lib.flash_attention_variant(args, variant, stream) != 0:
+                    raise AssertionError(f"the flash probe failed at {name}")
+                torch.cuda.synchronize()
+            if lib.flash_probe_take(ticks.ctypes.data, ctas) != 0:
+                raise AssertionError("flash_probe_take failed")
+            live = ticks[ticks[:, -1] > 0]
+            total = int(live[:, -1].sum())
+            split = {lap: float(live[:, i].sum() / total)
+                     for i, lap in enumerate(PROBE_LAPS)}
+            res = {"ctas": int(len(live)),
+                   "mean_ticks_a_cta": float(live[:, -1].mean()),
+                   "longest_cta_ticks": int(live[:, -1].max()),
+                   "split": split}
+            out[f"{name} {design}"] = res
+            print(f"  flash probe at {name} B={b} Sq={sq} H={h} Hkv={hkv} "
+                  f"D={d}, {design}: {res['ctas']} CTAs, "
+                  f"{res['mean_ticks_a_cta']!r} ticks a CTA (longest "
+                  f"{res['longest_cta_ticks']}), split "
+                  + ", ".join(f"{lap} {x:.3f}" for lap, x in split.items()),
+                  flush=True)
     return out
 
 
@@ -3644,8 +3783,9 @@ def family_kernel_cases(floor: dict, ssd_mutants=(), before=None) -> dict:
                          window=window, label=label,
                          before=before and before["flash_attention"]),
             "max_abs_err": err, **share}
-    for line in ptxas_lines("flash_attention", "flash_wgmma_kernelILi256E"):
-        print(f"  flash bf16 D=256 instances (ptxas): {line}")
+    for kernel in ("flash_wgmma_kernelILi256E", "flash_shared_kernelILi256E"):
+        for line in ptxas_lines("flash_attention", kernel):
+            print(f"  flash bf16 D=256 instances (ptxas): {line}")
     # the router at a moe forward's tokens (B * S = 1024): grok-1's 8
     # experts (a thread a row) and arctic's 128 (a warp a row); logits
     # spread as a bf16 layer's router gives them (std 1.6)
@@ -4217,7 +4357,8 @@ def build_before(root: str) -> dict:
     DIR``: the sources these kernels replaced, timed beside them), built
     side by side with each library's flags and ``root``'s own headers,
     into a temporary directory removed once they are loaded; "rglru" is
-    the pair (rglru_bsw, rglru_tokens). The SSD forward's is called as
+    the pair (rglru_bsw, rglru_tokens), and only there where ``root``'s
+    ``rglru.cu`` differs from this checkout's. The SSD forward's is called as
     this source's ``ssd_scan`` is, (args, scratch, stream), also where the
     earlier source takes no scratch; the flash forward's takes this
     source's packed arguments (FlashArgs is unchanged)."""
@@ -4252,11 +4393,17 @@ def build_before(root: str) -> dict:
             return name, lambda args, scratch, stream: fn(args, stream)
         return name, fn
 
+    # the RG-LRU forward only where it differs from this checkout's: its
+    # parent comparisons pack the arguments of the source before the
+    # current one
+    names = ["ssd", "flash_attention", "flash_attention_bwd", "rglru_bwd",
+             "ssd_bwd"]
+    with open(os.path.join(csrc, "rglru.cu"), "rb") as f:
+        if f.read() != (_build.CSRC / "rglru.cu").read_bytes():
+            names.append("rglru")
     try:
         with ThreadPoolExecutor(6) as pool:
-            return dict(pool.map(one, ("ssd", "flash_attention",
-                                       "flash_attention_bwd", "rglru",
-                                       "rglru_bwd", "ssd_bwd")))
+            return dict(pool.map(one, names))
     finally:
         shutil.rmtree(tmp)
 
@@ -4590,7 +4737,8 @@ class _Annotated:
 
 def train_trace(step, params, state, batch) -> dict:
     """One train step under torch.profiler: device time by flash forward
-    (flash_kernel, flash_wgmma_kernel), flash backward (the D, dq and dkv
+    (flash_kernel, flash_wgmma_kernel, flash_shared_kernel), flash
+    backward (the D, dq and dkv
     kernels of both designs), RG-LRU forward (rglru_kernel,
     rglru_pipe_kernel) and backward (rglru_bwd kernels), SSD forward (ssd_kernel, or the three ssd_fwd
     kernels) and backward (the four ssd_bwd kernels), GEMMs, the
@@ -4630,7 +4778,8 @@ def train_trace(step, params, state, batch) -> dict:
                                      "delta_kernel", "dq_wgmma_kernel",
                                      "dkv_wgmma_kernel", "delta_vec_kernel")):
             key = "flash_backward"
-        elif "flash_kernel" in name or "flash_wgmma_kernel" in name:
+        elif any(k in name for k in ("flash_kernel", "flash_wgmma_kernel",
+                                     "flash_shared_kernel")):
             key = "flash_forward"
         elif "rglru_bwd" in name:
             key = "rglru_backward"
@@ -5687,7 +5836,7 @@ def main() -> int:
     # ------------------------------------------------------------- 2 build
     phase("2 build")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(LIBRARIES) + 6) as pool:  # one nvcc a source
+    with ThreadPoolExecutor(len(LIBRARIES) + 7) as pool:  # one nvcc a source
         stages = pool.submit(build_ssd_stages)
         mutants = pool.submit(build_flash_mutants)
         grad_mutants = pool.submit(build_bwd_mutants)
@@ -5697,12 +5846,14 @@ def main() -> int:
                                       SSD_FWD_MUTANTS, "ssd_scan")
         earlier = (pool.submit(build_before, before_root) if before_root
                    else None)
+        probe_lib = pool.submit(build_flash_probe)
         libs = dict(zip(LIBRARIES, pool.map(_build.load, LIBRARIES)))
         ssd_stages, flash_mutants = stages.result(), mutants.result()
         bwd_mutants = grad_mutants.result()
         ssd_bwd_mutants = ssd_grad_mutants.result()
         ssd_mutants = ssd_fwd_mutants.result()
         before = earlier.result() if earlier else None
+        probe_lib = probe_lib.result()
     print(f"  {len(libs)} libraries in {time.perf_counter() - t0:.2f}s")
     for name, lib in libs.items():
         print(f"  {name}: {lib.path.name} built in {lib.seconds:.2f}s")
@@ -5771,13 +5922,14 @@ def main() -> int:
     print()
     family_cases = family_kernel_cases(floor_ms, ssd_mutants, before)
     rglru_routes = rglru_route_cases()
-    rglru_parent = (rglru_parent_cases(inputs, before) if before is not None
-                    else None)
+    rglru_parent = (rglru_parent_cases(inputs, before)
+                    if before is not None and "rglru" in before else None)
     for name, cases in family_cases.items():
         max_errs[name] = max(max_errs[name], *(t["max_abs_err"]
                                                for t in cases.values()))
     limit_mutants = flash_limit_mutants(flash_mutants)
     flash_instances = flash_sass()
+    flash_ticks = flash_probe(probe_lib)
     print()
     flash_bwd = flash_bwd_cases(bwd_mutants, before)
     max_errs["flash_attention_bwd"] = max(
@@ -6035,6 +6187,7 @@ def main() -> int:
         "rglru_parent": rglru_parent,
         "rglru_routes": rglru_routes,
         "flash_limit_mutants": limit_mutants,
+        "flash_probe": flash_ticks,
         "flash_sass": flash_instances,
         "flash_bwd": flash_bwd,
         "train": train,

@@ -54,8 +54,9 @@ LIBRARY_FLAGS = {
 # kernel takes its arguments packed into one buffer (a bytes object from
 # the wrapper's struct format) and the stream: ctypes converts two
 # arguments where it would convert up to ~27 (``ssd_scan`` also takes its
-# scratch, a pointer or None). ``empty`` launches a kernel
-# that does nothing: the launch floor beside the kernels' times;
+# scratch, a pointer or None; ``flash_attention_variant`` its bf16 design).
+# ``empty`` launches a kernel that does nothing: the launch floor beside
+# the kernels' times;
 # ``flash_attention_route`` and ``flash_attention_bwd_route`` launch
 # nothing and tell which of the forward's or the gradient's designs a call
 # with those arguments takes; ``ssd_bwd_parts`` launches nothing and tells
@@ -67,6 +68,8 @@ SIGNATURES = {
     "decode_attention": {"decode_attention_bshd": _PACKED},
     "empty": {"empty_launch": ([_VOIDP], _INT)},
     "flash_attention": {"flash_attention_bshd": _PACKED,
+                        "flash_attention_variant": (
+                            [ctypes.c_char_p, _INT, _VOIDP], _INT),
                         "flash_attention_route": ([ctypes.c_char_p], _INT)},
     "flash_attention_bwd": {"flash_attention_bwd": _PACKED,
                             "flash_attention_bwd_route": (

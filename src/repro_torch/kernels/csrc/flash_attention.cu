@@ -24,28 +24,33 @@
 // the predicates' S = 32, D = 8 the work is a few dependent steps inside
 // one CTA: latency.
 //
-// Two designs, chosen by the dtype; flash_attention_route says which a
-// call takes. Both give a CTA 64 query rows of one program and walk the
+// Three designs: float32 takes one, bf16 one of two by shape;
+// flash_attention_route says which a call takes. Each gives 64 query rows
+// of one program to a warp group (a CTA's or a warpgroup's) and walks the
 // key tiles (aligned to 64 from key 0) that the TPU kernel's block test
 // lets some of those rows see: tiles wholly outside the causal or window
 // band are skipped, tiles wholly inside it skip the per-element test, and
-// the late (heavy) query tiles of every program launch first. Either may
-// split a CTA's key tiles between two key groups (the even and the odd
-// tiles) and merge the groups' (m, l, o) through shared memory at the end
-// (M = max, each side rescaled by exp2(m - M)). Tile sizes, the split and
-// the order of every sum depend on the program's shape (Sq, Sk, D, the
-// mask) and the dtype only, never on the batch or the grid, so a row's
-// result is bit-equal alone and in any batch. No atomics: the same inputs
-// give the same bits. Softmax runs in base 2 (scale * log2 e folded into
-// the logits), row max and sum over a quad by shuffles. The log-sum-exp:
-// given an lse buffer (training asks for one), each row's
+// the late (heavy) query tiles of every program go first. The float32 and
+// the bf16 design of a CTA a query tile may split a CTA's key tiles between
+// two key groups (the even and the odd tiles) and merge the groups' (m, l,
+// o) through shared memory at the end (M = max, each side rescaled by
+// exp2(m - M)). Tile sizes, the split and the order of every sum depend on
+// the program's shape (Sq, Sk, D, the mask, the kv group) and the dtype
+// only, never on the batch, the grid or which CTA took the rows, so a
+// row's result is bit-equal alone and in any batch. No atomics: the same
+// inputs give the same bits. Softmax runs in base 2 (scale * log2 e folded
+// into the logits), row max and sum over a quad by shuffles. The
+// log-sum-exp: given an lse buffer (training asks for one), each row's
 // ln sum_j exp(s_ij) is written beside o, one float a row, for the
 // gradient kernel (flash_attention_bwd.cu) to rebuild P from; serving
 // passes none and the kernel writes nothing more. FMA contraction is
 // allowed in this library.
 //
-// The bf16 instances (flash_wgmma_kernel; tiles and wgmma in
-// flash_wgmma.cuh, loads in flash_tma.cuh, as the gradient's):
+// The bf16 design of a CTA a query tile (flash_wgmma_kernel; tiles and
+// wgmma in flash_wgmma.cuh, loads in flash_tma.cuh, as the gradient's),
+// routed only where the kv group is 1 and Sq fits one query tile (whisper's
+// cross-attention), where the shared design would leave a warpgroup
+// idle; flash_attention_variant runs it at any shape:
 // - A CTA is one or two consumer warpgroups and a producer warpgroup,
 //   whose first warp loads: the CTA's Q tile once, then a ring of K/V
 //   tile pairs of 64 keys; full and empty mbarriers hand each stage to
@@ -80,6 +85,57 @@
 //   element by one range test against its row's visible keys.
 // - The end: one reciprocal of l a row, then products (not D / 2
 //   divisions a thread, which took a large share of a short CTA's time).
+//
+// The bf16 shared design (flash_shared_kernel), every bf16 call but
+// whisper's cross-attention shape and D <= 64 at kv groups three
+// warpgroups do not divide. The q heads of a kv group read the same K/V
+// tiles, and a CTA a query tile pays for its barriers, its first load and
+// its last store on every 64 rows: so a persistent CTA has two or three
+// consumer warpgroups of 64 query rows that share every K/V stage:
+// - (a) Shared stages. Where the kv group is 2 or more, the warpgroups of
+//   a CTA take consecutive q heads of one kv head at the same positions
+//   (the same causal or window band); at group 1, consecutive query tiles
+//   of one head (bands that may differ: a warpgroup steps idle through a
+//   tile outside its own). The producer loads each K/V tile once for all,
+//   and a stage goes back once every warpgroup has read it. Three
+//   warpgroups at D <= 128, two at D = 256 (O alone is 128 registers a
+//   thread); a head block past the group's last head leaves a warpgroup
+//   idle (arctic's 7 heads: three blocks of three).
+// - Key tiles of 128 at D <= 64 (S by m64n128k16): at D = 64 a visible
+//   pair costs as much on the special-function units (one ex2) as on the
+//   tensor cores (4 D flops), and a step's chain (S's latency, the max
+//   across a quad, the rescale, the waits) is paid per tile; 128 keys a
+//   step halve it. The tiles are aligned to 128 from key 0, which at the
+//   causal edge leaves up to 64 more keys masked.
+// - (b) Ping-pong, measured and not routed: named barriers can pass a turn
+//   round the warpgroups, each issuing tile n's S and tile n - 1's P.V in
+//   its turn and running its exponentials while the others' products run
+//   (kTurns). On the card every model shape ran slower so (PERF.md): the
+//   routed instances issue freely, and the turns stay as
+//   flash_attention_variant's designs 2 and 3 for that comparison.
+// - (c) One FFMA an exponential: the row max is taken on the raw logits
+//   (the scale is positive), and p = ex2(fma(s, scale log2 e, -m)); O's
+//   rescale is skipped where no row of a warp moved its max. Polynomial
+//   exponentials on the FMA pipe are not tried.
+// - (d) Persistent CTAs: one CTA an SM, as many as the SMs, each walking a
+//   static list of work units (query rank, sequence, kv head, head block):
+//   heaviest first, in passes over the CTAs that alternate direction, each
+//   unit decoded once (unit_of). Barriers are set up and
+//   the TMA maps prefetched once a CTA; Q comes in two buffers, so a unit's
+//   Q tiles load during the last unit (with one buffer, at D = 256 and for
+//   three warpgroups at D = 128, a unit's first K/V tiles go out first and
+//   each Q tile as soon as its warpgroup has finished the last unit's
+//   products, during its epilogue).
+// - (e) The epilogue: at D <= 128 through a swizzled O tile a warpgroup in
+//   shared memory and one TMA store where o is 16-byte aligned (rows past
+//   Sq and columns past D are clipped by the map); elsewhere, and at D =
+//   256 where no O tile fits beside Q and two stages, 16-byte stores after
+//   a quad's lanes trade their column pairs by shuffles (pairs or single
+//   elements for views that are not aligned).
+// D = 256 takes (a), (c), (d) with one Q buffer and (e) without its TMA
+// store. A row's bits depend on its design, and the design on the shape
+// (never the batch); the shared design's instances of one tile width give
+// the same bits, whichever slot takes a row.
 //
 // The float32 instances (flash_kernel; tiles in flash_tiles.cuh, shared
 // with the float32 gradient), which the predicates and the float32 gates
@@ -400,11 +456,60 @@ constexpr int kWgThreads = 128;   // a warpgroup: one key group's consumers
 constexpr int kProducerRegs = 24;  // registers a producer thread keeps
 
 struct WgParams {
-  CUtensorMap mq, mk, mv;
-  MapDims dq_, dk_, dv_;
+  CUtensorMap mq, mk, mv, mo;
+  MapDims dq_, dk_, dv_, do_;
   Params p;
-  int tma;  // 1: tiles come by TMA; 0: by the producer's own loads
+  int tma;        // 1: tiles come by TMA; 0: by the producer's own loads
+  int tma_store;  // 1: o leaves by TMA from shared memory (mo; shared)
+  int o_vec;      // 1: o is 16-byte aligned in base and strides, D % 8 == 0
+  // the shared design's static schedule (slot_at): work units, units
+  // of one query rank, head blocks of a kv head
+  int units, per_rank, hblocks;
 };
+
+// The tick probe, built with -DFLASH_PROBE only (chip_smoke.py's probe
+// library; the shipped instances compile it out): thread 0 of a CTA adds
+// the clock64 ticks of each stretch of its chain to one of kLaps counters
+// and at its end writes them, then their total, to flash_probe_ticks.
+// (kStageWait: waiting for a tile's K/V stage, and for the turn where
+// warpgroups take turns)
+enum Lap { kSetup, kQWait, kStageWait, kSWait, kSoftmax, kPvWait, kEpilogue,
+           kLaps };
+#ifdef FLASH_PROBE
+constexpr int kProbeCtas = 16384;
+__device__ long long flash_probe_ticks[kProbeCtas * (kLaps + 1)];
+struct Probe {
+  long long t0, last, acc[kLaps];
+  __device__ __forceinline__ Probe() {
+#ifdef __CUDA_ARCH__
+    t0 = last = clock64();
+#pragma unroll
+    for (int i = 0; i < kLaps; ++i) acc[i] = 0;
+#endif
+  }
+  __device__ __forceinline__ void lap(int i) {
+#ifdef __CUDA_ARCH__
+    const long long now = clock64();
+    acc[i] += now - last;
+    last = now;
+#endif
+  }
+  __device__ __forceinline__ void write() const {
+#ifdef __CUDA_ARCH__
+    if (threadIdx.x != 0 || blockIdx.x >= kProbeCtas) return;
+    long long* out = flash_probe_ticks + blockIdx.x * (kLaps + 1);
+#pragma unroll
+    for (int i = 0; i < kLaps; ++i) out[i] = acc[i];
+    out[kLaps] = clock64() - t0;
+#endif
+  }
+};
+#else
+struct Probe {
+  __device__ __forceinline__ void lap(int) {}
+  __device__ __forceinline__ void write() const {}
+};
+#endif
 
 // every pair of the 64 x 64 block at (q0, k0) is visible: no element
 // needs its mask
@@ -505,6 +610,7 @@ flash_wgmma_kernel(const __grid_constant__ WgParams w) {
   const int k_begin =
       p.window > 0 ? max(0, q0 - p.window + 1) / kRows * kRows : 0;
   const int n_tiles = k_end > k_begin ? (k_end - k_begin + kRows - 1) / kRows : 0;
+  Probe probe;
   if (tid == 0) {
     if (wg::smem_u32(wg_smem) & 1023) __trap();
     for (int s = 0; s < kStages; ++s) {
@@ -515,6 +621,7 @@ flash_wgmma_kernel(const __grid_constant__ WgParams w) {
     wg::mbar_init_fence();
   }
   __syncthreads();
+  probe.lap(kSetup);
 
   if (warp >= 4 * groups) {  // the producer warpgroup: its first warp loads
     wg::setmaxnreg_dec<kProducerRegs>();
@@ -565,6 +672,7 @@ flash_wgmma_kernel(const __grid_constant__ WgParams w) {
   uint32_t pa[4][4];
   const uint32_t a_q = wg::smem_u32(s_q);
   if (n_mine > 0) wg::mbar_wait(own, 0);
+  probe.lap(kQWait);
 
   // step i takes tile n = grp + i groups in (its S and softmax) and
   // finishes the previous one (its P.V): S is issued first, and the
@@ -576,6 +684,7 @@ flash_wgmma_kernel(const __grid_constant__ WgParams w) {
     const int st = n % kStages;
     const int prev = i > 0 ? (n - groups) % kStages : 0;
     if (take) wg::mbar_wait(&full[st], (n / kStages) & 1);
+    probe.lap(kStageWait);
     const uint32_t a_k = wg::smem_u32(ring + st * 2 * kTile);
     const uint32_t a_v = wg::smem_u32(ring + prev * 2 * kTile) + kTile;
     wg::wgmma_fence();
@@ -600,6 +709,7 @@ flash_wgmma_kernel(const __grid_constant__ WgParams w) {
       else
         wg::wgmma_wait<0>();
       wg::fence_regs(s);
+      probe.lap(kSWait);
       // logits in log2 units, a masked one -inf: out of the max, and its
       // exponential exactly 0
       // (each row's max and sum run as two chains, its 8-key blocks
@@ -644,6 +754,7 @@ flash_wgmma_kernel(const __grid_constant__ WgParams w) {
 #pragma unroll
       for (int r = 0; r < 2; ++r)
         l[r] = l[r] * corr[r] + (ps[r][0] + ps[r][1]);
+      probe.lap(kSoftmax);
     }
     wg::wgmma_wait<0>();
 #pragma unroll
@@ -660,6 +771,7 @@ flash_wgmma_kernel(const __grid_constant__ WgParams w) {
         for (int e = 0; e < NO / 2; ++e) o[hh][e] *= corr[(e >> 1) & 1];
       wg::to_a_frags(pa, s);
     }
+    probe.lap(kPvWait);
   }
 
   if (groups > 1) {
@@ -739,6 +851,8 @@ flash_wgmma_kernel(const __grid_constant__ WgParams w) {
         }
       }
   }
+  probe.lap(kEpilogue);
+  probe.write();
 }
 
 // the bf16 instance at padded width DP with kGroups key groups and a ring
@@ -764,6 +878,704 @@ int launch_wgmma(const WgParams& w, int blocks, cudaStream_t stream) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmem);
   if (attr != cudaSuccess) return (int)attr;
   kernel<<<blocks, (kGroups + 1) * kWgThreads, kSmem, stream>>>(w);
+  return (int)cudaGetLastError();
+}
+
+// ---- the bf16 shared design: warpgroups that share each K/V stage ----
+
+// named barriers beside __syncthreads (0) and consumers_sync (1): warpgroup
+// w's turn to issue its products (kTurnBar + w), and its own 128 threads
+// (kOwnBar + w, its epilogue)
+constexpr int kTurnBar = 2;
+constexpr int kOwnBar = 6;
+// registers a producer thread of the shared design keeps: its unit
+// schedule wants more than the design of a CTA a query tile's 24
+constexpr int kPpProducerRegs = 40;
+
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// a swizzled tile of 64 rows in shared memory to coordinates (c0 .. c3) of
+// a rank-4 map (positions past the map's bounds are not written), in one
+// bulk group of the calling thread
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(wg::smem_u32(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// until the calling thread's bulk stores have read their shared memory
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+// until they are done
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+__device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map))
+               : "memory");
+}
+
+// v[i] for a lane-dependent i, by selects (an indexed register array
+// would go to local memory)
+__device__ __forceinline__ uint32_t pick4(const uint32_t (&v)[4], int i) {
+  return i == 0 ? v[0] : i == 1 ? v[1] : i == 2 ? v[2] : v[3];
+}
+
+// the key tiles of BN keys (aligned to BN from key 0) that some row of
+// [q0, q0 + 64) can see, by the TPU kernel's block test: [kb, kb + BN nt)
+template <int BN>
+__device__ __forceinline__ void tiles_seen(const Params& p, int q0, int& kb,
+                                           int& nt) {
+  const int q_last = min(q0 + kRows, p.sq) - 1;
+  const int k_end = p.causal ? min(p.sk, q_last + 1) : p.sk;
+  kb = p.window > 0 ? max(0, q0 - p.window + 1) / BN * BN : 0;
+  nt = k_end > kb ? (k_end - kb + BN - 1) / BN : 0;
+}
+
+// every pair of the 64 x BN block at (q0, k0) is visible: no element
+// needs its mask
+template <int BN>
+__device__ __forceinline__ bool band_full(const Params& p, int q0, int k0) {
+  return q0 + kRows <= p.sq && k0 + BN <= p.sk &&
+         (!p.causal || k0 + BN - 1 <= q0) &&
+         (p.window <= 0 || k0 > q0 + kRows - 1 - p.window);
+}
+
+// Warpgroup s's share of work unit u: 64 query rows from q0 of head h of
+// sequence b, and their key tiles [kb, kb + BN nt); none where !valid (a
+// slot past the kv group's heads or the program's query tiles: h and q0
+// then name rows that exist, which the producer loads and nobody uses).
+// Units run heaviest first: rank r takes query tile Sq / 64 - 1 - r of
+// every program. Where the kv group is 2 or more, the W warpgroups of a
+// unit take W consecutive q heads of one kv head (head block j: heads
+// j W .. j W + W - 1 of the group) at the same positions, so all have the
+// same band; at group 1, W consecutive query tiles of one head.
+struct Slot {
+  int b, h, kh, q0, kb, nt;
+  bool valid;
+};
+
+// what the slots of unit u share, decoded once a unit (the divisions):
+// its rank, sequence b, kv head kh and its first slot's index i0 (a head
+// of the kv group at group 2 and up, else a query tile's rank) and head h0
+struct Unit {
+  int rank, b, kh, i0, h0;
+};
+
+__device__ __forceinline__ Unit unit_of(const WgParams& w, int u, int W) {
+  const Params& p = w.p;
+  Unit n;
+  n.rank = u / w.per_rank;
+  const int r = u - n.rank * w.per_rank;
+  if (p.group > 1) {
+    const int bk = r / w.hblocks;  // b * kv_heads + kv head
+    const int kv_heads = p.heads / p.group;
+    n.b = bk / kv_heads;
+    n.kh = bk - n.b * kv_heads;
+    n.i0 = (r - bk * w.hblocks) * W;
+    n.h0 = n.kh * p.group;
+  } else {
+    n.b = r / p.heads;
+    n.kh = n.h0 = r - n.b * p.heads;
+    n.i0 = n.rank * W;
+  }
+  return n;
+}
+
+template <int W, int BN>
+__device__ __forceinline__ Slot slot_at(const WgParams& w, const Unit& n,
+                                        int s) {
+  const Params& p = w.p;
+  Slot o;
+  o.b = n.b;
+  o.kh = n.kh;
+  if (p.group > 1) {
+    const int i = n.i0 + s;
+    o.valid = i < p.group;
+    o.h = n.h0 + min(i, p.group - 1);
+    o.q0 = (p.q_tiles - 1 - n.rank) * kRows;
+  } else {
+    o.h = n.h0;
+    const int qt = p.q_tiles - 1 - (n.i0 + s);
+    o.valid = qt >= 0;
+    o.q0 = max(qt, 0) * kRows;
+  }
+  tiles_seen<BN>(p, o.q0, o.kb, o.nt);
+  if (!o.valid) o.nt = 0;
+  return o;
+}
+
+// the key tiles of unit u: the union [kb, kb + BN nt) of its slots'
+// bands, which the producer loads once for all of them
+template <int W, int BN>
+__device__ __forceinline__ void unit_band(const WgParams& w, const Unit& un,
+                                          int& kb, int& nt) {
+  int lo = INT_MAX, hi = 0;
+#pragma unroll
+  for (int s = 0; s < W; ++s) {
+    const Slot x = slot_at<W, BN>(w, un, s);
+    if (x.nt > 0) {
+      lo = min(lo, x.kb);
+      hi = max(hi, x.kb + x.nt * BN);
+    }
+  }
+  kb = hi > lo ? lo : 0;
+  nt = hi > lo ? (hi - lo) / BN : 0;
+}
+
+// the k-th unit of this CTA, or one past the last: the units go round the
+// CTAs heaviest first in passes of gridDim.x, each pass in the other
+// direction (snake order), so a CTA that took one of the heaviest units of
+// a pass takes one of the lightest of the next
+__device__ __forceinline__ int unit_index(int k) {
+  const int c = k & 1 ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  return k * gridDim.x + c;
+}
+
+// the producer's hand-over of a K/V stage: BN rows from pos0 of K, then of
+// V, each as BN / 64 tiles of 64 rows one after the other (at D = 64 a
+// tile of BN rows in the 128-byte swizzle), on barrier `bar` as produce
+template <int DP, int BN>
+__device__ __forceinline__ void produce_kv(const WgParams& w,
+                                           unsigned char* dst, uint64_t* bar,
+                                           const Src (&src)[2], int pos0,
+                                           int n, int seq, int lane) {
+  constexpr uint32_t kTile = kRows * DP * 2;
+  constexpr int kParts = BN / kRows;
+  if (w.tma) {
+    if (lane == 0) {
+      wg::mbar_arrive_tx(bar, 2 * kParts * kTile);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int c = 0; c < kParts; ++c)
+          tma_tile<DP>(dst + (i * kParts + c) * kTile, src[i].map,
+                       src[i].dims, bar, pos0 + c * kRows, src[i].head, seq);
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int c = 0; c < kParts; ++c)
+        plain_tile<DP>(dst + (i * kParts + c) * kTile, src[i].base,
+                       src[i].stride, pos0 + c * kRows, n, w.p.d, lane);
+    wg::fence_proxy_async();
+  }
+  if (!w.tma || lane != 0) wg::mbar_arrive(bar);
+}
+
+// d = A . B^T (acc 0) or d += A . B^T (acc 1): A (64 x 16) and B (128 x
+// 16) K-major in shared memory
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
+                                              uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+// S = Q K^T over BN keys: m64n64k16 or m64n128k16
+template <int BN>
+__device__ __forceinline__ void wgmma_ss(float (&d)[BN / 2], uint64_t da,
+                                         uint64_t db, int acc);
+template <>
+__device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t da,
+                                             uint64_t db, int acc) {
+  wg::wgmma_ss_n64(d, da, db, acc);
+}
+template <>
+__device__ __forceinline__ void wgmma_ss<128>(float (&d)[64], uint64_t da,
+                                              uint64_t db, int acc) {
+  wgmma_ss_n128(d, da, db, acc);
+}
+
+// P's A fragments for P.V, BN / 16 k-steps (flash_wgmma::to_a_frags at BN
+// = 64): columns 16 c .. 16 c + 15 of the accumulator, rounded to bf16
+template <int BN>
+__device__ __forceinline__ void to_frags(uint32_t (&a)[BN / 16][4],
+                                         const float (&s)[BN / 2]) {
+#pragma unroll
+  for (int c = 0; c < BN / 16; ++c) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const __nv_bfloat162 v =
+          __floats2bfloat162_rn(s[8 * c + 2 * j], s[8 * c + 2 * j + 1]);
+      a[c][j] = *reinterpret_cast<const uint32_t*>(&v);
+    }
+  }
+}
+
+// the producer's loads of unit u's W Q tiles into one of the Q buffers
+// (its tiles at s_q, its barriers at q_full and q_empty), each once its
+// warpgroup is done with the buffer's last unit (the buffer's use-th)
+template <int DP, int W, int BN>
+__device__ __forceinline__ void produce_q(const WgParams& w, const Unit& un,
+                                          int use,
+                                          unsigned char* s_q, uint64_t* q_full,
+                                          uint64_t* q_empty, int lane) {
+  constexpr uint32_t kTile = kRows * DP * 2;
+  const Params& p = w.p;
+#pragma unroll
+  for (int s = 0; s < W; ++s) {
+    const Slot x = slot_at<W, BN>(w, un, s);
+    const Src q[1] = {
+        {&w.mq, w.dq_, rows_of(p.q, p.lq, x.b, x.h), p.lq.seq, x.h}};
+    wg::mbar_wait(&q_empty[s], (use & 1) ^ 1);
+    produce<DP>(w, s_q + s * kTile, &q_full[s], q, x.q0, p.sq, x.b, lane);
+  }
+}
+
+// o for the work units of a persistent CTA (unit_index): W consumer
+// warpgroups, each 64 query rows of a unit
+// (slot_at), and a producer warpgroup after them whose first warp loads,
+// unit by unit, the key tiles of the unit's band into a ring of kStages
+// K/V stages (each stage read by all W warpgroups and handed back once all
+// have read it) and the W Q tiles into one of kQBufs buffers: with two,
+// the unit's Q first; with one, the first kStages K/V tiles of a unit go
+// out before its Q tiles, so they land while the warpgroups finish the
+// last unit, and each Q tile as soon as its warpgroup has freed it (before
+// its epilogue). Every warpgroup steps through all of its unit's tiles,
+// idle on those outside its band. kTurns: the warpgroups take turns on the
+// tensor cores (ping-pong): at each step warpgroup w waits for its turn
+// (kTurnBar + w), issues tile n's S and tile n - 1's P.V and hands the
+// turn on. kStoreTma: o leaves through shared memory (a tile a warpgroup)
+// by TMA where it is aligned (w.tma_store). The producer keeps
+// kPpProducerRegs registers a thread and the consumers take kConsumerRegs
+// (launch_pp).
+template <int DP, int BN, int W, int kStages, int kQBufs, int kConsumerRegs,
+          int kProducerKeeps, bool kStoreTma, bool kTurns>
+__global__ void __launch_bounds__((W + 1) * kWgThreads, 1)
+flash_shared_kernel(const __grid_constant__ WgParams w) {
+  extern __shared__ __align__(1024) unsigned char wg_smem[];
+  static_assert(BN == kRows || (BN == 2 * kRows && DP == 64),
+                "128-key tiles only where a row is one 128-byte panel");
+  constexpr uint32_t kTile = kRows * DP * 2;  // a Q or O tile
+  constexpr uint32_t kKv = BN * DP * 2;       // a K or V tile
+  constexpr int NO = DP < 128 ? DP : 128;  // o's columns a product writes
+  constexpr int kHalves = DP / NO;
+  constexpr int kPair = 2 * kWgThreads;    // a turn's hand-over
+  // Q buffer qb: warpgroup s's Q tile at (qb W + s) kTile; unit k of the
+  // CTA takes buffer k % kQBufs
+  unsigned char* s_q = wg_smem;
+  unsigned char* ring = s_q + kQBufs * W * kTile;  // stage s: K, then V
+  unsigned char* s_o = ring + kStages * 2 * kKv;    // kStoreTma: O tiles
+  uint64_t* full =
+      reinterpret_cast<uint64_t*>(s_o + (kStoreTma ? W * kTile : 0));
+  uint64_t* empty = full + kStages;
+  uint64_t* q_full = empty + kStages;
+  uint64_t* q_empty = q_full + kQBufs * W;
+
+  const Params& p = w.p;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = wg::warp_uniform();
+  Probe probe;
+  if (tid == 0) {
+    if (wg::smem_u32(wg_smem) & 1023) __trap();
+    for (int s = 0; s < kStages; ++s) {
+      wg::mbar_init(&full[s], 32);
+      wg::mbar_init(&empty[s], 4 * W);
+    }
+    for (int s = 0; s < kQBufs * W; ++s) {
+      wg::mbar_init(&q_full[s], 32);
+      wg::mbar_init(&q_empty[s], 4);
+    }
+    wg::mbar_init_fence();
+  }
+  __syncthreads();
+  probe.lap(kSetup);
+
+  if (warp >= 4 * W) {  // the producer warpgroup: its first warp loads
+    wg::setmaxnreg_dec<kProducerKeeps>();
+    if (warp != 4 * W) return;
+    if (w.tma && lane == 0) {
+      prefetch_map(&w.mq);
+      prefetch_map(&w.mk);
+      prefetch_map(&w.mv);
+    }
+    int it = 0;  // K/V tiles loaded so far: tile it takes stage it % kStages
+    for (int k = 0, u = unit_index(0); u < w.units; u = unit_index(++k)) {
+      const Unit un = unit_of(w, u, W);
+      int kb, nt;
+      unit_band<W, BN>(w, un, kb, nt);
+      const Slot x0 = slot_at<W, BN>(w, un, 0);
+      const Src kv[2] = {
+          {&w.mk, w.dk_, rows_of(p.k, p.lk, x0.b, x0.kh), p.lk.seq, x0.kh},
+          {&w.mv, w.dv_, rows_of(p.v, p.lv, x0.b, x0.kh), p.lv.seq, x0.kh}};
+      // with one Q buffer, the unit's first K/V tiles go out before its Q
+      // tiles (which wait for the last unit's products); with two, Q first
+      const int qb = k % kQBufs;
+      const int early = kQBufs > 1 ? 0 : min(nt, kStages);
+      for (int n = 0; n < nt; ++n) {
+        if (n == early)
+          produce_q<DP, W, BN>(w, un, k / kQBufs, s_q + qb * W * kTile,
+                               q_full + qb * W, q_empty + qb * W, lane);
+        const int st = (it + n) % kStages;
+        wg::mbar_wait(&empty[st], (((it + n) / kStages) & 1) ^ 1);
+        produce_kv<DP, BN>(w, ring + st * 2 * kKv, &full[st], kv,
+                           kb + n * BN, p.sk, x0.b, lane);
+      }
+      if (nt == early)
+        produce_q<DP, W, BN>(w, un, k / kQBufs, s_q + qb * W * kTile,
+                             q_full + qb * W, q_empty + qb * W, lane);
+      it += nt;
+    }
+    return;
+  }
+
+  wg::setmaxnreg_inc<kConsumerRegs>();
+  const int wi = warp >> 2;  // this warpgroup: slot wi of every unit
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int next = wi + 1 == W ? 0 : wi + 1;
+  const float c = p.scale_log2;
+  if (kTurns && wi == W - 1) bar_arrive(kTurnBar, kPair);  // 0 starts
+  int it = 0;  // K/V tiles consumed so far, as the producer counts them
+  for (int k = 0, u = unit_index(0); u < w.units; u = unit_index(++k)) {
+    const Unit un = unit_of(w, u, W);
+    int kb, nt;
+    unit_band<W, BN>(w, un, kb, nt);
+    const Slot me = slot_at<W, BN>(w, un, wi);
+    // this warpgroup's tiles of the unit's: [mine_lo, mine_hi)
+    const int mine_lo = me.nt > 0 ? (me.kb - kb) / BN : 0;
+    const int mine_hi = me.nt > 0 ? mine_lo + me.nt : 0;
+    const int row0 = me.q0 + (warp & 3) * 16;  // this warp's 16 rows
+    const int qpos[2] = {row0 + g, row0 + g + 8};
+    // the keys [keys_lo, keys_hi) each of the thread's two rows sees
+    int keys_lo[2], keys_hi[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int i = qpos[r];
+      keys_lo[r] = p.window > 0 ? i - p.window + 1 : 0;
+      keys_hi[r] = i >= p.sq ? 0 : p.causal ? min(p.sk, i + 1) : p.sk;
+    }
+    float o[kHalves][NO / 2];
+#pragma unroll
+    for (int hh = 0; hh < kHalves; ++hh)
+#pragma unroll
+      for (int e = 0; e < NO / 2; ++e) o[hh][e] = 0.f;
+    float m[2] = {kNegInf, kNegInf};  // the running max, in log2 units
+    float l[2] = {0.f, 0.f};          // this lane's share of the row sums
+    float s[BN / 2];
+#pragma unroll
+    for (int e = 0; e < BN / 2; ++e) s[e] = 0.f;
+    uint32_t pa[BN / 16][4];
+    const int qi = k % kQBufs * W + wi;  // this unit's Q tile and barriers
+    const uint32_t a_q = wg::smem_u32(s_q + qi * kTile);
+    wg::mbar_wait(&q_full[qi], (k / kQBufs) & 1);
+    probe.lap(kQWait);
+
+    // step i takes tile i in (its S and softmax) and finishes tile i - 1
+    // (its P.V), where they are this warpgroup's; S is issued first, and
+    // the exponentials run while that P.V and the other warpgroups'
+    // products are on the tensor cores
+    for (int i = 0; nt > 0 && i <= nt; ++i) {
+      const bool take = i >= mine_lo && i < mine_hi;
+      const bool prev = i - 1 >= mine_lo && i - 1 < mine_hi;
+      const int st = (it + i) % kStages;
+      const int pst = (it + i + kStages - 1) % kStages;
+      if (i < nt) wg::mbar_wait(&full[st], ((it + i) / kStages) & 1);
+      const uint32_t a_k = wg::smem_u32(ring + st * 2 * kKv);
+      const uint32_t a_v = wg::smem_u32(ring + pst * 2 * kKv) + kKv;
+      if (kTurns) bar_sync(kTurnBar + wi, kPair);
+      probe.lap(kStageWait);
+      wg::wgmma_fence();
+      if (take) {
+#pragma unroll
+        for (int ks = 0; ks < DP / 16; ++ks)
+          wgmma_ss<BN>(s, wg::desc_k(a_q, ks), wg::desc_k(a_k, ks), ks);
+        wg::wgmma_commit();
+      }
+      if (prev) {
+#pragma unroll
+        for (int cc = 0; cc < BN / 16; ++cc)
+#pragma unroll
+          for (int hh = 0; hh < kHalves; ++hh)
+            wg::wgmma_rs<NO>(o[hh], pa[cc], wg::desc_mn(a_v, cc, hh * NO));
+        wg::wgmma_commit();
+      }
+      if (kTurns) bar_arrive(kTurnBar + next, kPair);
+      float corr[2] = {1.f, 1.f};
+      if (take) {
+        if (prev)
+          wg::wgmma_wait<1>();  // S; the previous P.V still on the cores
+        else
+          wg::wgmma_wait<0>();
+        wg::fence_regs(s);
+        probe.lap(kSWait);
+        // the raw logits' max (a scale > 0 keeps their order), a masked
+        // logit -inf: out of the max, and its exponential exactly 0; each
+        // row's max and sum run as two chains (8-key blocks even and odd)
+        const int k0 = kb + i * BN;
+        float mx[2][2] = {{-INFINITY, -INFINITY}, {-INFINITY, -INFINITY}};
+        if (band_full<BN>(p, me.q0, k0)) {
+#pragma unroll
+          for (int e = 0; e < BN / 2; ++e) {
+            float& x = mx[(e >> 1) & 1][(e >> 2) & 1];
+            x = fmaxf(x, s[e]);
+          }
+        } else {
+          // element e holds key k0 + 2t + cc, cc = 8 (e / 4) + e % 2:
+          // visible when cc lies in its row's [lo, hi)
+          const int lo[2] = {keys_lo[0] - k0 - 2 * t, keys_lo[1] - k0 - 2 * t};
+          const int hi[2] = {keys_hi[0] - k0 - 2 * t, keys_hi[1] - k0 - 2 * t};
+#pragma unroll
+          for (int e = 0; e < BN / 2; ++e) {
+            const int r = (e >> 1) & 1;
+            const int cc = 8 * (e >> 2) + (e & 1);
+            s[e] = cc >= lo[r] && cc < hi[r] ? s[e] : -INFINITY;
+            float& x = mx[r][(e >> 2) & 1];
+            x = fmaxf(x, s[e]);
+          }
+        }
+        float ps[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          float x = fmaxf(mx[r][0], mx[r][1]);
+          x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+          x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+          const float m_new = fmaxf(m[r], x * c);
+          corr[r] = wg::ex2(m[r] - m_new);
+          m[r] = m_new;
+        }
+        // p = 2^(s c - m): the scale folded into one FFMA a logit
+#pragma unroll
+        for (int e = 0; e < BN / 2; ++e) {
+          s[e] = wg::ex2(fmaf(s[e], c, -m[(e >> 1) & 1]));
+          ps[(e >> 1) & 1][(e >> 2) & 1] += s[e];
+        }
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          l[r] = l[r] * corr[r] + (ps[r][0] + ps[r][1]);
+        probe.lap(kSoftmax);
+      }
+      wg::wgmma_wait<0>();
+#pragma unroll
+      for (int hh = 0; hh < kHalves; ++hh) wg::fence_regs(o[hh]);
+      wg::fence_regs(pa);
+      if (i > 0) {  // tile i - 1's stage: this warpgroup is done with it
+        __syncwarp();
+        if (lane == 0) wg::mbar_arrive(&empty[pst]);
+      }
+      if (take) {
+        // O's rescale, skipped where no row of the warp moved its max (a
+        // product by 1 is exact: the same bits)
+        if (__any_sync(0xffffffffu, corr[0] != 1.f || corr[1] != 1.f)) {
+#pragma unroll
+          for (int hh = 0; hh < kHalves; ++hh)
+#pragma unroll
+            for (int e = 0; e < NO / 2; ++e) o[hh][e] *= corr[(e >> 1) & 1];
+        }
+        to_frags<BN>(pa, s);
+      }
+      probe.lap(kPvWait);
+    }
+    it += nt;
+    // the Q tile is free for the producer (the unit after next's, or with
+    // one buffer the next unit's, loaded meanwhile)
+    __syncwarp();
+    if (lane == 0) wg::mbar_arrive(&q_empty[qi]);
+    if (!me.valid) continue;
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    }
+    const long long prog = (long long)me.b * p.heads + me.h;
+    if (p.lse != nullptr && t == 0) {
+      // the row's log-sum-exp of the scaled logits, ln 2 (m + log2 l); a
+      // row that sees no key gets +inf, so exp(s - lse) weighs its keys 0
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        if (qpos[r] < p.sq)
+          p.lse[prog * p.sq + qpos[r]] =
+              l[r] == 0.f ? INFINITY : (m[r] + log2f(l[r])) * kLn2;
+    }
+    // one division a row, then products (no visible key -> 0)
+    float inv[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) inv[r] = 1.f / (l[r] == 0.f ? 1.f : l[r]);
+    if (kStoreTma && w.tma_store) {
+      // through this warpgroup's O tile, swizzled as TMA reads it (rows
+      // past Sq and columns past D are not written); the last unit's store
+      // must have read the tile first
+      unsigned char* so = s_o + wi * kTile;
+      if ((tid & (kWgThreads - 1)) == 0) bulk_wait_read();
+      bar_sync(kOwnBar + wi, kWgThreads);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int rr = (warp & 3) * 16 + g + 8 * r;
+#pragma unroll
+        for (int hh = 0; hh < kHalves; ++hh)
+#pragma unroll
+          for (int j = 0; j < NO / 8; ++j)
+            *reinterpret_cast<__nv_bfloat162*>(
+                so + wg::swizzled(rr, hh * NO + 8 * j + 2 * t)) =
+                __floats2bfloat162_rn(o[hh][4 * j + 2 * r] * inv[r],
+                                      o[hh][4 * j + 2 * r + 1] * inv[r]);
+      }
+      wg::fence_proxy_async();
+      bar_sync(kOwnBar + wi, kWgThreads);
+      if ((tid & (kWgThreads - 1)) == 0) {
+#pragma unroll
+        for (int cc = 0; cc < DP / 64; ++cc)
+          tma_store_4d(&w.mo, so + cc * wg::kPanel, cc * 64,
+                       pick(w.do_, 1, me.q0, me.h, me.b),
+                       pick(w.do_, 2, me.q0, me.h, me.b),
+                       pick(w.do_, 3, me.q0, me.h, me.b));
+        bulk_commit();
+      }
+    } else {
+      __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(p.o) +
+                          me.b * p.lo.batch + me.h * p.lo.head;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        __nv_bfloat16* orow = ob + (long long)qpos[r] * p.lo.seq;
+        const bool live = qpos[r] < p.sq;
+        if (w.o_vec) {
+          // 16-byte stores: the quad's four lanes trade their pairs so
+          // that lane t holds the 8 columns of block 4 cb + t (in round x
+          // lane t sends its pair of block 4 cb + (t ^ x) to lane t ^ x)
+#pragma unroll
+          for (int hh = 0; hh < kHalves; ++hh)
+#pragma unroll
+            for (int cb = 0; cb < NO / 32; ++cb) {
+              uint32_t mine[4], got[4], out[4];
+#pragma unroll
+              for (int jj = 0; jj < 4; ++jj) {
+                const int j = 4 * cb + jj;
+                const __nv_bfloat162 v = __floats2bfloat162_rn(
+                    o[hh][4 * j + 2 * r] * inv[r],
+                    o[hh][4 * j + 2 * r + 1] * inv[r]);
+                mine[jj] = *reinterpret_cast<const uint32_t*>(&v);
+              }
+#pragma unroll
+              for (int x = 0; x < 4; ++x) {
+                const uint32_t send = pick4(mine, t ^ x);
+                got[x] = x == 0 ? send
+                                : __shfl_xor_sync(0xffffffffu, send, x);
+              }
+#pragma unroll
+              for (int jj = 0; jj < 4; ++jj) out[jj] = pick4(got, t ^ jj);
+              const int col = hh * NO + 8 * (4 * cb + t);
+              if (live && col < p.d)
+                *reinterpret_cast<uint4*>(orow + col) =
+                    make_uint4(out[0], out[1], out[2], out[3]);
+            }
+        } else if (live) {
+          const bool pairs = (reinterpret_cast<uintptr_t>(orow) & 3) == 0;
+#pragma unroll
+          for (int hh = 0; hh < kHalves; ++hh)
+#pragma unroll
+            for (int j = 0; j < NO / 8; ++j) {
+              const int col = hh * NO + 8 * j + 2 * t;
+              const float x0 = o[hh][4 * j + 2 * r] * inv[r];
+              const float x1 = o[hh][4 * j + 2 * r + 1] * inv[r];
+              if (pairs && col + 1 < p.d) {
+                *reinterpret_cast<__nv_bfloat162*>(orow + col) =
+                    __floats2bfloat162_rn(x0, x1);
+              } else {
+                if (col < p.d) store(orow + col, x0);
+                if (col + 1 < p.d) store(orow + col + 1, x1);
+              }
+            }
+        }
+      }
+    }
+    probe.lap(kEpilogue);
+  }
+  if (kTurns && wi == 0) bar_sync(kTurnBar, kPair);  // the last hand-over
+  if (kStoreTma && (tid & (kWgThreads - 1)) == 0) bulk_wait();
+  probe.write();
+}
+
+// the SMs of the current card, asked once a card
+int sm_count() {
+  static int count[64] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 132;
+  if (count[dev] == 0 &&
+      cudaDeviceGetAttribute(&count[dev], cudaDevAttrMultiProcessorCount,
+                             dev) != cudaSuccess)
+    return 132;
+  return count[dev];
+}
+
+// the shared instance at padded width DP with W consumer warpgroups, a
+// ring of kStages stages and kConsumerRegs registers a consumer thread:
+// one CTA an SM, as many as the card has SMs (or units, if fewer)
+template <int DP, int BN, int W, int kStages, int kQBufs, int kConsumerRegs,
+          bool kStoreTma, bool kTurns, int kProducerKeeps = kPpProducerRegs>
+int launch_pp(WgParams w, cudaStream_t stream) {
+  // an SM sub-partition holds one warp of each warpgroup, and what the
+  // producer gives back pays for what the consumers take
+  constexpr int kLaunchRegs = 16384 / (32 * (W + 1)) / 8 * 8;
+  static_assert(W * (kConsumerRegs - kLaunchRegs) <=
+                    kLaunchRegs - kProducerKeeps,
+                "the consumers take more registers than the producer frees");
+  static_assert(W >= 2 && W <= 3, "two or three consumer warpgroups");
+  constexpr size_t kTile = (size_t)kRows * DP * 2;
+  constexpr size_t kSmem =
+      W * (kQBufs + (kStoreTma ? 1 : 0)) * kTile +
+      2 * kStages * (size_t)BN * DP * 2 +
+      (2 * kStages + 2 * kQBufs * W) * sizeof(uint64_t);
+  static_assert(kSmem <= 232448, "tiles exceed a block's shared memory");
+  const Params& p = w.p;
+  if (p.group > 1) {
+    w.hblocks = (p.group + W - 1) / W;
+    w.per_rank = p.programs / p.group * w.hblocks;
+    w.units = p.q_tiles * w.per_rank;
+  } else {
+    w.hblocks = 1;
+    w.per_rank = p.programs;
+    w.units = (p.q_tiles + W - 1) / W * w.per_rank;
+  }
+  auto kernel = flash_shared_kernel<DP, BN, W, kStages, kQBufs, kConsumerRegs,
+                                    kProducerKeeps, kStoreTma, kTurns>;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmem);
+  if (attr != cudaSuccess) return (int)attr;
+  const int grid = min(w.units, sm_count());
+  kernel<<<grid, (W + 1) * kWgThreads, kSmem, stream>>>(w);
   return (int)cudaGetLastError();
 }
 
@@ -812,7 +1624,8 @@ Params params_of(const FlashArgs* a) {
 
 // the bf16 instances' parameters: TMA maps of q, k and v where every one
 // is aligned and cuTensorMapEncodeTiled accepts it, else the producer's
-// own loads
+// own loads; o's map where o is aligned too (the shared design's
+// store). The schedule's fields are launch_pp's.
 void wg_params(WgParams* w, const FlashArgs* a) {
   w->p = params_of(a);
   const int kv_heads = a->heads / a->group;
@@ -823,6 +1636,91 @@ void wg_params(WgParams* w, const FlashArgs* a) {
                   a->d) &&
            encode(&w->mv, &w->dv_, a->v, a->lv, a->batch, kv_heads, a->sk,
                   a->d);
+  w->o_vec = a->d % 8 == 0 && aligned16(a->o, a->lo, 2);
+  w->tma_store = w->tma && w->o_vec &&
+                 encode(&w->mo, &w->do_, a->o, a->lo, a->batch, a->heads,
+                        a->sq, a->d);
+  w->units = w->per_rank = w->hblocks = 0;
+}
+
+// the bf16 designs (flash_attention_variant's numbers): kPerTile a CTA
+// for each query tile of each program (flash_wgmma_kernel); the shared
+// design (flash_shared_kernel) with two or three consumer warpgroups
+// (three at D <= 128) that take turns on the tensor cores (kTwoTurns,
+// kThreeTurns: ping-pong, slower at every model shape on the card and
+// not routed; kept for that measurement) or issue freely (kTwo, kThree),
+// and three on key tiles of 128 (kThreeWide, D <= 64)
+enum Variant {
+  kRouted = 0, kPerTile = 1, kTwoTurns = 2, kThreeTurns = 3, kTwo = 4,
+  kThree = 5, kThreeWide = 6
+};
+
+// the design a bf16 call takes, by shape only (a row's bits must not
+// depend on the batch), from paired runs on the card (PERF.md): a CTA a
+// query tile where the kv group is 1 and Sq fits one tile (nothing for
+// two warpgroups to share: whisper's cross-attention; there that design's
+// split of the keys between two key groups gives a CTA its second
+// warpgroup), and at D <= 64 where three warpgroups would leave slots idle
+// (a kv group of 2, 4, 5, ... heads: its three CTAs an SM ran faster);
+// else the shared design issuing freely: at D <= 64 three warpgroups on
+// key tiles of 128, at D <= 128 three on tiles of 64, at D = 256 two
+int routed(const FlashArgs* a) {
+  const int q_tiles = (a->sq + kRows - 1) / kRows;
+  if (a->group == 1 && q_tiles == 1) return kPerTile;
+  if (a->d <= 64)
+    return a->group == 1 || a->group % 3 == 0 ? kThreeWide : kPerTile;
+  return a->d <= 128 ? kThree : kTwo;
+}
+
+// the instances of a CTA a query tile: two key groups where a CTA's rows see more than one
+// key tile and the CTAs are few (Sq within one tile: cross-attention) or
+// heavy (D > 128, where one CTA fills an SM); else one, and two or three
+// CTAs an SM overlap one another's first loads and last stores
+int launch_per_tile(const WgParams& w, const FlashArgs* a, cudaStream_t s) {
+  const int blocks = (int)((long long)a->batch * a->heads *
+                           ((a->sq + kBlockQ - 1) / kBlockQ));
+  const int d = a->d;
+  if (a->sk > kRows && (a->sq <= kRows || d > 128)) {
+    if (d <= 64) return launch_wgmma<64, 2, 6, 1, 240>(w, blocks, s);
+    if (d <= 128) return launch_wgmma<128, 2, 6, 1, 240>(w, blocks, s);
+    return launch_wgmma<256, 2, 3, 1, 240>(w, blocks, s);
+  }
+  if (d <= 64) return launch_wgmma<64, 1, 4, 3, 136>(w, blocks, s);
+  if (d <= 128) return launch_wgmma<128, 1, 3, 2, 232>(w, blocks, s);
+  return launch_wgmma<256, 1, 3, 2, 232>(w, blocks, s);
+}
+
+// the shared design's instances: D = 64 and 128 with their O tiles in
+// shared memory for a TMA store, Q in two buffers but for three
+// warpgroups at D = 128 (two buffers leave room for two stages only,
+// which ran slower there); D = 256 (two warpgroups, O 128 registers a
+// thread) with one Q buffer and no O tile, its stores 16 bytes a lane
+template <bool kTurns>
+int launch_shared(const WgParams& w, bool three, int d, cudaStream_t s) {
+  if (three) {
+    if (d <= 64) return launch_pp<64, 64, 3, 6, 2, 152, true, kTurns>(w, s);
+    if (d <= 128) return launch_pp<128, 64, 3, 3, 1, 152, true, kTurns>(w, s);
+    return (int)cudaErrorInvalidValue;
+  }
+  if (d <= 64) return launch_pp<64, 64, 2, 6, 2, 232, true, kTurns>(w, s);
+  if (d <= 128) return launch_pp<128, 64, 2, 3, 2, 232, true, kTurns>(w, s);
+  return launch_pp<256, 64, 2, 2, 1, 232, false, kTurns>(w, s);
+}
+
+int launch_bf16(const FlashArgs* a, int variant, cudaStream_t s) {
+  WgParams w;
+  wg_params(&w, a);
+  if (variant == kRouted) variant = routed(a);
+  if (variant == kPerTile) return launch_per_tile(w, a, s);
+  if (variant == kTwoTurns || variant == kThreeTurns)
+    return launch_shared<true>(w, variant == kThreeTurns, a->d, s);
+  if (variant == kTwo || variant == kThree)
+    return launch_shared<false>(w, variant == kThree, a->d, s);
+  if (variant == kThreeWide) {
+    if (a->d > 64) return (int)cudaErrorInvalidValue;
+    return launch_pp<64, 128, 3, 4, 2, 160, true, false, 32>(w, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -839,27 +1737,12 @@ void wg_params(WgParams* w, const FlashArgs* a) {
 // launch; the caller raises if it is not cudaSuccess.
 extern "C" int flash_attention_bshd(const FlashArgs* a, void* stream) {
   if (!valid(a)) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (a->bf16) return launch_bf16(a, kRouted, s);
   const int blocks = (int)((long long)a->batch * a->heads *
                            ((a->sq + kBlockQ - 1) / kBlockQ));
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int d = a->d;
-  if (a->bf16) {
-    WgParams w;
-    wg_params(&w, a);
-    // two key groups where a CTA's rows see more than one key tile and
-    // the CTAs are few (Sq within one tile: cross-attention) or heavy (D >
-    // 128, where one CTA fills an SM); else one, and two or three CTAs an
-    // SM overlap one another's first loads and last stores
-    if (a->sk > kRows && (a->sq <= kRows || d > 128)) {
-      if (d <= 64) return launch_wgmma<64, 2, 6, 1, 240>(w, blocks, s);
-      if (d <= 128) return launch_wgmma<128, 2, 6, 1, 240>(w, blocks, s);
-      return launch_wgmma<256, 2, 3, 1, 240>(w, blocks, s);
-    }
-    if (d <= 64) return launch_wgmma<64, 1, 4, 3, 136>(w, blocks, s);
-    if (d <= 128) return launch_wgmma<128, 1, 3, 2, 232>(w, blocks, s);
-    return launch_wgmma<256, 1, 3, 2, 232>(w, blocks, s);
-  }
   const Params p = params_of(a);
+  const int d = a->d;
   if (d <= 8) return launch<float, 8, 64>(p, blocks, s);
   if (d <= 16) return launch<float, 16, 64>(p, blocks, s);
   if (d <= 32) return launch<float, 32, 64>(p, blocks, s);
@@ -868,8 +1751,23 @@ extern "C" int flash_attention_bshd(const FlashArgs* a, void* stream) {
   return launch<float, 256, 16>(p, blocks, s);
 }
 
-// which design flash_attention_bshd takes for these arguments: 2 the bf16
-// wgmma instances with TMA loads, 1 with the producer's own loads, 0 the
+// flash_attention_bshd's bf16 call with its design chosen by the caller
+// (Variant: 1 a CTA a query tile; 2 and 3 the shared design with two or
+// three consumer warpgroups taking turns, 4 and 5 issuing freely, which
+// all give the same bits; 6 three on key tiles of 128, D <= 64; 0 the one
+// flash_attention_bshd takes): for timing the designs against one
+// another. cudaErrorInvalidValue for float32 arguments and for a design
+// that does not take them (three warpgroups at D > 128).
+extern "C" int flash_attention_variant(const FlashArgs* a, int variant,
+                                       void* stream) {
+  if (!valid(a) || !a->bf16) return (int)cudaErrorInvalidValue;
+  return launch_bf16(a, variant, static_cast<cudaStream_t>(stream));
+}
+
+// which design flash_attention_bshd takes for these arguments: 4 the bf16
+// shared design with TMA loads, 3 with the producer's own loads, 2 the
+// bf16 design of a CTA a query tile with TMA loads, 1 with the producer's
+// own loads, 0 the
 // float32 mma.sync instances; -1 for arguments it refuses. Launches
 // nothing.
 extern "C" int flash_attention_route(const FlashArgs* a) {
@@ -877,5 +1775,21 @@ extern "C" int flash_attention_route(const FlashArgs* a) {
   if (!a->bf16) return 0;
   WgParams w;
   wg_params(&w, a);
-  return w.tma ? 2 : 1;
+  return (routed(a) == kPerTile ? 1 : 3) + (w.tma ? 1 : 0);
 }
+
+#ifdef FLASH_PROBE
+// the tick probe's counters of the first n CTAs of the last launch
+// (kLaps + 1 a CTA: each stretch's ticks, then the total), zeroed after
+extern "C" int flash_probe_take(long long* dst, int n) {
+  n = n < kProbeCtas ? n : kProbeCtas;
+  const size_t bytes = (size_t)n * (kLaps + 1) * sizeof(long long);
+  cudaError_t e = cudaMemcpyFromSymbol(dst, flash_probe_ticks, bytes);
+  if (e == cudaSuccess) {
+    void* at = nullptr;
+    e = cudaGetSymbolAddress(&at, flash_probe_ticks);
+    if (e == cudaSuccess) e = cudaMemset(at, 0, sizeof(flash_probe_ticks));
+  }
+  return (int)e;
+}
+#endif

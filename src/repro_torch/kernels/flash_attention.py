@@ -2,11 +2,14 @@
 
 Port of ``repro.kernels.flash_attention``. For a CUDA tensor the wrappers
 launch the hand-written kernel in ``csrc/flash_attention.cu`` or raise; for
-a CPU tensor they run the plain version in ``ref.py``. The kernel has two
-designs, chosen by the dtype (see the source's note): bf16 runs wgmma
-tiles of 64 query rows fed by a TMA ring (by the producer warp's own loads
-for views that are not 16-byte aligned), float32 runs 3xTF32 mma.sync
-tiles fed by cp.async; ``route`` tells which a call takes. The kernel reads
+a CPU tensor they run the plain version in ``ref.py``. The kernel has
+three designs (see the source's note): bf16 runs wgmma tiles of 64 query
+rows fed by a TMA ring (by the producer warp's own loads for views that
+are not 16-byte aligned), in persistent CTAs whose two or three consumer
+warpgroups share each K/V stage (at D <= 64 on key tiles of 128), or, where
+the kv group is 1 and Sq fits one tile and at D <= 64 where three
+warpgroups do not divide the kv group, a CTA a query tile; float32 runs
+3xTF32 mma.sync tiles fed by cp.async; ``route`` tells which a call takes. The kernel reads
 every operand through its strides, so ``flash_attention_bshd`` takes the
 model's (B, S, H, D) views as they are and writes (B, S, H, D).
 ``launches`` counts kernel launches (one a call), so a run can show that
@@ -135,9 +138,24 @@ def flops(programs: int, d: int, sq: int, sk: int, causal: bool,
             * visible_pairs(sq, sk, causal, window))
 
 
-# flash_attention_route's answers: the design a call takes
-ROUTES = {2: "bf16 wgmma, TMA ring", 1: "bf16 wgmma, producer loads",
+# flash_attention_route's answers: the design a call takes (bf16: a CTA a
+# query tile where the kv group is 1 and Sq fits one tile, and at D <= 64
+# where three warpgroups do not divide the kv group; else the shared
+# design; each fed by TMA, or by the producer warp's own loads for views
+# that are not 16-byte aligned)
+ROUTES = {4: "bf16 wgmma shared stages, TMA ring",
+          3: "bf16 wgmma shared stages, producer loads",
+          2: "bf16 wgmma, TMA ring", 1: "bf16 wgmma, producer loads",
           0: "float32 mma.sync", -1: "refused"}
+# the routes that load by TMA
+TMA_ROUTES = (ROUTES[4], ROUTES[2])
+# flash_attention_variant's bf16 designs, by number (0: the routed one):
+# the shared design's warpgroups take turns on the tensor cores
+# (ping-pong) in 2 and 3, which no route takes
+VARIANTS = {1: "a CTA a query tile", 2: "shared, two warpgroups, turns",
+            3: "shared, three warpgroups, turns",
+            4: "shared, two warpgroups", 5: "shared, three warpgroups",
+            6: "shared, three warpgroups, 128-key tiles"}
 
 
 def route(q, k, v, *, causal: bool = True, window: int = 0,

@@ -1,23 +1,29 @@
 """The bf16 flash forward's order of operations, and its kernel on the card.
 
 ``csrc/flash_attention.cu`` computes bf16 attention with wgmma tiles fed
-by a TMA ring (see the source's note). No card is here, so the CPU tests
-hold a numpy float32 emulation of that kernel's order for each program
-(``emulate``): key tiles of 64 from key 0, only those the block test lets
-the CTA's 64 rows see; two key groups (the even and the odd tiles), merged
-at the end, where Sk is more than one tile and Sq fits one or D > 128
-(``split``); logits in base 2 (scale *
-log2 e folded in), masked ones -inf; the running max from -1e30 and its
-rescale exp2(m - m_new); P rounded to bf16 (to nearest even) before P.V,
-the row sums on the unrounded P; O summed across tiles, rescaled before
-each tile's product; the division at the end (one reciprocal a row, then
-products); the log-sum-exp ln 2 (m +
-log2 l), +inf for a row that sees no key. It is held to the JAX package's
+by a TMA ring (see the source's note), in one of two designs. No card is
+here, so the CPU tests hold a numpy float32 emulation of the kernel's
+order for each program (``emulate``): key tiles of 64 from key 0, only
+those the block test lets a warpgroup's 64 rows see; the running max from
+-1e30 and its rescale exp2(m - m_new); P rounded to bf16 (to nearest
+even) before P.V, the row sums on the unrounded P; O summed across tiles,
+rescaled before each tile's product; the division at the end (one
+reciprocal a row, then products); the log-sum-exp ln 2 (m + log2 l), +inf
+for a row that sees no key. The shared design walks its persistent
+schedule (``units``, ``slot``: two or three warpgroups a CTA on
+consecutive q heads of a kv head, or at group 1 on consecutive query
+tiles of a head, each over the unit's tiles that lie in its band) with the
+scale folded into one FFMA an exponential; the design of a CTA a query
+tile (``per_tile``: group 1, Sq within one tile) scales the logits first
+and splits the key tiles between two key groups (the even and the odd
+tiles), merged at the end (``split``). It is held to the JAX package's
 ``flash_attention_bhsd`` in interpret mode (as
 tests/test_torch_attention.py::test_flash_attention_matches_pallas_interpret
 runs it) and to ``ref.flash_attention_bshd`` within
 ``ref.flash_bf16_limit``, at causal, windowed and non-causal Sq != Sk
-masks, GQA groups 1 and 4 and D = 64, 80 and 128; an emulation that drops
+masks, GQA groups 1 and 4 and D = 64, 80 and 128, and packed at the
+models' kv groups 3, 6, 7 and 16 (with two and three warpgroups: the same
+bits); the schedule covers each query tile once; an emulation that drops
 the last query block's last key tile must break that limit, so the limit
 can refuse such a kernel.
 
@@ -25,7 +31,10 @@ Tests marked ``gpu`` run the kernel and skip without a card: every padded
 D with groups 1 and 4 and three masks on the TMA route, unaligned views on
 the producer's own loads, rows that see no key, the same bits on a rerun,
 a program's rows bit-equal alone and in batches of 3 and 64 at the LLM
-predicate's shape, and one launch a call. JAX is imported inside a fixture.
+predicate's shape (and alone and in the batch at whisper's encoder and
+grok-1's under the persistent schedule), the route at each model shape,
+two and three warpgroups to the same bits, and one launch a call. JAX is
+imported inside a fixture.
 """
 import numpy as np
 import pytest
@@ -35,14 +44,15 @@ from repro_torch.kernels import flash_attention, ref
 
 torch.set_num_threads(1)
 
-BK = 64        # keys a tile, and query rows a CTA
+BK = 64        # keys a tile, and query rows a warpgroup
 NEG = np.float32(-1e30)
 LOG2E = 1.4426950408889634
 LN2 = np.float32(0.6931471805599453)
 
 # (Sq, Sk, causal, window) of the three masks, and a cross-attention's
-# single query tile (two key groups); every row sees a key, so the JAX
-# kernel (which averages a row that sees none) is comparable everywhere
+# single query tile (two key groups at group 1); every row sees a key, so
+# the JAX kernel (which averages a row that sees none) is comparable
+# everywhere
 MASKS = {"causal": (192, 192, True, 0), "window": (192, 192, True, 48),
          "non-causal Sq != Sk": (128, 192, False, 0),
          "one query tile": (64, 192, False, 0)}
@@ -56,35 +66,182 @@ def bf16_round(x: np.ndarray) -> np.ndarray:
     return b.astype(np.uint32).view(np.float32)
 
 
-def tiles_seen(q0: int, sq: int, sk: int, causal: bool, window: int) -> tuple:
-    """(k_begin, n_tiles): the key tiles some row of [q0, q0 + 64) sees."""
+def tiles_seen(q0: int, sq: int, sk: int, causal: bool, window: int,
+               bn: int = BK) -> tuple:
+    """(k_begin, n_tiles): the key tiles of bn keys (aligned to bn from key
+    0) some row of [q0, q0 + 64) sees."""
     q_last = min(q0 + BK, sq) - 1
     k_end = min(sk, q_last + 1) if causal else sk
-    k_begin = max(0, q0 - window + 1) // BK * BK if window > 0 else 0
-    n = (k_end - k_begin + BK - 1) // BK if k_end > k_begin else 0
+    k_begin = max(0, q0 - window + 1) // bn * bn if window > 0 else 0
+    n = (k_end - k_begin + bn - 1) // bn if k_end > k_begin else 0
     return k_begin, n
 
 
-def split(sq: int, sk: int, d: int) -> bool:
+def per_tile(sq: int, group: int, d: int) -> bool:
+    """Whether the kernel takes its design of a CTA a query tile (else the
+    shared design): where the kv group is 1 and Sq fits one tile, so no two
+    warpgroups could share a K/V stage, and at D <= 64 where three
+    warpgroups do not divide the kv group."""
+    return (group == 1 and sq <= BK) or (d <= 64 and group > 1
+                                         and group % 3 != 0)
+
+
+def key_tile(d: int) -> int:
+    """The shared design's keys a tile: 128 at D <= 64, else 64."""
+    return 2 * BK if d <= 64 else BK
+
+
+def split(sq: int, sk: int, d: int, group: int = 1) -> bool:
     """Whether the kernel splits a CTA's key tiles between two key groups:
-    its rows see more than one tile, and the CTAs are few (Sq within one
-    tile) or heavy (D > 128)."""
-    return sk > BK and (sq <= BK or d > 128)
+    in the design of a CTA a query tile, where its rows see more than one
+    tile and the CTAs are few (Sq within one tile) or heavy (D > 128)."""
+    return per_tile(sq, group, d) and sk > BK and (sq <= BK or d > 128)
+
+
+def warpgroups(d: int) -> int:
+    """The shared design's consumer warpgroups a CTA, as
+    ``flash_attention_route`` picks them: three at D <= 128, else two."""
+    return 3 if d <= 128 else 2
+
+
+def slot(u: int, s: int, *, batch: int, heads: int, group: int, sq: int,
+         sk: int, causal: bool, window: int, w: int, bn: int = BK) -> dict:
+    """Warpgroup s's share of work unit u of the shared design with w
+    warpgroups (the kernel's ``slot_of``): sequence b, head h, rows from
+    q0, key tiles (kb, nt), and whether it is one (valid). Group 2 and up:
+    w consecutive q heads of a kv head at one query tile; group 1: w
+    consecutive query tiles of one head; heaviest ranks first."""
+    q_tiles = -(-sq // BK)
+    hblocks = -(-group // w) if group > 1 else 1
+    per_rank = batch * heads // group * hblocks if group > 1 else batch * heads
+    rank, r = divmod(u, per_rank)
+    if group > 1:
+        bk, j = divmod(r, hblocks)
+        i = j * w + s
+        kv_heads = heads // group
+        b = bk // kv_heads
+        valid = i < group
+        h = (bk - b * kv_heads) * group + min(i, group - 1)
+        q0 = (q_tiles - 1 - rank) * BK
+    else:
+        b, h = divmod(r, heads)
+        qt = q_tiles - 1 - (rank * w + s)
+        valid = qt >= 0
+        q0 = max(qt, 0) * BK
+    kb, nt = tiles_seen(q0, sq, sk, causal, window, bn)
+    return {"b": b, "h": h, "q0": q0, "valid": valid, "kb": kb,
+            "nt": nt if valid else 0}
+
+
+def units(*, batch: int, heads: int, group: int, sq: int, sk: int,
+          causal: bool, window: int, w: int, bn: int = BK) -> list:
+    """The shared design's work units in schedule order, each (kb, nt,
+    slots): the union of its w slots' key tiles of bn keys, which the
+    producer loads once for all of them, and the slots (``slot``)."""
+    q_tiles = -(-sq // BK)
+    if group > 1:
+        n = q_tiles * batch * heads // group * -(-group // w)
+    else:
+        n = -(-q_tiles // w) * batch * heads
+    out = []
+    for u in range(n):
+        slots = [slot(u, s, batch=batch, heads=heads, group=group, sq=sq,
+                      sk=sk, causal=causal, window=window, w=w, bn=bn)
+                 for s in range(w)]
+        live = [x for x in slots if x["nt"] > 0]
+        kb = min((x["kb"] for x in live), default=0)
+        end = max((x["kb"] + bn * x["nt"] for x in live), default=0)
+        out.append((kb, (end - kb) // bn if live else 0, slots))
+    return out
+
+
+def _rows(qp, kp, vp, rows, keys0, *, sk: int, causal: bool, window: int,
+          c, fold: bool, bn: int = BK):
+    """(m, l, acc) of query rows ``rows`` over the key tiles of bn keys
+    starting at ``keys0``, in order, as a warpgroup sums them: the running
+    max from
+    -1e30 and its rescale exp2(m - m_new); P rounded to bf16 before P.V,
+    the row sums on the unrounded P. ``fold``: the shared design's
+    2^(s c - m) in one FFMA (emulated in float64, rounded once), the max
+    taken on the raw logits; else the logits scaled first."""
+    d = qp.shape[1]
+    m = np.full(len(rows), NEG, np.float32)
+    l = np.zeros(len(rows), np.float32)
+    acc = np.zeros((len(rows), d), np.float32)
+    for k0 in keys0:
+        keys = np.arange(k0, min(k0 + bn, sk))
+        s = qp[rows] @ kp[keys].T
+        vis = np.ones(s.shape, bool)
+        if causal:
+            vis &= keys[None, :] <= rows[:, None]
+        if window > 0:
+            vis &= keys[None, :] > rows[:, None] - window
+        if fold:
+            x = np.where(vis, s, np.float32(-np.inf))
+            m_new = np.maximum(m, (x.max(1) * c).astype(np.float32))
+            arg = (x.astype(np.float64) * np.float64(c)
+                   - m_new[:, None]).astype(np.float32)
+        else:
+            x = np.where(vis, s * c, np.float32(-np.inf))
+            m_new = np.maximum(m, np.maximum(x.max(1), NEG))
+            arg = x - m_new[:, None]
+        corr = np.exp2(m - m_new)
+        pr = np.exp2(arg).astype(np.float32)
+        l = l * corr + pr.sum(1, dtype=np.float32)
+        acc = acc * corr[:, None] + bf16_round(pr) @ vp[keys]
+        m = m_new
+    return m, l, acc
+
+
+def _finish(o, lse, p, rows, m, l, acc) -> None:
+    """The division at the end (one reciprocal a row, then products) and
+    the log-sum-exp ln 2 (m + log2 l), +inf for a row that sees no key."""
+    inv = np.float32(1) / np.where(l == 0, np.float32(1), l)
+    o[p, rows] = bf16_round(acc * inv[:, None])
+    with np.errstate(divide="ignore"):
+        lse[p, rows] = np.where(l == 0, np.float32(np.inf),
+                                (m + np.log2(l)) * LN2)
 
 
 def emulate(q, k, v, *, group: int, causal: bool, window: int,
-            scale: float | None = None, drop_last: bool = False):
+            scale: float | None = None, drop_last: bool = False,
+            w: int | None = None):
     """The bf16 kernel's order for q (BH, Sq, D) and k, v (BH / group, Sk,
     D), float32 arrays of bf16 values: (o rounded to bf16, lse), both
-    float32. ``drop_last`` leaves out the last query block's last key tile
-    (a broken kernel)."""
+    float32. The shared design (``per_tile`` false, or any given w) walks
+    its schedule (``units``; w warpgroups, by default ``warpgroups``'
+    choice; key tiles of ``key_tile(D)``): each valid slot's rows over the
+    unit's tiles that lie in its band; the design of a CTA a query tile
+    walks each program's tiles,
+    split between two key groups and merged where ``split``.
+    ``drop_last`` leaves out the last query block's last key tile (a
+    broken kernel)."""
     bh, sq, d = q.shape
     sk = k.shape[1]
     c = np.float32((d ** -0.5 if scale is None else scale) * LOG2E)
-    groups = 2 if split(sq, sk, d) else 1
     o = np.zeros((bh, sq, d), np.float32)
     lse = np.zeros((bh, sq), np.float32)
     q_tiles = (sq + BK - 1) // BK
+    kw = {"sk": sk, "causal": causal, "window": window, "c": c}
+    if w is not None or not per_tile(sq, group, d):
+        w = warpgroups(d) if w is None else w
+        bn = key_tile(d)
+        for kb, nt, slots in units(batch=1, heads=bh, group=group, sq=sq,
+                                   sk=sk, causal=causal, window=window, w=w,
+                                   bn=bn):
+            for x in slots:
+                if not x["valid"]:
+                    continue
+                p, rows = x["h"], np.arange(x["q0"], min(x["q0"] + BK, sq))
+                n = x["nt"] - (drop_last and x["q0"] == (q_tiles - 1) * BK
+                               and x["nt"] > 1)
+                keys0 = [k0 for k0 in range(kb, kb + bn * nt, bn)
+                         if x["kb"] <= k0 < x["kb"] + bn * n]
+                _finish(o, lse, p, rows, *_rows(
+                    q[p], k[p // group], v[p // group], rows, keys0,
+                    fold=True, bn=bn, **kw))
+        return o, lse
+    groups = 2 if split(sq, sk, d, group) else 1
     for p in range(bh):
         kp, vp = k[p // group], v[p // group]
         for qt in range(q_tiles):
@@ -93,28 +250,10 @@ def emulate(q, k, v, *, group: int, causal: bool, window: int,
             k_begin, n_tiles = tiles_seen(q0, sq, sk, causal, window)
             if drop_last and qt == q_tiles - 1 and n_tiles > 1:
                 n_tiles -= 1
-            parts = []
-            for g in range(groups):
-                m = np.full(len(rows), NEG, np.float32)
-                l = np.zeros(len(rows), np.float32)
-                acc = np.zeros((len(rows), d), np.float32)
-                for n in range(g, n_tiles, groups):
-                    keys = np.arange(k_begin + n * BK,
-                                     min(k_begin + (n + 1) * BK, sk))
-                    s = q[p, rows] @ kp[keys].T
-                    vis = np.ones(s.shape, bool)
-                    if causal:
-                        vis &= keys[None, :] <= rows[:, None]
-                    if window > 0:
-                        vis &= keys[None, :] > rows[:, None] - window
-                    x = np.where(vis, s * c, np.float32(-np.inf))
-                    m_new = np.maximum(m, np.maximum(x.max(1), NEG))
-                    corr = np.exp2(m - m_new)
-                    pr = np.exp2(x - m_new[:, None]).astype(np.float32)
-                    l = l * corr + pr.sum(1, dtype=np.float32)
-                    acc = acc * corr[:, None] + bf16_round(pr) @ vp[keys]
-                    m = m_new
-                parts.append((m, l, acc))
+            parts = [_rows(q[p], kp, vp, rows,
+                           [k_begin + n * BK
+                            for n in range(g, n_tiles, groups)],
+                           fold=False, **kw) for g in range(groups)]
             m, l, acc = parts[0]
             if groups > 1:
                 m1, l1, acc1 = parts[1]
@@ -123,11 +262,7 @@ def emulate(q, k, v, *, group: int, causal: bool, window: int,
                 l = l * f0 + l1 * f1
                 acc = acc * f0[:, None] + acc1 * f1[:, None]
                 m = top
-            inv = np.float32(1) / np.where(l == 0, np.float32(1), l)
-            o[p, rows] = bf16_round(acc * inv[:, None])
-            with np.errstate(divide="ignore"):
-                lse[p, rows] = np.where(l == 0, np.float32(np.inf),
-                                        (m + np.log2(l)) * LN2)
+            _finish(o, lse, p, rows, m, l, acc)
     return o, lse
 
 
@@ -246,6 +381,78 @@ def test_dropping_the_last_key_tile_breaks_the_limit(mask):
     assert _limit_share(bad, q, k, v, causal, window) > 1.0
 
 
+# the shared design's packing: (heads, group, Sq, Sk, causal, window, D)
+# at the kv groups of the models' attention (3: SmolLM's, 6: grok-1's, 7:
+# arctic's, 16: recurrentgemma's local attention, each at a small Sq),
+# with Sq not a multiple of 64, and group 1 with query tiles packed under a
+# causal mask and a window
+PACKED = {"group 3": (9, 3, 150, 150, True, 0, 64),
+          "group 6": (12, 6, 130, 130, True, 0, 128),
+          "group 7": (7, 7, 100, 100, True, 0, 128),
+          "group 16": (16, 16, 70, 70, True, 40, 256),
+          "group 1 causal": (2, 1, 192, 192, True, 0, 64),
+          "group 1 window": (2, 1, 200, 200, True, 48, 80)}
+
+
+@pytest.mark.parametrize("w", [2, 3])
+@pytest.mark.parametrize("case", sorted(PACKED))
+def test_schedule_covers_every_query_tile_once(case, w):
+    """Each (sequence, head, query tile) is one valid slot of one unit;
+    the slots of a unit read one kv head (one head at group 1), the unit's
+    tiles (of ``key_tile(D)`` keys) are the union of theirs, and units run
+    heaviest first."""
+    heads, group, sq, sk, causal, window, d = PACKED[case]
+    batch, bn = 2, key_tile(d)
+    seen = []
+    last = None
+    for kb, nt, slots in units(batch=batch, heads=heads, group=group, sq=sq,
+                               sk=sk, causal=causal, window=window, w=w,
+                               bn=bn):
+        assert len({(x["b"], x["h"] // group) for x in slots}) == 1
+        live = [x for x in slots if x["valid"]]
+        assert live
+        for x in live:
+            seen.append((x["b"], x["h"], x["q0"]))
+            if x["nt"]:
+                assert kb <= x["kb"] and x["kb"] + bn * x["nt"] <= kb + bn * nt
+        top = max(x["q0"] for x in live)
+        assert last is None or top <= last
+        last = top
+    want = [(b, h, q0) for b in range(batch) for h in range(heads)
+            for q0 in range(0, sq, BK)]
+    assert sorted(seen) == sorted(want)
+    if group > 1 and group % w:   # the group's last block leaves slots idle
+        assert any(not x["valid"] for *_, slots in units(
+            batch=batch, heads=heads, group=group, sq=sq, sk=sk,
+            causal=causal, window=window, w=w) for x in slots)
+
+
+@pytest.mark.parametrize("case", sorted(PACKED))
+def test_packed_emulation_within_bf16_limit(case):
+    """The shared design's order through its schedule within
+    ``ref.flash_bf16_limit`` of the plain version, and a row's bits the
+    same with two and three warpgroups a CTA (its sums do not depend on
+    which slot took it)."""
+    heads, group, sq, sk, causal, window, d = PACKED[case]
+    q, k, v = _draw(5 * group + d, heads, heads // group, sq, sk, d)
+    two, lse2 = emulate(q, k, v, group=group, causal=causal, window=window,
+                        w=2)
+    three, lse3 = emulate(q, k, v, group=group, causal=causal,
+                          window=window, w=3)
+    assert np.array_equal(two, three) and np.array_equal(lse2, lse3)
+    assert _limit_share(two, q, k, v, causal, window) <= 1.0
+
+
+def test_group_one_tiles_of_a_unit_see_different_bands():
+    """Group 1, causal: the two query tiles of a unit see different key
+    tiles, so the lower one skips the last of the unit's, which the
+    producer still loads for the upper one."""
+    (kb, nt, (hi, lo)), *_ = units(batch=1, heads=1, group=1, sq=192,
+                                   sk=192, causal=True, window=0, w=2)
+    assert (hi["q0"], lo["q0"]) == (128, 64)
+    assert (kb, nt) == (0, 3) and (lo["kb"], lo["nt"]) == (0, 2)
+
+
 # --------------------------------------------------------------------------- #
 # the kernel on the card                                                       #
 # --------------------------------------------------------------------------- #
@@ -287,8 +494,9 @@ def test_fwd_wgmma_instances(card, d, group, mask):
     q, k, v = _card_qkv(d + group, 2, sq, sk, h, h // group, d, card)
     got = flash_attention.flash_attention_bshd(q, k, v, causal=causal,
                                                window=window)
-    assert flash_attention.route(q, k, v, causal=causal, window=window) == \
-        "bf16 wgmma, TMA ring"
+    assert flash_attention.route(q, k, v, causal=causal, window=window) == (
+        "bf16 wgmma, TMA ring" if per_tile(sq, group, d)
+        else "bf16 wgmma shared stages, TMA ring")
     assert _within_limit(q, k, v, got, causal, window)
 
 
@@ -346,3 +554,88 @@ def test_fwd_rows_do_not_depend_on_the_batch(card):
         alone = flash_attention.flash_attention_bshd(q[i:i + 1], k[i:i + 1],
                                                      v[i:i + 1])
         assert torch.equal(alone, full[i:i + 1])
+
+
+# (B, Sq, Sk, H, Hkv, D, causal, window) of the models' bf16 attention: the
+# LLM predicate's at 10 rows, whisper-small's encoder and cross-attention,
+# grok-1's, arctic's, recurrentgemma-9b's local attention
+MODEL_SHAPES = {"llm": (10, 512, 512, 9, 3, 64, True, 0),
+                "whisper encoder": (4, 1500, 1500, 12, 12, 64, False, 0),
+                "whisper cross": (4, 64, 1500, 12, 12, 64, False, 0),
+                "grok-1": (2, 512, 512, 48, 8, 128, True, 0),
+                "arctic": (2, 512, 512, 56, 8, 128, True, 0),
+                "recurrentgemma": (1, 2560, 2560, 16, 1, 256, True, 2048)}
+
+
+def _variant(q, k, v, variant, causal, window):
+    """flash_attention_variant's output (design ``variant``) and LSE."""
+    from repro_torch.kernels import _build
+    b, sq, h, d = q.shape
+    out = torch.empty_like(q)
+    lse = torch.empty((b * h, sq), device=q.device)
+    args = flash_attention.pack_args(
+        q, k, v, out, tuple(map(flash_attention.bshd_layout, (q, k, v, out))),
+        b, h, h // k.shape[2], sq, k.shape[1], causal, window, d ** -0.5, lse)
+    lib = _build.load("flash_attention").lib
+    assert lib.flash_attention_variant(
+        args, variant, torch.cuda.current_stream().cuda_stream) == 0
+    torch.cuda.synchronize()
+    return out, lse
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", sorted(MODEL_SHAPES))
+def test_fwd_route_at_the_model_shapes(card, shape):
+    """Each model shape takes its design by TMA (the shared design; at
+    whisper's cross-attention, one query tile at group 1, a CTA a query
+    tile), within the limit, with the same bits on a rerun."""
+    b, sq, sk, h, hkv, d, causal, window = MODEL_SHAPES[shape]
+    q, k, v = _card_qkv(31, b, sq, sk, h, hkv, d, card)
+    want = ("bf16 wgmma, TMA ring" if shape == "whisper cross"
+            else "bf16 wgmma shared stages, TMA ring")
+    assert flash_attention.route(q, k, v, causal=causal,
+                                 window=window) == want
+    runs = [flash_attention.flash_attention_bshd(q, k, v, causal=causal,
+                                                 window=window)
+            for _ in range(2)]
+    assert torch.equal(runs[0], runs[1])
+    assert _within_limit(q, k, v, runs[0], causal, window)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", ["llm", "grok-1", "whisper encoder"])
+def test_fwd_warpgroups_give_the_same_bits(card, shape):
+    """The shared design with two and three warpgroups a CTA (three at D
+    <= 128), taking turns or not, gives the same o and LSE bits: a row's
+    sums do not depend on the slot that took it; every design (at D <= 64
+    also the shared design's three warpgroups on key tiles of 128) stays
+    within the limit."""
+    b, sq, sk, h, hkv, d, causal, window = MODEL_SHAPES[shape]
+    q, k, v = _card_qkv(33, b, sq, sk, h, hkv, d, card)
+    first, *rest = (_variant(q, k, v, x, causal, window)
+                    for x in (2, 3, 4, 5))
+    for o, lse in rest:
+        assert torch.equal(first[0], o) and torch.equal(first[1], lse)
+    assert _within_limit(q, k, v, first[0], causal, window)
+    for design in (1, 6) if d <= 64 else (1,):
+        other, _ = _variant(q, k, v, design, causal, window)
+        assert _within_limit(q, k, v, other, causal, window)
+
+
+@pytest.mark.gpu
+def test_fwd_rows_do_not_depend_on_the_batch_under_the_schedule(card):
+    """At grok-1's attention (heads packed three a CTA, as many CTAs as
+    SMs) and recurrentgemma's (two heads a CTA, at B = 1 and as the second
+    of a batch of two): a sequence's rows are the same bits alone and in
+    the batch."""
+    for shape in ("grok-1", "recurrentgemma"):
+        b, sq, sk, h, hkv, d, causal, window = MODEL_SHAPES[shape]
+        b = max(b, 2)
+        q, k, v = _card_qkv(35, b, sq, sk, h, hkv, d, card)
+        full = flash_attention.flash_attention_bshd(q, k, v, causal=causal,
+                                                    window=window)
+        for i in (0, b - 1):
+            alone = flash_attention.flash_attention_bshd(
+                q[i:i + 1], k[i:i + 1], v[i:i + 1], causal=causal,
+                window=window)
+            assert torch.equal(alone, full[i:i + 1])
