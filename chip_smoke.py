@@ -58,9 +58,9 @@ to DIR's. Phases, in order:
              ulps, which must refuse the three flash mutants (each a
              place of its shared kernel broken), takes a wgmma design fed
              by TMA (flash_attention_route) and gives the same bits on a
-             rerun, at every shape it is timed at, where each bf16 design
-             (a CTA a query tile; shared stages with two and three
-             warpgroups, with and without turns) is timed beside it; its
+             rerun, at every shape it is timed at, where both bf16
+             designs (a CTA a query tile; shared stages) are timed beside
+             it and the call holds the bits of its route's design; its
              HGMMA are counted in each bf16 instance's SASS, the shared
              instances' spills (none) in ptxas' lines; the tick probe (a build with -DFLASH_PROBE)
              splits a CTA's chain at the LLM's and whisper's encoder
@@ -241,7 +241,6 @@ import json
 import os
 import re
 import shutil
-import struct
 import subprocess
 import sys
 import tempfile
@@ -1310,14 +1309,12 @@ def time_flash(q, k, v, *, group: int, causal: bool, window: int,
     plain version, beside the bound (each input read once and the output
     written once; 4 flops per visible (query, key) pair and dim). In bf16
     the call must take a wgmma design fed by TMA (``flash_attention_route``)
-    and give the same bits on a rerun, and each bf16 design
-    (``flash_attention_variant``: a CTA a query tile; the shared design
-    with two and three warpgroups, taking turns or not, where it takes the
-    shape) is timed in the same turns (``variant<n>_ms``): the shared
-    designs must give the same bits, the call those of one of the designs,
-    and the design of a CTA a query tile those of ``before``'s source
-    (given: the same kernel); in float32 the call's bits must equal
-    ``before``'s."""
+    and give the same bits on a rerun, and both bf16 designs
+    (``flash_attention_variant``: a CTA a query tile, and the shared
+    design) are timed in the same turns (``variant<n>_ms``): the call must
+    give the bits of the design its route names, and the design of a CTA a
+    query tile those of ``before``'s source (given: the same kernel); in
+    float32 the call's bits must equal ``before``'s."""
     from repro_torch.kernels import _build, flash_attention, ref
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream().cuda_stream
@@ -1370,20 +1367,18 @@ def time_flash(q, k, v, *, group: int, causal: bool, window: int,
         checks["rerun_bit_equal"] = torch.equal(out, rerun)
         designs = {}
         for n in flash_attention.VARIANTS:
-            got = torch.empty_like(q)
+            got = designs[n] = torch.empty_like(q)
             n_args = pack(got)
-            if lib.flash_attention_variant(n_args, n, stream) == 0:
-                designs[n] = got
-                fns[f"variant{n}_ms"] = (
-                    lambda a=n_args, n=n: lib.flash_attention_variant(
-                        a, n, stream))
+            if lib.flash_attention_variant(n_args, n, stream) != 0:
+                raise AssertionError(f"flash_attention {label}: design {n} "
+                                     "failed")
+            fns[f"variant{n}_ms"] = (
+                lambda a=n_args, n=n: lib.flash_attention_variant(
+                    a, n, stream))
         torch.cuda.synchronize()
-        # the shared design on key tiles of 64 (designs 2 to 5): one order
-        shared = [o for n, o in designs.items() if 1 < n < 6]
-        checks["designs_bit_equal"] = all(torch.equal(shared[0], o)
-                                          for o in shared[1:])
-        checks["call_is_a_design"] = any(torch.equal(out, o)
-                                         for o in designs.values())
+        routed = 2 if "shared" in checks["route"] else 1
+        checks["call_is_its_routes_design"] = torch.equal(out,
+                                                          designs[routed])
         if checks["route"] not in flash_attention.TMA_ROUTES or \
                 not all(v for key, v in checks.items() if key != "route"):
             raise AssertionError(f"flash_attention {label}: {checks}")
@@ -2723,11 +2718,7 @@ def rglru_route_cases() -> dict:
     return out
 
 
-# the RglruArgs of sources before the bf16 instance (x, r, i, a_param,
-# h0, out, h_last, all float32; B, S, W, c), for ``build_before``'s
-# rglru_bsw
-BEFORE_RGLRU_FWD_ARGS = struct.Struct("<7Q3if")
-RGLRU_PAIRS = 10   # alternating rounds of the wrapper beside the parent's
+RGLRU_PAIRS = 10   # alternating rounds of the entry beside the parent's
 
 
 def time_rglru_case(x, r, i, a_param, h0, label: str, keep_hs=False,
@@ -2743,11 +2734,11 @@ def time_rglru_case(x, r, i, a_param, h0, label: str, keep_hs=False,
     through the autograd function, inputs requiring a gradient), at the
     bf16 and float32 C entry points, in turns, each entry point in a
     CUDA graph, and the plain version.
-    Given ``before`` (``build_before``'s), the parent's path (float32
-    copies of the bf16 tensors, its float32 kernel, out and h_last cast
-    back: ``before_ms``) beside the wrapper in RGLRU_PAIRS alternating
-    pairs, and the parent's float32 entry point (also in a CUDA graph),
-    bit-equal to this one's float32 instance. Bounds: bytes (x, r, i, a_param, h0 read once, out
+    Given ``before`` (``build_before``'s), the parent's entry point on
+    this one's bf16 and float32 arguments (into buffers of its own),
+    every output bit-equal to this one's, its bf16 call (``before_ms``)
+    beside this one's in RGLRU_PAIRS alternating pairs and in a CUDA
+    graph. Bounds: bytes (x, r, i, a_param, h0 read once, out
     and h_last written once in bf16, hs in float32) against
     ``rooflines.rglru``'s flops at the float32 rate, and the terms' issue
     floor from ``terms`` (``rglru_term_instructions``)."""
@@ -2808,42 +2799,32 @@ def time_rglru_case(x, r, i, a_param, h0, label: str, keep_hs=False,
                              3 if s > 64 else TIME_ITERS, warmup=1),
          "library_ms": None,   # no single PyTorch call scans RG-LRU
          "max_abs_err": err, "bit_equal": same}
-    if before is not None and "rglru" in before:
+    if before is not None:
+        # the parent's entry on this source's arguments, into buffers of
+        # its own
         old = before["rglru"][0]
-        f32 = [t.to(torch.float32).contiguous() for t in (*bf, ab)]
-        st = None if h0b is None else h0b.to(torch.float32).contiguous()
-        oo, ohl = torch.empty_like(x), torch.empty((b, w), device=x.device)
-        old_args = BEFORE_RGLRU_FWD_ARGS.pack(
-            *(t.data_ptr() for t in f32), 0 if st is None else st.data_ptr(),
-            oo.data_ptr(), ohl.data_ptr(), b, s, w, 8.0)
-        if old(old_args, stream) != 0:
+        mine = [o16, hl16, o32, hl32] + ([hs_buf] if keep_hs else [])
+        theirs = [torch.empty_like(u) for u in mine]
+        old16 = rglru.pack_args(*bf, ab, h0b, *theirs[:2],
+                                theirs[4] if keep_hs else None)
+        old32 = rglru.pack_args(*wide, ab32, h032, *theirs[2:4])
+        if old(old16, stream) != 0 or old(old32, stream) != 0:
             raise AssertionError("the parent's rglru entry point failed")
         torch.cuda.synchronize()
-        t["f32_bit_equal_to_parent"] = (torch.equal(oo, o32)
-                                        and torch.equal(ohl, hl32))
-        if not t["f32_bit_equal_to_parent"]:
-            raise AssertionError(f"rglru {label}: the float32 instance "
-                                 "differs from the parent's")
-
-        def parent_path():   # the parent's wrapper on the model's tensors
-            ins = [u.to(torch.float32).contiguous() for u in (*bf, ab)]
-            h = None if h0b is None else h0b.to(torch.float32).contiguous()
-            o = torch.empty((b, s, w), device=x.device)
-            hl = torch.empty((b, w), device=x.device)
-            old(BEFORE_RGLRU_FWD_ARGS.pack(
-                *(u.data_ptr() for u in ins), 0 if h is None else h.data_ptr(),
-                o.data_ptr(), hl.data_ptr(), b, s, w, 8.0), stream)
-            return o.to(bf16), hl.to(bf16)
-
-        pairs = paired_times({"ms": wrapper, "before_ms": parent_path},
+        t["bit_equal_to_parent"] = all(torch.equal(m, o)
+                                       for m, o in zip(mine, theirs))
+        if not t["bit_equal_to_parent"]:
+            raise AssertionError(f"rglru {label}: this entry differs from "
+                                 "the parent's on the same arguments")
+        pairs = paired_times({"entry_ms": lambda: call(args16, stream),
+                              "before_ms": lambda: old(old16, stream)},
                              rounds=RGLRU_PAIRS, iters=20)
         t["pairs"] = pairs
-        t["pairs_won"] = sum(n < o for n, o in zip(pairs["ms"],
+        t["pairs_won"] = sum(n < o for n, o in zip(pairs["entry_ms"],
                                                    pairs["before_ms"]))
         t["before_ms"] = float(np.median(pairs["before_ms"]))
-        t["ms_beside_before"] = float(np.median(pairs["ms"]))
-        t["before_entry_ms"] = time_ms(lambda: old(old_args, stream), 20)
-        t["before_graph_ms"] = graph_ms(lambda st: old(old_args, st), n=20,
+        t["entry_ms_beside_before"] = float(np.median(pairs["entry_ms"]))
+        t["before_graph_ms"] = graph_ms(lambda st: old(old16, st), n=20,
                                         reps=5)
     rglru.launches = launches   # timing calls do not count
     small = w + (0 if h0 is None else b * w) + b * w   # a_param, h0, h_last
@@ -2854,12 +2835,11 @@ def time_rglru_case(x, r, i, a_param, h0, label: str, keep_hs=False,
         4 * (4 * b * s * w + small), b * rooflines.rglru(s, w).flops_per_row)[0]
     if terms is not None:
         t["issue_bound_ms"] = issue_bound_ms(b * s * w, terms["per_element"])
-    extra = (f"; the parent's path {t['before_ms']!r} ms beside "
-             f"{t['ms_beside_before']!r} (won {t['pairs_won']} of "
-             f"{RGLRU_PAIRS} pairs), its float32 entry point "
-             f"{t['before_entry_ms']!r} ms, in a CUDA graph "
-             f"{t['before_graph_ms']!r} (bit-equal to this one's float32 "
-             f"instance)" if "before_ms" in t else "")
+    extra = (f"; the parent's bf16 entry point {t['before_ms']!r} ms "
+             f"beside this one's {t['entry_ms_beside_before']!r} (won "
+             f"{t['pairs_won']} of {RGLRU_PAIRS} pairs), in a CUDA graph "
+             f"{t['before_graph_ms']!r} (both instances' outputs bit-equal "
+             f"to this one's)" if "before_ms" in t else "")
     issue = (f", the terms' issue floor {t['issue_bound_ms']!r} ms"
              if "issue_bound_ms" in t else "")
     print(f"  rglru {label}: {t['ms']!r} ms through the wrapper "
@@ -2895,9 +2875,7 @@ def rglru_parent_cases(inputs: TextInputs, before) -> dict:
                 a_param.data_ptr(), ptr, o.data_ptr(), hl.data_ptr(), b, SEQ,
                 w, v, 8.0, 0), stream)
             ob, hb = torch.empty_like(o), torch.empty_like(hl)
-            old_bsw(BEFORE_RGLRU_FWD_ARGS.pack(
-                *(t.data_ptr() for t in (x, r, i, a_param)), ptr,
-                ob.data_ptr(), hb.data_ptr(), b, SEQ, w, 8.0), stream)
+            old_bsw(rglru.pack_args(x, r, i, a_param, h0, ob, hb), stream)
             got = rglru.rglru_tokens(ids, *tables, a_param, h0)
             got_bsw = rglru.rglru_bsw(x, r, i, a_param, h0)
             torch.cuda.synchronize()
@@ -3614,12 +3592,10 @@ PROBE_CTAS = 16384   # the probe's kProbeCtas
 def flash_probe(lib) -> dict:
     """Where a CTA's chain spends its clock64 ticks, from the probe library
     (``build_flash_probe``): at each of PROBE_SHAPES, one launch of the
-    design of a CTA a query tile and of the shared design's three
-    warpgroups (issuing freely) on key tiles of 64 and of 128,
-    each CTA's thread 0 adding the ticks of each stretch (setup; waiting
-    for Q; for a tile's K/V stage, and the turn where warpgroups take
-    turns; for S; the softmax; waiting for P.V, with the rescale; the
-    epilogue) over its units. Prints each design's CTAs,
+    design of a CTA a query tile and of the shared design, each CTA's
+    thread 0 adding the ticks of each stretch (setup; waiting for Q; for a
+    tile's K/V stage; for S; the softmax; waiting for P.V, with the
+    rescale; the epilogue) over its units. Prints each design's CTAs,
     their mean ticks and each stretch's share of the sum."""
     from repro_torch.kernels import flash_attention
     rng = np.random.default_rng(29)
@@ -3636,10 +3612,7 @@ def flash_probe(lib) -> dict:
             window=0, scale=d ** -0.5)
         ctas = min(PROBE_CTAS, b * h * -(-sq // 64))
         ticks = np.zeros((ctas, len(PROBE_LAPS) + 1), np.int64)
-        for variant, design in ((1, "a CTA a query tile"),
-                                (5, "shared, three warpgroups"),
-                                (6, "shared, three warpgroups, 128-key "
-                                    "tiles")):
+        for variant, design in flash_attention.VARIANTS.items():
             for _ in range(2):   # the second launch is read
                 lib.flash_probe_take(ticks.ctypes.data, ctas)
                 if lib.flash_attention_variant(args, variant, stream) != 0:
@@ -4357,8 +4330,9 @@ def build_before(root: str) -> dict:
     DIR``: the sources these kernels replaced, timed beside them), built
     side by side with each library's flags and ``root``'s own headers,
     into a temporary directory removed once they are loaded; "rglru" is
-    the pair (rglru_bsw, rglru_tokens), and only there where ``root``'s
-    ``rglru.cu`` differs from this checkout's. The SSD forward's is called as
+    the pair (rglru_bsw, rglru_tokens), called with this source's packed
+    arguments (a parent whose RglruArgs differ fails its first call). The
+    SSD forward's is called as
     this source's ``ssd_scan`` is, (args, scratch, stream), also where the
     earlier source takes no scratch; the flash forward's takes this
     source's packed arguments (FlashArgs is unchanged)."""
@@ -4393,14 +4367,8 @@ def build_before(root: str) -> dict:
             return name, lambda args, scratch, stream: fn(args, stream)
         return name, fn
 
-    # the RG-LRU forward only where it differs from this checkout's: its
-    # parent comparisons pack the arguments of the source before the
-    # current one
     names = ["ssd", "flash_attention", "flash_attention_bwd", "rglru_bwd",
-             "ssd_bwd"]
-    with open(os.path.join(csrc, "rglru.cu"), "rb") as f:
-        if f.read() != (_build.CSRC / "rglru.cu").read_bytes():
-            names.append("rglru")
+             "ssd_bwd", "rglru"]
     try:
         with ThreadPoolExecutor(6) as pool:
             return dict(pool.map(one, names))
@@ -5923,7 +5891,7 @@ def main() -> int:
     family_cases = family_kernel_cases(floor_ms, ssd_mutants, before)
     rglru_routes = rglru_route_cases()
     rglru_parent = (rglru_parent_cases(inputs, before)
-                    if before is not None and "rglru" in before else None)
+                    if before is not None else None)
     for name, cases in family_cases.items():
         max_errs[name] = max(max_errs[name], *(t["max_abs_err"]
                                                for t in cases.values()))

@@ -92,7 +92,8 @@ class Built:
     lib: ctypes.CDLL
     path: Path
     seconds: float   # nvcc wall time; 0.0 when an earlier build was reused
-    log: str         # nvcc's output (ptxas registers / shared memory / spills)
+    log: str         # nvcc's output (ptxas registers / shared memory /
+                     # spills), kept beside the library for a later reuse
 
 
 _LOCKS_LOCK = threading.Lock()
@@ -126,8 +127,12 @@ def _compile(name: str) -> Built:
         src.read_bytes() + headers + " ".join(flags(name)).encode()
     ).hexdigest()[:16]
     out = BUILD_DIR / f"lib{name}-{digest}.so"
+    log_path = out.with_suffix(".log")
     seconds, log = 0.0, ""
-    if not out.exists():
+    if out.exists():
+        if log_path.exists():
+            log = log_path.read_text()
+    else:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
         cmd = [nvcc_path(), *flags(name), "-o", str(tmp), str(src)]
@@ -138,6 +143,9 @@ def _compile(name: str) -> Built:
         if proc.returncode != 0:
             tmp.unlink(missing_ok=True)
             raise RuntimeError(f"nvcc failed for {src.name}:\n{log}")
+        tmp_log = tmp.with_suffix(".log")
+        tmp_log.write_text(log)
+        os.replace(tmp_log, log_path)  # before the library: a reuse finds it
         os.replace(tmp, out)  # atomic: a racing process sees all or nothing
     lib = ctypes.CDLL(str(out))
     for fn_name, (argtypes, restype) in SIGNATURES[name].items():

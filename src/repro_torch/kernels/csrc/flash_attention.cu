@@ -107,12 +107,11 @@
 //   across a quad, the rescale, the waits) is paid per tile; 128 keys a
 //   step halve it. The tiles are aligned to 128 from key 0, which at the
 //   causal edge leaves up to 64 more keys masked.
-// - (b) Ping-pong, measured and not routed: named barriers can pass a turn
+// - (b) Ping-pong, measured and removed: named barriers passing a turn
 //   round the warpgroups, each issuing tile n's S and tile n - 1's P.V in
-//   its turn and running its exponentials while the others' products run
-//   (kTurns). On the card every model shape ran slower so (PERF.md): the
-//   routed instances issue freely, and the turns stay as
-//   flash_attention_variant's designs 2 and 3 for that comparison.
+//   its turn and running its exponentials while the others' products ran,
+//   made every model shape slower on the card (PERF.md); the warpgroups
+//   issue freely.
 // - (c) One FFMA an exponential: the row max is taken on the raw logits
 //   (the scale is positive), and p = ex2(fma(s, scale log2 e, -m)); O's
 //   rescale is skipped where no row of a warp moved its max. Polynomial
@@ -471,8 +470,7 @@ struct WgParams {
 // library; the shipped instances compile it out): thread 0 of a CTA adds
 // the clock64 ticks of each stretch of its chain to one of kLaps counters
 // and at its end writes them, then their total, to flash_probe_ticks.
-// (kStageWait: waiting for a tile's K/V stage, and for the turn where
-// warpgroups take turns)
+// (kStageWait: waiting for a tile's K/V stage)
 enum Lap { kSetup, kQWait, kStageWait, kSWait, kSoftmax, kPvWait, kEpilogue,
            kLaps };
 #ifdef FLASH_PROBE
@@ -884,19 +882,14 @@ int launch_wgmma(const WgParams& w, int blocks, cudaStream_t stream) {
 // ---- the bf16 shared design: warpgroups that share each K/V stage ----
 
 // named barriers beside __syncthreads (0) and consumers_sync (1): warpgroup
-// w's turn to issue its products (kTurnBar + w), and its own 128 threads
-// (kOwnBar + w, its epilogue)
-constexpr int kTurnBar = 2;
-constexpr int kOwnBar = 6;
+// w's own 128 threads (kOwnBar + w, its epilogue)
+constexpr int kOwnBar = 2;
 // registers a producer thread of the shared design keeps: its unit
 // schedule wants more than the design of a CTA a query tile's 24
-constexpr int kPpProducerRegs = 40;
+constexpr int kSharedProducerRegs = 40;
 
 __device__ __forceinline__ void bar_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
-__device__ __forceinline__ void bar_arrive(int id, int threads) {
-  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // a swizzled tile of 64 rows in shared memory to coordinates (c0 .. c3) of
@@ -1173,15 +1166,12 @@ __device__ __forceinline__ void produce_q(const WgParams& w, const Unit& un,
 // out before its Q tiles, so they land while the warpgroups finish the
 // last unit, and each Q tile as soon as its warpgroup has freed it (before
 // its epilogue). Every warpgroup steps through all of its unit's tiles,
-// idle on those outside its band. kTurns: the warpgroups take turns on the
-// tensor cores (ping-pong): at each step warpgroup w waits for its turn
-// (kTurnBar + w), issues tile n's S and tile n - 1's P.V and hands the
-// turn on. kStoreTma: o leaves through shared memory (a tile a warpgroup)
-// by TMA where it is aligned (w.tma_store). The producer keeps
-// kPpProducerRegs registers a thread and the consumers take kConsumerRegs
-// (launch_pp).
+// idle on those outside its band. kStoreTma: o leaves through shared
+// memory (a tile a warpgroup) by TMA where it is aligned (w.tma_store).
+// The producer keeps kProducerKeeps registers a thread and the consumers
+// take kConsumerRegs (launch_shared).
 template <int DP, int BN, int W, int kStages, int kQBufs, int kConsumerRegs,
-          int kProducerKeeps, bool kStoreTma, bool kTurns>
+          int kProducerKeeps, bool kStoreTma>
 __global__ void __launch_bounds__((W + 1) * kWgThreads, 1)
 flash_shared_kernel(const __grid_constant__ WgParams w) {
   extern __shared__ __align__(1024) unsigned char wg_smem[];
@@ -1191,7 +1181,6 @@ flash_shared_kernel(const __grid_constant__ WgParams w) {
   constexpr uint32_t kKv = BN * DP * 2;       // a K or V tile
   constexpr int NO = DP < 128 ? DP : 128;  // o's columns a product writes
   constexpr int kHalves = DP / NO;
-  constexpr int kPair = 2 * kWgThreads;    // a turn's hand-over
   // Q buffer qb: warpgroup s's Q tile at (qb W + s) kTile; unit k of the
   // CTA takes buffer k % kQBufs
   unsigned char* s_q = wg_smem;
@@ -1265,9 +1254,7 @@ flash_shared_kernel(const __grid_constant__ WgParams w) {
   const int wi = warp >> 2;  // this warpgroup: slot wi of every unit
   const int g = lane >> 2;
   const int t = lane & 3;
-  const int next = wi + 1 == W ? 0 : wi + 1;
   const float c = p.scale_log2;
-  if (kTurns && wi == W - 1) bar_arrive(kTurnBar, kPair);  // 0 starts
   int it = 0;  // K/V tiles consumed so far, as the producer counts them
   for (int k = 0, u = unit_index(0); u < w.units; u = unit_index(++k)) {
     const Unit un = unit_of(w, u, W);
@@ -1315,7 +1302,6 @@ flash_shared_kernel(const __grid_constant__ WgParams w) {
       if (i < nt) wg::mbar_wait(&full[st], ((it + i) / kStages) & 1);
       const uint32_t a_k = wg::smem_u32(ring + st * 2 * kKv);
       const uint32_t a_v = wg::smem_u32(ring + pst * 2 * kKv) + kKv;
-      if (kTurns) bar_sync(kTurnBar + wi, kPair);
       probe.lap(kStageWait);
       wg::wgmma_fence();
       if (take) {
@@ -1332,7 +1318,6 @@ flash_shared_kernel(const __grid_constant__ WgParams w) {
             wg::wgmma_rs<NO>(o[hh], pa[cc], wg::desc_mn(a_v, cc, hh * NO));
         wg::wgmma_commit();
       }
-      if (kTurns) bar_arrive(kTurnBar + next, kPair);
       float corr[2] = {1.f, 1.f};
       if (take) {
         if (prev)
@@ -1523,7 +1508,6 @@ flash_shared_kernel(const __grid_constant__ WgParams w) {
     }
     probe.lap(kEpilogue);
   }
-  if (kTurns && wi == 0) bar_sync(kTurnBar, kPair);  // the last hand-over
   if (kStoreTma && (tid & (kWgThreads - 1)) == 0) bulk_wait();
   probe.write();
 }
@@ -1540,12 +1524,13 @@ int sm_count() {
   return count[dev];
 }
 
-// the shared instance at padded width DP with W consumer warpgroups, a
-// ring of kStages stages and kConsumerRegs registers a consumer thread:
-// one CTA an SM, as many as the card has SMs (or units, if fewer)
+// the shared instance at padded width DP with W consumer warpgroups on
+// key tiles of BN, a ring of kStages stages, kQBufs Q buffers and
+// kConsumerRegs registers a consumer thread: one CTA an SM, as many as
+// the card has SMs (or units, if fewer)
 template <int DP, int BN, int W, int kStages, int kQBufs, int kConsumerRegs,
-          bool kStoreTma, bool kTurns, int kProducerKeeps = kPpProducerRegs>
-int launch_pp(WgParams w, cudaStream_t stream) {
+          bool kStoreTma, int kProducerKeeps = kSharedProducerRegs>
+int launch_shared(WgParams w, cudaStream_t stream) {
   // an SM sub-partition holds one warp of each warpgroup, and what the
   // producer gives back pays for what the consumers take
   constexpr int kLaunchRegs = 16384 / (32 * (W + 1)) / 8 * 8;
@@ -1570,7 +1555,7 @@ int launch_pp(WgParams w, cudaStream_t stream) {
     w.units = (p.q_tiles + W - 1) / W * w.per_rank;
   }
   auto kernel = flash_shared_kernel<DP, BN, W, kStages, kQBufs, kConsumerRegs,
-                                    kProducerKeeps, kStoreTma, kTurns>;
+                                    kProducerKeeps, kStoreTma>;
   static const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmem);
   if (attr != cudaSuccess) return (int)attr;
@@ -1625,7 +1610,7 @@ Params params_of(const FlashArgs* a) {
 // the bf16 instances' parameters: TMA maps of q, k and v where every one
 // is aligned and cuTensorMapEncodeTiled accepts it, else the producer's
 // own loads; o's map where o is aligned too (the shared design's
-// store). The schedule's fields are launch_pp's.
+// store). The schedule's fields are launch_shared's.
 void wg_params(WgParams* w, const FlashArgs* a) {
   w->p = params_of(a);
   const int kv_heads = a->heads / a->group;
@@ -1644,16 +1629,9 @@ void wg_params(WgParams* w, const FlashArgs* a) {
 }
 
 // the bf16 designs (flash_attention_variant's numbers): kPerTile a CTA
-// for each query tile of each program (flash_wgmma_kernel); the shared
-// design (flash_shared_kernel) with two or three consumer warpgroups
-// (three at D <= 128) that take turns on the tensor cores (kTwoTurns,
-// kThreeTurns: ping-pong, slower at every model shape on the card and
-// not routed; kept for that measurement) or issue freely (kTwo, kThree),
-// and three on key tiles of 128 (kThreeWide, D <= 64)
-enum Variant {
-  kRouted = 0, kPerTile = 1, kTwoTurns = 2, kThreeTurns = 3, kTwo = 4,
-  kThree = 5, kThreeWide = 6
-};
+// for each query tile of each program (flash_wgmma_kernel), kShared the
+// shared design's instance for the width (flash_shared_kernel)
+enum Variant { kRouted = 0, kPerTile = 1, kShared = 2 };
 
 // the design a bf16 call takes, by shape only (a row's bits must not
 // depend on the batch), from paired runs on the card (PERF.md): a CTA a
@@ -1662,14 +1640,12 @@ enum Variant {
 // split of the keys between two key groups gives a CTA its second
 // warpgroup), and at D <= 64 where three warpgroups would leave slots idle
 // (a kv group of 2, 4, 5, ... heads: its three CTAs an SM ran faster);
-// else the shared design issuing freely: at D <= 64 three warpgroups on
-// key tiles of 128, at D <= 128 three on tiles of 64, at D = 256 two
+// else the shared design
 int routed(const FlashArgs* a) {
   const int q_tiles = (a->sq + kRows - 1) / kRows;
   if (a->group == 1 && q_tiles == 1) return kPerTile;
-  if (a->d <= 64)
-    return a->group == 1 || a->group % 3 == 0 ? kThreeWide : kPerTile;
-  return a->d <= 128 ? kThree : kTwo;
+  if (a->d <= 64 && a->group > 1 && a->group % 3 != 0) return kPerTile;
+  return kShared;
 }
 
 // the instances of a CTA a query tile: two key groups where a CTA's rows see more than one
@@ -1690,21 +1666,17 @@ int launch_per_tile(const WgParams& w, const FlashArgs* a, cudaStream_t s) {
   return launch_wgmma<256, 1, 3, 2, 232>(w, blocks, s);
 }
 
-// the shared design's instances: D = 64 and 128 with their O tiles in
-// shared memory for a TMA store, Q in two buffers but for three
-// warpgroups at D = 128 (two buffers leave room for two stages only,
-// which ran slower there); D = 256 (two warpgroups, O 128 registers a
+// the shared design's instance for width d, each the one that won its
+// width in paired runs on the card (PERF.md): D <= 64, three warpgroups on
+// key tiles of 128, Q in two buffers, the producer at 32 registers; D <=
+// 128, three on tiles of 64 with one Q buffer (two leave room for two
+// stages only, which ran slower); both with their O tiles in shared
+// memory for a TMA store; D = 256, two warpgroups (O is 128 registers a
 // thread) with one Q buffer and no O tile, its stores 16 bytes a lane
-template <bool kTurns>
-int launch_shared(const WgParams& w, bool three, int d, cudaStream_t s) {
-  if (three) {
-    if (d <= 64) return launch_pp<64, 64, 3, 6, 2, 152, true, kTurns>(w, s);
-    if (d <= 128) return launch_pp<128, 64, 3, 3, 1, 152, true, kTurns>(w, s);
-    return (int)cudaErrorInvalidValue;
-  }
-  if (d <= 64) return launch_pp<64, 64, 2, 6, 2, 232, true, kTurns>(w, s);
-  if (d <= 128) return launch_pp<128, 64, 2, 3, 2, 232, true, kTurns>(w, s);
-  return launch_pp<256, 64, 2, 2, 1, 232, false, kTurns>(w, s);
+int launch_shared_for(const WgParams& w, int d, cudaStream_t s) {
+  if (d <= 64) return launch_shared<64, 128, 3, 4, 2, 160, true, 32>(w, s);
+  if (d <= 128) return launch_shared<128, 64, 3, 3, 1, 152, true>(w, s);
+  return launch_shared<256, 64, 2, 2, 1, 232, false>(w, s);
 }
 
 int launch_bf16(const FlashArgs* a, int variant, cudaStream_t s) {
@@ -1712,14 +1684,7 @@ int launch_bf16(const FlashArgs* a, int variant, cudaStream_t s) {
   wg_params(&w, a);
   if (variant == kRouted) variant = routed(a);
   if (variant == kPerTile) return launch_per_tile(w, a, s);
-  if (variant == kTwoTurns || variant == kThreeTurns)
-    return launch_shared<true>(w, variant == kThreeTurns, a->d, s);
-  if (variant == kTwo || variant == kThree)
-    return launch_shared<false>(w, variant == kThree, a->d, s);
-  if (variant == kThreeWide) {
-    if (a->d > 64) return (int)cudaErrorInvalidValue;
-    return launch_pp<64, 128, 3, 4, 2, 160, true, false, 32>(w, s);
-  }
+  if (variant == kShared) return launch_shared_for(w, a->d, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1752,12 +1717,10 @@ extern "C" int flash_attention_bshd(const FlashArgs* a, void* stream) {
 }
 
 // flash_attention_bshd's bf16 call with its design chosen by the caller
-// (Variant: 1 a CTA a query tile; 2 and 3 the shared design with two or
-// three consumer warpgroups taking turns, 4 and 5 issuing freely, which
-// all give the same bits; 6 three on key tiles of 128, D <= 64; 0 the one
-// flash_attention_bshd takes): for timing the designs against one
-// another. cudaErrorInvalidValue for float32 arguments and for a design
-// that does not take them (three warpgroups at D > 128).
+// (Variant: 1 a CTA a query tile, 2 the shared design, 0 the one
+// flash_attention_bshd takes): for timing the two against one another at
+// any shape, the comparison routed() rests on. cudaErrorInvalidValue for
+// float32 arguments and any other design.
 extern "C" int flash_attention_variant(const FlashArgs* a, int variant,
                                        void* stream) {
   if (!valid(a) || !a->bf16) return (int)cudaErrorInvalidValue;

@@ -149,13 +149,9 @@ ROUTES = {4: "bf16 wgmma shared stages, TMA ring",
           0: "float32 mma.sync", -1: "refused"}
 # the routes that load by TMA
 TMA_ROUTES = (ROUTES[4], ROUTES[2])
-# flash_attention_variant's bf16 designs, by number (0: the routed one):
-# the shared design's warpgroups take turns on the tensor cores
-# (ping-pong) in 2 and 3, which no route takes
-VARIANTS = {1: "a CTA a query tile", 2: "shared, two warpgroups, turns",
-            3: "shared, three warpgroups, turns",
-            4: "shared, two warpgroups", 5: "shared, three warpgroups",
-            6: "shared, three warpgroups, 128-key tiles"}
+# flash_attention_variant's bf16 designs, by number (0: the routed one),
+# for timing the two against one another at any shape
+VARIANTS = {1: "a CTA a query tile", 2: "shared stages"}
 
 
 def route(q, k, v, *, causal: bool = True, window: int = 0,

@@ -29,11 +29,13 @@ can refuse such a kernel.
 
 Tests marked ``gpu`` run the kernel and skip without a card: every padded
 D with groups 1 and 4 and three masks on the TMA route, unaligned views on
-the producer's own loads, rows that see no key, the same bits on a rerun,
-a program's rows bit-equal alone and in batches of 3 and 64 at the LLM
-predicate's shape (and alone and in the batch at whisper's encoder and
-grok-1's under the persistent schedule), the route at each model shape,
-two and three warpgroups to the same bits, and one launch a call. JAX is
+the producer's own loads (in both designs; the shared design's at the
+LLM's, grok-1's and recurrentgemma's kv groups, bit-equal to its TMA
+route, and with o alone unaligned), rows that see no key, the same bits on
+a rerun, a program's rows bit-equal alone and in batches of 3 and 64 at
+the LLM predicate's shape (and alone and in the batch at grok-1's and
+recurrentgemma's under the persistent schedule), the route at each model
+shape, both designs within the limit there, and one launch a call. JAX is
 imported inside a fixture.
 """
 import numpy as np
@@ -567,11 +569,13 @@ MODEL_SHAPES = {"llm": (10, 512, 512, 9, 3, 64, True, 0),
                 "recurrentgemma": (1, 2560, 2560, 16, 1, 256, True, 2048)}
 
 
-def _variant(q, k, v, variant, causal, window):
-    """flash_attention_variant's output (design ``variant``) and LSE."""
+def _variant(q, k, v, variant, causal, window, out=None):
+    """flash_attention_variant's output (design ``variant``: 1 a CTA a
+    query tile, 2 the shared design, 0 the one the call's route takes) and
+    LSE, into ``out`` where given."""
     from repro_torch.kernels import _build
     b, sq, h, d = q.shape
-    out = torch.empty_like(q)
+    out = torch.empty_like(q) if out is None else out
     lse = torch.empty((b * h, sq), device=q.device)
     args = flash_attention.pack_args(
         q, k, v, out, tuple(map(flash_attention.bshd_layout, (q, k, v, out))),
@@ -581,6 +585,15 @@ def _variant(q, k, v, variant, causal, window):
         args, variant, torch.cuda.current_stream().cuda_stream) == 0
     torch.cuda.synchronize()
     return out, lse
+
+
+def _shifted(t):
+    """A view of t's values whose rows start 2 bytes past a 16-byte
+    boundary (no TMA map, no 16-byte access)."""
+    wide = torch.empty((*t.shape[:-1], t.shape[-1] + 1), dtype=t.dtype,
+                       device=t.device)
+    wide[..., 1:] = t
+    return wide[..., 1:]
 
 
 @pytest.mark.gpu
@@ -603,23 +616,71 @@ def test_fwd_route_at_the_model_shapes(card, shape):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", ["llm", "grok-1", "whisper encoder"])
-def test_fwd_warpgroups_give_the_same_bits(card, shape):
-    """The shared design with two and three warpgroups a CTA (three at D
-    <= 128), taking turns or not, gives the same o and LSE bits: a row's
-    sums do not depend on the slot that took it; every design (at D <= 64
-    also the shared design's three warpgroups on key tiles of 128) stays
-    within the limit."""
+@pytest.mark.parametrize("shape", sorted(MODEL_SHAPES))
+def test_fwd_both_designs_within_the_limit(card, shape):
+    """At each model shape both bf16 designs (a CTA a query tile, and the
+    shared design, whichever the route takes) stay within the limit, and
+    the routed call gives the bits of the design its route names."""
     b, sq, sk, h, hkv, d, causal, window = MODEL_SHAPES[shape]
     q, k, v = _card_qkv(33, b, sq, sk, h, hkv, d, card)
-    first, *rest = (_variant(q, k, v, x, causal, window)
-                    for x in (2, 3, 4, 5))
-    for o, lse in rest:
-        assert torch.equal(first[0], o) and torch.equal(first[1], lse)
-    assert _within_limit(q, k, v, first[0], causal, window)
-    for design in (1, 6) if d <= 64 else (1,):
-        other, _ = _variant(q, k, v, design, causal, window)
-        assert _within_limit(q, k, v, other, causal, window)
+    routed, routed_lse = _variant(q, k, v, 0, causal, window)
+    shared = "shared" in flash_attention.route(q, k, v, causal=causal,
+                                               window=window)
+    for design in (1, 2):
+        o, lse = _variant(q, k, v, design, causal, window)
+        assert _within_limit(q, k, v, o, causal, window)
+        if design == (2 if shared else 1):
+            assert torch.equal(o, routed) and torch.equal(lse, routed_lse)
+
+
+# (B, Sq, Sk, H, Hkv, D, causal, window) at the kv groups and widths of the
+# shared design's three instances, cut in length: the LLM predicate's
+# group 3 at D = 64, grok-1's 6 at D = 128, recurrentgemma's 16 at D = 256
+UNALIGNED_SHAPES = {"llm": (2, 200, 200, 9, 3, 64, True, 0),
+                    "grok-1": (2, 200, 200, 12, 6, 128, True, 0),
+                    "recurrentgemma": (1, 300, 300, 16, 1, 256, True, 128)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", sorted(UNALIGNED_SHAPES))
+def test_fwd_unaligned_views_on_the_shared_design(card, shape):
+    """q, k and v 2 bytes past a 16-byte boundary take the shared design's
+    own loads: the bits of its TMA route on the same values, o and LSE, the
+    same on a rerun, within the limit; through the wrapper (o aligned: its
+    16-byte stores) and with o unaligned too (pair and single stores)."""
+    b, sq, sk, h, hkv, d, causal, window = UNALIGNED_SHAPES[shape]
+    q, k, v = _card_qkv(37, b, sq, sk, h, hkv, d, card)
+    qs, ks, vs = map(_shifted, (q, k, v))
+    assert flash_attention.route(q, k, v, causal=causal, window=window) == \
+        "bf16 wgmma shared stages, TMA ring"
+    assert flash_attention.route(qs, ks, vs, causal=causal,
+                                 window=window) == \
+        "bf16 wgmma shared stages, producer loads"
+    want, want_lse = _variant(q, k, v, 0, causal, window)
+    assert _within_limit(q, k, v, want, causal, window)
+    got = flash_attention.flash_attention_bshd(qs, ks, vs, causal=causal,
+                                               window=window)
+    assert torch.equal(got, want)
+    for _ in range(2):
+        o, lse = _variant(qs, ks, vs, 0, causal, window,
+                          out=_shifted(torch.empty_like(q)))
+        assert torch.equal(o, want) and torch.equal(lse, want_lse)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", sorted(UNALIGNED_SHAPES))
+def test_fwd_unaligned_o_alone(card, shape):
+    """o 2 bytes past a 16-byte boundary, q, k and v aligned: TMA loads,
+    then the shared design's pair and single stores instead of its TMA
+    store, to the same bits as an aligned o, on a rerun too."""
+    b, sq, sk, h, hkv, d, causal, window = UNALIGNED_SHAPES[shape]
+    q, k, v = _card_qkv(39, b, sq, sk, h, hkv, d, card)
+    want, want_lse = _variant(q, k, v, 0, causal, window)
+    for _ in range(2):
+        o, lse = _variant(q, k, v, 0, causal, window,
+                          out=_shifted(torch.empty_like(q)))
+        assert torch.equal(o, want) and torch.equal(lse, want_lse)
+    assert _within_limit(q, k, v, want, causal, window)
 
 
 @pytest.mark.gpu
